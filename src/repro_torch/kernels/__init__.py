@@ -1,0 +1,29 @@
+"""Hand-written CUDA kernels of the port, one wrapper each.
+
+Each kernel has three parts: ``csrc/<name>.cu`` (the CUDA kernel for
+sm_90a), ``<name>.py`` (the wrapper: checks, allocation, launch, a
+``launches`` counter) and its plain PyTorch version in ``ref.py``. A
+wrapper dispatches on the tensor's device alone: CPU tensors take the
+plain version, CUDA tensors the kernel, and anything else raises.
+"""
+
+from typing import Dict
+
+from . import ref
+from .flash_attention import flash_attention
+from .rmsnorm import rmsnorm
+
+__all__ = ["flash_attention", "rmsnorm", "ref", "KERNELS", "launch_counts",
+           "reset_launch_counts"]
+
+KERNELS = {"flash_attention": flash_attention, "rmsnorm": rmsnorm}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches (CUDA tensors only) since the last reset."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,27 @@
+// Helpers shared by the port's CUDA kernels: element conversions between
+// the two storage types (float, bf16) and the fp32 the kernels compute in.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro_torch {
+
+// dtype codes passed from Python (kernels/build.py DTYPE_CODES)
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+}  // namespace repro_torch

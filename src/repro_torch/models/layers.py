@@ -1,0 +1,116 @@
+"""Model primitives of the port, dense subset of ``repro.models.layers``.
+
+``rmsnorm`` and ``attention`` go through the port's kernels
+(``repro_torch.kernels``): the CUDA kernel for CUDA tensors, the plain
+PyTorch version for CPU tensors. The rest is plain PyTorch, as it is
+plain JAX in the reference. Layouts are the reference's: activations
+[B,S,H], attention tensors [B,S,nh,hd], weights [in,out] used as x @ w.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+
+from .. import kernels
+
+__all__ = ["rmsnorm", "rope", "attention", "decode_attention", "mlp", "silu",
+           "squared_relu", "gelu"]
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+def squared_relu(x):
+    r = torch.relu(x)
+    return r * r
+
+
+def gelu(x):
+    # jax.nn.gelu defaults to approximate=True (tanh form); torch's does not
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"gated_silu": silu, "squared_relu": squared_relu, "gelu": gelu}
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last dim, through the RMSNorm kernel on [T,H].
+
+    Precision: the kernel multiplies by w in fp32 and casts once
+    (``repro.kernels.ref.rmsnorm_ref``), while ``repro.models.layers.rmsnorm``
+    casts to x's type first and multiplies in that type. The two agree
+    exactly in fp32 and to bf16 rounding in bf16."""
+    H = x.shape[-1]
+    out = kernels.rmsnorm(x.reshape(-1, H).contiguous(), w.to(x.dtype), eps=eps)
+    return out.reshape(x.shape)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> torch.Tensor:
+    """Rotary embedding. x: [..., S, n, hd]; positions: [..., S]."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=x.device) / half))
+    angles = positions[..., :, None].float() * freqs        # [..., S, half]
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Grouped attention of q [B,Q,nkv,g,hd] over all of k, v [B,S,nkv,hd],
+    with the reference's rounding: scores in the input type, softmax in
+    fp32, probabilities cast to v's type."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k) * scale
+    probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Training/prefill attention through the flash kernel.
+
+    q: [B,S,nh,hd]; k,v: [B,S,nkv,hd]. Returns [B,S,nh,hd]. The kernel
+    takes strides, so the [B,nh,S,hd] views below cost no copy, and its
+    output comes back in q's [B,S,nh,hd] layout. The reference's
+    ``q_chunk`` (an O(S*chunk)-memory scan) has no counterpart: the kernel
+    is tiled already.
+
+    Precision, against the reference's ``_attend``:
+    * scale and mask order: the kernel (and its plain version) forms q k^T
+      in fp32, scales, then masks; ``_attend`` rounds q k^T to the input
+      type, scales in that type, and only then goes to fp32 to mask;
+    * probabilities: the kernel keeps m, l and the p v sum in fp32 (the
+      bf16 kernel rounds the unnormalised p to bf16 only as the tensor-core
+      operand; the plain version keeps p in fp32); ``_attend`` casts the
+      normalised probabilities to v's type before p v.
+    Both vanish in fp32 (tests/test_torch_models.py holds 1e-4 there)."""
+    o = kernels.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                causal=causal, window=window)
+    return o.transpose(1, 2)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cache_len: int) -> torch.Tensor:
+    """q: [B,1,nh,hd]; caches [B,S_max,nkv,hd]; ``cache_len`` valid slots
+    (new token included). Plain PyTorch, as the reference: the slots past
+    ``cache_len``, which the reference masks, are sliced off instead; they
+    would add exact zeros to the softmax."""
+    B, Sq, nh, hd = q.shape
+    nkv = k_cache.shape[2]
+    qg = q.reshape(B, Sq, nkv, nh // nkv, hd)
+    out = _attend(qg, k_cache[:, :cache_len], v_cache[:, :cache_len])
+    return out.reshape(B, Sq, nh, hd)
+
+
+def mlp(x: torch.Tensor, params: Mapping[str, torch.Tensor], kind: str) -> torch.Tensor:
+    """Gated-SiLU (3 matmuls) / squared-ReLU / GELU (2 matmuls)."""
+    if kind == "gated_silu":
+        return (silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
+    return ACTIVATIONS[kind](x @ params["wi"]) @ params["wo"]

@@ -1,0 +1,60 @@
+"""Single-device serve step, prefill and greedy generation, with the
+semantics of ``repro.serving.serve``. The model carries its arch and run
+config; every entry point runs under ``torch.inference_mode()`` on the
+model's device. The decode cache is updated in place."""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.lm import LM
+
+__all__ = ["make_serve_step", "make_prefill_step", "greedy_generate"]
+
+
+def make_serve_step(model: LM):
+    """One greedy decode step: (cache, tokens [B], pos) ->
+    (next_tokens [B] int32, logits [B,V], cache)."""
+
+    @torch.inference_mode()
+    def serve_step(cache, tokens, pos: int):
+        tokens = torch.as_tensor(tokens, device=model.device)
+        logits = model.decode_step(cache, tokens, pos)
+        return logits.argmax(dim=-1).to(torch.int32), logits, cache
+
+    return serve_step
+
+
+def make_prefill_step(model: LM):
+    """Batched prefill: (batch with ``tokens`` [B,S]) -> logits, only the
+    last position's ([B,1,V]) for causal archs."""
+    positions = "last" if model.arch.causal else "all"
+
+    @torch.inference_mode()
+    def prefill(batch):
+        tokens = torch.as_tensor(batch["tokens"], device=model.device)
+        return model(tokens, logits_positions=positions)
+
+    return prefill
+
+
+@torch.inference_mode()
+def greedy_generate(model: LM, prompt_tokens, max_new: int) -> torch.Tensor:
+    """Prefill the prompt token by token through the decode step, then
+    decode ``max_new`` tokens greedily. Returns [B, max_new] int32."""
+    if max_new < 1:
+        raise ValueError(f"max_new must be >= 1, got {max_new}")
+    prompt = torch.as_tensor(prompt_tokens, device=model.device)
+    B, S0 = prompt.shape
+    cache = model.init_cache(B, S0 + max_new)
+    step = make_serve_step(model)
+    tok = prompt[:, 0]
+    out = []
+    for i in range(S0 + max_new - 1):
+        nxt, _, cache = step(cache, tok, i)
+        if i + 1 < S0:
+            tok = prompt[:, i + 1]
+        else:
+            tok = nxt
+            out.append(tok)
+    return torch.stack(out, dim=1)

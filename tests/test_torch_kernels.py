@@ -1,0 +1,126 @@
+"""The port's kernels against the JAX package's.
+
+On the CPU the port's wrappers take their plain PyTorch versions
+(``repro_torch.kernels.ref``); those are held against the Pallas kernels
+in interpret mode and against ``repro.kernels.ref`` on the same inputs,
+made with numpy from a seed, over the grid and tolerances of
+tests/test_kernels.py. The CUDA kernels themselves are held against the
+plain versions on the card by tests/test_torch_cuda.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import flash_attention as jax_flash, rmsnorm as jax_rmsnorm  # noqa: E402
+from repro.kernels.ref import flash_attention_ref as jax_flash_ref  # noqa: E402
+from repro.kernels.ref import rmsnorm_ref as jax_rmsnorm_ref  # noqa: E402
+from repro_torch import kernels, resolve_device  # noqa: E402
+from repro_torch.kernels import flash_attention, rmsnorm  # noqa: E402
+from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+FLASH_GRID = [
+    (1, 128, 4, 4, 64),     # MHA, exact tile multiple
+    (2, 200, 4, 2, 64),     # GQA, padded tail
+    (1, 384, 8, 1, 32),     # MQA, hd below lane width
+    (2, 256, 6, 3, 128),    # grouped, 128-wide heads
+]
+RMS_GRID = [(64, 256), (100, 512), (256, 1024)]
+
+
+def _tol(dtype):
+    # tests/test_kernels.py:16-18
+    return dict(rtol=3e-2, atol=3e-2) if dtype == "bfloat16" else dict(rtol=3e-4, atol=3e-4)
+
+
+def _both(a: np.ndarray, dtype: str):
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a).astype(jd), torch.from_numpy(a).to(td)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _flash_inputs(seed, B, S, nh, nkv, hd, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape, dtype=np.float32)
+            for shape in ((B, nh, S, hd), (B, nkv, S, hd), (B, nkv, S, hd))]
+    pairs = [_both(a, dtype) for a in arrs]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+@pytest.mark.parametrize("B,S,nh,nkv,hd", FLASH_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 96])
+def test_flash_attention_matches_pallas_and_ref(B, S, nh, nkv, hd, dtype, window):
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(7, B, S, nh, nkv, hd, dtype)
+    pallas = jax_flash(jq, jk, jv, causal=True, window=window, interpret=True)
+    jref = jax_flash_ref(jq, jk, jv, causal=True, window=window)
+    out = flash_attention(tq, tk, tv, causal=True, window=window)   # CPU: plain version
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(jref), **_tol(dtype))
+
+
+def test_flash_attention_model_layout_views():
+    """[B,nh,S,hd] views of [B,S,nh,hd] tensors (the model's layout) give
+    what contiguous tensors give."""
+    (_, _, _), (q, k, v) = _flash_inputs(3, 2, 200, 4, 2, 64, "float32")
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    np.testing.assert_array_equal(_np(flash_attention(*views)), _np(flash_attention_ref(q, k, v)))
+
+
+def test_flash_attention_fully_masked_rows_are_zero():
+    """Window smaller than the pad tail (tests/test_kernels.py:95-103): the
+    kernel's padded rows see no key; the rows it returns stay finite and
+    match the plain version."""
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(5, 1, 130, 2, 2, 64, "float32")
+    pallas = jax_flash(jq, jk, jv, causal=True, window=3, interpret=True)
+    out = flash_attention(tq, tk, tv, causal=True, window=3)
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol("float32"))
+
+
+@pytest.mark.parametrize("T,H", RMS_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_pallas_and_ref(T, H, dtype):
+    rng = np.random.default_rng(11)
+    jx, tx = _both(rng.standard_normal((T, H), dtype=np.float32), dtype)
+    jw, tw = _both(rng.standard_normal((H,), dtype=np.float32), dtype)
+    pallas = jax_rmsnorm(jx, jw, interpret=True)
+    out = rmsnorm(tx, tw)                                             # CPU: plain version
+    assert out.dtype == tx.dtype
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(jax_rmsnorm_ref(jx, jw)), **_tol(dtype))
+    np.testing.assert_array_equal(_np(out), _np(rmsnorm_ref(tx, tw)))
+
+
+def test_cpu_calls_launch_no_kernel():
+    kernels.reset_launch_counts()
+    (_, _, _), (q, k, v) = _flash_inputs(1, 1, 64, 2, 1, 32, "float32")
+    flash_attention(q, k, v)
+    rmsnorm(torch.ones(4, 8), torch.ones(8))
+    assert kernels.launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+
+
+def test_no_silent_cpu_fallback(monkeypatch):
+    """Without a card, asking for CUDA raises; a tensor on a device that is
+    neither CPU nor CUDA raises instead of running the plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+    meta = torch.empty(2, 4, 64, 32, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        flash_attention(meta, meta[:, :2], meta[:, :2])
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        rmsnorm(torch.empty(4, 8, device="meta"), torch.empty(8, device="meta"))
