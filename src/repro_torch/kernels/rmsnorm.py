@@ -32,6 +32,10 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5) -> torch.Ten
     out = torch.empty_like(x)
     if T == 0:
         return out
+    for name, t in (("x", x), ("w", w), ("out", out)):
+        if t.data_ptr() % 16:     # the kernel moves rows in 16-byte vectors
+            raise ValueError(f"rmsnorm kernel needs 16-byte aligned tensors, {name} is at "
+                             f"address {t.data_ptr():#x}")
     lib = build.library()
     with torch.cuda.device(x.device):
         err = lib.rmsnorm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), T, H,

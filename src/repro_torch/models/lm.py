@@ -32,11 +32,11 @@ class RunCfg:
     """Mirrors ``repro.models.lm.RunCfg`` with torch dtypes. The mesh fields
     arrive with distribution; ``q_chunk`` has no counterpart (the flash
     kernel is tiled); remat, scan and the SSM/MoE knobs arrive with the
-    slices that use them. Logits are always fp32 (the reference's default
+    slices that use them, and ``param_dtype`` with training's master
+    weights. Logits are always fp32 (the reference's default
     ``logits_fp32=True``, which no caller changes)."""
 
     compute_dtype: torch.dtype = torch.bfloat16
-    param_dtype: torch.dtype = torch.float32
 
 
 def _check_supported(arch: ArchConfig) -> None:
@@ -163,7 +163,7 @@ class LM(nn.Module):
 
 def _dense(gen: torch.Generator, shape, scale: float, cfg: RunCfg, device) -> torch.Tensor:
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * scale
-    return w.to(cfg.param_dtype).to(cfg.compute_dtype)
+    return w.to(cfg.compute_dtype)
 
 
 @torch.no_grad()

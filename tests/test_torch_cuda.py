@@ -64,6 +64,25 @@ def test_flash_attention_matches_plain(card, B, S, nh, nkv, hd, dtype, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,nh,nkv,hd,window", [(2, 1000, 8, 2, 128, 0), (1, 700, 4, 1, 64, 300)])
+def test_flash_attention_bf16_against_fp32(card, B, S, nh, nkv, hd, window):
+    """bf16 output against fp32 attention of the same bf16 inputs, at
+    limits a 3% error on some rows would break (the allclose above, at
+    3e-2, would not): relative L2 overall and in the worst row within
+    1e-2, and |err| within 2^-7 |ref| + 2^-6 rms(ref row)."""
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (B, nh, S, hd), "bfloat16", card)
+    k, v = (_randn(rng, (B, nkv, S, hd), "bfloat16", card) for _ in range(2))
+    out = flash_attention(q, k, v, causal=True, window=window).float()
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=True, window=window)
+    err = out - ref
+    row_rms = ref.norm(dim=-1, keepdim=True) / hd ** 0.5
+    assert (err.norm() / ref.norm()).item() <= 1e-2
+    assert (err.norm(dim=-1) / ref.norm(dim=-1)).max().item() <= 1e-2
+    assert (err.abs() / (2 ** -7 * ref.abs() + 2 ** -6 * row_rms)).max().item() <= 1.0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_takes_model_layout_views(card, dtype):
     rng = np.random.default_rng(3)
@@ -98,6 +117,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
         rmsnorm(torch.zeros(4, 12, device=card), torch.zeros(12, device=card))
     with pytest.raises(TypeError):
         rmsnorm(torch.zeros(4, 8, device=card), torch.zeros(8, device=card, dtype=torch.bfloat16))
+    x = torch.zeros(4 * 16 + 1, device=card, dtype=torch.bfloat16)[1:].view(4, 16)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2      # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        rmsnorm(x, torch.ones(16, device=card, dtype=torch.bfloat16))
 
 
 @pytest.mark.cuda
