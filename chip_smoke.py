@@ -8,13 +8,15 @@ Phases, each of which fails the run by raising:
   2. hold each kernel against its plain PyTorch version on the card
      (the cases of tests/test_kernels.py and the main path's shapes; bf16
      outputs against the fp32 result of the same bf16 inputs);
-  3. serve full-width yi-6b (random bf16 weights from a seed) through the
-     port's entry points: prefill B=2 S=2000 with its kernel launches
-     counted, the bf16 model's logits through the kernels against its
-     logits through the plain versions, a teacher-forced forward/decode
-     check, greedy generation and a few serve steps;
-  4. time each kernel beside its bound, its plain version and one PyTorch
-     library call, and time prefill and decode.
+  3. serve full-width yi-6b, then full-width mamba2-2.7b (random bf16
+     weights from a seed), through the port's entry points: prefill B=2
+     S=2000 with its kernel launches counted, the bf16 model's logits
+     through the kernels against its logits through the plain versions, a
+     teacher-forced forward/decode check, greedy generation and a few
+     serve steps;
+  4. after each model's path, time its kernels beside their bound, their
+     plain version and one PyTorch library call where there is one, and
+     time prefill and decode.
 The last line is one JSON object with ``"ok": true`` and the device. It
 needs a CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -38,12 +40,16 @@ import torch.nn.functional as F  # noqa: E402
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense tensor core / fp32 FMA
 TOL_F32 = dict(rtol=3e-4, atol=3e-4)                           # tests/test_kernels.py:16-18
-# bf16 flash against fp32 attention of the same bf16 inputs. The kernel
-# rounds p to bf16 for p v (l sums the fp32 p) and rounds o once: on
-# random inputs that reads about 3e-3 relative L2 in the worst row and
-# 0.65 of the pointwise limit. A 3% error on late kv tiles reads 3e-2
-# and 3.8; a dropped tile 1.0 and 130.
-FLASH_BF16_LIMITS = {"rel_l2": 1e-2, "row_rel_l2": 1e-2, "pointwise": 1.0}
+# bf16 kernels against fp32 of the same bf16 inputs. Flash rounds p to
+# bf16 for p v (l sums the fp32 p) and rounds o once: on random inputs
+# that reads about 3e-3 relative L2 in the worst row and 0.65 of the
+# pointwise limit. A 3% error on late kv tiles reads 3e-2 and 3.8; a
+# dropped tile 1.0 and 130. The SSD kernel keeps everything in fp32 and
+# rounds y once, so it should read about 2^-9 of each.
+BF16_LIMITS = {"rel_l2": 1e-2, "row_rel_l2": 1e-2, "pointwise": 1.0}
+# fp32 SSD kernel against the plain version: tests/test_kernels.py:56,
+# plus relative L2 (the kernel chunks by 64, the plain version by 256).
+SSD_F32_TOL, SSD_F32_REL_L2 = dict(rtol=2e-3, atol=2e-3), 1e-4
 # bf16 RMSNorm against fp32 of the same inputs: one rounding, half a bf16
 # ulp (2^-8 relative), plus fp32 reassociation.
 RMS_BF16_RTOL = 1.01 * 2 ** -8
@@ -52,10 +58,18 @@ FLASH_MAIN = (2, 2000, 32, 4, 128)       # yi-6b prefill: B, S, nh, nkv, hd
 RMS_CASES = [(64, 256), (100, 512), (256, 1024)]
 # prefill B*S, teacher-forced S, decode B, prefill's final norm (B), teacher-forced decode
 RMS_MAIN = [(4000, 4096), (64, 4096), (4, 4096), (2, 4096), (1, 4096)]
+# B, nh, S, hp, N and the plain version's chunk (tests/test_kernels.py:40-44)
+SSD_CASES = [(1, 2, 256, 64, 16, 128), (2, 3, 300, 32, 64, 64), (1, 4, 64, 16, 128, 32)]
+SSD_MAIN = (2, 80, 2000, 64, 128, 256)   # mamba2-2.7b prefill
+# mamba2-2.7b: prefill B*S, teacher-forced S, decode B, final norm B, teacher-forced decode
+RMS_MAIN_SSM = [(4000, 2560), (4000, 5120), (300, 2560), (300, 5120), (4, 2560), (4, 5120),
+                (2, 2560), (1, 2560), (1, 5120)]
 SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:87"),
            "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
-                       "src/repro/kernels/rmsnorm.py:24")}
+                       "src/repro/kernels/rmsnorm.py:24"),
+           "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                        "src/repro/kernels/ssd_scan.py:65")}
 
 
 def log(*args):
@@ -97,10 +111,11 @@ def _compare_f32(name, out, ref):
     return err
 
 
-def _compare_flash_bf16(name, out, ref):
-    """out: the kernel's bf16 output; ref: fp32 attention of the same bf16
-    inputs. Gates the relative L2 error overall and of the worst row
-    (b, h, s), and the worst ratio of |err| to 2^-7 |ref| + 2^-6 rms(ref row)."""
+def _compare_bf16(name, out, ref):
+    """out: a kernel's bf16 [B,nh,S,d] output; ref: the fp32 plain version
+    on the same bf16 inputs. Gates the relative L2 error overall and of the
+    worst row (b, h, s), and the worst ratio of |err| to
+    2^-7 |ref| + 2^-6 rms(ref row)."""
     torch.cuda.synchronize()
     err = out.float() - ref
     row_err, row_ref = err.norm(dim=-1), ref.norm(dim=-1)
@@ -110,8 +125,8 @@ def _compare_flash_bf16(name, out, ref):
            "pointwise": (err.abs() / (2 ** -7 * ref.abs() + 2 ** -6 * row_rms)
                          .clamp_min(1e-30)).max().item()}
     max_abs = err.abs().max().item()
-    reading = " ".join(f"{k}={v:.3e} (limit {FLASH_BF16_LIMITS[k]:g})" for k, v in got.items())
-    bad = [k for k, v in got.items() if not v <= FLASH_BF16_LIMITS[k]]
+    reading = " ".join(f"{k}={v:.3e} (limit {BF16_LIMITS[k]:g})" for k, v in got.items())
+    bad = [k for k, v in got.items() if not v <= BF16_LIMITS[k]]
     if bad:
         raise AssertionError(f"{name}: {reading}: over the limit in {bad}")
     log(f"[parity] {name} {reading} max_abs_err={max_abs:.3e} ok")
@@ -138,7 +153,50 @@ def _flash_case(name, q, k, v, window=0):
     ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=True, window=window)
     if q.dtype == torch.float32:
         return _compare_f32(name, out, ref)
-    return _compare_flash_bf16(name, out, ref)
+    return _compare_bf16(name, out, ref)
+
+
+def _ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory=False, views=False):
+    """x [B,nh,S,hp], dt [B,nh,S] fp32, A [nh] fp32, Bm/Cm [B,S,N].
+    tests/test_kernels.py's draw (dt = softplus(N(0,1)), A = -exp(N(0,1)/2))
+    forgets within a few tokens; ``long_memory`` draws from the init's
+    ranges (dt ~ U(1e-3, 1e-1), A = -U(1, 16)), so the state carried across
+    chunks matters far past a chunk start. ``views`` lays the tensors out as
+    the model does: x, Bm, Cm column slices of one [B,S,nh*hp+2N] buffer,
+    dt a [B,nh,S] view of a [B,S,nh] tensor."""
+    if views:
+        buf = _randn(gen, B, S, nh * hp + 2 * N, dtype=dtype)
+        x = buf[..., :nh * hp].view(B, S, nh, hp).transpose(1, 2)
+        Bm, Cm = buf[..., nh * hp:nh * hp + N], buf[..., nh * hp + N:]
+    else:
+        x = _randn(gen, B, nh, S, hp, dtype=dtype)
+        Bm, Cm = _randn(gen, B, S, N, dtype=dtype), _randn(gen, B, S, N, dtype=dtype)
+    shape = (B, S, nh) if views else (B, nh, S)
+    if long_memory:
+        dt = 1e-3 + (1e-1 - 1e-3) * torch.rand(*shape, generator=gen, device="cuda")
+        A = -(1.0 + 15.0 * torch.rand(nh, generator=gen, device="cuda"))
+    else:
+        dt = F.softplus(torch.randn(*shape, generator=gen, device="cuda"))
+        A = -torch.exp(0.5 * torch.randn(nh, generator=gen, device="cuda"))
+    return x, (dt.transpose(1, 2) if views else dt), A, Bm, Cm
+
+
+def _ssd_case(name, chunk, x, dt, A, Bm, Cm):
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ref import ssd_scan_ref
+    out = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    ref = ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float(), chunk=chunk)
+    if x.dtype != torch.float32:
+        return _compare_bf16(name, out, ref)
+    rel = ((out - ref).norm() / ref.norm()).item()
+    err = (out - ref).abs().max().item()
+    torch.testing.assert_close(out, ref, **SSD_F32_TOL, msg=lambda m: f"{name}: {m}")
+    if not rel <= SSD_F32_REL_L2:
+        raise AssertionError(f"{name}: rel_l2={rel:.3e} > {SSD_F32_REL_L2:g}")
+    log(f"[parity] {name} rel_l2={rel:.3e} (limit {SSD_F32_REL_L2:g}) max_abs_err={err:.3e} "
+        f"(allclose rtol=atol=2e-3) ok")
+    return err
 
 
 def phase_parity():
@@ -162,7 +220,7 @@ def phase_parity():
         # rows past a short window and a padded tail: finite, no NaN
         q, k, v = _flash_inputs(gen, 1, 130, 2, 2, 64, dtype)
         _flash_case(f"flash {tag} window=3 S=130", q, k, v, window=3)
-        for T, H in RMS_CASES + RMS_MAIN:
+        for T, H in RMS_CASES + RMS_MAIN + RMS_MAIN_SSM:
             x, w = _randn(gen, T, H, dtype=dtype), _randn(gen, H, dtype=dtype)
             out = rmsnorm(x, w)
             torch.cuda.synchronize()
@@ -172,6 +230,20 @@ def phase_parity():
                    else _compare_rms_bf16(name, out, ref))
             if (T, H) == RMS_MAIN[0]:
                 errs[("rmsnorm", dtype)] = err
+        for B, nh, S, hp, N, chunk in SSD_CASES:
+            for long_memory in (False, True):
+                _ssd_case(f"ssd {tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N}) chunk={chunk}"
+                          f"{' long-memory' if long_memory else ''}", chunk,
+                          *_ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory))
+        B, nh, S, hp, N, chunk = SSD_MAIN
+        for long_memory in (False, True):
+            for views in (False, True):
+                err = _ssd_case(f"ssd {tag} main B,nh,S,hp,N=({B},{nh},{S},{hp},{N})"
+                                f"{' [B,S,.] views' if views else ''}"
+                                f"{' long-memory' if long_memory else ''}", chunk,
+                                *_ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory, views))
+                if views and not long_memory:
+                    errs[("ssd_scan", dtype)] = err
     return errs
 
 
@@ -196,15 +268,17 @@ def _add(total, counts):
 def plain_versions():
     """Route the model's kernel calls to their plain PyTorch versions
     (``repro_torch.models.layers`` looks the wrappers up on
-    ``repro_torch.kernels`` at each call)."""
+    ``repro_torch.kernels`` at each call; ``KERNELS`` keeps the wrappers,
+    whose counts must stay 0)."""
     from repro_torch import kernels
-    saved = kernels.flash_attention, kernels.rmsnorm
-    kernels.flash_attention = kernels.ref.flash_attention_ref
-    kernels.rmsnorm = kernels.ref.rmsnorm_ref
+    saved = {name: getattr(kernels, name) for name in kernels.KERNELS}
+    for name in saved:
+        setattr(kernels, name, getattr(kernels.ref, f"{name}_ref"))
     try:
         yield
     finally:
-        kernels.flash_attention, kernels.rmsnorm = saved
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
 
 
 def _gap(a, b):
@@ -212,12 +286,13 @@ def _gap(a, b):
     return ((a - b).norm() / b.norm()).item(), (a.argmax(-1) == b.argmax(-1)).float().mean().item()
 
 
-def check_model_bf16(model, tokens):
+def check_model_bf16(model, tokens, want):
     """The bf16 model's logits at every position of ``tokens``, through the
-    kernels and through their plain versions, each against the same
-    weights in fp32 through the plain versions. The kernels must land no
-    further from fp32 than bf16 rounding puts the plain versions: relative
-    L2 within 1.5x the plain gap, argmax agreement within 0.05 of it."""
+    kernels (launching ``want``) and through their plain versions, each
+    against the same weights in fp32 through the plain versions. The
+    kernels must land no further from fp32 than bf16 rounding puts the
+    plain versions: relative L2 within 1.5x the plain gap, argmax agreement
+    within 0.05 of it."""
     from repro_torch.models.lm import LM, RunCfg
     model32 = LM(model.arch, RunCfg(compute_dtype=torch.float32), device=model.device)
     model32.load_state_dict(model.state_dict())
@@ -230,8 +305,9 @@ def check_model_bf16(model, tokens):
     del model32
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    if min(counts.values()) == 0 or max(plain_counts.values()) != 0:
-        raise AssertionError(f"launches: kernels {counts}, plain versions {plain_counts}")
+    if counts != want or any(plain_counts.values()):
+        raise AssertionError(f"launches: kernels {counts} (expected {want}), "
+                             f"plain versions {plain_counts}")
     for name, t in (("kernels", kern), ("plain", plain), ("fp32", exact)):
         if not torch.isfinite(t).all():
             raise AssertionError(f"model bf16 check: {name} logits not finite")
@@ -265,22 +341,26 @@ def _tf_summary(full, dec):
             f"rel_l2={rel:.3g} argmax agreement={agree:.3f}")
 
 
-def phase_slice():
+def phase_slice(name, tf_len, tf_layers, total):
+    """Serve full-width ``name`` through the port's entry points; adds the
+    main path's launches to ``total``. The teacher-forced check runs
+    ``tf_len`` tokens and is gated on the first ``tf_layers`` layers."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import scale_arch
     from repro_torch.models.lm import RunCfg, init_params, param_count
     from repro_torch.serving.serve import greedy_generate, make_prefill_step, make_serve_step
 
-    arch = scale_arch(get_config("yi-6b"), "full")
+    arch = scale_arch(get_config(name), "full")
     cfg = RunCfg(compute_dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     model = init_params(arch, gen, cfg, device="cuda")
     torch.cuda.synchronize()
-    log(f"[slice] yi-6b full width: {arch.num_layers} layers, d {arch.d_model}, "
+    log(f"[slice] {name} full width: {arch.num_layers} layers, d {arch.d_model}, "
         f"{param_count(model) / 1e9:.3f} B params bf16, init {time.perf_counter() - t0:.2f} s")
     V, L = arch.vocab, arch.num_layers
-    total = {}
+    ssm = arch.block == "ssm"
+    norms = 2 * L + 1       # norm1 and norm2 (attn) or ssm_norm (ssm) per layer, final norm
 
     # (a), (b) prefill with its launches counted
     prefill = make_prefill_step(model)
@@ -288,34 +368,49 @@ def phase_slice():
     logits, counts = _counts_since_reset(lambda: prefill({"tokens": tokens}))
     if logits.shape != (2, 1, V) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite [2,1,{V}]")
-    want = {"flash_attention": L, "rmsnorm": 2 * L + 1}
+    want = {"flash_attention": 0 if ssm else L, "rmsnorm": norms, "ssd_scan": L if ssm else 0}
     if counts != want:
         raise AssertionError(f"prefill launched {counts}, expected {want}")
-    log(f"[slice] (a,b) prefill B=2 S=2000: logits {tuple(logits.shape)} finite; "
+    log(f"[slice] (a,b) {name} prefill B=2 S=2000: logits {tuple(logits.shape)} finite; "
         f"launches {counts}")
     _add(total, counts)
 
     # (c) the bf16 model through the kernels against the plain versions, at
-    # the prefill's shape and in the model's [B,S,nh,hd] layout
-    check_model_bf16(model, tokens)
+    # the prefill's shape and in the model's layouts
+    check_model_bf16(model, tokens, want)
 
-    # (c) teacher-forced: forward over 64 tokens vs 64 decode steps
+    # (c) teacher-forced: forward over tf_len tokens vs tf_len decode steps
     # (tests/test_models.py:55-85). Gated in fp32 compute, where the 2e-2 of
     # that test applies. In bf16 the two paths round at different places
-    # (flash kernel vs plain decode attention, GEMMs of 64 rows vs 1) and
-    # the reference's init makes attention a hard argmax over logits of std
-    # ~128 that rounding can flip, so there the numbers are only reported;
-    # the check above gates bf16.
-    tf_tokens = torch.randint(0, V, (1, 64), generator=gen, device="cuda")
+    # (kernels vs plain decode attention or recurrence, GEMMs of S rows vs
+    # 1, the SSM leaves in bf16 in forward and fp32 in decode), and the
+    # reference's init amplifies rounding (yi-6b: attention a hard argmax
+    # over logits of std ~128), so there the numbers are only reported; the
+    # check above gates bf16. mamba2 runs 300 tokens, past a 256-token chunk.
+    tf_tokens = torch.randint(0, V, (1, tf_len), generator=gen, device="cuda")
     full, dec = _teacher_forced(model, tf_tokens)
-    log(f"[slice] (c) teacher-forced S=64 bf16 (reported): {_tf_summary(full, dec)}")
+    log(f"[slice] (c) {name} teacher-forced S={tf_len} bf16 (reported): {_tf_summary(full, dec)}")
     f32 = RunCfg(compute_dtype=torch.float32)
     model32 = init_params(arch, torch.Generator(device="cuda").manual_seed(0), f32, device="cuda")
     (full, dec), counts = _counts_since_reset(lambda: _teacher_forced(model32, tf_tokens))
+    gated = tf_layers == L
+    log(f"[slice] (c) {name} teacher-forced S={tf_len} fp32, {L} layers "
+        f"({'gated' if gated else 'reported'}): {_tf_summary(full, dec)}; launches {counts}")
+    if not gated:
+        # Even fp32 rounding grows through mamba2's 64 layers under the
+        # reference's init (a few percent of a logit at 64 layers); two
+        # forwards that differ only in fp32 summation order show it. The
+        # gate runs on the first tf_layers layers of the same weights.
+        with torch.inference_mode(), plain_versions():
+            plain = model32(tf_tokens, logits_positions="all")[0]
+        log(f"[slice] (c) {name} fp32 forward, plain versions vs kernels, {L} layers "
+            f"(reported): {_tf_summary(full, plain)}")
+        model32.blocks = model32.blocks[:tf_layers]
+        (full, dec), counts = _counts_since_reset(lambda: _teacher_forced(model32, tf_tokens))
+        log(f"[slice] (c) {name} teacher-forced S={tf_len} fp32, first {tf_layers} layers "
+            f"(gated): {_tf_summary(full, dec)}; launches {counts}")
     del model32
     torch.cuda.empty_cache()
-    log(f"[slice] (c) teacher-forced S=64 fp32 (gated): {_tf_summary(full, dec)}; "
-        f"launches {counts}")
     if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
         raise AssertionError("teacher-forced logits not finite")
     torch.testing.assert_close(dec, full, rtol=2e-2, atol=2e-2)
@@ -329,7 +424,7 @@ def phase_slice():
     _add(total, counts)
     if out.shape != (4, 32) or out.min() < 0 or out.max() >= V:
         raise AssertionError(f"greedy_generate gave {tuple(out.shape)} in [{out.min()}, {out.max()}]")
-    log(f"[slice] (d) greedy_generate B=4 prompt 32 new 32: tokens {tuple(out.shape)}; "
+    log(f"[slice] (d) {name} greedy_generate B=4 prompt 32 new 32: tokens {tuple(out.shape)}; "
         f"launches {counts}")
 
     # (e) serve steps
@@ -346,14 +441,11 @@ def phase_slice():
     _add(total, counts)
     if lg.shape != (4, V) or not torch.isfinite(lg).all() or tok.shape != (4,):
         raise AssertionError("serve_step output malformed")
-    if counts != {"flash_attention": 0, "rmsnorm": 4 * (2 * L + 1)}:
+    if counts != {"flash_attention": 0, "rmsnorm": 4 * norms, "ssd_scan": 0}:
         raise AssertionError(f"4 serve steps launched {counts}")
-    log(f"[slice] (e) 4 serve steps B=4: logits {tuple(lg.shape)} finite; launches {counts}")
-    for name, n in total.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was never launched on the main path")
-    log(f"[slice] main-path launches {total}")
-    return model, prefill, serve, total
+    log(f"[slice] (e) {name} 4 serve steps B=4: logits {tuple(lg.shape)} finite; "
+        f"launches {counts}")
+    return model, prefill, serve
 
 
 # --------------------------------------------------------------------------
@@ -384,13 +476,18 @@ def _bound(nbytes, flops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_times(errs, total, prefill, serve, model):
+def _log_row(r):
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    log(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+        f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library {lib}")
+
+
+def times_attn_kernels(gen):
+    """yi-6b's kernels at its prefill shapes, bf16."""
     from repro_torch.kernels import flash_attention, rmsnorm
     from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref
-    gen = torch.Generator(device="cuda").manual_seed(11)
     dt = torch.bfloat16
     rows = []
-
     B, S, nh, nkv, hd = FLASH_MAIN
     q, k, v = _flash_inputs(gen, B, S, nh, nkv, hd, dt)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -412,12 +509,40 @@ def phase_times(errs, total, prefill, serve, model):
         plain_ms=time_device(lambda: rmsnorm_ref(x, w)),
         library_ms=time_device(lambda: F.rms_norm(x, (H,), w, eps=1e-5)),
         bound_ms=bound, bound_by=by, shape=f"x{list(x.shape)} bf16"))
+    return rows
 
-    for r in rows:
-        log(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-            f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
 
-    # end to end: prefill and decode (host clock around synchronised work)
+def times_ssm_kernels(gen):
+    """The SSD kernel at mamba2-2.7b's prefill shape, in the model's layout:
+    bf16 x, B, C as column slices of the conv output, fp32 dt. No single
+    PyTorch call computes the scan, so there is no library time. Also logs
+    RMSNorm at mamba2's two prefill shapes (norm1 and the gated ssm_norm),
+    for the prefill breakdown; the kernel line keeps yi-6b's RMSNorm row."""
+    from repro_torch.kernels import rmsnorm, ssd_scan
+    from repro_torch.kernels.ref import ssd_scan_ref
+    for T, H in RMS_MAIN_SSM[:2]:
+        x, w = _randn(gen, T, H, dtype=torch.bfloat16), _randn(gen, H, dtype=torch.bfloat16)
+        log(f"[time] rmsnorm x[{T}, {H}] bf16: kernel {time_device(lambda: rmsnorm(x, w)):.4f} ms")
+    B, nh, S, hp, N, Q = SSD_MAIN
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, views=True)
+    # each input read once, y written once
+    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4 + A.numel() * 4
+              + (Bm.numel() + Cm.numel()) * Bm.element_size())
+    # the chunked algorithm's products at chunk Q with C.B^T shared across
+    # heads, per token: C.B^T 2QN; per head, scores x 2Q hp, chunk state
+    # 2 hp N, inter-chunk output 2 N hp
+    flops = B * S * (2 * Q * N + nh * (2 * Q * hp + 4 * hp * N))
+    bound, by = _bound(nbytes, flops, torch.bfloat16)
+    return [dict(name="ssd_scan", ms=time_device(lambda: ssd_scan(x, dt, A, Bm, Cm)),
+                 plain_ms=time_device(lambda: ssd_scan_ref(x, dt, A, Bm, Cm), n=3, reps=3),
+                 library_ms=None, bound_ms=bound, bound_by=by,
+                 shape=f"x{list(x.shape)} B/C{list(Bm.shape)} bf16, dt fp32, views")]
+
+
+def times_end_to_end(name, model, prefill, serve, gen, decode_spans):
+    """Prefill B=2 S=2000, median of 3, and decode ms/token for B=4 over 32
+    steps at each (cache span, first position) of ``decode_spans`` (host
+    clock around synchronised work); peak memory over both."""
     tokens = torch.randint(0, model.arch.vocab, (2, 2000), generator=gen, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     pre = []
@@ -426,10 +551,8 @@ def phase_times(errs, total, prefill, serve, model):
         prefill({"tokens": tokens})
         torch.cuda.synchronize()
         pre.append((time.perf_counter() - t0) * 1e3)
-    # decode: 32 steps after a short prompt, and 32 steps at the prefill's
-    # context in a 2,048-token cache (decode attention reads pos + 1 slots)
     dec = []
-    for span, first in ((40, 1), (2048, 1984)):
+    for span, first in decode_spans:
         cache = model.init_cache(4, span)
         tok = tokens[:2].reshape(-1)[:4]
         serve(cache, tok, first - 1)
@@ -438,20 +561,36 @@ def phase_times(errs, total, prefill, serve, model):
         for pos in range(first, first + 32):
             tok, _, _ = serve(cache, tok, pos)
         torch.cuda.synchronize()
-        dec.append(f"KV {first + 1}-{first + 32} {(time.perf_counter() - t0) * 1e3 / 32:.3f}")
+        dec.append(f"pos {first + 1}-{first + 32} {(time.perf_counter() - t0) * 1e3 / 32:.3f}")
         del cache
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[time] prefill B=2 S=2000: median {statistics.median(pre):.2f} ms of {pre}; "
+    log(f"[time] {name} prefill B=2 S=2000: median {statistics.median(pre):.2f} ms of {pre}; "
         f"decode B=4 ms/token at {', '.join(dec)}; peak memory {peak:.2f} GiB")
 
-    kernels = []
+
+def kernel_line(rows, errs, total):
+    out = []
     for r in rows:
         src, replaces = SOURCES[r["name"]]
-        kernels.append({"name": r["name"], "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": total[r["name"]], "max_abs_err": errs[(r["name"], dt)],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    return kernels
+        out.append({"name": r["name"], "route": "cuda", "source": src, "replaces": replaces,
+                    "launches": total[r["name"]], "max_abs_err": errs[(r["name"], torch.bfloat16)],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    return out
+
+
+def run_model(name, tf_len, tf_layers, total, time_kernels, decode_spans):
+    """One model's main path (launches added to ``total``), then its kernel
+    and end-to-end times. Returns the kernel rows; frees the model."""
+    model, prefill, serve = phase_slice(name, tf_len, tf_layers, total)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = time_kernels(gen)
+    for r in rows:
+        _log_row(r)
+    times_end_to_end(name, model, prefill, serve, gen, decode_spans)
+    del model, prefill, serve
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -464,8 +603,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     errs = phase_parity()
-    model, prefill, serve, total = phase_slice()
-    kernels = phase_times(errs, total, prefill, serve, model)
+    total = {}
+    # yi-6b: decode after a short prompt, and at the prefill's context in a
+    # 2,048-token cache (decode attention reads pos + 1 slots)
+    rows = run_model("yi-6b", 64, 32, total, times_attn_kernels, ((40, 1), (2048, 1984)))
+    # mamba2-2.7b: decode cost does not depend on the context (a fixed state)
+    rows += run_model("mamba2-2.7b", 300, 8, total, times_ssm_kernels, ((40, 1),))
+    for name, n in total.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was never launched on the main path")
+    log(f"[slice] main-path launches, both models {total}")
+    kernels = kernel_line(rows, errs, total)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log(smi)

@@ -12,11 +12,12 @@ from typing import Dict
 from . import ref
 from .flash_attention import flash_attention
 from .rmsnorm import rmsnorm
+from .ssd_scan import ssd_scan
 
-__all__ = ["flash_attention", "rmsnorm", "ref", "KERNELS", "launch_counts",
+__all__ = ["flash_attention", "rmsnorm", "ssd_scan", "ref", "KERNELS", "launch_counts",
            "reset_launch_counts"]
 
-KERNELS = {"flash_attention": flash_attention, "rmsnorm": rmsnorm}
+KERNELS = {"flash_attention": flash_attention, "rmsnorm": rmsnorm, "ssd_scan": ssd_scan}
 
 
 def launch_counts() -> Dict[str, int]:

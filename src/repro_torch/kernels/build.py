@@ -35,6 +35,8 @@ SIGNATURES = {
     "rmsnorm_launch": (_I, [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P]),
     "flash_attention_launch": (_I, [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
                                     _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "ssd_scan_launch": (_I, [_P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
+                             _I, _I, _I, _I, _I, _I, _P]),
     "cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -1,13 +1,15 @@
 """Plain PyTorch versions of the port's kernels (ported from
 ``repro.kernels.ref``). The wrappers take them for CPU tensors, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card. Layouts
-match the kernel entry points: head-major attention, [T,H] rmsnorm."""
+match the kernel entry points: head-major attention, [T,H] rmsnorm,
+head-major SSD scan."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["flash_attention_ref", "rmsnorm_ref"]
+__all__ = ["flash_attention_ref", "rmsnorm_ref", "ssd_scan_ref"]
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0):
@@ -29,6 +31,49 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     probs = torch.nan_to_num(probs, nan=0.0)          # fully-masked rows -> 0
     out = torch.einsum("bkgqs,bksh->bkgqh", probs, v.float())
     return out.reshape(B, nh, S, hd).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk=256):
+    """Mamba2 SSD scan, chunked (the math of ``repro.models.layers.ssd_scan``
+    and of the Pallas kernel). x: [B,nh,S,hp]; dt: [B,nh,S] (softplus-ed);
+    A: [nh] (negative); Bm/Cm: [B,S,N], shared across heads -> [B,nh,S,hp]
+    in x's dtype. fp32 inside; the tail is padded with dt = 0, which makes
+    the padded tokens no-ops. Vectorised over chunks; only the inter-chunk
+    recurrence loops, once per chunk."""
+    B, nh, S, hp = x.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    f32 = torch.float32
+    xc = F.pad(x.to(f32), (0, 0, 0, pad)).reshape(B, nh, nc, Q, hp)
+    dtc = F.pad(dt.to(f32), (0, pad)).reshape(B, nh, nc, Q)
+    Bc = F.pad(Bm.to(f32), (0, 0, 0, pad)).reshape(B, nc, Q, N)
+    Cc = F.pad(Cm.to(f32), (0, 0, 0, pad)).reshape(B, nc, Q, N)
+
+    acs = torch.cumsum(dtc * A.to(f32)[None, :, None, None], dim=-1)    # [B,nh,nc,Q]
+    # 1) intra-chunk, attention form: C_i.B_j exp(acs_i - acs_j) dt_j for
+    # j <= i, masked before exp (acs_i - acs_j > 0 above the diagonal)
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp((acs[..., :, None] - acs[..., None, :]).masked_fill(~tri, float("-inf")))
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)                        # [B,nc,Q,Q]
+    scores = cb[:, None] * decay * dtc[..., None, :]                    # [B,nh,nc,Q,Q]
+    y = torch.einsum("bhcij,bhcjp->bhcip", scores, xc)
+    del decay, scores
+    # 2) chunk states: sum_j exp(acs_last - acs_j) dt_j x_j B_j^T
+    w = torch.exp(acs[..., -1:] - acs) * dtc
+    states = torch.einsum("bhcjp,bcjn->bhcpn", xc * w[..., None], Bc)   # [B,nh,nc,hp,N]
+    # 3) inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(acs[..., -1])                               # [B,nh,nc]
+    h = torch.zeros(B, nh, hp, N, dtype=f32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = h * chunk_decay[:, :, c, None, None] + states[:, :, c]
+    h_prev = torch.stack(entering, dim=2)                               # [B,nh,nc,hp,N]
+    # 4) inter-chunk output: (C_i . h_prev) exp(acs_i)
+    y = y + torch.einsum("bcin,bhcpn->bhcip", Cc, h_prev) * torch.exp(acs)[..., None]
+    return y.reshape(B, nh, nc * Q, hp)[:, :, :S].to(x.dtype)
 
 
 def rmsnorm_ref(x, w, eps=1e-5):

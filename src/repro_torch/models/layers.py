@@ -1,10 +1,12 @@
-"""Model primitives of the port, dense subset of ``repro.models.layers``.
+"""Model primitives of the port: the dense and SSM subset of
+``repro.models.layers``.
 
-``rmsnorm`` and ``attention`` go through the port's kernels
+``rmsnorm``, ``attention`` and ``ssd_scan`` go through the port's kernels
 (``repro_torch.kernels``): the CUDA kernel for CUDA tensors, the plain
 PyTorch version for CPU tensors. The rest is plain PyTorch, as it is
 plain JAX in the reference. Layouts are the reference's: activations
-[B,S,H], attention tensors [B,S,nh,hd], weights [in,out] used as x @ w.
+[B,S,H], attention tensors [B,S,nh,hd], SSM inputs [B,S,nh,hp], weights
+[in,out] used as x @ w.
 """
 
 from __future__ import annotations
@@ -16,12 +18,18 @@ import torch.nn.functional as F
 
 from .. import kernels
 
-__all__ = ["rmsnorm", "rope", "attention", "decode_attention", "mlp", "silu",
-           "squared_relu", "gelu"]
+__all__ = ["rmsnorm", "rope", "attention", "decode_attention", "mlp", "ssd_scan",
+           "ssm_decode_step", "silu", "softplus", "squared_relu", "gelu"]
 
 
 def silu(x):
     return x * torch.sigmoid(x)
+
+
+def softplus(x):
+    """``jax.nn.softplus``: log(1 + exp(x)) as ``logaddexp(x, 0)``, with no
+    threshold (``F.softplus`` returns x above 20)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def squared_relu(x):
@@ -114,3 +122,35 @@ def mlp(x: torch.Tensor, params: Mapping[str, torch.Tensor], kind: str) -> torch
     if kind == "gated_silu":
         return (silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
     return ACTIVATIONS[kind](x @ params["wi"]) @ params["wo"]
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """Chunked Mamba2 SSD forward through the SSD kernel.
+
+    x: [B,S,nh,hp]; dt: [B,S,nh] (softplus-ed); A: [nh] (negative);
+    Bm/Cm: [B,S,N], shared across heads. Returns y [B,S,nh,hp] in x's
+    dtype; dt and A are taken in fp32, as the reference casts them. The
+    kernel takes strides, so the [B,nh,S,.] views below cost no copy and y
+    comes back in x's [B,S,nh,hp] order. ``chunk`` is the plain version's
+    chunk length (the kernel blocks by its own). The reference's
+    ``initial_state``/``return_state`` have no caller on the serving path
+    and are not ported."""
+    f32 = torch.float32
+    y = kernels.ssd_scan(x.transpose(1, 2), dt.to(f32).transpose(1, 2), A.to(f32), Bm, Cm,
+                         chunk=chunk)
+    return y.transpose(1, 2)
+
+
+def ssm_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                    Cm: torch.Tensor, state: torch.Tensor):
+    """One token of the SSD recurrence (decode), plain PyTorch as in the
+    reference. x: [B,nh,hp]; dt: [B,nh]; A: [nh]; Bm/Cm: [B,N]; state:
+    [B,nh,hp,N] fp32 -> (y [B,nh,hp] in x's dtype, new state)."""
+    f32 = torch.float32
+    dtf = dt.to(f32)
+    dec = torch.exp(dtf * A.to(f32))                                          # [B,nh]
+    upd = torch.einsum("bh,bhp,bn->bhpn", dtf, x.to(f32), Bm.to(f32))
+    new_state = state * dec[..., None, None] + upd
+    y = torch.einsum("bn,bhpn->bhp", Cm.to(f32), new_state)
+    return y.to(x.dtype), new_state

@@ -17,8 +17,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import flash_attention, rmsnorm  # noqa: E402
-from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref  # noqa: E402
+from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan  # noqa: E402
+from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref, ssd_scan_ref  # noqa: E402
 from repro_torch.launch.train import scale_arch  # noqa: E402
 from repro_torch.models.lm import RunCfg, init_params  # noqa: E402
 from repro_torch.serving import make_prefill_step  # noqa: E402
@@ -26,6 +26,9 @@ from repro_torch.serving import make_prefill_step  # noqa: E402
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FLASH_GRID = [(1, 128, 4, 4, 64), (2, 200, 4, 2, 64), (1, 384, 8, 1, 32), (2, 256, 6, 3, 128)]
 RMS_GRID = [(64, 256), (100, 512), (256, 1024), (4, 4096)]
+# B, nh, S, hp, N: tests/test_kernels.py:40-44, tiny mamba2, hymba, a short tail
+SSD_GRID = [(1, 2, 256, 64, 16), (2, 3, 300, 32, 64), (1, 4, 64, 16, 128), (2, 8, 200, 32, 16),
+            (1, 5, 130, 64, 128), (1, 2, 70, 64, 32)]
 
 
 def _tol(dtype):
@@ -105,6 +108,86 @@ def test_rmsnorm_matches_plain(card, T, H, dtype):
     _close(out, rmsnorm_ref(x, w), dtype)
 
 
+def _ssd_close(out, ref, dtype):
+    """out: the kernel's output; ref: the plain version in fp32 on the same
+    inputs. fp32: tests/test_kernels.py:56's 2e-3 and relative L2 1e-4;
+    bf16 (the kernel rounds only y): relative L2 1e-2."""
+    torch.cuda.synchronize()
+    if dtype == "float32":
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=2e-3, atol=2e-3)
+    rel = ((out.float() - ref).norm() / ref.norm()).item()
+    assert rel <= (1e-4 if dtype == "float32" else 1e-2), rel
+
+
+def _ssd_inputs(rng, B, nh, S, hp, N, dtype, device, long_memory=False):
+    x = _randn(rng, (B, nh, S, hp), dtype, device)
+    if long_memory:
+        dt = rng.uniform(1e-3, 1e-1, (B, nh, S))
+        A = -rng.uniform(1.0, 16.0, nh)
+    else:
+        dt = np.logaddexp(rng.standard_normal((B, nh, S)), 0)
+        A = -np.exp(0.5 * rng.standard_normal(nh))
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    Bm, Cm = (_randn(rng, (B, S, N), dtype, device) for _ in range(2))
+    return x, f32(dt), f32(A), Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nh,S,hp,N", SSD_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("long_memory", [False, True])
+def test_ssd_scan_matches_plain(card, B, nh, S, hp, N, dtype, long_memory):
+    """fp32: the plain version's tolerance against the Pallas kernel
+    (tests/test_kernels.py:56). bf16: against fp32 of the same bf16 inputs,
+    relative L2 within 1e-2 (the kernel rounds only y)."""
+    x, dt, A, Bm, Cm = _ssd_inputs(np.random.default_rng(7), B, nh, S, hp, N, dtype, card,
+                                   long_memory)
+    before = ssd_scan.launches
+    out = ssd_scan(x, dt, A, Bm, Cm)
+    assert ssd_scan.launches == before + 1 and out.dtype == x.dtype
+    _ssd_close(out, ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float(), chunk=64), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_takes_model_layout_views(card, dtype):
+    """x a view of a column slice of the conv output, Bm/Cm slices of it,
+    dt a view of a [B,S,nh] tensor; y comes back dense in x's dim order."""
+    rng = np.random.default_rng(3)
+    B, S, nh, hp, N = 2, 300, 4, 32, 16
+    buf = _randn(rng, (B, S, nh * hp + 2 * N), dtype, card)
+    x = buf[..., :nh * hp].view(B, S, nh, hp).transpose(1, 2)
+    Bm, Cm = buf[..., nh * hp:nh * hp + N], buf[..., nh * hp + N:]
+    dt = torch.from_numpy(np.logaddexp(rng.standard_normal((B, S, nh)), 0).astype(np.float32))
+    dt = dt.to(card).transpose(1, 2)
+    A = -torch.rand(nh, device=card) - 0.5
+    out = ssd_scan(x, dt, A, Bm, Cm)
+    assert out.transpose(1, 2).is_contiguous()
+    _ssd_close(out, ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float()), dtype)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_rejects_what_the_kernel_does_not_take(card):
+    rng = np.random.default_rng(1)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 1, 2, 40, 64, 16, "bfloat16", card)
+    with pytest.raises(ValueError, match="hp in"):
+        ssd_scan(x[..., :48], dt, A, Bm, Cm)                       # hp 48
+    with pytest.raises(ValueError, match="N in"):
+        ssd_scan(x, dt, A, Bm[..., :8], Cm[..., :8])               # N 8
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan(x, dt.half(), A, Bm, Cm)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan(x, dt, A.bfloat16(), Bm, Cm)
+    with pytest.raises(TypeError, match="share a dtype"):
+        ssd_scan(x, dt, A, Bm.float(), Cm)
+    buf = torch.zeros(1, 40, 64 + 1, device=card, dtype=torch.bfloat16)
+    x_odd = buf[..., 1:].view(1, 40, 1, 64).expand(1, 40, 2, 64).transpose(1, 2)
+    with pytest.raises(ValueError, match="aligned"):                # rows 2 bytes off
+        ssd_scan(x_odd, dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="unit last stride"):
+        ssd_scan(x, dt, A, Bm.transpose(1, 2).contiguous().transpose(1, 2), Cm)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
     q = torch.zeros(1, 2, 16, 80, device=card, dtype=torch.bfloat16)
@@ -138,6 +221,25 @@ def test_tiny_prefill_on_the_card_matches_the_cpu(card):
     out = make_prefill_step(gpu)({"tokens": tokens})
     torch.cuda.synchronize()
     L = arch.num_layers
-    assert kernels.launch_counts() == {"flash_attention": L, "rmsnorm": 2 * L + 1}
+    assert kernels.launch_counts() == {"flash_attention": L, "rmsnorm": 2 * L + 1, "ssd_scan": 0}
+    ref = make_prefill_step(cpu)({"tokens": tokens})
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tiny_mamba2_prefill_on_the_card_matches_the_cpu(card):
+    """The same for tiny mamba2, over 300 tokens (past a 256-token chunk):
+    one SSD and two RMSNorm launches per layer plus the final norm."""
+    arch = scale_arch(get_config("mamba2-2.7b"), "tiny")
+    cfg = RunCfg(compute_dtype=torch.float32)
+    cpu = init_params(arch, torch.Generator().manual_seed(0), cfg, device="cpu")
+    gpu = init_params(arch, torch.Generator(device=card).manual_seed(0), cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = np.random.default_rng(1).integers(0, arch.vocab, (2, 300))
+    kernels.reset_launch_counts()
+    out = make_prefill_step(gpu)({"tokens": tokens})
+    torch.cuda.synchronize()
+    L = arch.num_layers
+    assert kernels.launch_counts() == {"flash_attention": 0, "rmsnorm": 2 * L + 1, "ssd_scan": L}
     ref = make_prefill_step(cpu)({"tokens": tokens})
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)

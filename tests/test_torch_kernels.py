@@ -12,14 +12,19 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import flash_attention as jax_flash, rmsnorm as jax_rmsnorm  # noqa: E402
+from repro.kernels import ssd_scan as jax_ssd  # noqa: E402
 from repro.kernels.ref import flash_attention_ref as jax_flash_ref  # noqa: E402
 from repro.kernels.ref import rmsnorm_ref as jax_rmsnorm_ref  # noqa: E402
+from repro.kernels.ref import ssd_scan_ref as jax_ssd_ref  # noqa: E402
+from repro.models.layers import ssm_decode_step as jax_ssm_decode_step  # noqa: E402
 from repro_torch import kernels, resolve_device  # noqa: E402
-from repro_torch.kernels import flash_attention, rmsnorm  # noqa: E402
-from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref  # noqa: E402
+from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan  # noqa: E402
+from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref, ssd_scan_ref  # noqa: E402
+from repro_torch.models.layers import softplus, ssm_decode_step  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 FLASH_GRID = [
@@ -29,6 +34,11 @@ FLASH_GRID = [
     (2, 256, 6, 3, 128),    # grouped, 128-wide heads
 ]
 RMS_GRID = [(64, 256), (100, 512), (256, 1024)]
+SSD_GRID = [                    # B, nh, S, hp, N, chunk (tests/test_kernels.py:40-44)
+    (1, 2, 256, 64, 16, 128),
+    (2, 3, 300, 32, 64, 64),    # padded tail
+    (1, 4, 64, 16, 128, 32),
+]
 
 
 def _tol(dtype):
@@ -102,12 +112,92 @@ def test_rmsnorm_matches_pallas_and_ref(T, H, dtype):
     np.testing.assert_array_equal(_np(out), _np(rmsnorm_ref(tx, tw)))
 
 
+def _ssd_inputs(seed, B, nh, S, hp, N, long_memory=False):
+    """numpy inputs. tests/test_kernels.py's draw (dt = softplus(N(0,1)),
+    A = -exp(N(0,1)/2)) forgets within a few tokens; ``long_memory`` draws
+    from the init's ranges (dt ~ U(1e-3, 1e-1), A = -U(1, 16)), so the
+    state carried across chunks matters far past a chunk start."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, nh, S, hp), dtype=np.float32)
+    if long_memory:
+        dt = rng.uniform(1e-3, 1e-1, (B, nh, S)).astype(np.float32)
+        A = -rng.uniform(1.0, 16.0, nh).astype(np.float32)
+    else:
+        dt = np.logaddexp(rng.standard_normal((B, nh, S)), 0).astype(np.float32)
+        A = -np.exp(0.5 * rng.standard_normal(nh)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N), dtype=np.float32)
+    Cm = rng.standard_normal((B, S, N), dtype=np.float32)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("B,nh,S,hp,N,chunk", SSD_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_matches_pallas_and_ref(B, nh, S, hp, N, chunk, dtype):
+    """The plain version against the Pallas kernel in interpret mode and the
+    JAX recurrence, at tests/test_kernels.py:55-56's tolerances."""
+    x, dt, A, Bm, Cm = _ssd_inputs(7, B, nh, S, hp, N)
+    (jx, tx), (jb, tb), (jc, tc) = _both(x, dtype), _both(Bm, dtype), _both(Cm, dtype)
+    jdt, jA = jnp.asarray(dt), jnp.asarray(A)
+    pallas = jax_ssd(jx, jdt, jA, jb, jc, chunk=chunk, interpret=True)
+    jref = jax_ssd_ref(jx, jdt, jA, jb, jc)
+    out = ssd_scan(tx, torch.from_numpy(dt), torch.from_numpy(A), tb, tc, chunk=chunk)
+    assert out.dtype == tx.dtype and out.shape == tx.shape
+    tol = dict(rtol=5e-2, atol=5e-2) if dtype == "bfloat16" else dict(rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(_np(out), _np(pallas), **tol)
+    np.testing.assert_allclose(_np(out), _np(jref), **tol)
+
+
+def test_ssd_scan_model_layout_views():
+    """The model's layout: x a [B,nh,S,hp] view of a column slice of the
+    conv output [B,S,conv_dim], Bm and Cm column slices of it, dt a
+    [B,nh,S] view of a [B,S,nh] tensor. The same values as dense tensors."""
+    B, nh, S, hp, N = 2, 3, 300, 32, 16
+    x, dt, A, Bm, Cm = (torch.from_numpy(a) for a in _ssd_inputs(3, B, nh, S, hp, N))
+    buf = torch.cat([x.transpose(1, 2).reshape(B, S, nh * hp), Bm, Cm], dim=-1)
+    xv = buf[..., :nh * hp].view(B, S, nh, hp).transpose(1, 2)
+    bv, cv = buf[..., nh * hp:nh * hp + N], buf[..., nh * hp + N:]
+    dtv = dt.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not (xv.is_contiguous() or bv.is_contiguous() or dtv.is_contiguous())
+    np.testing.assert_array_equal(_np(ssd_scan(xv, dtv, A, bv, cv, chunk=64)),
+                                  _np(ssd_scan_ref(x, dt, A, Bm, Cm, chunk=64)))
+
+
+@pytest.mark.parametrize("long_memory", [False, True])
+def test_ssd_plain_version_equals_decode_recurrence(long_memory):
+    """The chunked plain version equals the token-by-token recurrence that
+    decode runs (the port's ``ssm_decode_step``, itself held to JAX's):
+    tests/test_kernels.py:61-80, plus a long-memory draw over several
+    chunks."""
+    B, nh, S, hp, N = 1, 2, 96, 16, 32
+    x, dt, A, Bm, Cm = _ssd_inputs(5, B, nh, S, hp, N, long_memory)
+    out = ssd_scan(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)), chunk=32)
+    state = torch.zeros(B, nh, hp, N)
+    jstate = jnp.zeros((B, nh, hp, N))
+    ys = []
+    for t in range(S):
+        args = (x[:, :, t], dt[:, :, t], A, Bm[:, t], Cm[:, t])
+        y, state = ssm_decode_step(*(torch.from_numpy(np.ascontiguousarray(a)) for a in args),
+                                   state)
+        jy, jstate = jax_ssm_decode_step(*(jnp.asarray(a) for a in args), jstate)
+        np.testing.assert_allclose(_np(y), _np(jy), rtol=1e-5, atol=1e-5)
+        ys.append(y)
+    np.testing.assert_allclose(_np(out), _np(torch.stack(ys, dim=2)), rtol=3e-4, atol=3e-4)
+
+
+def test_softplus_matches_jax():
+    x = np.concatenate([np.linspace(-100, 100, 2001), [0.0, 1e-8, -1e-8, 30.0, 88.0]])
+    x = x.astype(np.float32)
+    np.testing.assert_allclose(_np(softplus(torch.from_numpy(x))),
+                               _np(jax.nn.softplus(jnp.asarray(x))), rtol=1e-6, atol=1e-7)
+
+
 def test_cpu_calls_launch_no_kernel():
     kernels.reset_launch_counts()
     (_, _, _), (q, k, v) = _flash_inputs(1, 1, 64, 2, 1, 32, "float32")
     flash_attention(q, k, v)
     rmsnorm(torch.ones(4, 8), torch.ones(8))
-    assert kernels.launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+    ssd_scan(*(torch.from_numpy(a) for a in _ssd_inputs(1, 1, 2, 40, 16, 16)))
+    assert kernels.launch_counts() == {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
@@ -124,3 +214,7 @@ def test_no_silent_cpu_fallback(monkeypatch):
         flash_attention(meta, meta[:, :2], meta[:, :2])
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         rmsnorm(torch.empty(4, 8, device="meta"), torch.empty(8, device="meta"))
+    x = torch.empty(1, 2, 40, 16, device="meta")
+    bc = torch.empty(1, 40, 16, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        ssd_scan(x, torch.empty(1, 2, 40, device="meta"), torch.empty(2, device="meta"), bc, bc)

@@ -19,7 +19,7 @@ from repro_torch.launch.train import scale_arch  # noqa: E402
 from repro_torch.models.lm import RunCfg  # noqa: E402
 from repro_torch.serving import greedy_generate, make_prefill_step, make_serve_step  # noqa: E402
 
-ARCHS = ["yi-6b", "granite-3-8b", "minitron-4b"]
+ARCHS = ["yi-6b", "granite-3-8b", "minitron-4b", "mamba2-2.7b"]
 JCFG = jlm.RunCfg(q_chunk=0, remat=False, compute_dtype=jnp.float32)
 TCFG = RunCfg(compute_dtype=torch.float32)
 
@@ -65,6 +65,27 @@ def test_serve_step_matches_jax():
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-4)
         np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnext))
     np.testing.assert_allclose(cache["k"].numpy(), np.asarray(jcache["k"]), rtol=1e-4, atol=1e-4)
+
+
+def test_ssm_serve_step_and_caches_match_jax():
+    """mamba2's serve step: logits, tokens and the conv and SSM caches
+    (updated in place) against the reference's new cache, step by step."""
+    jarch, params, model = _setup("mamba2-2.7b")
+    toks = np.random.default_rng(4).integers(0, jarch.vocab, (2, 6)).astype(np.int32)
+    jstep = jserve.make_serve_step(jarch, JCFG)
+    jcache = jlm.init_cache(jarch, 2, 8, JCFG)
+    step = make_serve_step(model)
+    cache = model.init_cache(2, 8)
+    assert sorted(cache) == sorted(jcache) == ["conv", "ssm"]
+    assert cache["ssm"].dtype == torch.float32
+    for pos in range(toks.shape[1]):
+        jnext, jlogits, jcache = jstep(params, jcache, jnp.asarray(toks[:, pos]), jnp.int32(pos))
+        nxt, logits, cache = step(cache, toks[:, pos], pos)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnext))
+        for key in ("conv", "ssm"):
+            np.testing.assert_allclose(cache[key].numpy(), np.asarray(jcache[key]),
+                                       rtol=1e-4, atol=1e-4)
 
 
 def test_greedy_generate_needs_a_new_token():
