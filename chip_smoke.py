@@ -55,6 +55,7 @@ SSD_F32_TOL, SSD_F32_REL_L2 = dict(rtol=2e-3, atol=2e-3), 1e-4
 RMS_BF16_RTOL = 1.01 * 2 ** -8
 FLASH_CASES = [(1, 128, 4, 4, 64), (2, 200, 4, 2, 64), (1, 384, 8, 1, 32), (2, 256, 6, 3, 128)]
 FLASH_MAIN = (2, 2000, 32, 4, 128)       # yi-6b prefill: B, S, nh, nkv, hd
+FLASH_HYMBA = (2, 2000, 25, 5, 64)       # hymba-1.5b prefill (window 1024)
 RMS_CASES = [(64, 256), (100, 512), (256, 1024)]
 # prefill B*S, teacher-forced S, decode B, prefill's final norm (B), teacher-forced decode
 RMS_MAIN = [(4000, 4096), (64, 4096), (4, 4096), (2, 4096), (1, 4096)]
@@ -220,6 +221,14 @@ def phase_parity():
         # rows past a short window and a padded tail: finite, no NaN
         q, k, v = _flash_inputs(gen, 1, 130, 2, 2, 64, dtype)
         _flash_case(f"flash {tag} window=3 S=130", q, k, v, window=3)
+        # hymba-1.5b's attention (hd 64, GQA group 5, window 1024) at prefill
+        _flash_case(f"flash {tag} B,S,nh,nkv,hd={FLASH_HYMBA} window=1024",
+                    *_flash_inputs(gen, *FLASH_HYMBA, dtype), window=1024)
+        # q based 16 bytes into a larger buffer: aligned for TMA, off the
+        # 128-byte swizzle span
+        q, k, v = _flash_inputs(gen, 2, 200, 4, 2, 128, dtype)
+        q = torch.cat([q.new_zeros(16 // q.element_size()), q.flatten()])[16 // q.element_size():]
+        _flash_case(f"flash {tag} q 16 bytes into a buffer", q.view(2, 4, 200, 128), k, v)
         for T, H in RMS_CASES + RMS_MAIN + RMS_MAIN_SSM:
             x, w = _randn(gen, T, H, dtype=dtype), _randn(gen, H, dtype=dtype)
             out = rmsnorm(x, w)
@@ -482,33 +491,55 @@ def _log_row(r):
         f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library {lib}")
 
 
-def times_attn_kernels(gen):
-    """yi-6b's kernels at its prefill shapes, bf16."""
-    from repro_torch.kernels import flash_attention, rmsnorm
-    from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref
+def _flash_row(gen, views):
+    """Flash at yi-6b's prefill shape, bf16, beside SDPA on the same
+    tensors: [B,nh,S,hd] tensors, or the model's [B,S,nh,hd] tensors seen
+    through transposed views."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
     dt = torch.bfloat16
-    rows = []
     B, S, nh, nkv, hd = FLASH_MAIN
     q, k, v = _flash_inputs(gen, B, S, nh, nkv, hd, dt)
+    if views:
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flops = 4 * B * nh * hd * S * (S + 1) // 2      # causal pairs this input needs
     bound, by = _bound(nbytes, flops, dt)
-    rows.append(dict(
-        name="flash_attention", ms=time_device(lambda: flash_attention(q, k, v)),
-        plain_ms=time_device(lambda: flash_attention_ref(q, k, v), n=3, reps=3),
-        library_ms=time_device(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
-        bound_ms=bound, bound_by=by, shape=f"q{list(q.shape)} kv{list(k.shape)} bf16"))
+    row = dict(name="flash_attention", ms=time_device(lambda: flash_attention(q, k, v)),
+               plain_ms=time_device(lambda: flash_attention_ref(q, k, v), n=3, reps=3),
+               library_ms=time_device(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True)),
+               bound_ms=bound, bound_by=by,
+               shape=f"q{list(q.shape)} kv{list(k.shape)} bf16{' [B,S,nh,hd] views' if views else ''}")
+    log(f"[time] flash_attention{' views' if views else ''}: {flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{100 * bound / row['ms']:.1f}% of the bound; SDPA {flops / row['library_ms'] / 1e9:.1f} "
+        f"TFLOP/s; kernel / SDPA = {row['ms'] / row['library_ms']:.3f}")
+    return row
 
-    T, H = RMS_MAIN[0]
+
+def _rms_row(gen, T, H):
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.kernels.ref import rmsnorm_ref
+    dt = torch.bfloat16
     x, w = _randn(gen, T, H, dtype=dt), _randn(gen, H, dtype=dt)
     bound, by = _bound((2 * x.numel() + w.numel()) * x.element_size(), 4 * x.numel(),
                        torch.float32)
-    rows.append(dict(
-        name="rmsnorm", ms=time_device(lambda: rmsnorm(x, w)),
-        plain_ms=time_device(lambda: rmsnorm_ref(x, w)),
-        library_ms=time_device(lambda: F.rms_norm(x, (H,), w, eps=1e-5)),
-        bound_ms=bound, bound_by=by, shape=f"x{list(x.shape)} bf16"))
+    row = dict(name="rmsnorm", ms=time_device(lambda: rmsnorm(x, w)),
+               plain_ms=time_device(lambda: rmsnorm_ref(x, w)),
+               library_ms=time_device(lambda: F.rms_norm(x, (H,), w, eps=1e-5)),
+               bound_ms=bound, bound_by=by, shape=f"x{list(x.shape)} bf16")
+    log(f"[time] rmsnorm x[{T}, {H}]: {100 * bound / row['ms']:.1f}% of the bound; "
+        f"kernel / F.rms_norm = {row['ms'] / row['library_ms']:.3f}")
+    return row
+
+
+def times_attn_kernels(gen):
+    """yi-6b's kernels at its prefill shapes, bf16. The kernel line keeps
+    the contiguous flash row and RMSNorm at [4000, 4096]; the strided flash
+    row is logged."""
+    rows = [_flash_row(gen, views=False)]
+    _log_row(_flash_row(gen, views=True))
+    rows.append(_rms_row(gen, *RMS_MAIN[0]))
     return rows
 
 
@@ -518,11 +549,10 @@ def times_ssm_kernels(gen):
     PyTorch call computes the scan, so there is no library time. Also logs
     RMSNorm at mamba2's two prefill shapes (norm1 and the gated ssm_norm),
     for the prefill breakdown; the kernel line keeps yi-6b's RMSNorm row."""
-    from repro_torch.kernels import rmsnorm, ssd_scan
+    from repro_torch.kernels import ssd_scan
     from repro_torch.kernels.ref import ssd_scan_ref
     for T, H in RMS_MAIN_SSM[:2]:
-        x, w = _randn(gen, T, H, dtype=torch.bfloat16), _randn(gen, H, dtype=torch.bfloat16)
-        log(f"[time] rmsnorm x[{T}, {H}] bf16: kernel {time_device(lambda: rmsnorm(x, w)):.4f} ms")
+        _log_row(_rms_row(gen, T, H))
     B, nh, S, hp, N, Q = SSD_MAIN
     x, dt, A, Bm, Cm = _ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, views=True)
     # each input read once, y written once

@@ -5,6 +5,11 @@ shared library with a plain C interface under ``build/repro_torch/`` at
 the repository root; the file name carries a hash of the sources, so an
 edited kernel is rebuilt and an unchanged one is loaded as it is. The
 library is loaded with ``ctypes``. Nothing here runs at import time.
+
+There is no ``-lcuda``: the one driver call the kernels need,
+``cuTensorMapEncodeTiled`` (the flash kernel's TMA maps), is looked up
+through the runtime's ``cudaGetDriverEntryPoint``. No CUTLASS headers
+are used.
 """
 
 from __future__ import annotations
@@ -32,9 +37,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
     # name: (restype, argtypes)
-    "rmsnorm_launch": (_I, [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P]),
-    "flash_attention_launch": (_I, [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
-                                    _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "rmsnorm_launch": (_I, [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P]),
+    "flash_attention_wgmma_launch": (_I, [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
+                                          _I, _I, _I, _I, _I, _I, _I, _P]),
+    "flash_attention_mma_launch": (_I, [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
+                                        _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "ssd_scan_launch": (_I, [_P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
                              _I, _I, _I, _I, _I, _I, _P]),
     "cuda_error_string": (ctypes.c_char_p, [_I]),

@@ -1,5 +1,8 @@
-// Causal GQA flash attention (forward) with an optional sliding window,
-// for Hopper (sm_90a).
+// Causal GQA flash attention (forward) with an optional sliding window, for
+// Hopper (sm_90a): the bf16 kernel at head_dim 64 and 128, built on wgmma
+// and TMA. fp32 (every head_dim) and bf16 at head_dim 32 go to the
+// mma.sync / FMA kernel in flash_attention_mma.cu; kernels/flash_attention.py
+// picks by (dtype, head_dim).
 //
 // Replaces: src/repro/kernels/flash_attention.py, _flash_kernel /
 // flash_attention. o = softmax(mask(q k^T * hd^-0.5)) v per head, with the
@@ -7,33 +10,45 @@
 // the causal future or outside the window skipped, and rows with nothing
 // to attend to written as 0.
 //
-// Bound on the H100: operations. Causal attention does 4*B*nh*S^2*hd/2
-// flops (two products of 2*S*S*hd/2 each), which at 989 TFLOP/s (bf16
+// Bound on the H100: operations. Causal attention does 4*B*nh*hd*S(S+1)/2
+// flops (two products over the causal pairs), which at 989 TFLOP/s (bf16
 // tensor cores) is the least time. At yi-6b prefill (B 2, nh 32, S 2000,
-// hd 128) that is 65.5 GFLOP, 66 us; the bytes (q, k, v read once, o
-// written once: 37 MB) take 11 us at 3.35 TB/s.
+// hd 128) that is 65.6 GFLOP, 0.066 ms; the bytes (q, k, v read once, o
+// written once: 37 MB) take 0.011 ms at 3.35 TB/s.
 //
-// Design, first version (right before fast):
-//  * One 128-thread CTA per (q tile of 64 rows, head, batch). The TPU's
-//    sequential kv-block grid axis is a loop inside the CTA, because
-//    Hopper runs blocks in no order. Tiles run heaviest first (the last
-//    q tile has the most causal kv tiles).
-//  * Each of the four warps owns 16 query rows. q, then each 64-row k and
-//    v tile, are staged in shared memory with 16-byte loads (rows padded
-//    by 16 bytes so the fragment reads hit distinct banks). The tail past
-//    S is zero-filled and masked here: the tensors are never padded.
-//  * bf16: q k^T and p v run on the tensor cores through
-//    mma.sync.m16n8k16 with fp32 accumulation; q's fragments stay in
-//    registers for the whole kv loop, and p goes from the score
-//    accumulators straight into the A fragments of p v (rounded to bf16;
-//    l is summed from the fp32 p). fp32: the same register layout, filled
-//    by plain FMAs, so fp32 keeps full precision (no TF32).
-//  * m, l and acc stay in fp32 registers; the four threads that share a
-//    row reduce with two shuffles. GQA reads the kv head directly: no
-//    repeated k/v in device memory.
-//  * Strides are arguments: q, k, v and o may be [B,nh,S,hd] tensors or
-//    views of [B,S,nh,hd] ones, with hd contiguous.
-// Later PRs: wgmma and TMA with a multi-stage ring, and a q tile of 128.
+// Design (after FlashAttention-3's shape, without its ping-pong and
+// intra-warpgroup overlap: both measured slower here, PERF.md):
+//  * A persistent grid, one CTA of three warpgroups per SM, walks work
+//    items (q tile of 128 rows, head, batch), heaviest causal q tiles
+//    first, in a snake order across the CTAs. Two consumer warpgroups own
+//    64 q rows each, so each issues wgmma.m64nNk16; the third is the
+//    producer: one of its threads issues every TMA copy. setmaxnreg gives
+//    the producer's registers to the consumers (24 and 240 a thread). The
+//    TPU's sequential kv-block grid axis is the loop over an item's tiles.
+//  * Copies: q is loaded once per item, as soon as the consumers are done
+//    with the previous item's last q k^T; k and v tiles of 128 rows go
+//    through a ring of kStages slots with full and empty mbarriers that
+//    runs on across items, so the copy of the next tile overlaps the
+//    products on this one and one item's epilogue the next item's loads.
+//    The tensor maps are 4-D (hd, S, head, batch) over the caller's
+//    strides, so the model's [B,S,nh,hd] views need no copy, and TMA
+//    zero-fills rows at or past S: the tensors are never padded. A bf16 row
+//    of hd 128 is 256 bytes, wider than the 128-byte swizzle span, so a
+//    tile is loaded as hd/64 boxes of [128 rows][64 columns].
+//  * Products: S = q k^T is a wgmma with both operands in shared memory,
+//    K-major, 128-byte swizzled. o += p v takes p from registers (the score
+//    accumulators rounded to bf16 become the A fragments without leaving
+//    the thread; l sums the fp32 p) and v from shared memory through the
+//    MN-major (transposed) descriptor. Accumulation is fp32; exp2 is the
+//    hardware's ex2.approx.
+//  * Masking: scale and mask in fp32, in the reference's order, only on
+//    tiles that straddle the diagonal, the window's edge or S; tiles wholly
+//    in the future or outside the window are never loaded.
+//  * Epilogue: o is scaled by 1/l in registers, rounded once to bf16 and
+//    stored into o's strided layout; rows at or past S are not written.
+// The tensor maps are encoded on the host through cudaGetDriverEntryPoint,
+// so the library needs no -lcuda.
+#include <cuda.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -41,55 +56,174 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kBQ = 64;       // query rows per CTA
-constexpr int kBK = 64;       // kv rows per tile
-constexpr int kWarps = 4;     // 16 query rows each
-constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 128;                  // q rows per work item
+constexpr int kBK = 128;                  // kv rows per tile
+constexpr int kStages = 2;                // k/v ring slots
+constexpr int kBoxCols = 64;              // bf16 columns in one 128-byte swizzle span
+constexpr int kBoxBytes = 128 * kBoxCols * 2;   // a [128 rows][64] box (kBQ == kBK == 128)
+constexpr int kConsumers = 256;           // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;      // and one producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kTensorMapError = 100000;   // + CUresult; see errors.cu
+static_assert(kBQ == 128 && kBK == 128, "boxes are 128 rows");
 
-struct FlashParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-  int nh, nkv, S, causal, window;
-  float scale_log2;  // hd^-0.5 * log2(e): scores go through exp2
+// Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
+// repeats every 8 rows of 128 bytes): q, the k ring, the v ring, barriers.
+template <int HD> struct Smem {
+  static constexpr int kBoxes = HD / kBoxCols;
+  static constexpr int kTile = kBoxes * kBoxBytes;   // one q, k or v tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;   // q_full, q_empty, then k_full[], k_empty[],
+                                                      // v_full[], v_empty[]
+  static constexpr int kBytes = kBar + 8 * (2 + 4 * kStages) + 1024;   // + alignment slack
 };
 
-// row stride of a staged tile, padded by 16 bytes
-template <typename T, int HD> __host__ __device__ constexpr int tile_ld() { return HD + 16 / sizeof(T); }
-constexpr int kLdP = kBK + 4;  // fp32 p scratch row stride (fp32 path only)
+struct Params {
+  void* o;
+  long long o_sb, o_sh, o_ss;
+  int B, nh, nkv, S, causal, window, n_qtiles, n_items;
+  float scale_log2;   // hd^-0.5 * log2(e): scores go through exp2
+};
 
-template <typename T, int HD> constexpr int smem_bytes() {
-  return (kBQ + 2 * kBK) * tile_ld<T, HD>() * static_cast<int>(sizeof(T)) +
-         (sizeof(T) == 4 ? kWarps * 16 * kLdP * 4 : 0);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Copy rows [r0, r0 + ROWS) of a [S, HD] strided slab into shared memory,
-// zero-filling rows at or past S.
-template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_stride, int r0,
-                                          int S) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = HD / kVec;
-  constexpr int LD = tile_ld<T, HD>();
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c * kVec);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * kVec) = val;
-  }
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+// arrive once and expect `bytes` of TMA traffic before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// box at coordinates (c0 column, c1 row, c2 head, c3 batch) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = SW128.
+// K-major (q, k): LBO unused, SBO = 1024 bytes between 8-row groups.
+// MN-major (v): LBO = bytes between 64-column boxes, SBO = 1024 bytes
+// between groups of 8 k rows.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until every committed group of this warpgroup is done
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accesses of wgmma registers across this point
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= a b^T: a [64 x 16] and b [128 x 16] bf16, both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a b: a [64 x 16] bf16 in registers, b [16 x 128] bf16 MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a b: a [64 x 16] bf16 in registers, b [16 x 64] bf16 MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HD == 128) {
+    wgmma_rs_n128(o, a, db, 1);
+  } else {
+    wgmma_rs_n64(o, a, db, 1);
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -97,295 +231,363 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ float fast_exp2(float x) {   // exp2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ uint32_t pair_bf16(const __nv_bfloat16* lo, const __nv_bfloat16* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(hi)) << 16);
-}
-
-// Fragment layout (mma.m16n8k16 accumulator), used by both types: lane
-// (g = lane / 4, t = lane % 4) holds, for each 8-column block j,
-// c[j][0..1] at row g, columns 8j + 2t + {0,1}, and c[j][2..3] at row
-// g + 8, the same columns. Rows are relative to the warp's 16.
-template <typename T, int HD> struct Mma;
-
-template <int HD> struct Mma<__nv_bfloat16, HD> {
-  using T = __nv_bfloat16;
-  static constexpr int LD = tile_ld<T, HD>();
-  uint32_t qf[HD / 16][4];  // q's A fragments, loaded once
-
-  __device__ __forceinline__ void load_q(const T* sQ, int warp, int g, int t) {
-    const T* r0 = sQ + (warp * 16 + g) * LD + 2 * t;
-    const T* r1 = r0 + 8 * LD;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      qf[kk][0] = ld_u32(r0 + kk * 16);
-      qf[kk][1] = ld_u32(r1 + kk * 16);
-      qf[kk][2] = ld_u32(r0 + kk * 16 + 8);
-      qf[kk][3] = ld_u32(r1 + kk * 16 + 8);
-    }
-  }
-
-  // s[j] = q k^T for kv columns 8j .. 8j+7 of the tile
-  __device__ __forceinline__ void qk(float (&s)[kBK / 8][4], const T* sQ, const T* sK, int warp,
-                                     int g, int t) const {
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      const T* kr = sK + (j * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        mma_bf16(s[j], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3], ld_u32(kr + kk * 16),
-                 ld_u32(kr + kk * 16 + 8));
-    }
-  }
-
-  // acc += p v; p comes in the accumulator layout of qk and becomes the
-  // A fragment of this product without leaving registers.
-  __device__ __forceinline__ void pv(float (&acc)[HD / 8][4], const float (&p)[kBK / 8][4],
-                                     const T* sV, float*, int, int g, int t) const {
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a0 = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-      const T* v0 = sV + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const T* vn = v0 + n * 8;
-        mma_bf16(acc[n], a0, a1, a2, a3, pair_bf16(vn, vn + LD),
-                 pair_bf16(vn + 8 * LD, vn + 9 * LD));
-      }
-    }
-  }
-};
-
-template <int HD> struct Mma<float, HD> {
-  using T = float;
-  static constexpr int LD = tile_ld<T, HD>();
-
-  __device__ __forceinline__ void load_q(const T*, int, int, int) {}
-
-  __device__ __forceinline__ void qk(float (&s)[kBK / 8][4], const T* sQ, const T* sK, int warp,
-                                     int g, int t) const {
-    const T* q0 = sQ + (warp * 16 + g) * LD;
-    const T* q1 = q0 + 8 * LD;
-    const T* kr = sK + 2 * t * LD;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      const float qa = q0[d], qb = q1[d];
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        const float k0 = kr[j * 8 * LD + d], k1 = kr[(j * 8 + 1) * LD + d];
-        s[j][0] = fmaf(qa, k0, s[j][0]);
-        s[j][1] = fmaf(qa, k1, s[j][1]);
-        s[j][2] = fmaf(qb, k0, s[j][2]);
-        s[j][3] = fmaf(qb, k1, s[j][3]);
-      }
-    }
-  }
-
-  // p goes through the warp's slice of shared memory, since each row of
-  // the product needs all 64 of its p values.
-  __device__ __forceinline__ void pv(float (&acc)[HD / 8][4], const float (&p)[kBK / 8][4],
-                                     const T* sV, float* sP, int warp, int g, int t) const {
-    float* pw = sP + warp * 16 * kLdP;
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      pw[g * kLdP + j * 8 + 2 * t] = p[j][0];
-      pw[g * kLdP + j * 8 + 2 * t + 1] = p[j][1];
-      pw[(g + 8) * kLdP + j * 8 + 2 * t] = p[j][2];
-      pw[(g + 8) * kLdP + j * 8 + 2 * t + 1] = p[j][3];
-    }
-    __syncwarp();
-#pragma unroll 2
-    for (int c = 0; c < kBK; ++c) {
-      const float pa = pw[g * kLdP + c], pb = pw[(g + 8) * kLdP + c];
-      const T* vr = sV + c * LD + 2 * t;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const float v0 = vr[n * 8], v1 = vr[n * 8 + 1];
-        acc[n][0] = fmaf(pa, v0, acc[n][0]);
-        acc[n][1] = fmaf(pa, v1, acc[n][1]);
-        acc[n][2] = fmaf(pb, v0, acc[n][2]);
-        acc[n][3] = fmaf(pb, v1, acc[n][3]);
-      }
-    }
-    __syncwarp();
-  }
-};
-
-__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
-  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p) {
-  constexpr int LD = tile_ld<T, HD>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kBQ * LD;
-  T* sV = sK + kBK * LD;
-  float* sP = reinterpret_cast<float*>(sV + kBK * LD);
-
-  const int S = p.S;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.nh / p.nkv);
-  const int q0 = qt * kBQ;
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  load_tile<T, HD, kBQ>(sQ, qg, p.q_ss, q0, S);
-  __syncthreads();
-  Mma<T, HD> mma;
-  mma.load_q(sQ, warp, g, t);
-
+// Online softmax over one [64 x kBK] score tile of a warpgroup, in fp32:
+// the running row max m (unscaled) and this thread's share l of the row
+// sums, for the thread's two rows (see the accumulator layout below).
+struct Softmax {
   float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float l[2] = {0.f, 0.f};
 
-  // live kv tiles: skip the causal future and tiles the window has left
-  const int k_end = p.causal ? min(S, q0 + kBQ) : S;
-  const int kt_end = (k_end + kBK - 1) / kBK;
-  const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / kBK : 0;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // every warp is done with the previous k, v tiles
-    load_tile<T, HD, kBK>(sK, kg, p.k_ss, k0, S);
-    load_tile<T, HD, kBK>(sV, vg, p.v_ss, k0, S);
-    __syncthreads();
-
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma.qk(s, sQ, sK, warp, g, t);
-
-    // scale, then mask (the reference's order), in log2 units
-    float mx[2] = {-INFINITY, -INFINITY};
+  // p = exp2(s * scale_log2 - m * scale_log2), written as bf16 A fragments
+  // of p v (l sums the fp32 p). Returns the factors (row g, row g + 8) by
+  // which o, accumulated under the previous max, must be rescaled.
+  __device__ __forceinline__ float2 step(const float (&s)[kBK / 2], uint32_t (&pa)[kBK / 16][4],
+                                         float sc) {
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row[e / 2];
-        const int c = k0 + j * 8 + 2 * t + (e & 1);
-        bool ok = c < S;
-        if (p.causal) ok = ok && c <= r;
-        if (p.window > 0) ok = ok && c > r - p.window;
-        s[j][e] = ok ? s[j][e] * p.scale_log2 : -INFINITY;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
-    float corr[2], m_use[2];
+    float ms[2], corr[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      m_use[i] = m_new == -INFINITY ? 0.f : m_new;  // row with nothing live yet
-      corr[i] = exp2f(m[i] - m_use[i]);
-      m[i] = m_new;
+      ms[i] = (mx[i] == -INFINITY ? 0.f : mx[i]) * sc;   // row with nothing live yet
+      corr[i] = fast_exp2(fmaf(m[i], sc, -ms[i]));
+      m[i] = mx[i];
       l[i] *= corr[i];
     }
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      float pf[8];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - m_use[e / 2]);
-        l[e / 2] += s[j][e];
+      for (int e = 0; e < 8; ++e) {
+        pf[e] = fast_exp2(fmaf(s[8 * kk + e], sc, -ms[(e / 2) % 2]));
+        l[(e / 2) % 2] += pf[e];
+      }
+      pa[kk][0] = pack_bf16(pf[0], pf[1]);   // row g, k 2t..2t+1
+      pa[kk][1] = pack_bf16(pf[2], pf[3]);   // row g+8
+      pa[kk][2] = pack_bf16(pf[4], pf[5]);   // row g, k 8+2t..
+      pa[kk][3] = pack_bf16(pf[6], pf[7]);   // row g+8, k 8+2t..
+    }
+    return make_float2(corr[0], corr[1]);
+  }
+};
+
+// One work item: a 128-row q tile of one head, and the kv tiles it attends
+// to (the causal future and what the window has left are skipped).
+struct Item {
+  int q0, h, b, kt_begin, kt_end;
+};
+
+// Item `r` of this CTA's share, or false past the last. Items are numbered
+// heaviest causal q tile first; CTA c takes one of every gridDim.x, in a
+// snake order (c, then 2G - 1 - c, ...) that evens out the CTAs' loads.
+__device__ __forceinline__ bool item_of(const Params& p, int r, Item& it) {
+  const int G = gridDim.x, c = blockIdx.x;
+  const int idx = r * G + ((r & 1) ? G - 1 - c : c);
+  if (idx >= p.n_items) return false;
+  const int per_tile = p.nh * p.B;
+  it.q0 = (p.n_qtiles - 1 - idx / per_tile) * kBQ;
+  it.h = idx % p.nh;
+  it.b = (idx / p.nh) % p.B;
+  const int k_end = p.causal ? min(p.S, it.q0 + kBQ) : p.S;
+  it.kt_end = (k_end + kBK - 1) / kBK;
+  it.kt_begin = p.window > 0 ? max(0, it.q0 - p.window + 1) / kBK : 0;
+  return true;
+}
+
+// Accumulator layout of wgmma.m64nNk16 (fp32): thread (warp w of the
+// warpgroup, lane g*4 + t) holds, for each 8-column block j, d[4j+0..1] at
+// row 16w + g, columns 8j + 2t + {0,1}, and d[4j+2..3] at row 16w + g + 8.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Params p) {
+  using L = Smem<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t q_full = base + L::kBar, q_empty = q_full + 8;
+  const uint32_t k_full = q_empty + 8, k_empty = k_full + 8 * kStages;
+  const uint32_t v_full = k_empty + 8 * kStages, v_empty = v_full + 8 * kStages;
+  const int S = p.S;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kConsumers);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kConsumers);
+      mbar_init(v_empty + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      int stage = 0;
+      uint32_t phase = 0;
+      Item it{};
+      for (int r = 0; item_of(p, r, it); ++r) {
+        const int hk = it.h / (p.nh / p.nkv);
+        for (int kt = it.kt_begin; kt < it.kt_end; ++kt) {
+          const uint32_t off = stage * L::kTile;
+          mbar_wait(k_empty + 8 * stage, phase ^ 1);
+          mbar_expect_tx(k_full + 8 * stage, L::kTile);
+          for (int c = 0; c < L::kBoxes; ++c)
+            tma_load(sK + off + c * kBoxBytes, &tk, k_full + 8 * stage, c * kBoxCols, kt * kBK,
+                     hk, it.b);
+          if (kt == it.kt_begin) {
+            // q goes in once every consumer is done with the last item's
+            if (r > 0) mbar_wait(q_empty, (r - 1) & 1);
+            mbar_expect_tx(q_full, L::kTile);
+            for (int c = 0; c < L::kBoxes; ++c)
+              tma_load(sQ + c * kBoxBytes, &tq, q_full, c * kBoxCols, it.q0, it.h, it.b);
+          }
+          mbar_wait(v_empty + 8 * stage, phase ^ 1);
+          mbar_expect_tx(v_full + 8 * stage, L::kTile);
+          for (int c = 0; c < L::kBoxes; ++c)
+            tma_load(sV + off + c * kBoxBytes, &tv, v_full + 8 * stage, c * kBoxCols, kt * kBK,
+                     hk, it.b);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
     }
+  } else {
+    // ---- consumers: 64 q rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int row_in = wg * 64 + warp * 16 + lane / 4;   // the thread's rows: q0 + row_in (+ 8)
+    const int col0 = 2 * (lane % 4);                      // column of s[0] in a tile
+
+    float o[HD / 2];
+    float s[kBK / 2];
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
+    for (int i = 0; i < kBK / 2; ++i) s[i] = 0.f;
+    uint32_t pa[kBK / 16][4];   // p, as p v's A fragments
+
+    const uint64_t dq = sw128_desc(sQ + wg * 64 * 128, 16, 1024);
+    // S = q k^T over hd, 16 columns of hd per wgmma
+    auto issue_qk = [&](int stage) {
+      const uint64_t dk = sw128_desc(sK + stage * L::kTile, 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t step = ((kk / 4) * kBoxBytes + (kk % 4) * 32) >> 4;
+        wgmma_ss_n128(s, dq + step, dk + step, kk > 0);
+      }
+      wgmma_commit();
+    };
+    // o += p v, 16 kv rows per wgmma
+    auto issue_pv = [&](int stage) {
+      const uint64_t dv = sw128_desc(sV + stage * L::kTile, kBoxBytes, 1024);
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_pv<HD>(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
+      wgmma_commit();
+    };
+    auto wait_full = [&](uint32_t bar, uint32_t parity) {
+      mbar_wait(bar, parity);
+      __syncwarp();   // the spin may leave lanes apart; wgmma wants the warp converged
+    };
+    // scale, then mask (the reference's order), only where a tile
+    // straddles the diagonal, the window's edge or S
+    auto mask = [&](int q0, int k0) {
+      const bool edge = (p.causal && k0 + kBK - 1 > q0) || k0 + kBK > S ||
+                        (p.window > 0 && k0 <= q0 + kBQ - 1 - p.window);
+      if (!edge) return;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = q0 + row_in + (e / 2) * 8;
+          const int c = k0 + j * 8 + col0 + (e & 1);
+          bool ok = c < S;
+          if (p.causal) ok = ok && c <= r;
+          if (p.window > 0) ok = ok && c > r - p.window;
+          if (!ok) s[4 * j + e] = -INFINITY;
+        }
+      }
+    };
+
+    // Per item: for each kv tile q k^T, the softmax, p v; then the epilogue.
+    int stage = 0;
+    uint32_t phase = 0;
+    Item it{};
+    for (int r = 0; item_of(p, r, it); ++r) {
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      Softmax sm;
+      wait_full(q_full, r & 1);
+      const int n_tiles = it.kt_end - it.kt_begin;
+      for (int i = 0; i < n_tiles; ++i) {
+        const bool last = i + 1 == n_tiles;
+        wait_full(k_full + 8 * stage, phase);
+        fence_regs(s);
+        wgmma_fence();
+        issue_qk(stage);
+        wgmma_wait();
+        fence_regs(s);
+        mbar_arrive(k_empty + 8 * stage);
+        if (last) mbar_arrive(q_empty);   // the producer may load the next q
+        mask(it.q0, (it.kt_begin + i) * kBK);
+        const float2 corr = sm.step(s, pa, p.scale_log2);
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          o[4 * j] *= corr.x;
+          o[4 * j + 1] *= corr.x;
+          o[4 * j + 2] *= corr.y;
+          o[4 * j + 3] *= corr.y;
+        }
+        wait_full(v_full + 8 * stage, phase);
+        fence_regs(o);
+        wgmma_fence();
+        issue_pv(stage);
+        wgmma_wait();
+        fence_regs(o);
+        mbar_arrive(v_empty + 8 * stage);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      // o / l, rounded once, into o's strided layout; rows past S unwritten
+      float l[2] = {sm.l[0], sm.l[1]};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        l[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;   // rows with nothing to attend to -> 0
+      }
+      __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + it.b * p.o_sb + it.h * p.o_sh;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = it.q0 + row_in + 8 * i;
+        if (row >= S) continue;
+        __nv_bfloat16* orow = og + row * p.o_ss + col0;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(o[4 * j + 2 * i] * l[i], o[4 * j + 2 * i + 1] * l[i]);
+      }
     }
-    mma.pv(acc, s, sV, sP, warp, g, t);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;  // rows with nothing to attend to -> 0
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= S) continue;
-    T* orow = og + row[i] * p.o_ss + 2 * t;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      store_pair(orow + n * 8, acc[n][2 * i] * l[i], acc[n][2 * i + 1] * l[i]);
   }
 }
 
-template <typename T, int HD>
-int launch(const FlashParams& p, int B, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<T, HD>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// 4-D map over (hd, S, heads, batch) of a bf16 tensor with element strides
+// (seq, head, batch) and hd contiguous; [128 rows][64 columns] boxes,
+// 128-byte swizzle, rows past S read as zeros.
+int make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B,
+             const long long* strides) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
+  // bytes, for dims 1..3 (the seq, head and batch strides)
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
+                               static_cast<cuuint64_t>(strides[1]) * 2,
+                               static_cast<cuuint64_t>(strides[0]) * 2};
+  const cuuint32_t box[4] = {kBoxCols, 128, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            bytes, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
+}
+
+template <int HD>
+int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const Params& p,
+           cudaStream_t stream) {
+  constexpr int bytes = Smem<HD>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(flash_wgmma_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  // persistent: one CTA per SM (shared memory and registers allow no more)
+  static int sms = 0;
+  int dev = 0;
+  if (e == cudaSuccess && sms == 0) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && sms == 0)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((p.S + kBQ - 1) / kBQ, p.nh, B);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(p);
+  const int grid = p.n_items < sms ? p.n_items : sms;
+  flash_wgmma_kernel<HD><<<grid, kThreads, bytes, stream>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_hd(const FlashParams& p, int B, int hd, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// q, o: [B, nh, S, hd] and k, v: [B, nkv, S, hd] as element strides
-// (batch, head, seq) in `strides` (q, k, v, o in turn, 12 values); hd is
-// contiguous. Returns the cudaError_t of the launch (0 on success).
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      const long long* strides, int B, int nh, int nkv, int S,
-                                      int hd, int causal, int window, int dtype, void* stream) {
+// bf16 only, hd 64 or 128. q, o: [B, nh, S, hd] and k, v: [B, nkv, S, hd]
+// as element strides (batch, head, seq) in `strides` (q, k, v, o in turn,
+// 12 values, each a multiple of 8); hd contiguous; q, k, v 16-byte aligned.
+// Returns the cudaError_t of the launch (0 on success), or 100000 plus the
+// CUresult of a tensor map the driver refused.
+extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
+                                            const long long* strides, int B, int nh, int nkv,
+                                            int S, int hd, int causal, int window, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0)
+  if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || (hd != 64 && hd != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  FlashParams p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, hd, S, nh, B, strides);
+  if (err == 0) err = make_map(&tk, k, hd, S, nkv, B, strides + 3);
+  if (err == 0) err = make_map(&tv, v, hd, S, nkv, B, strides + 6);
+  if (err != 0) return err;
+  Params p;
   p.o = o;
-  p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
-  p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_ss = strides[5];
-  p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];
-  p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
+  p.o_sb = strides[9];
+  p.o_sh = strides[10];
+  p.o_ss = strides[11];
   p.nh = nh;
   p.nkv = nkv;
   p.S = S;
   p.causal = causal;
   p.window = window;
+  p.B = B;
+  p.n_qtiles = (S + kBQ - 1) / kBQ;
+  p.n_items = p.n_qtiles * nh * B;
   p.scale_log2 = kLog2e / sqrtf(static_cast<float>(hd));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_hd<float>(p, B, hd, s);
-  if (dtype == kBFloat16) return launch_hd<__nv_bfloat16>(p, B, hd, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return hd == 128 ? launch<128>(tq, tk, tv, p, s) : launch<64>(tq, tk, tv, p, s);
 }

@@ -18,6 +18,8 @@ torch = pytest.importorskip("torch")
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel_path as flash_path  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel_path as rmsnorm_path  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref, ssd_scan_ref  # noqa: E402
 from repro_torch.launch.train import scale_arch  # noqa: E402
 from repro_torch.models.lm import RunCfg, init_params  # noqa: E402
@@ -83,6 +85,88 @@ def test_flash_attention_bf16_against_fp32(card, B, S, nh, nkv, hd, window):
     assert (err.norm() / ref.norm()).item() <= 1e-2
     assert (err.norm(dim=-1) / ref.norm(dim=-1)).max().item() <= 1e-2
     assert (err.abs() / (2 ** -7 * ref.abs() + 2 ** -6 * row_rms)).max().item() <= 1.0
+
+
+def _bf16_gate(out, ref):
+    """bf16 flash output against fp32 attention of the same bf16 inputs:
+    relative L2 overall and in the worst row within 1e-2, and |err| within
+    2^-7 |ref| + 2^-6 rms(ref row) (rows with nothing to attend to must be
+    exactly 0)."""
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    err = out.float() - ref
+    row_rms = ref.norm(dim=-1, keepdim=True) / ref.shape[-1] ** 0.5
+    assert (err.norm() / ref.norm()).item() <= 1e-2
+    assert (err.norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)).max().item() <= 1e-2
+    assert (err.abs() / (2 ** -7 * ref.abs() + 2 ** -6 * row_rms).clamp_min(1e-30)).max().item() <= 1.0
+
+
+# the wgmma kernel's grid: S around its 128-row tiles and yi-6b's prefill,
+# both head dims, GQA groups of yi-6b (8) and hymba-1.5b (5), windows
+# narrower than a tile, around it, and hymba's 1024
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 127, 128, 129, 2000])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 5, 8])
+@pytest.mark.parametrize("window", [0, 3, 96, 1024])
+def test_flash_wgmma_bf16_against_fp32(card, S, hd, group, window):
+    assert flash_path(torch.bfloat16, hd) == "wgmma"
+    rng = np.random.default_rng(S * 1000 + hd + group * 10 + window)
+    B, nkv = 2, 2
+    q = _randn(rng, (B, nkv * group, S, hd), "bfloat16", card)
+    k, v = (_randn(rng, (B, nkv, S, hd), "bfloat16", card) for _ in range(2))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    assert flash_attention.launches == before + 1
+    _bf16_gate(out, flash_attention_ref(q.float(), k.float(), v.float(), causal=True,
+                                        window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("layout", ["model views", "offset base"])
+def test_flash_wgmma_strided_inputs(card, hd, layout):
+    """The model's [B,S,nh,hd] tensors seen as [B,nh,S,hd] (the TMA maps
+    take the strides), and a q whose base sits 16 bytes into a larger
+    buffer: aligned for TMA, off the 128-byte swizzle span."""
+    rng = np.random.default_rng(hd)
+    B, S, nh, nkv = 2, 300, 8, 2
+    if layout == "model views":
+        q = _randn(rng, (B, S, nh, hd), "bfloat16", card).transpose(1, 2)
+        k, v = (_randn(rng, (B, S, nkv, hd), "bfloat16", card).transpose(1, 2) for _ in range(2))
+    else:
+        n = B * nh * S * hd
+        q = _randn(rng, (n + 8,), "bfloat16", card)[8:].view(B, nh, S, hd)
+        k, v = (_randn(rng, (B, nkv, S, hd), "bfloat16", card) for _ in range(2))
+        assert q.data_ptr() % 16 == 0 and q.data_ptr() % 128 == 16
+    out = flash_attention(q, k, v, causal=True, window=0)
+    assert out.stride() == q.stride()
+    _bf16_gate(out, flash_attention_ref(q.float(), k.float(), v.float(), causal=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [8, 2560, 4096, 5120, 8200])
+@pytest.mark.parametrize("T", [1, 4, 4000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_both_versions(card, H, T, dtype):
+    """The register version (bf16 at 2560, 4096, 5120) and the loop
+    version (fp32, and bf16 at 8 and 8200). fp32: tests/test_kernels.py's
+    3e-4; bf16 against fp32 of the same inputs: one bf16 rounding (half an
+    ulp, 2^-8 relative) plus fp32 reassociation."""
+    want = "rows" if dtype == "bfloat16" and H in (2560, 4096, 5120) else "loop"
+    assert rmsnorm_path(DTYPES[dtype], H) == want
+    rng = np.random.default_rng(T + H)
+    x, w = _randn(rng, (T, H), dtype, card), _randn(rng, (H,), dtype, card)
+    before = rmsnorm.launches
+    out = rmsnorm(x, w)
+    assert rmsnorm.launches == before + 1
+    torch.cuda.synchronize()
+    ref = rmsnorm_ref(x.float(), w.float())
+    if dtype == "float32":
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=3e-4, atol=3e-4)
+    else:
+        err = (out.float() - ref).abs()
+        assert (err / (1.01 * 2 ** -8 * ref.abs() + 1e-6)).max().item() <= 1.0
 
 
 @pytest.mark.cuda
