@@ -7,7 +7,8 @@ Phases, each of which fails the run by raising:
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
   2. hold each kernel against its plain PyTorch version on the card
      (the cases of tests/test_kernels.py and the main path's shapes; bf16
-     outputs against the fp32 result of the same bf16 inputs);
+     outputs against the fp32 result of the same bf16 inputs; each path of
+     a kernel that has two, such as the SSD scan's wgmma and FMA kernels);
   3. serve full-width yi-6b, then full-width mamba2-2.7b (random bf16
      weights from a seed), through the port's entry points: prefill B=2
      S=2000 with its kernel launches counted, the bf16 model's logits
@@ -44,8 +45,10 @@ TOL_F32 = dict(rtol=3e-4, atol=3e-4)                           # tests/test_kern
 # bf16 for p v (l sums the fp32 p) and rounds o once: on random inputs
 # that reads about 3e-3 relative L2 in the worst row and 0.65 of the
 # pointwise limit. A 3% error on late kv tiles reads 3e-2 and 3.8; a
-# dropped tile 1.0 and 130. The SSD kernel keeps everything in fp32 and
-# rounds y once, so it should read about 2^-9 of each.
+# dropped tile 1.0 and 130. The SSD FMA kernel keeps everything in fp32 and
+# rounds y once (about 2^-9 of each); the SSD wgmma kernel rounds x o w to
+# bf16 and P and h to bf16 pairs (hi + lo), and reads about 0.6 pointwise
+# at mamba2's prefill shape; with h and P rounded once it read 4 to 7.
 BF16_LIMITS = {"rel_l2": 1e-2, "row_rel_l2": 1e-2, "pointwise": 1.0}
 # fp32 SSD kernel against the plain version: tests/test_kernels.py:56,
 # plus relative L2 (the kernel chunks by 64, the plain version by 256).
@@ -62,6 +65,11 @@ RMS_MAIN = [(4000, 4096), (64, 4096), (4, 4096), (2, 4096), (1, 4096)]
 # B, nh, S, hp, N and the plain version's chunk (tests/test_kernels.py:40-44)
 SSD_CASES = [(1, 2, 256, 64, 16, 128), (2, 3, 300, 32, 64, 64), (1, 4, 64, 16, 128, 32)]
 SSD_MAIN = (2, 80, 2000, 64, 128, 256)   # mamba2-2.7b prefill
+# the bf16 wgmma path (hp 64, N 64/128): B, nh, S, hp, N around its 64-token
+# chunks and up to mamba2's prefill length, and the test grid's wgmma case
+SSD_WGMMA_CASES = ([(2, 3, S, 64, N) for S in (1, 63, 65, 500, 2000) for N in (64, 128)]
+                   + [(1, 5, 130, 64, 128)])
+SSD_STATE_REL_L2 = 1e-2   # final state (fp32) of the wgmma path against the plain version
 # mamba2-2.7b: prefill B*S, teacher-forced S, decode B, final norm B, teacher-forced decode
 RMS_MAIN_SSM = [(4000, 2560), (4000, 5120), (300, 2560), (300, 5120), (4, 2560), (4, 5120),
                 (2, 2560), (1, 2560), (1, 5120)]
@@ -89,6 +97,27 @@ def phase_build():
     for line in out.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+    log_ssd_wgmma_resources()
+
+
+def log_ssd_wgmma_resources():
+    """Registers, spills (local memory), dynamic shared memory and CTAs an
+    SM of the three wgmma SSD kernels, from the runtime; fails on a spill,
+    or if two scan CTAs do not fit on an SM."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library()
+    for N in (64, 128):
+        info = (ctypes.c_int * 12)()
+        build.check(lib.ssd_scan_wgmma_info(N, info), "ssd_scan_wgmma_info")
+        for k, name in enumerate(("ssd_cb", "ssd_segment_states", "ssd_chunk_scan")):
+            regs, local, smem, ctas = info[4 * k:4 * k + 4]
+            log(f"[build] {name}<N={N}>: {regs} registers, {local} bytes local (spills), "
+                f"{smem} bytes dynamic shared memory, {ctas} CTAs an SM")
+            if local:
+                raise AssertionError(f"{name}<N={N}> spills {local} bytes a thread")
+        if info[11] < 2:
+            raise AssertionError(f"ssd_chunk_scan<N={N}>: {info[11]} CTA an SM, want 2")
 
 
 # --------------------------------------------------------------------------
@@ -182,12 +211,26 @@ def _ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory=False, views=False):
     return x, (dt.transpose(1, 2) if views else dt), A, Bm, Cm
 
 
-def _ssd_case(name, chunk, x, dt, A, Bm, Cm):
+def _ssd_case(name, chunk, x, dt, A, Bm, Cm, initial_state=None):
+    """The kernel's y (and with ``initial_state`` its final state) against
+    the plain version in fp32 on the same inputs."""
     from repro_torch.kernels import ssd_scan
     from repro_torch.kernels.ref import ssd_scan_ref
+    args = (x.float(), dt, A, Bm.float(), Cm.float())
+    if initial_state is not None:
+        out, h = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state,
+                          return_state=True)
+        torch.cuda.synchronize()
+        ref, h_ref = ssd_scan_ref(*args, chunk=chunk, initial_state=initial_state,
+                                  return_state=True)
+        rel = ((h - h_ref).norm() / h_ref.norm()).item()
+        if not (torch.isfinite(h).all() and rel <= SSD_STATE_REL_L2):
+            raise AssertionError(f"{name}: final state rel_l2={rel:.3e} > {SSD_STATE_REL_L2:g}")
+        log(f"[parity] {name} final state rel_l2={rel:.3e} (limit {SSD_STATE_REL_L2:g}) ok")
+        return _compare_bf16(name, out, ref)
     out = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
-    ref = ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float(), chunk=chunk)
+    ref = ssd_scan_ref(*args, chunk=chunk)
     if x.dtype != torch.float32:
         return _compare_bf16(name, out, ref)
     rel = ((out - ref).norm() / ref.norm()).item()
@@ -253,6 +296,20 @@ def phase_parity():
                                 *_ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory, views))
                 if views and not long_memory:
                     errs[("ssd_scan", dtype)] = err
+    # the bf16 wgmma path: its own cases, then the state options at the main
+    # shape in the model's layout (the recurrence starts from a given state)
+    from repro_torch.kernels.ssd_scan import kernel_path as ssd_path
+    for B, nh, S, hp, N in SSD_WGMMA_CASES:
+        assert ssd_path(torch.bfloat16, hp, N) == "wgmma"
+        for long_memory in (False, True):
+            _ssd_case(f"ssd wgmma bf16 B,nh,S,hp,N=({B},{nh},{S},{hp},{N})"
+                      f"{' long-memory' if long_memory else ''}", 256,
+                      *_ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, long_memory))
+    B, nh, S, hp, N, chunk = SSD_MAIN
+    h0 = torch.randn(B, nh, hp, N, generator=gen, device="cuda")
+    _ssd_case("ssd wgmma bf16 main [B,S,.] views long-memory, initial_state and return_state",
+              chunk, *_ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, True, True),
+              initial_state=h0)
     return errs
 
 
@@ -546,11 +603,15 @@ def times_attn_kernels(gen):
 def times_ssm_kernels(gen):
     """The SSD kernel at mamba2-2.7b's prefill shape, in the model's layout:
     bf16 x, B, C as column slices of the conv output, fp32 dt. No single
-    PyTorch call computes the scan, so there is no library time. Also logs
-    RMSNorm at mamba2's two prefill shapes (norm1 and the gated ssm_norm),
-    for the prefill breakdown; the kernel line keeps yi-6b's RMSNorm row."""
+    PyTorch call computes the scan, so there is no library time. The wgmma
+    path is timed in turns with the FMA kernel that served this shape
+    before it (FMA, wgmma, wgmma, FMA); the row keeps the mean of the two
+    wgmma times. Also logs RMSNorm at mamba2's two prefill shapes (norm1
+    and the gated ssm_norm), for the prefill breakdown; the kernel line
+    keeps yi-6b's RMSNorm row."""
     from repro_torch.kernels import ssd_scan
     from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import launch_fma
     for T, H in RMS_MAIN_SSM[:2]:
         _log_row(_rms_row(gen, T, H))
     B, nh, S, hp, N, Q = SSD_MAIN
@@ -563,7 +624,16 @@ def times_ssm_kernels(gen):
     # 2 hp N, inter-chunk output 2 N hp
     flops = B * S * (2 * Q * N + nh * (2 * Q * hp + 4 * hp * N))
     bound, by = _bound(nbytes, flops, torch.bfloat16)
-    return [dict(name="ssd_scan", ms=time_device(lambda: ssd_scan(x, dt, A, Bm, Cm)),
+    turns = []
+    for which in ("fma", "wgmma", "wgmma", "fma"):
+        fn = (lambda: launch_fma(x, dt, A, Bm, Cm)) if which == "fma" else \
+            (lambda: ssd_scan(x, dt, A, Bm, Cm))
+        turns.append(time_device(fn))
+    log(f"[time] ssd_scan in turns FMA, wgmma, wgmma, FMA: "
+        f"{', '.join(f'{t:.4f}' for t in turns)} ms; wgmma {100 * bound / turns[1]:.1f}% and "
+        f"{100 * bound / turns[2]:.1f}% of the bound; FMA / wgmma = "
+        f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}")
+    return [dict(name="ssd_scan", ms=(turns[1] + turns[2]) / 2,
                  plain_ms=time_device(lambda: ssd_scan_ref(x, dt, A, Bm, Cm), n=3, reps=3),
                  library_ms=None, bound_ms=bound, bound_by=by,
                  shape=f"x{list(x.shape)} B/C{list(Bm.shape)} bf16, dt fp32, views")]

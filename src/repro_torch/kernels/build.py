@@ -7,8 +7,9 @@ edited kernel is rebuilt and an unchanged one is loaded as it is. The
 library is loaded with ``ctypes``. Nothing here runs at import time.
 
 There is no ``-lcuda``: the one driver call the kernels need,
-``cuTensorMapEncodeTiled`` (the flash kernel's TMA maps), is looked up
-through the runtime's ``cudaGetDriverEntryPoint``. No CUTLASS headers
+``cuTensorMapEncodeTiled`` (the TMA maps of the flash and SSD kernels), is
+looked up through the runtime's ``cudaGetDriverEntryPoint``
+(``csrc/hopper.cuh``). No CUTLASS headers
 are used.
 """
 
@@ -42,8 +43,11 @@ SIGNATURES = {
                                           _I, _I, _I, _I, _I, _I, _I, _P]),
     "flash_attention_mma_launch": (_I, [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
                                         _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "ssd_scan_launch": (_I, [_P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
-                             _I, _I, _I, _I, _I, _I, _P]),
+    "ssd_scan_fma_launch": (_I, [_P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
+                                 _I, _I, _I, _I, _I, _I, _P]),
+    "ssd_scan_wgmma_launch": (_I, [_P] * 11 + [ctypes.POINTER(ctypes.c_longlong),
+                                               _I, _I, _I, _I, _I, _P]),
+    "ssd_scan_wgmma_info": (_I, [_I, ctypes.POINTER(ctypes.c_int)]),
     "cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -1,7 +1,7 @@
 // Names the codes that the launch entry points return, so the Python
 // wrappers can raise with a readable message: cudaError_t values, and
 // 100000 + CUresult where the driver refused a TMA tensor map
-// (flash_attention.cu).
+// (make_bf16_map in hopper.cuh).
 #include <cuda_runtime.h>
 
 extern "C" const char* cuda_error_string(int code) {

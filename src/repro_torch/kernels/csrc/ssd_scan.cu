@@ -1,351 +1,680 @@
-// Mamba2 SSD (state-space duality) chunked scan, forward, for Hopper (sm_90a).
+// Mamba2 SSD (state-space duality) chunked scan, forward, bf16, for Hopper
+// (sm_90a): the wgmma + TMA kernels at hp 64 and N 64 or 128 (mamba2-2.7b:
+// hp 64, N 128). fp32, and bf16 at other (hp, N), go to the FMA kernel in
+// ssd_scan_fma.cu; kernels/ssd_scan.py:kernel_path picks.
 //
 // Replaces: src/repro/kernels/ssd_scan.py, _ssd_kernel / ssd_scan_pallas.
 // Per (batch b, head h), with a = dt * A and h_t the [hp, N] state:
 //   h_t = exp(a_t) h_{t-1} + dt_t x_t B_t^T,   y_t = h_t C_t.
-// Computed chunk by chunk: inside a chunk in attention form,
-//   y_i = sum_{j<=i} (C_i . B_j) exp(acs_i - acs_j) dt_j x_j + exp(acs_i) (h_prev C_i),
-// with acs the cumulative sum of a from the chunk's start, then
-//   h <- exp(acs_last) h + sum_j exp(acs_last - acs_j) dt_j x_j B_j^T.
-// In exact arithmetic the result does not depend on the chunk length, so
-// this kernel blocks by its own kQ = 64 tokens (the TPU kernel and the plain
-// version use 256): the Q x Q scores, the x tile and the B/C tiles then fit
-// shared memory beside the state.
+// Chunk by chunk (64 tokens), with acs the cumulative a from the chunk's start:
+//   y_i = sum_{j<=i} (C_i . B_j) exp(acs_i - acs_j) dt_j x_j + exp(acs_i) (C_i . h_prev),
+//   h  <- exp(acs_last) h + sum_j exp(acs_last - acs_j) dt_j x_j B_j^T.
 //
-// Bound on the H100: bytes. At mamba2-2.7b prefill (B 2, nh 80, S 2000,
-// hp 64, N 128, bf16 x/y/B/C, fp32 dt) the kernel must move x and y
-// (41 MB each), dt (1.3 MB) and B/C (2 MB): 85 MB, 0.025 ms at 3.35 TB/s.
-// With C.B^T shared across heads the chunked work is ~21 GFLOP, 0.022 ms
-// on the bf16 tensor cores. This first version computes everything in fp32
-// FMAs, as the TPU kernel does, so it is bound by the fp32 rate (~17 GFLOP
-// at its chunk of 64, 0.25 ms at 67 TFLOP/s) and by shared-memory traffic,
-// far from the byte bound; its time is recorded, not optimised.
+// Bound on the H100: bytes. At mamba2-2.7b prefill (B 2, nh 80, S 2000)
+// the scan must read x (41 MB), B/C (2 MB), dt (1.3 MB) and write y
+// (41 MB): 85 MB, 0.025 ms at 3.35 TB/s; its products, with C.B^T shared
+// across heads, are ~21 GFLOP, 0.022 ms on the bf16 tensor cores.
 //
-// Design:
-//  * One 256-thread CTA per (h, b): 160 CTAs at the main shape. The TPU's
-//    sequential chunk grid axis is a loop inside the CTA, because Hopper
-//    runs blocks in no order; the fp32 state stays on chip across it, in
-//    registers (each thread owns 4 columns p of a few rows n of h^T) with
-//    a copy in shared memory for the C h^T product.
-//  * Each chunk: stage x, B, C (converted to fp32) and dt in shared memory;
-//    one warp scans a = dt * A; the Q x Q decayed scores go to shared
-//    memory, masked BEFORE exp (above the diagonal acs_i - acs_j > 0 and
-//    exp overflows; inf * 0 would be NaN); y = scores x + exp(acs) C h^T;
-//    then the state update. Score blocks wholly above the diagonal are not
-//    computed.
-//  * No padding: rows at or past S are staged as x = B = C = 0, dt = 0,
-//    which makes them no-ops in the recurrence, and are not stored.
-//  * Strides are arguments: x and y may be [B,nh,S,hp] views of the model's
-//    [B,S,nh,hp] tensors, B and C column slices of the conv output, and dt
-//    a [B,nh,S] view of a [B,S,nh] tensor (read element by element).
-//  * All arithmetic is fp32; bf16 inputs are widened as they are staged
-//    and y is rounded once when stored.
-// Later: C.B^T shared across the heads of a batch row, tensor cores
-// (mma/wgmma) with TMA loads, and S split across CTAs with a state pass.
+// Design: three launches on the caller's stream.
+//  1. ssd_cb_kernel, grid (chunk, b): C.B^T of each 64-token chunk, once
+//     for all heads (wgmma m64n64, K = N, fp32 sums), into fp32 scratch
+//     [B, nc, 64 x 64] kept in the order of the wgmma accumulator (float4
+//     q of thread tid at q*128 + tid), so the scan reads it back coalesced
+//     into the same registers. 1 MB at the main shape: it stays in L2.
+//  2. ssd_segment_states_kernel, grid (segment, h, b) over every segment
+//     but the last: S is cut into segments of whole chunks, and each CTA
+//     runs its segment's state update from a zero state, h <- e^{a_last} h
+//     + (x o w)^T B (wgmma m64nN, K = 64 tokens, the fp32 [hp, N] state in
+//     registers; A = x o w loaded transposed with ldmatrix.trans, scaled by
+//     w_j in fp32 and rounded to bf16; B = the B tile, MN-major), and
+//     writes the end state and the segment's total log-decay to scratch.
+//  3. ssd_chunk_scan_kernel, grid (segment, h, b): folds the end states of
+//     the earlier segments into the caller's initial state (or zeros), then
+//     walks its chunks: y = e^{acs} (C h^T) + P x, then the state update as
+//     in 2. C h^T is a wgmma of the C tile and h in shared memory; P, the
+//     masked decayed scores, is formed in registers from the C.B^T tile
+//     (masked BEFORE exp: above the diagonal acs_i - acs_j > 0 and exp
+//     overflows) as a register A operand. h and P go in as bf16 pairs, hi =
+//     bf16(v) and lo = bf16(v - hi), two products each: rounded once, h
+//     made rows where C_i . h cancels read 4-7x the pointwise limit of the
+//     bf16 gate (PERF.md). The last segment's CTA writes the final state
+//     when it is asked for.
+//  The wrapper picks the segment length (kernels/ssd_scan.py:
+//  segment_chunks): at mamba2-2.7b prefill 3 segments of 11 chunks, 480
+//  scan CTAs. Each CTA is one warpgroup. x and B tiles come by TMA into a
+//  2-slot mbarrier ring: one thread issues chunk c+2's copies as soon as
+//  chunk c is done with its slot, so the copy of chunk c+1 runs during
+//  chunk c. The C tile has one slot, refilled with chunk c+1's as soon as
+//  C h^T of chunk c is done. The tensor maps take the caller's strides (the
+//  model's [B,S,nh,hp] x and the column slices of the conv output need no
+//  copy) and zero-fill rows at or past S; those rows have dt = 0, so they
+//  are no-ops, and are never stored. dt ([B,nh,S] view of [B,S,nh], stride
+//  nh along S) is read with plain loads one chunk ahead, the C.B^T tile at
+//  the start of its chunk (a chunk ahead it costs registers: spills).
+//  The cumulative sums, exponentials, the state and every sum stay fp32;
+//  only product operands (x o w; P and h as hi + lo pairs) are bf16.
+//  Shared memory: the scan 98 KB (N 128), so two CTAs share an SM.
 #include <math.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kQ = 64;          // tokens per chunk
-constexpr int kThreads = 256;
+constexpr int kQ = 64;                 // tokens per chunk
+constexpr int kHP = 64;                // head dim served
+constexpr int kThreads = 128;          // one warpgroup
+constexpr int kBox = kQ * 128;         // a [64 rows][64 bf16] box: 8 KB
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HP, int N> struct SsdLayout {
-  static constexpr int LDX = HP + 4;   // sX [kQ][LDX]: float4-aligned rows
-  static constexpr int LDS = HP + 4;   // sSt [N][LDS]: the state, transposed
-  static constexpr int LDN = N + 1;    // sB, sC [kQ][LDN]: odd, no bank conflicts
-  static constexpr int LDP = kQ + 1;   // sP [kQ][LDP]: decayed scores
-  static constexpr int kFloats = kQ * LDX + N * LDS + 2 * kQ * LDN + kQ * LDP + 4 * kQ;
-  static constexpr int kBytes = kFloats * 4;
+// Shared memory from a 1024-byte aligned base (the 128-byte swizzle repeats
+// every 8 rows of 128 bytes). Both kernels: a 2-slot ring of x [64 tokens]
+// [64] and the B tile [64 tokens][N] (N/64 boxes). The scan adds one slot
+// for the C tile, refilled as soon as C h^T of its chunk is done, and h
+// entering the chunk as a bf16 pair hi + lo ([hp][N] each, K-major).
+template <int N, bool kScan> struct Smem {
+  static constexpr int kNB = N / 64;
+  static constexpr int kX = 0;
+  static constexpr int kB = kX + kBox;
+  static constexpr int kStage = kB + kNB * kBox;            // = TMA bytes of x and B
+  static constexpr int kC = 2 * kStage;
+  static constexpr int kH = kC + (kScan ? kNB * kBox : 0);  // h hi, then h lo
+  static constexpr int kVec = kH + (kScan ? 2 * kNB * kBox : 0);   // dt, acs, w, exp(acs)
+  static constexpr int kBar = kVec + 4 * kQ * 4;            // full[2], full_c
+  static constexpr int kBytes = kBar + 24 + 1024;           // + alignment slack
 };
 
-struct SsdParams {
-  const void* x;
+struct Params {
   const float* dt;
   const float* A;
-  const void* Bm;
-  const void* Cm;
   void* y;
-  long long x_sb, x_sh, x_ss, dt_sb, dt_sh, dt_ss, b_sb, b_ss, c_sb, c_ss, y_sb, y_sh, y_ss;
-  int S;
+  float* cb;          // [B, nc, 8, 128, 4] (C.B^T in accumulator order)
+  float* states;      // [B, nh, n_seg - 1, N/8, 128, 4] end states from zero
+  float* seg_decay;   // [B, nh, n_seg - 1] total log-decay of each segment
+  const float* init;  // [B, nh, hp, N] or null
+  float* final_state; // [B, nh, hp, N] or null
+  long long dt_sb, dt_sh, dt_ss, y_sb, y_sh, y_ss;
+  int B, nh, S, nc, seg_chunks, n_seg;
 };
 
-// Stage rows [0, kQ) of a [rows, W] slab (unit stride along W, rows 16-byte
-// aligned) into fp32 shared memory; rows at or past nv become 0.
-template <typename T, int W>
-__device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src, long long stride,
-                                           int nv) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = W / kVec;
-  for (int i = threadIdx.x; i < kQ * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = i % kPerRow;
-    float* d = dst + r * ld + c * kVec;
-    if (r < nv) {
-      const uint4 u = *reinterpret_cast<const uint4*>(src + r * stride + c * kVec);
-      const T* e = reinterpret_cast<const T*>(&u);
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float lo, float hi) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  return pack_bf16(f.x * lo, f.y * hi);
+}
+
+// a ~ hi + lo and b likewise, as bf16 pairs: hi = bf16(v), lo = bf16(v - hi)
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - f.x, b - f.y);
+}
+
+// dt of tokens r0 + 2 lane and r0 + 2 lane + 1, 0 at or past S
+__device__ __forceinline__ void load_dt(const float* dtg, long long ss, int r0, int S, int lane,
+                                        float& d0, float& d1) {
+  const int t0 = r0 + 2 * lane;
+  d0 = t0 < S ? __ldg(dtg + t0 * ss) : 0.f;
+  d1 = t0 + 1 < S ? __ldg(dtg + (t0 + 1) * ss) : 0.f;
+}
+
+// One warp: a = dt * A over the chunk, its inclusive cumsum acs, the state
+// weights w_j = exp(acs_last - acs_j) dt_j and exp(acs_i); two rows a lane.
+__device__ __forceinline__ void scan_chunk(float d0, float d1, float A, int lane, float* sDt,
+                                           float* sAcs, float* sW, float* sEa) {
+  const float a0 = d0 * A, a1 = d1 * A;
+  float incl = a0 + a1;
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) d[k] = to_f32(e[k]);
+  for (int off = 1; off < 32; off <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += t;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.f;
+  const float c0 = excl + a0, c1 = c0 + a1;
+  const float last = __shfl_sync(0xffffffffu, c1, 31);
+  sDt[2 * lane] = d0;
+  sDt[2 * lane + 1] = d1;
+  sAcs[2 * lane] = c0;
+  sAcs[2 * lane + 1] = c1;
+  sW[2 * lane] = expf(last - c0) * d0;
+  sW[2 * lane + 1] = expf(last - c1) * d1;
+  sEa[2 * lane] = expf(c0);
+  sEa[2 * lane + 1] = expf(c1);
+}
+
+// The A operand of the state update: (x o w)^T, [hp rows][16 tokens] per
+// k step, from the swizzled x tile with ldmatrix.trans (lane: matrix
+// lane/8, its row lane%8), each element scaled by its token's w in fp32.
+__device__ __forceinline__ void xw_fragments(uint32_t (&xa)[4][4], uint32_t sX, const float* sW,
+                                             int warp, int lane) {
+  const int m = lane / 8, rr = lane % 8, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int j = 16 * kk + 8 * (m / 2) + rr;
+    const int chunk16 = 2 * warp + (m % 2);
+    ldmatrix_x4_trans(xa[kk], sX + j * 128 + ((chunk16 ^ rr) * 16));
+    const float2 w01 = *reinterpret_cast<const float2*>(sW + 16 * kk + 2 * t);
+    const float2 w23 = *reinterpret_cast<const float2*>(sW + 16 * kk + 8 + 2 * t);
+    xa[kk][0] = scale_bf16x2(xa[kk][0], w01.x, w01.y);
+    xa[kk][1] = scale_bf16x2(xa[kk][1], w01.x, w01.y);
+    xa[kk][2] = scale_bf16x2(xa[kk][2], w23.x, w23.y);
+    xa[kk][3] = scale_bf16x2(xa[kk][3], w23.x, w23.y);
+  }
+}
+
+// st += (x o w)^T B over the chunk's 64 tokens; B tile MN-major in N/64 boxes
+template <int N>
+__device__ __forceinline__ void state_update(float (&st)[N / 2], const uint32_t (&xa)[4][4],
+                                             uint32_t sB) {
+  const uint64_t db = sw128_desc(sB, kBox, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (N == 128) {
+      wgmma_rs_n128(st, xa[kk], db + ((kk * 16 * 128) >> 4), 1);
     } else {
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) d[k] = 0.f;
+      wgmma_rs_n64(st, xa[kk], db + ((kk * 16 * 128) >> 4), 1);
     }
   }
 }
 
-__device__ __forceinline__ void store4(float* dst, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float (&v)[4]) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = u;
-}
-
-template <typename T, int HP, int N>
-__global__ void __launch_bounds__(kThreads) ssd_scan_kernel(const SsdParams p) {
-  using L = SsdLayout<HP, N>;
-  extern __shared__ __align__(16) float smem[];
-  float* sX = smem;                   // [kQ][LDX]  x of the chunk
-  float* sSt = sX + kQ * L::LDX;      // [N][LDS]   state entering the chunk, h^T
-  float* sB = sSt + N * L::LDS;       // [kQ][LDN]
-  float* sC = sB + kQ * L::LDN;       // [kQ][LDN]
-  float* sP = sC + kQ * L::LDN;       // [kQ][LDP]  decayed scores, 0 above the diagonal
-  float* sDt = sP + kQ * L::LDP;      // [kQ]
-  float* sAcs = sDt + kQ;             // [kQ]  cumulative a from the chunk's start
-  float* sW = sAcs + kQ;              // [kQ]  exp(acs_last - acs_j) dt_j
-  float* sEa = sW + kQ;               // [kQ]  exp(acs_i)
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const float A = p.A[h];
-  const T* xg = static_cast<const T*>(p.x) + b * p.x_sb + h * p.x_sh;
-  const float* dtg = p.dt + b * p.dt_sb + h * p.dt_sh;
-  const T* bg = static_cast<const T*>(p.Bm) + b * p.b_sb;
-  const T* cg = static_cast<const T*>(p.Cm) + b * p.c_sb;
-  T* yg = static_cast<T*>(p.y) + b * p.y_sb + h * p.y_sh;
-
-  // y and state tiles: 4 columns p0..p0+3 per thread, rows strided by kRT
-  constexpr int kPT = HP / 4;                  // threads across hp
-  constexpr int kRT = kThreads / kPT;          // threads across rows
-  constexpr int kYR = kQ / kRT;                // y rows per thread: 4, 2, 1
-  constexpr int kSR = (N + kRT - 1) / kRT;     // state rows n per thread
-  const int tp = tid % kPT, tr = tid / kPT;
-  const int p0 = 4 * tp;
-  // scores: a 16 x 16 thread grid, rows i = ti + 16 r, columns j = tj + 16 s
-  const int ti = tid / 16, tj = tid % 16;
-
-  float st[kSR][4];
+// Copies of chunk c's x and B into ring slot s.
+template <int N>
+__device__ __forceinline__ void issue_chunk(uint32_t base, uint32_t full, int c, int s,
+                                            const CUtensorMap* tx, const CUtensorMap* tb, int h,
+                                            int b) {
+  using L = Smem<N, false>;
+  const uint32_t slot = base + s * L::kStage, bar = full + 8 * s;
+  mbar_expect_tx(bar, L::kStage);
+  tma_load(slot + L::kX, tx, bar, 0, c * kQ, h, b);
 #pragma unroll
-  for (int s = 0; s < kSR; ++s) st[s][0] = st[s][1] = st[s][2] = st[s][3] = 0.f;
-  for (int i = tid; i < N * L::LDS; i += kThreads) sSt[i] = 0.f;
+  for (int i = 0; i < L::kNB; ++i) tma_load(slot + L::kB + i * kBox, tb, bar, 64 * i, c * kQ, b);
+}
 
-  const int S = p.S;
-  for (int r0 = 0; r0 < S; r0 += kQ) {
-    const int nv = min(kQ, S - r0);
+__device__ __forceinline__ void init_barriers(uint32_t full) {
+  if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    mbar_init(full + 8, 1);
+    mbar_init(full + 16, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
 
-    // (1) stage the chunk
-    stage_rows<T, HP>(sX, L::LDX, xg + r0 * p.x_ss, p.x_ss, nv);
-    stage_rows<T, N>(sB, L::LDN, bg + r0 * p.b_ss, p.b_ss, nv);
-    stage_rows<T, N>(sC, L::LDN, cg + r0 * p.c_ss, p.c_ss, nv);
-    if (tid < kQ) sDt[tid] = tid < nv ? dtg[(r0 + tid) * p.dt_ss] : 0.f;
-    __syncthreads();
-
-    // (2) one warp: inclusive scan of a = dt * A, two rows per lane
-    if (tid < 32) {
-      const float a0 = sDt[2 * tid] * A, a1 = sDt[2 * tid + 1] * A;
-      float incl = a0 + a1;
+// ---- 1. C.B^T per (b, chunk) ----
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_cb_kernel(const __grid_constant__ CUtensorMap tb, const __grid_constant__ CUtensorMap tc,
+              float* cb, int nc) {
+  constexpr int kNB = N / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sC = base, sB = base + kNB * kBox, full = sB + kNB * kBox;
+  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(full, 2 * kNB * kBox);
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float t = __shfl_up_sync(0xffffffffu, incl, off);
-        if (tid >= off) incl += t;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (tid == 0) excl = 0.f;
-      const float c0 = excl + a0, c1 = c0 + a1;
-      const float last = __shfl_sync(0xffffffffu, c1, 31);
-      sAcs[2 * tid] = c0;
-      sAcs[2 * tid + 1] = c1;
-      sW[2 * tid] = expf(last - c0) * sDt[2 * tid];
-      sW[2 * tid + 1] = expf(last - c1) * sDt[2 * tid + 1];
-      sEa[2 * tid] = expf(c0);
-      sEa[2 * tid + 1] = expf(c1);
+    for (int i = 0; i < kNB; ++i) {
+      tma_load(sC + i * kBox, &tc, full, 64 * i, c * kQ, b);
+      tma_load(sB + i * kBox, &tb, full, 64 * i, c * kQ, b);
     }
-    __syncthreads();
-
-    // (3) decayed scores. Block (r, s) with s > r lies wholly above the
-    // diagonal (j >= 16 s > i), so only s <= r is computed.
-    {
-      float acc[4][4];
+  }
+  mbar_wait_or_trap(full, 0);
+  __syncwarp();
+  float d[32];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < N; ++k) {
-        float cv[4], bv[4];
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  const uint64_t dc = sw128_desc(sC, 16, 1024), db = sw128_desc(sB, 16, 1024);
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const uint32_t step = ((kk / 4) * kBox + (kk % 4) * 32) >> 4;
+    wgmma_ss_n64(d, dc + step, db + step, kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(d);
+  float4* out = reinterpret_cast<float4*>(cb) + static_cast<size_t>(b * nc + c) * 8 * kThreads + tid;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) out[q * kThreads] = make_float4(d[4 * q], d[4 * q + 1], d[4 * q + 2], d[4 * q + 3]);
+}
+
+// ---- 2. end state of each segment but the last, from a zero state ----
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_segment_states_kernel(const __grid_constant__ CUtensorMap tx,
+                          const __grid_constant__ CUtensorMap tb, const Params p) {
+  using L = Smem<N, false>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));
+  float* sDt = reinterpret_cast<float*>(gbase + L::kVec);
+  float* sAcs = sDt + kQ;
+  float* sW = sAcs + kQ;
+  float* sEa = sW + kQ;
+  const uint32_t full = base + L::kBar;
+  const int seg = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int c0 = seg * p.seg_chunks, c1 = min(p.nc, c0 + p.seg_chunks);
+  const float A = p.A[h];
+  const float* dtg = p.dt + b * p.dt_sb + h * p.dt_sh;
+
+  init_barriers(full);
+  if (tid == 0) {
+    issue_chunk<N>(base, full, c0, 0, &tx, &tb, h, b);
+    if (c0 + 1 < c1) issue_chunk<N>(base, full, c0 + 1, 1, &tx, &tb, h, b);
+  }
+  float st[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) st[i] = 0.f;
+  float d0 = 0.f, d1 = 0.f, log_decay = 0.f;
+  if (warp == 0) load_dt(dtg, p.dt_ss, c0 * kQ, p.S, lane, d0, d1);
+
+  for (int c = c0; c < c1; ++c) {
+    const int s = (c - c0) & 1;
+    const uint32_t parity = ((c - c0) >> 1) & 1;
+    if (warp == 0) {
+      scan_chunk(d0, d1, A, lane, sDt, sAcs, sW, sEa);
+      if (c + 1 < c1) load_dt(dtg, p.dt_ss, (c + 1) * kQ, p.S, lane, d0, d1);
+    }
+    __syncthreads();   // the chunk's vectors
+    log_decay += sAcs[kQ - 1];
+    const float decay = sEa[kQ - 1];
+    mbar_wait_or_trap(full + 8 * s, parity);
+    __syncwarp();
+    uint32_t xa[4][4];
+    xw_fragments(xa, base + s * L::kStage + L::kX, sW, warp, lane);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) st[i] *= decay;
+    fence_regs(st);
+    wgmma_fence();
+    state_update<N>(st, xa, base + s * L::kStage + L::kB);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(st);
+    fence_regs(xa);
+    __syncthreads();   // every thread is done with the slot and the vectors
+    if (tid == 0 && c + 2 < c1) issue_chunk<N>(base, full, c + 2, s, &tx, &tb, h, b);
+  }
+
+  const size_t idx = static_cast<size_t>(b * p.nh + h) * (p.n_seg - 1) + seg;
+  float4* out = reinterpret_cast<float4*>(p.states) + idx * (N / 8) * kThreads + tid;
+#pragma unroll
+  for (int q = 0; q < N / 8; ++q)
+    out[q * kThreads] = make_float4(st[4 * q], st[4 * q + 1], st[4 * q + 2], st[4 * q + 3]);
+  if (tid == 0) p.seg_decay[idx] = log_decay;
+}
+
+// ---- 3. the scan, per (segment, h, b) ----
+// Per chunk: C h^T (h as a bf16 pair hi + lo, so its rounding is ~2^-16)
+// while the scores are formed; P x (P as a bf16 pair, likewise); y stored;
+// then the state update with x o w rounded once to bf16.
+template <int N>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_chunk_scan_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
+                      const __grid_constant__ CUtensorMap tc, const Params p) {
+  using L = Smem<N, true>;
+  constexpr int kNB = N / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));
+  float* sDt = reinterpret_cast<float*>(gbase + L::kVec);
+  float* sAcs = sDt + kQ;
+  float* sW = sAcs + kQ;
+  float* sEa = sW + kQ;
+  const uint32_t sC = base + L::kC, sH = base + L::kH, sHlo = sH + kNB * kBox;
+  const uint32_t full = base + L::kBar, full_c = full + 16;
+  const int seg = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int c0 = seg * p.seg_chunks, c1 = min(p.nc, c0 + p.seg_chunks);
+  const float A = p.A[h];
+  const float* dtg = p.dt + b * p.dt_sb + h * p.dt_sh;
+  const float4* cbg = reinterpret_cast<const float4*>(p.cb) + tid;
+  const int bh = b * p.nh + h;
+
+  // the C tile of chunk c into its slot
+  auto issue_c = [&](int c) {
+    mbar_expect_tx(full_c, kNB * kBox);
+#pragma unroll
+    for (int i = 0; i < kNB; ++i) tma_load(sC + i * kBox, &tc, full_c, 64 * i, c * kQ, b);
+  };
+  init_barriers(full);
+  if (tid == 0) {
+    issue_chunk<N>(base, full, c0, 0, &tx, &tb, h, b);
+    issue_c(c0);
+    if (c0 + 1 < c1) issue_chunk<N>(base, full, c0 + 1, 1, &tx, &tb, h, b);
+  }
+
+  // The state entering the segment, in the accumulator layout: st[4q + r]
+  // is row p = 16 warp + g + 8 (r / 2), column n = 8q + 2t + r % 2. The
+  // caller's initial state (or 0), then h <- e^{ld_s} h + E_s over the
+  // earlier segments s.
+  float st[N / 2];
+#pragma unroll
+  for (int q = 0; q < N / 8; ++q) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float2 v = make_float2(0.f, 0.f);
+      if (p.init != nullptr)
+        v = *reinterpret_cast<const float2*>(
+            p.init + (static_cast<size_t>(bh) * kHP + 16 * warp + g + 8 * half) * N + 8 * q + 2 * t);
+      st[4 * q + 2 * half] = v.x;
+      st[4 * q + 2 * half + 1] = v.y;
+    }
+  }
+  for (int s = 0; s < seg; ++s) {
+    const size_t idx = static_cast<size_t>(bh) * (p.n_seg - 1) + s;
+    const float dec = expf(p.seg_decay[idx]);
+    const float4* e = reinterpret_cast<const float4*>(p.states) + idx * (N / 8) * kThreads + tid;
+#pragma unroll
+    for (int q = 0; q < N / 8; ++q) {
+      const float4 v = e[q * kThreads];
+      st[4 * q] = fmaf(dec, st[4 * q], v.x);
+      st[4 * q + 1] = fmaf(dec, st[4 * q + 1], v.y);
+      st[4 * q + 2] = fmaf(dec, st[4 * q + 2], v.z);
+      st[4 * q + 3] = fmaf(dec, st[4 * q + 3], v.w);
+    }
+  }
+  // h as hi = bf16(h) and lo = bf16(h - hi) into sH, K-major [hp rows][N],
+  // the B operands of C h^T
+  auto store_h = [&]() {
+#pragma unroll
+    for (int q = 0; q < N / 8; ++q)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t off = sw128_offset(16 * warp + g + 8 * half, 8 * q + 2 * t, kBox);
+        uint32_t hi, lo;
+        split_bf16x2(st[4 * q + 2 * half], st[4 * q + 2 * half + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(gbase + L::kH + off) = hi;
+        *reinterpret_cast<uint32_t*>(gbase + L::kH + kNB * kBox + off) = lo;
+      }
+    fence_async_smem();   // visible to the next wgmma after the next barrier
+  };
+  store_h();
+
+  float d0 = 0.f, d1 = 0.f;
+  if (warp == 0) load_dt(dtg, p.dt_ss, c0 * kQ, p.S, lane, d0, d1);
+  float cbf[32];   // C.B^T of the chunk in the accumulator layout: rows i, columns j
+  auto load_cb = [&](int c) {
+    const float4* src = cbg + static_cast<size_t>(b * p.nc + c) * 8 * kThreads;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float4 v = __ldg(src + q * kThreads);
+      cbf[4 * q] = v.x;
+      cbf[4 * q + 1] = v.y;
+      cbf[4 * q + 2] = v.z;
+      cbf[4 * q + 3] = v.w;
+    }
+  };
+
+  __nv_bfloat16* yg = static_cast<__nv_bfloat16*>(p.y) + b * p.y_sb + h * p.y_sh;
+  const int i0 = 16 * warp + g, i1 = i0 + 8;   // the thread's rows of y and of the scores
+  for (int c = c0; c < c1; ++c) {
+    const int s = (c - c0) & 1;
+    const uint32_t slot = base + s * L::kStage;
+    const int r0 = c * kQ;
+    load_cb(c);   // in flight during the scan of dt and the barrier
+    if (warp == 0) {
+      scan_chunk(d0, d1, A, lane, sDt, sAcs, sW, sEa);
+      if (c + 1 < c1) load_dt(dtg, p.dt_ss, (c + 1) * kQ, p.S, lane, d0, d1);
+    }
+    __syncthreads();   // the chunk's vectors; sH of the state entering it
+    mbar_wait_or_trap(full_c, (c - c0) & 1);
+    __syncwarp();
+
+    // y = C h^T over N, while the scores are formed
+    float y[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[i] = 0.f;
+    {
+      const uint64_t dc = sw128_desc(sC, 16, 1024);
+      const uint64_t dh = sw128_desc(sH, 16, 1024), dl = sw128_desc(sHlo, 16, 1024);
+      fence_regs(y);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        const uint32_t step = ((kk / 4) * kBox + (kk % 4) * 32) >> 4;
+        wgmma_ss_n64(y, dc + step, dh + step, kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        const uint32_t step = ((kk / 4) * kBox + (kk % 4) * 32) >> 4;
+        wgmma_ss_n64(y, dc + step, dl + step, 1);
+      }
+      wgmma_commit();
+    }
+
+    // P_ij = C_i.B_j exp(acs_i - acs_j) dt_j for j <= i, as bf16 pairs of A
+    // fragments (pa[kk][0]: row i0, j = 16kk + 2t..+1; [1] row i1; [2], [3] j + 8)
+    uint32_t pa[4][4], pl[4][4];
+    {
+      const float acs_i[2] = {sAcs[i0], sAcs[i1]};
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb) {
+        const float2 acs_j = *reinterpret_cast<const float2*>(sAcs + 8 * jb + 2 * t);
+        const float2 dt_j = *reinterpret_cast<const float2*>(sDt + 8 * jb + 2 * t);
+        float v[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          cv[r] = sC[(ti + 16 * r) * L::LDN + k];
-          bv[r] = sB[(tj + 16 * r) * L::LDN + k];
+          const int i = r < 2 ? i0 : i1;
+          const int j = 8 * jb + 2 * t + (r & 1);
+          const float aj = (r & 1) ? acs_j.y : acs_j.x;
+          const float dj = (r & 1) ? dt_j.y : dt_j.x;
+          // mask before exp: exp2(-inf) = 0
+          const float e = j <= i ? (acs_i[r / 2] - aj) * kLog2e : -INFINITY;
+          v[r] = cbf[4 * jb + r] * fast_exp2(e) * dj;
         }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s <= r; ++s) acc[r][s] = fmaf(cv[r], bv[s], acc[r][s]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int i = ti + 16 * r, j = tj + 16 * s;
-          float v = 0.f;
-          if (s <= r && j <= i) v = acc[r][s] * expf(sAcs[i] - sAcs[j]) * sDt[j];
-          sP[i * L::LDP + j] = v;
-        }
+        split_bf16x2(v[0], v[1], pa[jb / 2][2 * (jb % 2)], pl[jb / 2][2 * (jb % 2)]);
+        split_bf16x2(v[2], v[3], pa[jb / 2][2 * (jb % 2) + 1], pl[jb / 2][2 * (jb % 2) + 1]);
       }
     }
-    __syncthreads();
-
-    // (4) y = scores x + exp(acs) (C h^T), h the state entering the chunk
-    {
-      float acc[kYR][4], inter[kYR][4];
+    const float ea0 = sEa[i0], ea1 = sEa[i1];
+    wgmma_wait();
+    fence_regs(y);
+    __syncthreads();   // every warp is done with the C tile: chunk c+1's may come in
+    if (tid == 0 && c + 1 < c1) issue_c(c + 1);
 #pragma unroll
-      for (int r = 0; r < kYR; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] = inter[r][q] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < kQ; ++j) {
-        const float4 xv = *reinterpret_cast<const float4*>(sX + j * L::LDX + p0);
-#pragma unroll
-        for (int r = 0; r < kYR; ++r) {
-          const float pv = sP[(tr + kRT * r) * L::LDP + j];
-          acc[r][0] = fmaf(pv, xv.x, acc[r][0]);
-          acc[r][1] = fmaf(pv, xv.y, acc[r][1]);
-          acc[r][2] = fmaf(pv, xv.z, acc[r][2]);
-          acc[r][3] = fmaf(pv, xv.w, acc[r][3]);
-        }
-      }
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        const float4 hv = *reinterpret_cast<const float4*>(sSt + n * L::LDS + p0);
-#pragma unroll
-        for (int r = 0; r < kYR; ++r) {
-          const float cv = sC[(tr + kRT * r) * L::LDN + n];
-          inter[r][0] = fmaf(cv, hv.x, inter[r][0]);
-          inter[r][1] = fmaf(cv, hv.y, inter[r][1]);
-          inter[r][2] = fmaf(cv, hv.z, inter[r][2]);
-          inter[r][3] = fmaf(cv, hv.w, inter[r][3]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kYR; ++r) {
-        const int i = tr + kRT * r;
-        if (i >= nv) continue;
-        const float ea = sEa[i];
-        float out[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) out[q] = fmaf(ea, inter[r][q], acc[r][q]);
-        store4(yg + (r0 + i) * p.y_ss + p0, out);
-      }
+    for (int q = 0; q < 8; ++q) {
+      y[4 * q] *= ea0;
+      y[4 * q + 1] *= ea0;
+      y[4 * q + 2] *= ea1;
+      y[4 * q + 3] *= ea1;
     }
 
-    // (5) state update in registers: h <- exp(acs_last) h + sum_j w_j x_j B_j^T
+    // y += P x, x MN-major
+    mbar_wait_or_trap(full + 8 * s, ((c - c0) >> 1) & 1);
+    __syncwarp();
+    fence_regs(y);
+    wgmma_fence();
     {
-      const float decay = expf(sAcs[kQ - 1]);   // rows past nv have a = 0
+      const uint64_t dx = sw128_desc(slot + L::kX, kBox, 1024);
 #pragma unroll
-      for (int s = 0; s < kSR; ++s)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) st[s][q] *= decay;
-#pragma unroll 4
-      for (int j = 0; j < kQ; ++j) {
-        const float4 xv = *reinterpret_cast<const float4*>(sX + j * L::LDX + p0);
-        const float w = sW[j];
-#pragma unroll
-        for (int s = 0; s < kSR; ++s) {
-          const int n = tr + kRT * s;
-          if (N % kRT != 0 && n >= N) continue;
-          const float bw = sB[j * L::LDN + n] * w;
-          st[s][0] = fmaf(bw, xv.x, st[s][0]);
-          st[s][1] = fmaf(bw, xv.y, st[s][1]);
-          st[s][2] = fmaf(bw, xv.z, st[s][2]);
-          st[s][3] = fmaf(bw, xv.w, st[s][3]);
-        }
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_n64(y, pa[kk], dx + ((kk * 16 * 128) >> 4), 1);
+        wgmma_rs_n64(y, pl[kk], dx + ((kk * 16 * 128) >> 4), 1);
       }
+      wgmma_commit();
     }
-    __syncthreads();   // every thread is done reading sSt and the chunk's tiles
+    // meanwhile: the A operand of the state update, and the decay of the state
+    uint32_t xa[4][4];
+    xw_fragments(xa, slot + L::kX, sW, warp, lane);
+    const float decay = sEa[kQ - 1];
 #pragma unroll
-    for (int s = 0; s < kSR; ++s) {
-      const int n = tr + kRT * s;
-      if (N % kRT != 0 && n >= N) continue;
-      store4(sSt + n * L::LDS + p0, st[s]);
+    for (int i = 0; i < N / 2; ++i) st[i] *= decay;
+    wgmma_wait();
+    fence_regs(y);
+    fence_regs(pa);
+    fence_regs(pl);
+
+    // h <- decay h + (x o w)^T B, while y is stored (rows at or past S are not)
+    fence_regs(st);
+    wgmma_fence();
+    state_update<N>(st, xa, slot + L::kB);
+    wgmma_commit();
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + (half ? i1 : i0);
+      if (row >= p.S) continue;
+      __nv_bfloat16* yr = yg + row * p.y_ss + 2 * t;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        *reinterpret_cast<__nv_bfloat162*>(yr + 8 * q) =
+            __floats2bfloat162_rn(y[4 * q + 2 * half], y[4 * q + 2 * half + 1]);
     }
+    wgmma_wait();
+    fence_regs(st);
+    fence_regs(xa);
+    __syncthreads();   // every thread is done with the slot, sH and the vectors
+    if (tid == 0 && c + 2 < c1) issue_chunk<N>(base, full, c + 2, s, &tx, &tb, h, b);
+    if (c + 1 < c1) store_h();
+  }
+
+  if (p.final_state != nullptr && seg == p.n_seg - 1) {
+#pragma unroll
+    for (int q = 0; q < N / 8; ++q)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(p.final_state +
+                                   (static_cast<size_t>(bh) * kHP + 16 * warp + g + 8 * half) * N +
+                                   8 * q + 2 * t) =
+            make_float2(st[4 * q + 2 * half], st[4 * q + 2 * half + 1]);
   }
 }
 
-template <typename T, int HP, int N>
-int launch(const SsdParams& p, int B, int nh, cudaStream_t stream) {
-  constexpr int bytes = SsdLayout<HP, N>::kBytes;
-  const cudaError_t e = cudaFuncSetAttribute(
-      ssd_scan_kernel<T, HP, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_scan_kernel<T, HP, N><<<dim3(nh, B), kThreads, bytes, stream>>>(p);
+template <int N> constexpr int cb_smem_bytes() { return 2 * (N / 64) * kBox + 16 + 1024; }
+
+template <int N> int set_smem_limits() {
+  cudaError_t e = cudaFuncSetAttribute(ssd_cb_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       cb_smem_bytes<N>());
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ssd_segment_states_kernel<N>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<N, false>::kBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ssd_chunk_scan_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Smem<N, true>::kBytes);
+  return static_cast<int>(e);
+}
+
+template <int N>
+int launch(const CUtensorMap& tx, const CUtensorMap& tb, const CUtensorMap& tc, const Params& p,
+           cudaStream_t stream) {
+  int err = set_smem_limits<N>();
+  if (err != 0) return err;
+  ssd_cb_kernel<N><<<dim3(p.nc, p.B), kThreads, cb_smem_bytes<N>(), stream>>>(tb, tc, p.cb, p.nc);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  if (p.n_seg > 1) {
+    ssd_segment_states_kernel<N><<<dim3(p.n_seg - 1, p.nh, p.B), kThreads,
+                                   Smem<N, false>::kBytes, stream>>>(tx, tb, p);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  ssd_chunk_scan_kernel<N><<<dim3(p.n_seg, p.nh, p.B), kThreads, Smem<N, true>::kBytes, stream>>>(
+      tx, tb, tc, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HP>
-int launch_n(const SsdParams& p, int B, int nh, int N, cudaStream_t stream) {
-  switch (N) {
-    case 16: return launch<T, HP, 16>(p, B, nh, stream);
-    case 32: return launch<T, HP, 32>(p, B, nh, stream);
-    case 64: return launch<T, HP, 64>(p, B, nh, stream);
-    case 128: return launch<T, HP, 128>(p, B, nh, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <typename T>
-int launch_hp(const SsdParams& p, int B, int nh, int hp, int N, cudaStream_t stream) {
-  switch (hp) {
-    case 16: return launch_n<T, 16>(p, B, nh, N, stream);
-    case 32: return launch_n<T, 32>(p, B, nh, N, stream);
-    case 64: return launch_n<T, 64>(p, B, nh, N, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <typename K> int kernel_info(K kernel, int smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = smem;
+  out[3] = blocks;
+  return static_cast<int>(e);
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// x, y: [B, nh, S, hp]; dt: [B, nh, S] fp32; A: [nh] fp32, contiguous;
-// Bm, Cm: [B, S, N]. `strides` holds element strides, 13 values: x (batch,
-// head, seq), dt (batch, head, seq), Bm (batch, seq), Cm (batch, seq),
-// y (batch, head, seq); x, Bm, Cm and y have a unit last stride and
-// 16-byte aligned rows. x, Bm, Cm and y share `dtype`. Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* A, const void* Bm,
-                               const void* Cm, void* y, const long long* strides, int B, int nh,
-                               int S, int hp, int N, int dtype, void* stream) {
+// bf16 only, hp 64, N 64 or 128. x, y: [B, nh, S, 64]; dt: [B, nh, S] fp32;
+// A: [nh] fp32 contiguous; Bm, Cm: [B, S, N]. `strides` holds 13 element
+// strides: x (batch, head, seq), dt (batch, head, seq), Bm (batch, seq),
+// Cm (batch, seq), y (batch, head, seq); x, Bm, Cm and y have a unit last
+// stride, and x, Bm, Cm strides that are multiples of 8 and 16-byte aligned
+// bases. Scratch from the caller: cb [B, nc*64*64] fp32, states
+// [B, nh, n_seg-1, 64*N] fp32 and seg_decay [B, nh, n_seg-1] fp32, with
+// nc = ceil(S / 64) and n_seg = ceil(nc / seg_chunks). init and
+// final_state ([B, nh, 64, N] fp32, contiguous) may be null. Returns the
+// cudaError_t of the launches (0 on success), or 100000 plus the CUresult of
+// a tensor map the driver refused.
+extern "C" int ssd_scan_wgmma_launch(const void* x, const float* dt, const float* A, const void* Bm,
+                                     const void* Cm, void* y, float* cb, float* states,
+                                     float* seg_decay, const float* init, float* final_state,
+                                     const long long* strides, int B, int nh, int S, int N,
+                                     int seg_chunks, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || nh <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  SsdParams p;
-  p.x = x;
+  if (B <= 0 || nh <= 0 || S <= 0 || seg_chunks <= 0 || (N != 64 && N != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t xdims[4] = {static_cast<cuuint64_t>(kHP), static_cast<cuuint64_t>(S),
+                               static_cast<cuuint64_t>(nh), static_cast<cuuint64_t>(B)};
+  const cuuint64_t xbytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
+                                static_cast<cuuint64_t>(strides[1]) * 2,
+                                static_cast<cuuint64_t>(strides[0]) * 2};
+  const cuuint32_t xbox[4] = {64, kQ, 1, 1};
+  const cuuint64_t bcdims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(S),
+                                static_cast<cuuint64_t>(B)};
+  const cuuint64_t bbytes[2] = {static_cast<cuuint64_t>(strides[7]) * 2,
+                                static_cast<cuuint64_t>(strides[6]) * 2};
+  const cuuint64_t cbytes[2] = {static_cast<cuuint64_t>(strides[9]) * 2,
+                                static_cast<cuuint64_t>(strides[8]) * 2};
+  const cuuint32_t bcbox[3] = {64, kQ, 1};
+  CUtensorMap tx, tb, tc;
+  int err = make_bf16_map(&tx, x, 4, xdims, xbytes, xbox);
+  if (err == 0) err = make_bf16_map(&tb, Bm, 3, bcdims, bbytes, bcbox);
+  if (err == 0) err = make_bf16_map(&tc, Cm, 3, bcdims, cbytes, bcbox);
+  if (err != 0) return err;
+  Params p;
   p.dt = dt;
   p.A = A;
-  p.Bm = Bm;
-  p.Cm = Cm;
   p.y = y;
-  p.x_sb = strides[0]; p.x_sh = strides[1]; p.x_ss = strides[2];
+  p.cb = cb;
+  p.states = states;
+  p.seg_decay = seg_decay;
+  p.init = init;
+  p.final_state = final_state;
   p.dt_sb = strides[3]; p.dt_sh = strides[4]; p.dt_ss = strides[5];
-  p.b_sb = strides[6]; p.b_ss = strides[7];
-  p.c_sb = strides[8]; p.c_ss = strides[9];
   p.y_sb = strides[10]; p.y_sh = strides[11]; p.y_ss = strides[12];
+  p.B = B;
+  p.nh = nh;
   p.S = S;
+  p.nc = (S + kQ - 1) / kQ;
+  p.seg_chunks = seg_chunks;
+  p.n_seg = (p.nc + seg_chunks - 1) / seg_chunks;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_hp<float>(p, B, nh, hp, N, s);
-  if (dtype == kBFloat16) return launch_hp<__nv_bfloat16>(p, B, nh, hp, N, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return N == 128 ? launch<128>(tx, tb, tc, p, s) : launch<64>(tx, tb, tc, p, s);
+}
+
+// For N (64 or 128), per kernel (C.B^T, segment states, scan) in turn, four
+// ints: registers a thread, local-memory bytes a thread (spills), dynamic
+// shared memory bytes, CTAs that fit on one SM. Returns a cudaError_t.
+extern "C" int ssd_scan_wgmma_info(int N, int* out) {
+  using namespace repro_torch;
+  if (N != 64 && N != 128) return static_cast<int>(cudaErrorInvalidValue);
+  int err = N == 128 ? set_smem_limits<128>() : set_smem_limits<64>();
+  if (err != 0) return err;
+  if (N == 128) {
+    err = kernel_info(ssd_cb_kernel<128>, cb_smem_bytes<128>(), out);
+    if (err == 0) err = kernel_info(ssd_segment_states_kernel<128>, Smem<128, false>::kBytes, out + 4);
+    if (err == 0) err = kernel_info(ssd_chunk_scan_kernel<128>, Smem<128, true>::kBytes, out + 8);
+  } else {
+    err = kernel_info(ssd_cb_kernel<64>, cb_smem_bytes<64>(), out);
+    if (err == 0) err = kernel_info(ssd_segment_states_kernel<64>, Smem<64, false>::kBytes, out + 4);
+    if (err == 0) err = kernel_info(ssd_chunk_scan_kernel<64>, Smem<64, true>::kBytes, out + 8);
+  }
+  return err;
 }

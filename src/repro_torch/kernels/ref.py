@@ -33,13 +33,16 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     return out.reshape(B, nh, S, hd).to(q.dtype)
 
 
-def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk=256):
+def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk=256, initial_state=None, return_state=False):
     """Mamba2 SSD scan, chunked (the math of ``repro.models.layers.ssd_scan``
     and of the Pallas kernel). x: [B,nh,S,hp]; dt: [B,nh,S] (softplus-ed);
     A: [nh] (negative); Bm/Cm: [B,S,N], shared across heads -> [B,nh,S,hp]
-    in x's dtype. fp32 inside; the tail is padded with dt = 0, which makes
-    the padded tokens no-ops. Vectorised over chunks; only the inter-chunk
-    recurrence loops, once per chunk."""
+    in x's dtype, and with ``return_state`` also the final state
+    [B,nh,hp,N] fp32. The recurrence starts from ``initial_state``
+    ([B,nh,hp,N]) or zeros. fp32 inside; the tail is padded with dt = 0,
+    which makes the padded tokens no-ops (they leave the state as it is).
+    Vectorised over chunks; only the inter-chunk recurrence loops, once per
+    chunk."""
     B, nh, S, hp = x.shape
     N = Bm.shape[-1]
     Q = chunk
@@ -65,7 +68,8 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk=256):
     states = torch.einsum("bhcjp,bcjn->bhcpn", xc * w[..., None], Bc)   # [B,nh,nc,hp,N]
     # 3) inter-chunk recurrence: the state entering each chunk
     chunk_decay = torch.exp(acs[..., -1])                               # [B,nh,nc]
-    h = torch.zeros(B, nh, hp, N, dtype=f32, device=x.device)
+    h = (torch.zeros(B, nh, hp, N, dtype=f32, device=x.device) if initial_state is None
+         else initial_state.to(f32))
     entering = []
     for c in range(nc):
         entering.append(h)
@@ -73,7 +77,8 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk=256):
     h_prev = torch.stack(entering, dim=2)                               # [B,nh,nc,hp,N]
     # 4) inter-chunk output: (C_i . h_prev) exp(acs_i)
     y = y + torch.einsum("bcin,bhcpn->bhcip", Cc, h_prev) * torch.exp(acs)[..., None]
-    return y.reshape(B, nh, nc * Q, hp)[:, :, :S].to(x.dtype)
+    y = y.reshape(B, nh, nc * Q, hp)[:, :, :S].to(x.dtype)
+    return (y, h) if return_state else y
 
 
 def rmsnorm_ref(x, w, eps=1e-5):

@@ -125,21 +125,28 @@ def mlp(x: torch.Tensor, params: Mapping[str, torch.Tensor], kind: str) -> torch
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-             Cm: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+             Cm: torch.Tensor, chunk: int = 256, initial_state: torch.Tensor | None = None,
+             return_state: bool = False):
     """Chunked Mamba2 SSD forward through the SSD kernel.
 
     x: [B,S,nh,hp]; dt: [B,S,nh] (softplus-ed); A: [nh] (negative);
-    Bm/Cm: [B,S,N], shared across heads. Returns y [B,S,nh,hp] in x's
-    dtype; dt and A are taken in fp32, as the reference casts them. The
-    kernel takes strides, so the [B,nh,S,.] views below cost no copy and y
-    comes back in x's [B,S,nh,hp] order. ``chunk`` is the plain version's
-    chunk length (the kernel blocks by its own). The reference's
-    ``initial_state``/``return_state`` have no caller on the serving path
-    and are not ported."""
+    Bm/Cm: [B,S,N], shared across heads; initial_state: [B,nh,hp,N] or
+    None (zeros). Returns y [B,S,nh,hp] in x's dtype, and with
+    ``return_state`` (y, final state [B,nh,hp,N] fp32), as the reference
+    does. dt, A and the initial state are taken in fp32, as the reference
+    casts them. The kernel takes strides, so the [B,nh,S,.] views below
+    cost no copy and y comes back in x's [B,S,nh,hp] order. ``chunk`` is
+    the plain version's chunk length (the kernels block by their own). On
+    the card the two state options are served by the bf16 wgmma path only
+    (hp 64, N 64 or 128; ``kernels.ssd_scan.kernel_path``)."""
     f32 = torch.float32
-    y = kernels.ssd_scan(x.transpose(1, 2), dt.to(f32).transpose(1, 2), A.to(f32), Bm, Cm,
-                         chunk=chunk)
-    return y.transpose(1, 2)
+    init = None if initial_state is None else initial_state.to(f32)
+    out = kernels.ssd_scan(x.transpose(1, 2), dt.to(f32).transpose(1, 2), A.to(f32), Bm, Cm,
+                           chunk=chunk, initial_state=init, return_state=return_state)
+    if return_state:
+        y, final = out
+        return y.transpose(1, 2), final
+    return out.transpose(1, 2)
 
 
 def ssm_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,

@@ -7,7 +7,8 @@ made inside the ``card`` fixture). Run them on a machine with one:
 
 This file imports no JAX, so it runs where only PyTorch is installed.
 Inputs are made with numpy from a seed; tolerances are those of
-tests/test_kernels.py:16-18.
+tests/test_kernels.py:16-18, and for the bf16 wgmma kernels the gate of
+``_bf16_gate`` (chip_smoke.py's BF16_LIMITS).
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_path as flash_path  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel_path as rmsnorm_path  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref, ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel_path as ssd_path  # noqa: E402
 from repro_torch.launch.train import scale_arch  # noqa: E402
 from repro_torch.models.lm import RunCfg, init_params  # noqa: E402
 from repro_torch.serving import make_prefill_step  # noqa: E402
@@ -195,7 +197,8 @@ def test_rmsnorm_matches_plain(card, T, H, dtype):
 def _ssd_close(out, ref, dtype):
     """out: the kernel's output; ref: the plain version in fp32 on the same
     inputs. fp32: tests/test_kernels.py:56's 2e-3 and relative L2 1e-4;
-    bf16 (the kernel rounds only y): relative L2 1e-2."""
+    bf16: relative L2 1e-2 (the bf16 wgmma path is held to the tighter
+    gate of ``_bf16_gate`` below)."""
     torch.cuda.synchronize()
     if dtype == "float32":
         np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=2e-3, atol=2e-3)
@@ -270,6 +273,110 @@ def test_ssd_scan_rejects_what_the_kernel_does_not_take(card):
         ssd_scan(x_odd, dt, A, Bm, Cm)
     with pytest.raises(ValueError, match="unit last stride"):
         ssd_scan(x, dt, A, Bm.transpose(1, 2).contiguous().transpose(1, 2), Cm)
+
+
+# The bf16 wgmma path (hp 64, N 64/128) against fp32 of the same bf16
+# inputs, at _bf16_gate's limits (chip_smoke.py's BF16_LIMITS): S around its
+# 64-token chunks and mamba2-2.7b's prefill, both N, both draws of dt and A
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 500, 2000])
+@pytest.mark.parametrize("N", [64, 128])
+@pytest.mark.parametrize("long_memory", [False, True])
+def test_ssd_wgmma_bf16_against_fp32(card, S, N, long_memory):
+    assert ssd_path(torch.bfloat16, 64, N) == "wgmma"
+    rng = np.random.default_rng(S * 10 + N + long_memory)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 2, 3, S, 64, N, "bfloat16", card, long_memory)
+    before = ssd_scan.launches
+    out = ssd_scan(x, dt, A, Bm, Cm)
+    assert ssd_scan.launches == before + 1 and out.dtype == torch.bfloat16
+    _bf16_gate(out, ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nh,S,hp,N", [c for c in SSD_GRID if c[3] == 64 and c[4] in (64, 128)]
+                         + [(2, 80, 2000, 64, 128)])
+@pytest.mark.parametrize("long_memory", [False, True])
+@pytest.mark.parametrize("views", [False, True])
+def test_ssd_wgmma_grid_and_model_views(card, B, nh, S, hp, N, long_memory, views):
+    """The SSD grid's wgmma cases and mamba2-2.7b's prefill shape, dense
+    and in the model's layout (x, Bm, Cm column slices of the conv output,
+    dt a [B,nh,S] view of [B,S,nh]), at _bf16_gate's limits."""
+    rng = np.random.default_rng(B + nh + S + N)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, B, nh, S, hp, N, "bfloat16", card, long_memory)
+    if views:
+        buf = torch.cat([x.transpose(1, 2).reshape(B, S, nh * hp), Bm, Cm], dim=-1)
+        x = buf[..., :nh * hp].view(B, S, nh, hp).transpose(1, 2)
+        Bm, Cm = buf[..., nh * hp:nh * hp + N], buf[..., nh * hp + N:]
+        dt = dt.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not (x.is_contiguous() or Bm.is_contiguous() or dt.is_contiguous())
+    out = ssd_scan(x, dt, A, Bm, Cm)
+    assert out.stride() == torch.empty_like(x).stride()
+    _bf16_gate(out, ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 65, 300, 2000])
+@pytest.mark.parametrize("N", [64, 128])
+def test_ssd_wgmma_initial_and_final_state(card, S, N):
+    """initial_state and return_state on the wgmma path: y at _bf16_gate's
+    limits, the fp32 final state within relative L2 1e-2 of the plain
+    version's (x o w is rounded once to bf16 in the state update), and two
+    calls with the state carried across give one call's y and state."""
+    rng = np.random.default_rng(S + N)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 2, 4, S, 64, N, "bfloat16", card, long_memory=True)
+    h0 = torch.from_numpy(rng.standard_normal((2, 4, 64, N), dtype=np.float32)).to(card)
+    y, h = ssd_scan(x, dt, A, Bm, Cm, initial_state=h0, return_state=True)
+    y_ref, h_ref = ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float(), initial_state=h0,
+                                return_state=True)
+    assert h.dtype == torch.float32 and h.shape == h0.shape
+    _bf16_gate(y, y_ref)
+    assert ((h - h_ref).norm() / h_ref.norm()).item() <= 1e-2
+    cut = S // 2 // 64 * 64 or S // 2
+    if 0 < cut < S:
+        y1, h1 = ssd_scan(x[:, :, :cut], dt[:, :, :cut], A, Bm[:, :cut], Cm[:, :cut],
+                          initial_state=h0, return_state=True)
+        y2, h2 = ssd_scan(x[:, :, cut:], dt[:, :, cut:], A, Bm[:, cut:], Cm[:, cut:],
+                          initial_state=h1, return_state=True)
+        _bf16_gate(torch.cat([y1, y2], dim=2), y_ref)
+        assert ((h2 - h_ref).norm() / h_ref.norm()).item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_path_routing(card):
+    """Each (dtype, hp, N) reaches the kernel ``kernel_path`` names, and the
+    state options raise on the FMA path."""
+    rng = np.random.default_rng(2)
+    for dtype, hp, N, path in (("bfloat16", 64, 128, "wgmma"), ("bfloat16", 64, 64, "wgmma"),
+                               ("bfloat16", 64, 16, "fma"), ("float32", 64, 128, "fma")):
+        assert ssd_path(DTYPES[dtype], hp, N) == path
+        x, dt, A, Bm, Cm = _ssd_inputs(rng, 1, 2, 130, hp, N, dtype, card)
+        before = ssd_scan.launches
+        out = ssd_scan(x, dt, A, Bm, Cm)
+        assert ssd_scan.launches == before + 1
+        ref = ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float())
+        if path == "wgmma":
+            _bf16_gate(out, ref)
+        else:
+            _ssd_close(out, ref, dtype)
+            with pytest.raises(ValueError, match="wgmma path only"):
+                ssd_scan(x, dt, A, Bm, Cm, return_state=True)
+
+
+@pytest.mark.cuda
+def test_ssd_wgmma_rejects_unaligned_views(card):
+    """TMA takes only 16-byte multiples: rows of 130 bytes, and B based 2
+    bytes into a buffer, raise before any launch."""
+    rng = np.random.default_rng(4)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 1, 2, 40, 64, 128, "bfloat16", card)
+    buf = torch.zeros(1, 40, 2 * 64 + 1, device=card, dtype=torch.bfloat16)
+    x_odd = buf[..., 1:].view(1, 40, 2, 64).transpose(1, 2)
+    before = ssd_scan.launches
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_scan(x_odd, dt, A, Bm, Cm)
+    b_off = torch.zeros(40 * 128 + 1, device=card, dtype=torch.bfloat16)[1:].view(1, 40, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_scan(x, dt, A, b_off, Cm)
+    assert ssd_scan.launches == before
 
 
 @pytest.mark.cuda

@@ -20,11 +20,13 @@ from repro.kernels import ssd_scan as jax_ssd  # noqa: E402
 from repro.kernels.ref import flash_attention_ref as jax_flash_ref  # noqa: E402
 from repro.kernels.ref import rmsnorm_ref as jax_rmsnorm_ref  # noqa: E402
 from repro.kernels.ref import ssd_scan_ref as jax_ssd_ref  # noqa: E402
+from repro.models.layers import ssd_scan as jax_layers_ssd_scan  # noqa: E402
 from repro.models.layers import ssm_decode_step as jax_ssm_decode_step  # noqa: E402
 from repro_torch import kernels, resolve_device  # noqa: E402
 from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref, ssd_scan_ref  # noqa: E402
 from repro_torch.models.layers import softplus, ssm_decode_step  # noqa: E402
+from repro_torch.models.layers import ssd_scan as layers_ssd_scan  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 FLASH_GRID = [
@@ -182,6 +184,73 @@ def test_ssd_plain_version_equals_decode_recurrence(long_memory):
         np.testing.assert_allclose(_np(y), _np(jy), rtol=1e-5, atol=1e-5)
         ys.append(y)
     np.testing.assert_allclose(_np(out), _np(torch.stack(ys, dim=2)), rtol=3e-4, atol=3e-4)
+
+
+def _rel_l2(a, b):
+    a, b = _np(a), _np(b)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+# B, nh, S, hp, N, chunk: a padded tail over several chunks, S shorter
+# than one chunk, and mamba2's hp 64 / N 128 at a narrow head count
+SSD_STATE_GRID = [(2, 3, 300, 32, 64, 64), (1, 2, 100, 16, 32, 256), (1, 2, 130, 64, 128, 64)]
+
+
+@pytest.mark.parametrize("B,nh,S,hp,N,chunk", SSD_STATE_GRID)
+@pytest.mark.parametrize("long_memory", [False, True])
+def test_ssd_scan_initial_and_final_state_match_jax(B, nh, S, hp, N, chunk, long_memory):
+    """``layers.ssd_scan(..., initial_state=..., return_state=True)`` in the
+    port and in JAX on the same numpy inputs, fp32: y and the final state
+    within tests/test_kernels.py:56's 2e-3 and relative L2 1e-4."""
+    x, dt, A, Bm, Cm = _ssd_inputs(13, B, nh, S, hp, N, long_memory)
+    h0 = np.random.default_rng(17).standard_normal((B, nh, hp, N), dtype=np.float32)
+    xs, dts = np.ascontiguousarray(x.transpose(0, 2, 1, 3)), np.ascontiguousarray(dt.transpose(0, 2, 1))
+    jy, jh = jax_layers_ssd_scan(*(jnp.asarray(a) for a in (xs, dts, A, Bm, Cm)), chunk=chunk,
+                                 initial_state=jnp.asarray(h0), return_state=True)
+    y, h = layers_ssd_scan(*(torch.from_numpy(a) for a in (xs, dts, A, Bm, Cm)), chunk,
+                           initial_state=torch.from_numpy(h0), return_state=True)
+    assert y.shape == xs.shape and h.shape == (B, nh, hp, N) and h.dtype == torch.float32
+    for got, want in ((y, jy), (h, jh)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2e-3, atol=2e-3)
+        assert _rel_l2(got, want) <= 1e-4
+    # without the options: the plain y, and a zero initial state gives it too
+    y0 = layers_ssd_scan(*(torch.from_numpy(a) for a in (xs, dts, A, Bm, Cm)), chunk)
+    y1, _ = layers_ssd_scan(*(torch.from_numpy(a) for a in (xs, dts, A, Bm, Cm)), chunk,
+                            initial_state=torch.zeros(B, nh, hp, N), return_state=True)
+    np.testing.assert_array_equal(_np(y0), _np(y1))
+
+
+# segment boundaries (in tokens) of S: whole 64-token chunks with a short
+# last segment, a cut inside a chunk, and S shorter than one chunk
+SSD_SPLITS = [(300, (0, 128, 256, 300)), (300, (0, 64, 100, 300)), (40, (0, 40)),
+              (200, (0, 64, 128, 192, 200))]
+
+
+@pytest.mark.parametrize("S,cuts", SSD_SPLITS)
+@pytest.mark.parametrize("long_memory", [False, True])
+def test_ssd_scan_decomposes_into_segments(S, cuts, long_memory):
+    """What the CUDA kernel's split of S rests on, in fp32 on the plain
+    version: (a) segment by segment with the state carried across equals
+    one call over S; (b) the state entering a segment equals the fold of
+    the earlier segments' end states, each computed from a zero state:
+    h <- exp(A sum dt over the segment) h + E_s, from the initial state."""
+    B, nh, hp, N = 1, 3, 32, 64
+    x, dt, A, Bm, Cm = (torch.from_numpy(a) for a in _ssd_inputs(19, B, nh, S, hp, N, long_memory))
+    h0 = torch.from_numpy(np.random.default_rng(23).standard_normal((B, nh, hp, N),
+                                                                    dtype=np.float32))
+    y_all, h_all = ssd_scan_ref(x, dt, A, Bm, Cm, chunk=64, initial_state=h0, return_state=True)
+    ys, h, fold = [], h0, h0
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        seg = (x[:, :, lo:hi], dt[:, :, lo:hi], A, Bm[:, lo:hi], Cm[:, lo:hi])
+        np.testing.assert_allclose(_np(fold), _np(h), rtol=1e-4, atol=1e-4)
+        y, h = ssd_scan_ref(*seg, chunk=64, initial_state=h, return_state=True)
+        _, end = ssd_scan_ref(*seg, chunk=64, return_state=True)
+        fold = fold * torch.exp(A[None, :, None, None] * dt[:, :, lo:hi].sum(-1)[..., None, None]) + end
+        ys.append(y)
+    y = torch.cat(ys, dim=2)
+    for got, want in ((y, y_all), (h, h_all), (fold, h_all)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+        assert _rel_l2(got, want) <= 1e-5
 
 
 def test_softplus_matches_jax():

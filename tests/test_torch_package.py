@@ -23,7 +23,8 @@ from repro_torch.launch.train import scale_arch  # noqa: E402
 from repro_torch.models.lm import RunCfg  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "scripts").glob("*.py")))
 
 
 def _same(a, b):

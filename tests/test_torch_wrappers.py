@@ -16,6 +16,9 @@ from repro_torch.kernels.flash_attention import kernel_path as flash_path  # noq
 from repro_torch.kernels.rmsnorm import ROW_VPL  # noqa: E402
 from repro_torch.kernels.rmsnorm import check_args as rmsnorm_check  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel_path as rmsnorm_path  # noqa: E402
+from repro_torch.kernels.ssd_scan import WGMMA_STATE_DIMS, segment_chunks  # noqa: E402
+from repro_torch.kernels.ssd_scan import check_args as ssd_check  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel_path as ssd_path  # noqa: E402
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 BF16, F32 = torch.bfloat16, torch.float32
@@ -129,3 +132,115 @@ def test_rmsnorm_rejects_what_the_kernel_does_not_take():
     assert x.is_contiguous() and x.data_ptr() % 16 == 2
     with pytest.raises(ValueError, match="aligned"):
         rmsnorm_check(x, torch.ones(16, dtype=BF16))
+
+
+def _ssd(B=2, nh=4, S=130, hp=64, N=128, dtype=BF16, views=False):
+    """x [B,nh,S,hp], dt [B,nh,S], A [nh], Bm/Cm [B,S,N]; with ``views`` in
+    the model's layout: x, Bm, Cm column slices of one [B,S,nh*hp+2N]
+    buffer (mamba2-2.7b's row of 5,376 values at nh 80), dt a view of
+    [B,S,nh]."""
+    if views:
+        buf = torch.zeros(B, S, nh * hp + 2 * N, dtype=dtype)
+        x = buf[..., :nh * hp].view(B, S, nh, hp).transpose(1, 2)
+        Bm, Cm = buf[..., nh * hp:nh * hp + N], buf[..., nh * hp + N:]
+        dt = torch.zeros(B, S, nh).transpose(1, 2)
+    else:
+        x = torch.zeros(B, nh, S, hp, dtype=dtype)
+        Bm, Cm = torch.zeros(B, S, N, dtype=dtype), torch.zeros(B, S, N, dtype=dtype)
+        dt = torch.zeros(B, nh, S)
+    return x, dt, -torch.ones(nh), Bm, Cm
+
+
+@pytest.mark.parametrize("dtype,hp,N,path", [
+    (BF16, 64, 128, "wgmma"), (BF16, 64, 64, "wgmma"), (BF16, 64, 16, "fma"), (BF16, 64, 32, "fma"),
+    (BF16, 32, 128, "fma"), (BF16, 16, 64, "fma"), (F32, 64, 128, "fma"), (F32, 64, 64, "fma"),
+    (F32, 32, 16, "fma")])
+def test_ssd_dispatch_by_dtype_and_shape(dtype, hp, N, path):
+    """bf16 at hp 64 and N 64/128 (mamba2-2.7b) takes the wgmma kernel;
+    fp32 and every other bf16 shape (hymba-1.5b's N 16) the FMA kernel."""
+    assert ssd_path(dtype, hp, N) == path
+    assert ssd_check(*_ssd(hp=hp, N=N, dtype=dtype)) == path
+    assert (path == "wgmma") == (dtype == BF16 and hp == 64 and N in WGMMA_STATE_DIMS)
+
+
+@pytest.mark.parametrize("hp,N", [(48, 64), (128, 64), (64, 8), (64, 256)])
+def test_ssd_rejects_shapes_no_kernel_has(hp, N):
+    with pytest.raises(ValueError, match="hp in .* and N in"):
+        ssd_path(BF16, hp, N)
+    with pytest.raises(ValueError, match="instantiated"):
+        ssd_check(*_ssd(hp=hp, N=N))
+
+
+def test_ssd_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        ssd_path(torch.float16, 64, 128)
+    x, dt, A, Bm, Cm = _ssd()
+    with pytest.raises(TypeError, match="share a dtype"):
+        ssd_check(x, dt, A, Bm.float(), Cm)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_check(x, dt.to(BF16), A, Bm, Cm)
+
+
+@pytest.mark.parametrize("nh", [4, 80])
+def test_ssd_takes_the_models_strided_views(nh):
+    """layers.ssd_scan passes x, Bm, Cm as slices of the conv output and dt
+    as a [B,nh,S] view: rows of nh*64 + 256 values, Bm and Cm at element
+    offsets nh*64 and nh*64 + 128, all multiples of 16 bytes."""
+    x, dt, A, Bm, Cm = _ssd(nh=nh, views=True)
+    assert not (x.is_contiguous() or Bm.is_contiguous() or dt.is_contiguous())
+    assert x.stride(2) * 2 % 16 == 0 and (Bm.data_ptr() - x.data_ptr()) % 16 == 0
+    assert ssd_check(x, dt, A, Bm, Cm) == "wgmma"
+
+
+def test_ssd_rejects_unaligned_views():
+    """Rows or bases off 16 bytes (TMA takes neither), and a strided last dim."""
+    B, nh, S = 1, 2, 40
+    buf = torch.zeros(B, S, nh * 64 + 2 * 128 + 1, dtype=BF16)
+    x = buf[..., 1:1 + nh * 64].view(B, S, nh, 64).transpose(1, 2)     # rows of 642 bytes
+    _, dt, A, Bm, Cm = _ssd(B=B, nh=nh, S=S)
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_check(x, dt, A, Bm, Cm)
+    off = torch.zeros(B * S * 128 + 1, dtype=BF16)[1:].view(B, S, 128)   # base 2 bytes off
+    assert off.is_contiguous() and off.data_ptr() % 16 == 2
+    x, dt, A, Bm, Cm = _ssd(B=B, nh=nh, S=S)
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_check(x, dt, A, off, Cm)
+    with pytest.raises(ValueError, match="unit last stride"):
+        ssd_check(x, dt, A, Bm, Cm.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+def test_ssd_state_options_need_the_wgmma_path():
+    """initial_state / return_state are served by the wgmma path only; on
+    the FMA path they raise, as does an initial state of the wrong shape
+    or type."""
+    for dtype, N in ((F32, 128), (BF16, 16)):
+        x, dt, A, Bm, Cm = _ssd(N=N, dtype=dtype)
+        with pytest.raises(ValueError, match="wgmma path only"):
+            ssd_check(x, dt, A, Bm, Cm, torch.zeros(2, 4, 64, N))
+        with pytest.raises(ValueError, match="wgmma path only"):
+            ssd_check(x, dt, A, Bm, Cm, None, True)
+    x, dt, A, Bm, Cm = _ssd()
+    assert ssd_check(x, dt, A, Bm, Cm, torch.zeros(2, 4, 64, 128), True) == "wgmma"
+    with pytest.raises(ValueError, match="initial_state"):
+        ssd_check(x, dt, A, Bm, Cm, torch.zeros(2, 4, 128, 64))
+    with pytest.raises(ValueError, match="initial_state"):
+        ssd_check(x, dt, A, Bm, Cm, torch.zeros(2, 4, 64, 128, dtype=BF16))
+
+
+@pytest.mark.parametrize("B,nh,S,sms,want", [
+    (2, 80, 2000, 132, 11),    # mamba2-2.7b prefill: 3 segments, 480 CTAs in 2 waves
+    (1, 80, 2000, 132, 11),    # 3 segments, 240 CTAs in one wave
+    (2, 80, 64, 132, 1),       # one chunk: one segment
+    (1, 2, 2000, 132, 8),      # few heads: 4 segments
+    (8, 80, 2000, 132, 16),    # many heads: 2 segments
+    (2, 80, 640, 132, 10)])    # 10 chunks: one wave of 160 CTAs, no split
+def test_ssd_segment_chunks(B, nh, S, sms, want):
+    assert segment_chunks(B, nh, S, sms) == want
+
+
+def test_ssd_wgmma_state_dims_are_the_instantiated_ones():
+    """WGMMA_STATE_DIMS lists exactly the N that ssd_scan_wgmma_launch takes."""
+    src = (CSRC / "ssd_scan.cu").read_text()
+    assert "N == 128 ? launch<128>(tx, tb, tc, p, s) : launch<64>(tx, tb, tc, p, s)" in src
+    assert "(N != 64 && N != 128)" in src
+    assert WGMMA_STATE_DIMS == (64, 128)
