@@ -17,7 +17,18 @@ Phases, each of which fails the run by raising:
      serve steps;
   4. after each model's path, time its kernels beside their bound, their
      plain version and one PyTorch library call where there is one, and
-     time prefill and decode.
+     time prefill and decode;
+  5. hold the backward kernels (flash attention, RMSNorm) against their
+     plain backwards (``kernels/ref.py``);
+  6. train full-width yi-6b cut to 16 of its 32 layers (fp32 masters and
+     Adam moments, bf16 compute, microbatch 1 x 2048 tokens, G = 2) through
+     the port's entry points: gradients through the kernels against the
+     plain versions (bf16 against fp32, fp32 at 2 layers against fp64),
+     ``train_loop`` for 10 steps into a checkpoint and a restore that must
+     give the saved state bit for bit, 10 ``make_train_step`` steps on one
+     batch whose loss must fall, the first with its launches counted
+     exactly, then the train step's time, tokens/s and peak memory and the
+     backward kernels' times.
 The last line is one JSON object with ``"ok": true`` and the device. It
 needs a CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -25,10 +36,14 @@ needs a CUDA card and exits non-zero without one. It imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -73,16 +88,35 @@ SSD_STATE_REL_L2 = 1e-2   # final state (fp32) of the wgmma path against the pla
 # mamba2-2.7b: prefill B*S, teacher-forced S, decode B, final norm B, teacher-forced decode
 RMS_MAIN_SSM = [(4000, 2560), (4000, 5120), (300, 2560), (300, 5120), (4, 2560), (4, 5120),
                 (2, 2560), (1, 2560), (1, 5120)]
+# backward cases, B, S, nh, nkv, window (GQA groups 1, 2, 8; S 1, 127, 200,
+# 2048; causal, one window), each at hd 32, 64 and 128; the training shape
+FLASH_BWD_CASES = [(1, 1, 2, 2, 0), (2, 127, 4, 2, 0), (1, 200, 8, 1, 0), (1, 200, 4, 4, 37),
+                   (1, 2048, 8, 1, 0)]
+FLASH_BWD_MAIN = (1, 2048, 32, 4, 0, 128)      # yi-6b training: B, S, nh, nkv, window, hd
+RMS_BWD_CASES = [(1, 256), (7, 4096), (300, 1000), (4096, 256), (4096, 4096), (33, 12288)]
+RMS_BWD_MAIN = (2048, 4096)                    # yi-6b training, one microbatch
+TRAIN_LAYERS, TRAIN_S, TRAIN_G = 16, 2048, 2   # yi-6b cut to fit one card (PERF.md)
+TRAIN_STEPS = 10
 SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:87"),
+           "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                   "src/repro/kernels/flash_attention.py:87"),
            "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                        "src/repro/kernels/rmsnorm.py:24"),
+           "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                           "src/repro/kernels/rmsnorm.py:24"),
            "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan.py:65")}
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def _launches(**counts):
+    """Every kernel's launch count: those given, 0 for the rest."""
+    from repro_torch import kernels
+    return {name: counts.get(name, 0) for name in kernels.KERNELS}
 
 
 # --------------------------------------------------------------------------
@@ -434,7 +468,7 @@ def phase_slice(name, tf_len, tf_layers, total):
     logits, counts = _counts_since_reset(lambda: prefill({"tokens": tokens}))
     if logits.shape != (2, 1, V) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite [2,1,{V}]")
-    want = {"flash_attention": 0 if ssm else L, "rmsnorm": norms, "ssd_scan": L if ssm else 0}
+    want = _launches(flash_attention=0 if ssm else L, rmsnorm=norms, ssd_scan=L if ssm else 0)
     if counts != want:
         raise AssertionError(f"prefill launched {counts}, expected {want}")
     log(f"[slice] (a,b) {name} prefill B=2 S=2000: logits {tuple(logits.shape)} finite; "
@@ -507,7 +541,7 @@ def phase_slice(name, tf_len, tf_layers, total):
     _add(total, counts)
     if lg.shape != (4, V) or not torch.isfinite(lg).all() or tok.shape != (4,):
         raise AssertionError("serve_step output malformed")
-    if counts != {"flash_attention": 0, "rmsnorm": 4 * norms, "ssd_scan": 0}:
+    if counts != _launches(rmsnorm=4 * norms):
         raise AssertionError(f"4 serve steps launched {counts}")
     log(f"[slice] (e) {name} 4 serve steps B=4: logits {tuple(lg.shape)} finite; "
         f"launches {counts}")
@@ -668,6 +702,497 @@ def times_end_to_end(name, model, prefill, serve, gen, decode_spans):
         f"decode B=4 ms/token at {', '.join(dec)}; peak memory {peak:.2f} GiB")
 
 
+# --------------------------------------------------------------------------
+# 5. backward kernels against their plain backwards
+# --------------------------------------------------------------------------
+
+def _bwd_gate(name, out, ref, exact_zero_scale=None):
+    """A backward kernel's output against the plain backward in fp32 on the
+    same inputs; returns the max abs error. fp32: relative L2 within 1e-4.
+    bf16 (fp32 of the same bf16 inputs): BF16_LIMITS, with each row's error
+    taken against its norm plus 2^-6 of the typical row norm and the
+    pointwise limit 2^-7 |ref| + 2^-6 rms(ref row) + 2^-6 rms(ref): rows
+    whose exact gradient cancels to ~0 (the first causal row of dq) are
+    rounding noise on both sides. ``exact_zero_scale``: the exact result is
+    0 (dq, dk at S = 1: one live key, dS = P (dO.v - dO.o) with o = v), so
+    |out| must stay below 1e-3 of that scale (max |dv|)."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: not finite")
+    out32 = out.float()
+    if exact_zero_scale is not None:
+        got = out32.abs().max().item()
+        if not got <= 1e-3 * exact_zero_scale:
+            raise AssertionError(f"{name}: max |out| {got:.3e} > 1e-3 x {exact_zero_scale:.3e}")
+        log(f"[bwd] {name} exact 0: max |out| {got:.3e} (limit {1e-3 * exact_zero_scale:.3e}) ok")
+        return got
+    err = out32 - ref
+    max_abs = err.abs().max().item()
+    rel = (err.norm() / ref.norm()).item()
+    if out.dtype == torch.float32:
+        if not rel <= 1e-4:
+            raise AssertionError(f"{name}: rel_l2={rel:.3e} > 1e-4")
+        log(f"[bwd] {name} rel_l2={rel:.3e} (limit 1e-4) max_abs_err={max_abs:.3e} ok")
+        return max_abs
+    R, E = ref.reshape(-1, ref.shape[-1]), err.reshape(-1, ref.shape[-1])
+    rows = R.norm(dim=-1)
+    typical = R.norm() / R.shape[0] ** 0.5
+    limit = (2 ** -7 * R.abs() + 2 ** -6 * rows[:, None] / R.shape[-1] ** 0.5
+             + 2 ** -6 * typical / R.shape[-1] ** 0.5)
+    got = {"rel_l2": rel,
+           "row_rel_l2": (E.norm(dim=-1) / (rows + 2 ** -6 * typical)).max().item(),
+           "pointwise": (E.abs() / limit).max().item()}
+    reading = " ".join(f"{k}={v:.3e} (limit {BF16_LIMITS[k]:g})" for k, v in got.items())
+    bad = [k for k, v in got.items() if not v <= BF16_LIMITS[k]]
+    if bad:
+        raise AssertionError(f"{name}: {reading}: over the limit in {bad}")
+    log(f"[bwd] {name} {reading} max_abs_err={max_abs:.3e} ok")
+    return max_abs
+
+
+def _flash_bwd_case(name, q, k, v, window, do=None):
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    o = flash_attention(q, k, v, causal=True, window=window)
+    gen = torch.Generator(device="cuda").manual_seed(q.shape[2])
+    if do is None:
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    got = flash_attention_bwd(q, k, v, o, do, causal=True, window=window)
+    want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), do.float(),
+                                   causal=True, window=window)
+    errs = []
+    for i, (part, g, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
+        zero = want[2].abs().max().item() if q.shape[2] == 1 and i < 2 else None
+        errs.append(_bwd_gate(f"{name} {part}", g, w, exact_zero_scale=zero))
+    return max(errs)
+
+
+def phase_bwd_parity():
+    """Each backward kernel against its plain backward (``kernels/ref.py``)
+    on the same inputs: flash at hd 32/64/128, GQA groups 1, 2 and 8, S 1,
+    127, 200 and 2048, causal and one window, the model's strided views and
+    the training shape; RMSNorm at H 256, 1000, 4096, 12288 and T 1-4096."""
+    from repro_torch.kernels import rmsnorm_bwd
+    from repro_torch.kernels.ref import rmsnorm_bwd_ref
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        for hd in (32, 64, 128):
+            for B, S, nh, nkv, window in FLASH_BWD_CASES:
+                _flash_bwd_case(f"flash_bwd {tag} hd={hd} B,S,nh,nkv=({B},{S},{nh},{nkv}) "
+                                f"window={window}", *_flash_inputs(gen, B, S, nh, nkv, hd, dtype),
+                                window)
+        B, S, nh, nkv, window, hd = FLASH_BWD_MAIN
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in _flash_inputs(gen, B, S, nh, nkv, hd, dtype))
+        do = _randn(gen, B, S, nh, hd, dtype=dtype).transpose(1, 2)
+        errs[("flash_attention_bwd", dtype)] = _flash_bwd_case(
+            f"flash_bwd {tag} main {FLASH_BWD_MAIN[:4]} hd={hd} [B,S,nh,hd] views", q, k, v,
+            window, do)
+        for T, H in RMS_BWD_CASES + [RMS_BWD_MAIN]:
+            x, w, dy = _randn(gen, T, H, dtype=dtype), _randn(gen, H, dtype=dtype), \
+                _randn(gen, T, H, dtype=dtype)
+            dx, dw = rmsnorm_bwd(x, w, dy)
+            want = rmsnorm_bwd_ref(x.float(), w.float(), dy.float())
+            err = max(_bwd_gate(f"rmsnorm_bwd {tag} T,H=({T},{H}) dx", dx, want[0]),
+                      _bwd_gate(f"rmsnorm_bwd {tag} T,H=({T},{H}) dw", dw[None], want[1][None]))
+            if (T, H) == RMS_BWD_MAIN:
+                errs[("rmsnorm_bwd", dtype)] = err
+    return errs
+
+
+# --------------------------------------------------------------------------
+# 6. training slice: full-width yi-6b, 16 layers
+# --------------------------------------------------------------------------
+
+def _train_arch(layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("yi-6b"), num_layers=layers)
+
+
+def _train_cfg(dtype=torch.bfloat16, remat=False):
+    from repro_torch.models.lm import RunCfg
+    from repro_torch.train.optim import OptimizerCfg
+    from repro_torch.train.step import TrainCfg
+    return TrainCfg(run=RunCfg(compute_dtype=dtype, remat=remat),
+                    opt=OptimizerCfg(peak_lr=3e-4, warmup_steps=2, decay_steps=TRAIN_STEPS),
+                    num_microbatches=TRAIN_G)
+
+
+def _train_data(arch):
+    from repro_torch.train.data import DataCfg, SyntheticDataset
+    return SyntheticDataset(arch, DataCfg(seq_len=TRAIN_S, global_batch=TRAIN_G,
+                                          num_microbatches=TRAIN_G, seed=0))
+
+
+def _step_launches(layers):
+    """Kernel launches of one train step, remat off: a flash forward and
+    backward per layer, two RMSNorms and their backwards per layer plus the
+    final norm, for each of the G microbatches."""
+    return _launches(flash_attention=layers * TRAIN_G, flash_attention_bwd=layers * TRAIN_G,
+                     rmsnorm=(2 * layers + 1) * TRAIN_G, rmsnorm_bwd=(2 * layers + 1) * TRAIN_G)
+
+
+def _grads(model, batch, cfg, plain=False, remat=None):
+    """(grads, loss, grad global norm, launches) of the G microbatches
+    (``accumulate_grads``, the gradient half of the train step); with
+    ``plain``, through the plain versions; ``remat`` overrides the model's."""
+    import dataclasses
+    from repro_torch.train.optim import global_norm
+    from repro_torch.train.step import accumulate_grads
+    saved = model.cfg
+    if remat is not None:
+        model.cfg = dataclasses.replace(saved, remat=remat)
+    try:
+        with plain_versions() if plain else contextlib.nullcontext():
+            (grads, loss, _), counts = _counts_since_reset(
+                lambda: accumulate_grads(model, batch, cfg))
+    finally:
+        model.cfg = saved
+    return grads, loss.item(), global_norm(grads).item(), counts
+
+
+def _rel_by_leaf(grads, ref):
+    return {n: ((g.float() - ref[n]).norm() / ref[n].norm().clamp_min(1e-30)).item()
+            for n, g in grads.items()}
+
+
+@torch.no_grad()
+def _fan_in_h(model):
+    """Rescale wq, wk, wv, wi and wg from the reference's std (1/L)^0.5 to
+    (1/H)^0.5 (``lm._dense`` takes fan-in from the layer axis; ROADMAP §3)."""
+    a = model.arch
+    for blk in model.blocks:
+        for p in (blk.attn["wq"], blk.attn["wk"], blk.attn["wv"], blk.mlp["wi"], blk.mlp["wg"]):
+            p.mul_((a.num_layers / a.d_model) ** 0.5)
+    return model
+
+
+def _bf16_grads_vs_fp32(arch, batch, init):
+    """bf16 gradients of G microbatches through the kernels and through the
+    plain versions, each against fp32 of the same weights (plain versions,
+    remat on); the kernels' launches gated exactly. Returns the readings."""
+    from repro_torch.models.lm import LM, RunCfg, init_params
+    model = init(init_params(arch, torch.Generator(device="cuda").manual_seed(0),
+                             RunCfg(compute_dtype=torch.bfloat16, remat=False), device="cuda"))
+    model32 = LM(arch, RunCfg(compute_dtype=torch.float32), device="cuda")
+    model32.load_state_dict(model.state_dict())
+    g32, l32, n32, _ = _grads(model32, batch, _train_cfg(torch.float32), plain=True, remat=True)
+    del model32
+    torch.cuda.empty_cache()
+    gk, lk, nk, counts = _grads(model, batch, _train_cfg())
+    if counts != _step_launches(arch.num_layers):
+        raise AssertionError(f"gradients launched {counts}, expected "
+                             f"{_step_launches(arch.num_layers)}")
+    rel_k = _rel_by_leaf(gk, g32)
+    del gk
+    gp, lp, np_, counts = _grads(model, batch, _train_cfg(), plain=True, remat=True)
+    if any(counts.values()):
+        raise AssertionError(f"plain versions launched {counts}")
+    rel_p = _rel_by_leaf(gp, g32)
+    del gp, g32, model
+    torch.cuda.empty_cache()
+    return dict(loss=(l32, lk, lp), norm=(n32, nk, np_), rel_k=rel_k, rel_p=rel_p)
+
+
+def _fp32_grads_vs_fp64(arch, batch, init):
+    """fp32 gradients through the kernels and through the plain versions,
+    and fp64 gradients through the plain versions, of the same weights and
+    batch: ((loss kernels, plain, fp64), (grad norms), (leaf relative L2 of
+    kernels to plain, of kernels to fp64, of plain to fp64), (relative L2
+    of the whole gradient of kernels to fp64, of plain to fp64))."""
+    import dataclasses
+    from repro_torch.models.lm import LM, RunCfg, init_params
+    model = init(init_params(arch, torch.Generator(device="cuda").manual_seed(0),
+                             RunCfg(compute_dtype=torch.float32, remat=False), device="cuda"))
+    cfg = _train_cfg(torch.float32)
+    gk, lk, nk, _ = _grads(model, batch, cfg)
+    gp, lp, np_, _ = _grads(model, batch, cfg, plain=True)
+    model64 = LM(arch, RunCfg(compute_dtype=torch.float64, remat=False), device="cuda")
+    model64.load_state_dict(model.state_dict())
+    del model
+    cfg64 = dataclasses.replace(_train_cfg(torch.float64), grad_accum_dtype=torch.float64)
+    g64, l64, n64, _ = _grads(model64, batch, cfg64, plain=True)
+    rels = (_rel_by_leaf(gk, gp), _rel_by_leaf(gk, g64), _rel_by_leaf(gp, g64))
+    whole = tuple(math.sqrt(sum((r[n] * g64[n].norm().item()) ** 2 for n in r)) / n64
+                  for r in rels[1:])
+    del gk, gp, g64, model64
+    torch.cuda.empty_cache()
+    return (lk, lp, l64), (nk, np_, n64), rels, whole
+
+
+def train_grads_gate():
+    """(a) The gradients of the G microbatches (``accumulate_grads``, the
+    train step's gradient half) through the kernels and through the plain
+    versions from the same weights and batch, under two inits of the same
+    seed: the reference's, and the same weights with wq, wk, wv, wi, wg at
+    fan-in H (``_fan_in_h``). Under the reference's init attention is a
+    hard argmax (logits of std ~250 at 16 layers, ~2000 at 2): dS = P (dP
+    - D) cancels for the one live entry of a row, so gradients upstream of
+    the scores turn on rounding, and two correct backwards (the kernels'
+    FA2 form, autograd's softmax form) differ by percents even in fp32.
+    bf16 at 16 layers: each route against fp32 of the same weights (plain
+    versions): the kernels' distance to fp32 of the loss, the global norm
+    and each leaf within 1.5x the plain versions' (or 1e-3 of the loss,
+    1e-2 relative of a norm or leaf, where the plain versions land
+    closer); gated on fan-in-H weights, reported on the reference's init.
+    fp32 at 2 layers, both inits gated: each route against fp64 of the
+    same weights (plain versions), the kernels' distance within 1.5x the
+    plain versions' (or 1e-5 of the loss, 1e-4 relative L2 of the whole
+    gradient or a leaf); the global norm of a gradient that is ~12%
+    rounding noise moves by a few percent either way, so under the
+    reference's init it is reported, and the whole gradient's distance
+    gated. On fan-in-H weights also kernels against plain versions within
+    1e-3 relative L2 for the norm and each leaf, 1e-5 for the loss."""
+    arch = _train_arch(TRAIN_LAYERS)
+    batch = _train_data(arch).batch_at(0)
+    for name, init in (("reference init", lambda m: m), ("fan-in-H init", _fan_in_h)):
+        r = _bf16_grads_vs_fp32(arch, batch, init)
+        (l32, lk, lp), (n32, nk, np_), rel_k, rel_p = r["loss"], r["norm"], r["rel_k"], r["rel_p"]
+        ratios = {n: rel_k[n] / max(rel_p[n], 1e-30) for n in rel_k}
+        worst = sorted(ratios, key=ratios.get)[-3:]
+        gated = name != "reference init"
+        log(f"[train] (a) bf16 {TRAIN_LAYERS} layers, {name} ({'gated' if gated else 'reported'}),"
+            f" G={TRAIN_G} x S={TRAIN_S}: loss fp32 {l32:.6f}, kernels {lk:.6f}, plain {lp:.6f}; "
+            f"grad norm fp32 {n32:.6g}, kernels {nk:.6g}, plain {np_:.6g}; leaf rel_l2 to fp32: "
+            f"kernels median {statistics.median(rel_k.values()):.4g} max "
+            f"{max(rel_k.values()):.4g}, plain median {statistics.median(rel_p.values()):.4g} "
+            f"max {max(rel_p.values()):.4g}; highest kernels/plain "
+            + ", ".join(f"{n} {rel_k[n]:.4g}/{rel_p[n]:.4g}" for n in worst))
+        if not all(math.isfinite(x) for x in (l32, lk, lp, n32, nk, np_)):
+            raise AssertionError(f"bf16 gradients ({name}): a loss or norm is not finite")
+        if not gated:
+            continue
+        for what, k, p, floor in (("loss", abs(lk - l32), abs(lp - l32), 1e-3 * abs(l32)),
+                                  ("grad norm", abs(nk - n32) / n32, abs(np_ - n32) / n32,
+                                   1e-2)):
+            if not k <= max(1.5 * p, floor):
+                raise AssertionError(f"bf16 {what}: kernels {k:.4g} from fp32, plain {p:.4g}")
+        bad = [n for n in rel_k if not rel_k[n] <= max(1.5 * rel_p[n], 1e-2)]
+        if bad:
+            raise AssertionError("bf16 gradients further from fp32 than the plain versions "
+                                 "allow: " + ", ".join(f"{n} {rel_k[n]:.4g}/{rel_p[n]:.4g}"
+                                                        for n in bad))
+    arch2 = _train_arch(2)
+    batch2 = _train_data(arch2).batch_at(0)
+    for name, init in (("reference init", lambda m: m), ("fan-in-H init", _fan_in_h)):
+        (lk, lp, l64), (nk, np_, n64), (rel, rel_k, rel_p), (whole_k, whole_p) = \
+            _fp32_grads_vs_fp64(arch2, batch2, init)
+        ratios = {n: rel_k[n] / max(rel_p[n], 1e-30) for n in rel_k}
+        worst = sorted(ratios, key=ratios.get)[-3:]
+        log(f"[train] (a) fp32 2 layers, {name}: loss kernels {lk:.7f} plain {lp:.7f} fp64 "
+            f"{l64:.7f}; grad norm kernels {nk:.7g} plain {np_:.7g} fp64 {n64:.7g}; whole "
+            f"gradient rel_l2 to fp64 kernels {whole_k:.3e} plain {whole_p:.3e}; leaf rel_l2 "
+            f"kernels to plain max {max(rel.values()):.3e} ({max(rel, key=rel.get)}) median "
+            f"{statistics.median(rel.values()):.3e}; to fp64: kernels median "
+            f"{statistics.median(rel_k.values()):.3e} max {max(rel_k.values()):.3e}, plain "
+            f"median {statistics.median(rel_p.values()):.3e} max {max(rel_p.values()):.3e}; "
+            f"highest kernels/plain " + ", ".join(f"{n} {rel_k[n]:.3e}/{rel_p[n]:.3e}"
+                                                  for n in worst))
+        for what, k, p, floor in (("loss", abs(lk - l64) / abs(l64), abs(lp - l64) / abs(l64),
+                                   1e-5),
+                                  ("whole gradient", whole_k, whole_p, 1e-4)):
+            if not k <= max(1.5 * p, floor):
+                raise AssertionError(f"fp32 {what} ({name}): kernels {k:.4g} from fp64, plain "
+                                     f"{p:.4g}")
+        bad = [n for n in rel_k if not rel_k[n] <= max(1.5 * rel_p[n], 1e-4)]
+        if bad:
+            raise AssertionError(f"fp32 gradients ({name}) further from fp64 than the plain "
+                                 "versions allow: " + ", ".join(
+                                     f"{n} {rel_k[n]:.4g}/{rel_p[n]:.4g}" for n in bad))
+        if name != "reference init" and not (abs(lk - lp) <= 1e-5 * abs(lp)
+                                             and abs(nk - np_) <= 1e-3 * np_
+                                             and max(rel.values()) <= 1e-3):
+            raise AssertionError("fp32 gradients through the kernels differ from the plain "
+                                 "versions")
+
+
+def _check_against_checkpoint(state, ckpt_dir, step):
+    """Every master, moment and the step of ``state`` equal, bit for bit,
+    to the checkpoint of ``step`` in ``ckpt_dir`` (read a stacked leaf at a
+    time)."""
+    import numpy as np
+    from repro_torch.convert import tree_path
+    path = Path(ckpt_dir) / f"step_{step:08d}" / "arrays.npz"
+    leaves = {}
+    for tree, named in (("params::", state.params), ("opt_state::m/", state.opt_state["m"]),
+                        ("opt_state::v/", state.opt_state["v"])):
+        for name, t in named.items():
+            keys, layer = tree_path(name)
+            leaves.setdefault(tree + "/".join(keys), []).append((layer, t))
+    with np.load(path) as data:
+        if int(data["opt_state::step"]) != int(state.opt_state["step"]):
+            raise AssertionError("checkpoint step differs")
+        for key, items in leaves.items():
+            arr = data[key]
+            for layer, t in items:
+                a = torch.from_numpy(arr if layer is None else arr[layer]).to(t.device)
+                if a.dtype != t.dtype or not torch.equal(a, t):
+                    raise AssertionError(f"checkpoint {key} layer {layer} differs from the state")
+    return len(leaves)
+
+
+def train_loop_and_restore(total):
+    """(b) ``train_loop`` for TRAIN_STEPS steps on the synthetic stream into
+    a checkpoint directory, its launches gated exactly (and added to
+    ``total``): finite losses and grad norms; the checkpoint equal to the
+    state bit for bit; a second ``train_loop`` over the same directory
+    restores it (running no step) to the same state bit for bit. Frees the
+    state."""
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.data import DataCfg
+    arch, cfg = _train_arch(TRAIN_LAYERS), _train_cfg()
+    data = DataCfg(seq_len=TRAIN_S, global_batch=TRAIN_G, num_microbatches=TRAIN_G, seed=0)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        (state, losses, gnorms), counts = _counts_since_reset(lambda: train_loop(
+            arch, cfg, data, TRAIN_STEPS, ckpt_dir=ckpt, log_every=1, ckpt_every=TRAIN_STEPS,
+            log_fn=lambda m: log(f"[train] (b) {m}"), device="cuda"))
+        seconds = time.perf_counter() - t0
+        _add(total, counts)
+        want = {k: n * TRAIN_STEPS for k, n in _step_launches(TRAIN_LAYERS).items()}
+        if counts != want:
+            raise AssertionError(f"train_loop launched {counts}, expected {want}")
+        log(f"[train] (b) train_loop {TRAIN_STEPS} steps in {seconds:.1f} s (init, steps and a "
+            f"checkpoint): losses {[round(x, 4) for x in losses]}, grad norms "
+            f"{[round(x, 4) for x in gnorms]}; launches {counts}")
+        if not all(math.isfinite(x) for x in losses + gnorms):
+            raise AssertionError("train_loop: a loss or grad norm is not finite")
+        t0 = time.perf_counter()
+        n = _check_against_checkpoint(state, ckpt, TRAIN_STEPS)
+        log(f"[train] (b) checkpoint step {TRAIN_STEPS}: {n} stacked leaves equal the state bit "
+            f"for bit ({time.perf_counter() - t0:.1f} s)")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state, losses, _ = train_loop(arch, cfg, data, TRAIN_STEPS, ckpt_dir=ckpt,
+                                      log_fn=lambda m: log(f"[train] (b) {m}"), device="cuda")
+        if losses:
+            raise AssertionError(f"the resumed train_loop ran {len(losses)} steps, expected 0")
+        _check_against_checkpoint(state, ckpt, TRAIN_STEPS)
+        log(f"[train] (b) restored by train_loop in {time.perf_counter() - t0:.1f} s: equal "
+            f"bit for bit")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_step_descent_and_times(total):
+    """(c) ``make_train_step`` for TRAIN_STEPS steps on one fixed batch from
+    a fresh train state (the seed of (b)), remat off: the first step's
+    launches counted exactly (and added to ``total``); finite losses, the
+    mean of the last 3 below the first; the steps after the first two
+    timed (host clock around synchronised steps); peak memory over all of
+    them. One batch, not the stream: a 4,096-token batch sees ~6% of the
+    64,000-token vocabulary, so over 10 steps of fresh batches the loss
+    only wanders by the batches' own spread (PERF.md); a fixed batch shows
+    whether the steps descend."""
+    from repro_torch.train.step import init_train_state, make_train_step
+    arch, cfg = _train_arch(TRAIN_LAYERS), _train_cfg()
+    batch = _train_data(arch).batch_at(0)
+    state = init_train_state(arch, cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    step = make_train_step(arch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            (state, metrics), counts = _counts_since_reset(lambda: step(state, batch))
+        else:
+            state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            _add(total, counts)
+            if counts != _step_launches(TRAIN_LAYERS):
+                raise AssertionError(f"one train step launched {counts}, expected "
+                                     f"{_step_launches(TRAIN_LAYERS)}")
+            log(f"[train] (c) one train step, remat off, G={TRAIN_G}: launches {counts} (exact)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] (c) {TRAIN_STEPS} steps on one fixed batch: losses "
+        f"{[round(x, 4) for x in losses]}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train step losses not finite: {losses}")
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"train step: loss did not fall ({losses})")
+    med = statistics.median(ms[2:])
+    log(f"[time] train step yi-6b {TRAIN_LAYERS} layers, G={TRAIN_G} x 1 x {TRAIN_S} tokens, "
+        f"bf16 compute, fp32 masters and moments, remat off: median {med:.2f} ms of "
+        f"{[round(x, 2) for x in ms[2:]]} (warm-up {ms[0]:.2f}, {ms[1]:.2f}); "
+        f"{TRAIN_G * TRAIN_S / med * 1e3:.1f} tokens/s; peak memory {peak:.2f} GiB")
+
+
+def times_train_kernels(gen):
+    """The backward kernels at yi-6b's training shapes, bf16, beside their
+    bound, their plain backward and the backward of one PyTorch call
+    through autograd (SDPA with ``enable_gqa``, ``F.rms_norm``)."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, rmsnorm_bwd
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, rmsnorm_bwd_ref
+    dt = torch.bfloat16
+    B, S, nh, nkv, window, hd = FLASH_BWD_MAIN
+    q, k, v = _flash_inputs(gen, B, S, nh, nkv, hd, dt)
+    o = flash_attention(q, k, v)
+    do = _randn(gen, B, nh, S, hd, dtype=dt)
+    # read q, k, v, o, dO, write dq, dk, dv; five products over the causal pairs
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    flops = 5 * 2 * B * nh * hd * S * (S + 1) // 2
+    bound, by = _bound(nbytes, flops, dt)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    rows = [dict(name="flash_attention_bwd",
+                 ms=time_device(lambda: flash_attention_bwd(q, k, v, o, do)),
+                 plain_ms=time_device(lambda: flash_attention_bwd_ref(q, k, v, o, do), n=3, reps=3),
+                 library_ms=time_device(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                                                    retain_graph=True)),
+                 bound_ms=bound, bound_by=by,
+                 shape=f"q{list(q.shape)} kv{list(k.shape)} bf16 causal")]
+    r = rows[0]
+    log(f"[time] flash_attention_bwd: {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{100 * bound / r['ms']:.1f}% of the bound; SDPA backward "
+        f"{flops / r['library_ms'] / 1e9:.1f} TFLOP/s; kernel / SDPA = "
+        f"{r['ms'] / r['library_ms']:.3f}")
+    T, H = RMS_BWD_MAIN
+    x, w, dy = _randn(gen, T, H, dtype=dt), _randn(gen, H, dtype=dt), _randn(gen, T, H, dtype=dt)
+    bound, by = _bound((3 * x.numel() + w.numel()) * x.element_size(), 10 * x.numel(),
+                       torch.float32)
+    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+    yl = F.rms_norm(xl, (H,), wl, eps=1e-5)
+    rows.append(dict(name="rmsnorm_bwd", ms=time_device(lambda: rmsnorm_bwd(x, w, dy)),
+                     plain_ms=time_device(lambda: rmsnorm_bwd_ref(x, w, dy)),
+                     library_ms=time_device(lambda: torch.autograd.grad(yl, (xl, wl), dy,
+                                                                        retain_graph=True)),
+                     bound_ms=bound, bound_by=by, shape=f"x{list(x.shape)} bf16"))
+    r = rows[1]
+    log(f"[time] rmsnorm_bwd x[{T}, {H}]: {100 * bound / r['ms']:.1f}% of the bound; "
+        f"kernel / F.rms_norm backward = {r['ms'] / r['library_ms']:.3f}")
+    return rows
+
+
+def phase_train(total):
+    """Section 6: (a) gradients, (b) train_loop and restore, (c) descent on
+    one batch, one step's launches and the step's time, then the backward
+    kernels' times."""
+    t0 = time.perf_counter()
+    train_grads_gate()
+    log(f"[train] (a) done in {time.perf_counter() - t0:.1f} s")
+    train_loop_and_restore(total)
+    train_step_descent_and_times(total)
+    rows = times_train_kernels(torch.Generator(device="cuda").manual_seed(23))
+    for r in rows:
+        _log_row(r)
+    return rows
+
+
 def kernel_line(rows, errs, total):
     out = []
     for r in rows:
@@ -703,16 +1228,18 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     errs = phase_parity()
+    errs.update(phase_bwd_parity())
     total = {}
     # yi-6b: decode after a short prompt, and at the prefill's context in a
     # 2,048-token cache (decode attention reads pos + 1 slots)
     rows = run_model("yi-6b", 64, 32, total, times_attn_kernels, ((40, 1), (2048, 1984)))
     # mamba2-2.7b: decode cost does not depend on the context (a fixed state)
     rows += run_model("mamba2-2.7b", 300, 8, total, times_ssm_kernels, ((40, 1),))
+    rows += phase_train(total)
     for name, n in total.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")
-    log(f"[slice] main-path launches, both models {total}")
+    log(f"[slice] main-path launches, both models' serving and yi-6b's training {total}")
     kernels = kernel_line(rows, errs, total)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()

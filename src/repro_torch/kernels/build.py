@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "build", "check", "dtype_code", "stream_of"]
+__all__ = ["library", "build", "check", "dtype_code", "stream_of", "sm_count"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -39,10 +39,13 @@ _I = ctypes.c_int
 SIGNATURES = {
     # name: (restype, argtypes)
     "rmsnorm_launch": (_I, [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P]),
+    "rmsnorm_bwd_launch": (_I, [_P] * 6 + [_I, _I, ctypes.c_float, _I, _I, _I, _P]),
     "flash_attention_wgmma_launch": (_I, [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
                                           _I, _I, _I, _I, _I, _I, _I, _P]),
     "flash_attention_mma_launch": (_I, [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
                                         _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "flash_attention_bwd_launch": (_I, [_P] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
+                                   + [_I] * 8 + [_P]),
     "ssd_scan_fma_launch": (_I, [_P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
                                  _I, _I, _I, _I, _I, _I, _P]),
     "ssd_scan_wgmma_launch": (_I, [_P] * 11 + [ctypes.POINTER(ctypes.c_longlong),
@@ -114,3 +117,9 @@ def dtype_code(t: torch.Tensor) -> int:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

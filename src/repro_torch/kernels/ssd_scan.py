@@ -11,6 +11,11 @@ Two CUDA paths serve it, picked by (dtype, hp, N) in ``kernel_path``:
   and bf16 elsewhere (hymba-1.5b's N 16): one CTA per (b, h), fp32 FMAs.
 There is no fallback between them: a launch that fails raises.
 
+There is no backward kernel yet (ROADMAP queue 2): on CUDA tensors
+``ssd_scan`` raises when autograd would need one, rather than return a y
+that carries no gradient. CPU tensors go through the plain version, which
+autograd differentiates.
+
 Both take strides, so x may be a [B,nh,S,hp] view of the model's
 [B,S,nh,hp] tensor, Bm and Cm column slices of the conv output and dt a
 [B,nh,S] view of a [B,S,nh] tensor: no copy in any case. y is allocated
@@ -20,8 +25,6 @@ in x's layout (dense, dims in x's stride order).
 from __future__ import annotations
 
 import ctypes
-import functools
-
 import torch
 
 from . import build
@@ -91,11 +94,6 @@ def check_args(x, dt, A, Bm, Cm, initial_state=None, return_state=False) -> str:
     return path
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def segment_chunks(B: int, nh: int, S: int, sms: int) -> int:
     """Chunks per segment of the wgmma path. The scan runs B*nh*n_seg CTAs,
     two to an SM, each over ceil(nc / n_seg) chunks, so its time goes as
@@ -142,7 +140,7 @@ def _launch_wgmma(x, dt, A, Bm, Cm, initial_state, return_state):
     B, nh, S, hp = x.shape
     N = Bm.shape[-1]
     y = torch.empty_like(x)
-    seg = segment_chunks(B, nh, S, _sm_count(x.device.index or 0))
+    seg = segment_chunks(B, nh, S, build.sm_count(x.device.index or 0))
     nc = -(-S // KERNEL_CHUNK)
     n_seg = -(-nc // seg)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -163,6 +161,10 @@ def _launch_wgmma(x, dt, A, Bm, Cm, initial_state, return_state):
     return y, final
 
 
+def _device_type(t: torch.Tensor) -> str:
+    return t.device.type
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, *, chunk: int = 256, initial_state: torch.Tensor | None = None,
              return_state: bool = False):
@@ -175,11 +177,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     ``chunk`` sets the plain version's chunk length only: the kernels block
     by their own (64 tokens), and in exact arithmetic the result does not
     depend on it."""
-    if x.device.type == "cpu":
+    if _device_type(x) == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state,
                             return_state=return_state)
-    if x.device.type != "cuda":
+    if _device_type(x) != "cuda":
         raise RuntimeError(f"ssd_scan runs on CUDA or CPU tensors, got {x.device}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, dt, A, Bm, Cm, initial_state)):
+        raise RuntimeError("SSD backward not ported; ROADMAP queue 2 (ssd_scan on CUDA tensors "
+                           "that require grad; run it under torch.no_grad() or on the CPU)")
     path = check_args(x, dt, A, Bm, Cm, initial_state, return_state)
     B, nh, S, hp = x.shape
     if B == 0 or S == 0:

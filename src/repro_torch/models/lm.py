@@ -11,6 +11,11 @@ model is built, where the reference casts them on every call
 slice but the 1-D norms, which ``layers.rmsnorm`` then casts to the
 activation type). Both give the same weights to the arithmetic.
 
+Training (``repro_torch.train.step``) keeps fp32 master weights
+(``RunCfg.param_dtype``) beside these compute-dtype weights and copies them
+in after every optimizer step: the same arithmetic as the reference, which
+keeps ``param_dtype`` parameters and casts them on every forward.
+
 Four SSM leaves are the exception: ``conv_b``, ``A_log``, ``D`` and
 ``dt_bias`` are fp32 in the reference's parameters, and its two casts
 treat them differently. ``forward`` casts every stacked leaf with ndim > 1
@@ -24,18 +29,19 @@ does not.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from .layers import (attention, decode_attention, mlp, rmsnorm, rope, silu, softplus, ssd_scan,
                      ssm_decode_step)
 
-__all__ = ["RunCfg", "LM", "Block", "init_params", "param_count"]
+__all__ = ["RunCfg", "LM", "Block", "init_params", "loss_fn", "param_count"]
 
 
 @dataclass(frozen=True)
@@ -44,12 +50,17 @@ class RunCfg:
     arrive with distribution; ``q_chunk`` has no counterpart (the flash
     kernel is tiled), nor ``ssd_chunk``: no caller changes its 256, the
     plain SSD version's default chunk (the SSD kernel blocks by its own);
-    remat, scan and the MoE knobs arrive with the slices that use them,
-    and ``param_dtype`` with training's master weights. Logits are always
+    ``scan_layers`` has none (the layers are a loop) and the MoE knobs
+    arrive with MoE. ``param_dtype`` is the type of training's master
+    weights. ``remat`` recomputes each ``Block`` in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
+    layer body); it acts only where autograd records. Logits are always
     fp32 (the reference's default ``logits_fp32=True``, which no caller
     changes)."""
 
     compute_dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    remat: bool = True
 
 
 def _check_supported(arch: ArchConfig) -> None:
@@ -210,17 +221,19 @@ class LM(nn.Module):
         return self.lm_head.device
 
     def forward(self, tokens: torch.Tensor, logits_positions: str = "all") -> torch.Tensor:
-        """tokens [B,S] -> fp32 logits [B,S,V], or [B,1,V] with
-        ``logits_positions="last"`` (prefill: no [B,S,V] buffer)."""
+        """tokens [B,S] -> fp32 logits [B,S,V] (fp64 for an fp64 model), or
+        [B,1,V] with ``logits_positions="last"`` (prefill: no [B,S,V]
+        buffer)."""
         x = self.embed[tokens]
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, positions)
+            x = checkpoint(blk, x, positions, use_reentrant=False) if remat else blk(x, positions)
         if logits_positions == "last":
             x = x[:, -1:]
         logits = rmsnorm(x, self.final_norm) @ self.lm_head
-        return logits.float()
+        return logits.to(torch.promote_types(logits.dtype, torch.float32))
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         """Attention archs: KV cache k, v [L,B,span,nkv,hd] in the compute
@@ -250,6 +263,25 @@ class LM(nn.Module):
             x = blk.decode(x, {name: c[i] for name, c in cache.items()}, pos)
         logits = rmsnorm(x, self.final_norm) @ self.lm_head
         return logits[:, 0].float()
+
+
+def loss_fn(model: LM, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+    """``repro.models.lm.loss_fn``: next-token cross entropy in the
+    logsumexp form on fp32 logits. batch: ``tokens`` and ``labels`` [B,S],
+    optional ``loss_mask`` [B,S] (the mean over its ones, at least one).
+    Returns (loss, {"loss": loss})."""
+    logits = model(batch["tokens"])
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    nll = lse - ll
+    mask = batch.get("loss_mask")
+    if mask is None:
+        loss = nll.mean()
+    else:
+        mask = mask.to(nll.dtype)
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss, {"loss": loss}
 
 
 def _dense(gen: torch.Generator, shape, scale: float, cfg: RunCfg, device) -> torch.Tensor:

@@ -11,6 +11,8 @@ tests/test_kernels.py:16-18, and for the bf16 wgmma kernels the gate of
 ``_bf16_gate`` (chip_smoke.py's BF16_LIMITS).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -21,6 +23,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_path as flash_path  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel_path as rmsnorm_path  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref, ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel_path as ssd_path  # noqa: E402
 from repro_torch.launch.train import scale_arch  # noqa: E402
@@ -412,7 +415,8 @@ def test_tiny_prefill_on_the_card_matches_the_cpu(card):
     out = make_prefill_step(gpu)({"tokens": tokens})
     torch.cuda.synchronize()
     L = arch.num_layers
-    assert kernels.launch_counts() == {"flash_attention": L, "rmsnorm": 2 * L + 1, "ssd_scan": 0}
+    assert kernels.launch_counts() == {"flash_attention": L, "flash_attention_bwd": 0,
+                                       "rmsnorm": 2 * L + 1, "rmsnorm_bwd": 0, "ssd_scan": 0}
     ref = make_prefill_step(cpu)({"tokens": tokens})
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
 
@@ -431,6 +435,222 @@ def test_tiny_mamba2_prefill_on_the_card_matches_the_cpu(card):
     out = make_prefill_step(gpu)({"tokens": tokens})
     torch.cuda.synchronize()
     L = arch.num_layers
-    assert kernels.launch_counts() == {"flash_attention": 0, "rmsnorm": 2 * L + 1, "ssd_scan": L}
+    assert kernels.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
+                                       "rmsnorm": 2 * L + 1, "rmsnorm_bwd": 0, "ssd_scan": L}
     ref = make_prefill_step(cpu)({"tokens": tokens})
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------- backward kernels
+
+def _bwd_gate(out, ref, dtype, single_key=False):
+    """A backward kernel's output against the plain backward in fp32 on the
+    same inputs. fp32: relative L2 within 1e-4. bf16: relative L2 overall
+    and in the worst row within 1e-2, |err| within 2^-7 |ref| + 2^-6
+    rms(ref row) + 2^-6 rms(ref); a row's error is taken against its norm
+    plus 2^-6 of the typical row norm (a row whose exact gradient cancels
+    to ~0, such as the first causal row of dq, is rounding noise on both
+    sides). ``single_key``: S = 1, where dq and dk are exactly 0 (one live
+    key: dS = P (dO.v - dO.o) with o = v), and both sides are rounding
+    noise; they must stay below 1e-3 of max |dv|, passed as ``ref``'s
+    scale instead."""
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    out = out.float()
+    if single_key:
+        assert out.abs().max().item() <= 1e-3 * ref
+        return
+    err = out - ref
+    rel = (err.norm() / ref.norm()).item()
+    if dtype == "float32":
+        assert rel <= 1e-4
+        return
+    R, E = ref.reshape(-1, ref.shape[-1]), err.reshape(-1, ref.shape[-1])
+    rows = R.norm(dim=-1)
+    typical = R.norm() / R.shape[0] ** 0.5
+    assert rel <= 1e-2
+    assert (E.norm(dim=-1) / (rows + 2 ** -6 * typical)).max().item() <= 1e-2
+    rms = typical / R.shape[-1] ** 0.5
+    limit = 2 ** -7 * R.abs() + 2 ** -6 * rows[:, None] / R.shape[-1] ** 0.5 + 2 ** -6 * rms
+    assert (E.abs() / limit).max().item() <= 1.0
+
+
+# chip_smoke.py's backward cases: hd 32/64/128, GQA groups 1, 2, 8, S 1,
+# 127, 200 and 2048, causal, one window; B, S, nh, nkv, window
+FLASH_BWD_CASES = [(1, 1, 2, 2, 0), (2, 127, 4, 2, 0), (1, 200, 8, 1, 0), (1, 200, 4, 4, 37),
+                   (1, 2048, 8, 1, 0), (1, 2048, 32, 4, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,nh,nkv,window", FLASH_BWD_CASES)
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_matches_plain(card, B, S, nh, nkv, window, hd, dtype):
+    rng = np.random.default_rng(S + hd + nh)
+    q = _randn(rng, (B, nh, S, hd), dtype, card)
+    k, v = (_randn(rng, (B, nkv, S, hd), dtype, card) for _ in range(2))
+    do = _randn(rng, (B, nh, S, hd), dtype, card)
+    o = flash_attention(q, k, v, causal=True, window=window)
+    before = kernels.flash_attention_bwd.launches
+    got = kernels.flash_attention_bwd(q, k, v, o, do, causal=True, window=window)
+    assert kernels.flash_attention_bwd.launches == before + 1
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), do.float(),
+                                       causal=True, window=window)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == DTYPES[dtype] and g.shape == w.shape
+        if S == 1 and i < 2:
+            _bwd_gate(g, want[2].abs().max().item(), dtype, single_key=True)
+        else:
+            _bwd_gate(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_autograd_on_the_card_launches_the_backward(card, dtype):
+    """With grad on, the output of ``kernels.flash_attention`` on the model's
+    [B,S,nh,hd] views carries a grad_fn whose backward launches the
+    backward kernel, in the inputs' layouts."""
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (2, 300, 8, 64), dtype, card).requires_grad_()
+    k, v = (_randn(rng, (2, 300, 2, 64), dtype, card).requires_grad_() for _ in range(2))
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=100)
+    assert o.grad_fn is not None
+    do = _randn(rng, (2, 300, 8, 64), dtype, card).transpose(1, 2)
+    kernels.reset_launch_counts()
+    got = torch.autograd.grad(o, (q, k, v), do)
+    assert kernels.launch_counts()["flash_attention_bwd"] == 1
+    want = ref.flash_attention_bwd_ref(*(t.detach().float().transpose(1, 2) for t in (q, k, v)),
+                                       o.detach().float(), do.float(), window=100)
+    for g, w in zip(got, want):
+        _bwd_gate(g, w.transpose(1, 2), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,H", [(1, 256), (7, 4096), (300, 1000), (2048, 4096), (4096, 4096),
+                                 (33, 12288)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_matches_plain(card, T, H, dtype):
+    rng = np.random.default_rng(T + H)
+    x, dy = _randn(rng, (T, H), dtype, card), _randn(rng, (T, H), dtype, card)
+    w = _randn(rng, (H,), dtype, card).requires_grad_()
+    xg = x.clone().requires_grad_()
+    y = rmsnorm(xg, w)
+    assert y.grad_fn is not None
+    kernels.reset_launch_counts()
+    dx, dw = torch.autograd.grad(y, (xg, w), dy)
+    assert kernels.launch_counts()["rmsnorm_bwd"] == 1
+    want = ref.rmsnorm_bwd_ref(x.float(), w.detach().float(), dy.float())
+    _bwd_gate(dx, want[0], dtype)
+    _bwd_gate(dw[None], want[1][None], dtype)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_grad_on_the_card(card):
+    x = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device=card, requires_grad=True)
+    args = (torch.zeros(1, 2, 64, device=card), -torch.ones(2, device=card),
+            torch.zeros(1, 64, 64, dtype=torch.bfloat16, device=card),
+            torch.zeros(1, 64, 64, dtype=torch.bfloat16, device=card))
+    with pytest.raises(RuntimeError, match="SSD backward not ported"):
+        ssd_scan(x, *args)
+    with torch.no_grad():
+        assert ssd_scan(x, *args).shape == x.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale,layers", [("tiny", None), ("full", 2)])
+def test_train_step_kernels_match_plain(card, scale, layers):
+    """The gradients of one fp32 train step (G = 2) on the card through the
+    kernels against the plain versions, from the same masters and batch:
+    loss within 1e-5 and each gradient within 1e-3 relative L2. Tiny
+    yi-6b, and full-width yi-6b cut to 2 layers; wq, wk, wv, wi, wg at
+    fan-in H, as chip_smoke.py gates: under the reference's init attention
+    is a hard argmax and two correct backwards differ by percents even in
+    fp32 (PERF.md, ROADMAP §3)."""
+    import dataclasses
+    from repro_torch.train.data import DataCfg, SyntheticDataset
+    from repro_torch.train.optim import OptimizerCfg
+    from repro_torch.train.step import TrainCfg, accumulate_grads, init_train_state, sync_model
+
+    arch = scale_arch(get_config("yi-6b"), scale)
+    if layers:
+        arch = dataclasses.replace(arch, num_layers=layers)
+    cfg = TrainCfg(run=RunCfg(compute_dtype=torch.float32, remat=False), opt=OptimizerCfg(),
+                   num_microbatches=2)
+    S = 256 if scale == "tiny" else 1024
+    batch = SyntheticDataset(arch, DataCfg(seq_len=S, global_batch=2, num_microbatches=2)) \
+        .batch_at(0)
+    state = init_train_state(arch, cfg, torch.Generator(device=card).manual_seed(0), card)
+    with torch.no_grad():
+        for name, master in state.params.items():
+            if name.split(".")[-1] in ("wq", "wk", "wv", "wi", "wg"):
+                master.mul_((arch.num_layers / arch.d_model) ** 0.5)
+    sync_model(state)
+    kernels.reset_launch_counts()
+    gk, lk, _ = accumulate_grads(state.model, batch, cfg)
+    counts = kernels.launch_counts()
+    L = arch.num_layers
+    assert counts == {"flash_attention": 2 * L, "flash_attention_bwd": 2 * L,
+                      "rmsnorm": 2 * (2 * L + 1), "rmsnorm_bwd": 2 * (2 * L + 1), "ssd_scan": 0}
+    with _plain_versions():
+        gp, lp, _ = accumulate_grads(state.model, batch, cfg)
+    assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
+    for n in gk:
+        rel = ((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30)).item()
+        assert rel <= 1e-3, (n, rel)
+
+
+@contextlib.contextmanager
+def _plain_versions():
+    """The model's flash and RMSNorm calls through their plain versions."""
+    saved = {n: getattr(kernels, n) for n in ("flash_attention", "rmsnorm")}
+    try:
+        kernels.flash_attention = ref.flash_attention_ref
+        kernels.rmsnorm = ref.rmsnorm_ref
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(kernels, n, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale,layers", [("tiny", None), ("full", 2)])
+def test_train_grads_as_close_to_fp64_as_plain(card, scale, layers):
+    """Under the reference's own init, where fp32 rounding alone moves the
+    gradients by percents at full width (hard-argmax attention; PERF.md):
+    the fp32 gradients of G = 2 microbatches through the kernels sit as
+    close to fp64 of the same weights (plain versions) as the fp32 plain
+    versions do: each leaf and the whole gradient within 1.5x the plain
+    versions' relative L2 distance, or 1e-4. Tiny yi-6b, and full-width
+    yi-6b cut to 2 layers, as chip_smoke.py gates."""
+    import dataclasses
+    from repro_torch.models.lm import LM
+    from repro_torch.train.data import DataCfg, SyntheticDataset
+    from repro_torch.train.step import TrainCfg, accumulate_grads
+
+    arch = scale_arch(get_config("yi-6b"), scale)
+    if layers:
+        arch = dataclasses.replace(arch, num_layers=layers)
+    S = 256 if scale == "tiny" else 1024
+    batch = SyntheticDataset(arch, DataCfg(seq_len=S, global_batch=2, num_microbatches=2)) \
+        .batch_at(0)
+    cfg = TrainCfg(run=RunCfg(compute_dtype=torch.float32), num_microbatches=2)
+    model = init_params(arch, torch.Generator(device=card).manual_seed(0),
+                        RunCfg(compute_dtype=torch.float32, remat=False), device=card)
+    gk, _, _ = accumulate_grads(model, batch, cfg)
+    with _plain_versions():
+        gp, _, _ = accumulate_grads(model, batch, cfg)
+    model64 = LM(arch, RunCfg(compute_dtype=torch.float64, remat=False), device=card)
+    model64.load_state_dict(model.state_dict())
+    del model
+    with _plain_versions():
+        g64, _, _ = accumulate_grads(model64, batch, dataclasses.replace(
+            cfg, run=RunCfg(compute_dtype=torch.float64), grad_accum_dtype=torch.float64))
+    err = {"kernels": 0.0, "plain": 0.0}
+    for n, want in g64.items():
+        dk, dp = (gk[n] - want).norm().item(), (gp[n] - want).norm().item()
+        err["kernels"] += dk ** 2
+        err["plain"] += dp ** 2
+        scale_n = want.norm().item()
+        assert dk <= max(1.5 * dp, 1e-4 * scale_n), (n, dk / scale_n, dp / scale_n)
+    total = sum(w.norm().item() ** 2 for w in g64.values()) ** 0.5
+    assert err["kernels"] ** 0.5 <= max(1.5 * err["plain"] ** 0.5, 1e-4 * total), err
