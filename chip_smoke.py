@@ -65,6 +65,10 @@ TOL_F32 = dict(rtol=3e-4, atol=3e-4)                           # tests/test_kern
 # bf16 and P and h to bf16 pairs (hi + lo), and reads about 0.6 pointwise
 # at mamba2's prefill shape; with h and P rounded once it read 4 to 7.
 BF16_LIMITS = {"rel_l2": 1e-2, "row_rel_l2": 1e-2, "pointwise": 1.0}
+# the forward kernels' row log-sum-exp (log2 units) against the plain
+# forward's: max |err| / (1 + |ref|). fp32 sums exp2f in fp32; bf16 (the
+# wgmma kernel) uses ex2.approx (2^-22 relative) on scores from bf16 inputs.
+LSE_LIMITS = {"float32": 1e-5, "bfloat16": 2 ** -10}
 # fp32 SSD kernel against the plain version: tests/test_kernels.py:56,
 # plus relative L2 (the kernel chunks by 64, the plain version by 256).
 SSD_F32_TOL, SSD_F32_REL_L2 = dict(rtol=2e-3, atol=2e-3), 1e-4
@@ -93,13 +97,15 @@ RMS_MAIN_SSM = [(4000, 2560), (4000, 5120), (300, 2560), (300, 5120), (4, 2560),
 FLASH_BWD_CASES = [(1, 1, 2, 2, 0), (2, 127, 4, 2, 0), (1, 200, 8, 1, 0), (1, 200, 4, 4, 37),
                    (1, 2048, 8, 1, 0)]
 FLASH_BWD_MAIN = (1, 2048, 32, 4, 0, 128)      # yi-6b training: B, S, nh, nkv, window, hd
-RMS_BWD_CASES = [(1, 256), (7, 4096), (300, 1000), (4096, 256), (4096, 4096), (33, 12288)]
+FLASH_BWD_HYMBA = (1, 2048, 25, 5, 1024, 64)   # hymba-1.5b's attention (GQA group 5)
+RMS_BWD_CASES = [(1, 256), (7, 4096), (300, 1000), (4096, 256), (4096, 4096), (33, 12288),
+                 (2048, 2560), (5, 2560), (2048, 5120), (1, 5120)]
 RMS_BWD_MAIN = (2048, 4096)                    # yi-6b training, one microbatch
 TRAIN_LAYERS, TRAIN_S, TRAIN_G = 16, 2048, 2   # yi-6b cut to fit one card (PERF.md)
 TRAIN_STEPS = 10
 SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:87"),
-           "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
                                    "src/repro/kernels/flash_attention.py:87"),
            "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                        "src/repro/kernels/rmsnorm.py:24"),
@@ -132,6 +138,7 @@ def phase_build():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
     log_ssd_wgmma_resources()
+    log_bwd_resources()
 
 
 def log_ssd_wgmma_resources():
@@ -152,6 +159,39 @@ def log_ssd_wgmma_resources():
                 raise AssertionError(f"{name}<N={N}> spills {local} bytes a thread")
         if info[11] < 2:
             raise AssertionError(f"ssd_chunk_scan<N={N}>: {info[11]} CTA an SM, want 2")
+
+
+def log_bwd_resources():
+    """Registers, spills (local memory), dynamic shared memory and CTAs an
+    SM of the wgmma flash backward's kernels (dK/dV, dQ, the partials' sum)
+    at hd 64 and 128 and of the register RMSNorm backward at each ROW_VPL
+    width, from the runtime; fails on a spill, or if a wgmma kernel's CTA
+    does not fit on an SM."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rmsnorm import ROW_VPL
+    lib = build.library()
+    for hd in (64, 128):
+        info = (ctypes.c_int * 12)()
+        build.check(lib.flash_attention_bwd_wgmma_info(hd, info), "flash_attention_bwd_wgmma_info")
+        for k, name in enumerate(("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_sum")):
+            regs, local, smem, ctas = info[4 * k:4 * k + 4]
+            log(f"[build] {name}<hd={hd}>: {regs} registers, {local} bytes local (spills), "
+                f"{smem} bytes dynamic shared memory, {ctas} CTAs an SM")
+            if local:
+                raise AssertionError(f"{name}<hd={hd}> spills {local} bytes a thread")
+            if ctas < 1:
+                raise AssertionError(f"{name}<hd={hd}> does not fit on an SM")
+    for vpl in ROW_VPL:
+        info = (ctypes.c_int * 4)()
+        build.check(lib.rmsnorm_bwd_rows_info(vpl, info), "rmsnorm_bwd_rows_info")
+        regs, local, smem, ctas = info
+        log(f"[build] rmsnorm_bwd_rows<H={256 * vpl}>: {regs} registers, {local} bytes local "
+            f"(spills), {smem} bytes dynamic shared memory, {ctas} CTAs an SM")
+        if local:
+            raise AssertionError(f"rmsnorm_bwd_rows<H={256 * vpl}> spills {local} bytes a thread")
+        if ctas < 1:
+            raise AssertionError(f"rmsnorm_bwd_rows<H={256 * vpl}> does not fit on an SM")
 
 
 # --------------------------------------------------------------------------
@@ -750,16 +790,39 @@ def _bwd_gate(name, out, ref, exact_zero_scale=None):
     return max_abs
 
 
+def _lse_gate(name, lse, ref):
+    """The forward kernel's row log-sum-exp (log2 units) against the plain
+    forward's on the same inputs: finite, and max |err| / (1 + |ref|)
+    within LSE_LIMITS (a P of the backward moves by ln 2 times it)."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(lse).all():
+        raise AssertionError(f"{name} lse: not finite")
+    got = ((lse - ref).abs() / (1 + ref.abs())).max().item()
+    limit = LSE_LIMITS[name.split()[1]]
+    if not got <= limit:
+        raise AssertionError(f"{name} lse: max |err|/(1+|ref|) {got:.3e} > {limit:g}")
+    log(f"[bwd] {name} lse max |err|/(1+|ref|)={got:.3e} (limit {limit:g}) ok")
+
+
 def _flash_bwd_case(name, q, k, v, window, do=None):
-    from repro_torch.kernels import flash_attention, flash_attention_bwd
-    from repro_torch.kernels.ref import flash_attention_bwd_ref
-    o = flash_attention(q, k, v, causal=True, window=window)
+    """The forward kernel's LSE and the backward kernels against the plain
+    forward and backward on the same inputs (the plain backward given the
+    plain forward's LSE), and a second backward call equal bit for bit."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_fwd_ref
+    o, lse = flash_attention_fwd(q, k, v, causal=True, window=window)
     gen = torch.Generator(device="cuda").manual_seed(q.shape[2])
     if do is None:
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-    got = flash_attention_bwd(q, k, v, o, do, causal=True, window=window)
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=window)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=window)
+    _, lse_ref = flash_attention_fwd_ref(q.float(), k.float(), v.float(), causal=True,
+                                         window=window)
+    _lse_gate(name, lse, lse_ref)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two backward calls differ")
     want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), do.float(),
-                                   causal=True, window=window)
+                                   lse_ref, causal=True, window=window)
     errs = []
     for i, (part, g, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
         zero = want[2].abs().max().item() if q.shape[2] == 1 and i < 2 else None
@@ -769,9 +832,13 @@ def _flash_bwd_case(name, q, k, v, window, do=None):
 
 def phase_bwd_parity():
     """Each backward kernel against its plain backward (``kernels/ref.py``)
-    on the same inputs: flash at hd 32/64/128, GQA groups 1, 2 and 8, S 1,
-    127, 200 and 2048, causal and one window, the model's strided views and
-    the training shape; RMSNorm at H 256, 1000, 4096, 12288 and T 1-4096."""
+    on the same inputs, the forward kernels' LSE against the plain
+    forward's, and each backward twice for the same bits: flash at hd
+    32/64/128 (bf16 hd 64/128 on the wgmma path, the rest on the mma
+    path), GQA groups 1, 2 and 8, S 1, 127, 200 and 2048, causal and one
+    window, the model's strided views, the training shape and hymba-1.5b's
+    (group 5, window 1024); RMSNorm at H 256, 1000, 2560, 4096, 5120 and
+    12288 (the register version at 2560/4096/5120 in bf16) and T 1-4096."""
     from repro_torch.kernels import rmsnorm_bwd
     from repro_torch.kernels.ref import rmsnorm_bwd_ref
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -783,6 +850,11 @@ def phase_bwd_parity():
                 _flash_bwd_case(f"flash_bwd {tag} hd={hd} B,S,nh,nkv=({B},{S},{nh},{nkv}) "
                                 f"window={window}", *_flash_inputs(gen, B, S, nh, nkv, hd, dtype),
                                 window)
+        if dtype == torch.bfloat16:
+            B, S, nh, nkv, window, hd = FLASH_BWD_HYMBA
+            _flash_bwd_case(f"flash_bwd {tag} hymba {FLASH_BWD_HYMBA[:4]} hd={hd} "
+                            f"window={window}", *_flash_inputs(gen, B, S, nh, nkv, hd, dtype),
+                            window)
         B, S, nh, nkv, window, hd = FLASH_BWD_MAIN
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
                    for t in _flash_inputs(gen, B, S, nh, nkv, hd, dtype))
@@ -794,6 +866,9 @@ def phase_bwd_parity():
             x, w, dy = _randn(gen, T, H, dtype=dtype), _randn(gen, H, dtype=dtype), \
                 _randn(gen, T, H, dtype=dtype)
             dx, dw = rmsnorm_bwd(x, w, dy)
+            again = rmsnorm_bwd(x, w, dy)
+            if not (torch.equal(dx, again[0]) and torch.equal(dw, again[1])):
+                raise AssertionError(f"rmsnorm_bwd {tag} T,H=({T},{H}): two calls differ")
             want = rmsnorm_bwd_ref(x.float(), w.float(), dy.float())
             err = max(_bwd_gate(f"rmsnorm_bwd {tag} T,H=({T},{H}) dx", dx, want[0]),
                       _bwd_gate(f"rmsnorm_bwd {tag} T,H=({T},{H}) dw", dw[None], want[1][None]))
@@ -1136,12 +1211,13 @@ def times_train_kernels(gen):
     """The backward kernels at yi-6b's training shapes, bf16, beside their
     bound, their plain backward and the backward of one PyTorch call
     through autograd (SDPA with ``enable_gqa``, ``F.rms_norm``)."""
-    from repro_torch.kernels import flash_attention, flash_attention_bwd, rmsnorm_bwd
+    from repro_torch.kernels import flash_attention_bwd, rmsnorm_bwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.ref import flash_attention_bwd_ref, rmsnorm_bwd_ref
     dt = torch.bfloat16
     B, S, nh, nkv, window, hd = FLASH_BWD_MAIN
     q, k, v = _flash_inputs(gen, B, S, nh, nkv, hd, dt)
-    o = flash_attention(q, k, v)
+    o, lse = flash_attention_fwd(q, k, v)
     do = _randn(gen, B, nh, S, hd, dtype=dt)
     # read q, k, v, o, dO, write dq, dk, dv; five products over the causal pairs
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
@@ -1150,8 +1226,9 @@ def times_train_kernels(gen):
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
     rows = [dict(name="flash_attention_bwd",
-                 ms=time_device(lambda: flash_attention_bwd(q, k, v, o, do)),
-                 plain_ms=time_device(lambda: flash_attention_bwd_ref(q, k, v, o, do), n=3, reps=3),
+                 ms=time_device(lambda: flash_attention_bwd(q, k, v, o, do, lse)),
+                 plain_ms=time_device(lambda: flash_attention_bwd_ref(q, k, v, o, do, lse), n=3,
+                                      reps=3),
                  library_ms=time_device(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
                                                                     retain_graph=True)),
                  bound_ms=bound, bound_by=by,

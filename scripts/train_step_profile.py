@@ -26,8 +26,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-GROUPS = (("flash_bwd_stats", "flash bwd: row statistics"), ("flash_bwd_dkdv", "flash bwd: dK dV"),
-          ("flash_bwd_dq", "flash bwd: dQ"), ("flash_fwd", "flash forward"),
+GROUPS = (("flash_bwd_delta", "flash bwd: D = rowsum(dO o)"), ("flash_bwd_dkdv", "flash bwd: dK dV"),
+          ("flash_bwd_dq", "flash bwd: dQ"), ("flash_bwd_sum", "flash bwd: dK dV partials' sum"),
+          ("flash_fwd", "flash forward"),
           ("flash_wgmma", "flash forward"),
           ("rmsnorm_bwd", "rmsnorm backward"), ("rmsnorm", "rmsnorm forward"),
           ("gemm", "GEMMs (cuBLAS)"), ("cutlass", "GEMMs (cuBLAS)"), ("xmma", "GEMMs (cuBLAS)"),

@@ -22,7 +22,7 @@ import torch
 
 from .configs.base import ArchConfig
 from .models.lm import LM, RunCfg
-from .train.checkpoint import to_numpy_tree
+from .train.checkpoint import leaf_tensor, to_numpy_tree
 from .train.step import sync_model
 
 __all__ = ["params_from_numpy", "params_to_numpy", "train_state_to_numpy",
@@ -101,7 +101,9 @@ def _tree_from_named(named: Dict[str, torch.Tensor]) -> Dict:
 
 @torch.no_grad()
 def _named_from_tree(tree: Dict, named: Dict[str, torch.Tensor], what: str) -> None:
-    """Copy the reference's tree into the tensors of ``named`` in place."""
+    """Copy the reference's tree into the tensors of ``named`` in place.
+    Leaves may be numpy arrays, bf16 leaves as the reference's restore
+    hands them back (raw |V2) or as the port's (CPU bf16 tensors)."""
     for name, t in named.items():
         path, layer = tree_path(name)
         leaf = tree
@@ -109,20 +111,20 @@ def _named_from_tree(tree: Dict, named: Dict[str, torch.Tensor], what: str) -> N
             if key not in leaf:
                 raise ValueError(f"{what}: the tree has no leaf {'/'.join(path)}")
             leaf = leaf[key]
-        a = np.asarray(leaf)
-        if layer is not None and a.ndim == t.ndim + 1:
+        a = leaf_tensor(leaf)
+        if layer is not None and a.dim() == t.dim() + 1:
             a = a[layer]
-        if a.shape != tuple(t.shape):
-            raise ValueError(f"{what} {'/'.join(path)}: tree has {a.shape}, state wants "
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{what} {'/'.join(path)}: tree has {tuple(a.shape)}, state wants "
                              f"{tuple(t.shape)}")
-        a = np.ascontiguousarray(a)
-        t.copy_(torch.from_numpy(a if a.flags.writeable else a.copy()))
+        t.copy_(a)
 
 
 def train_state_to_numpy(state) -> Dict:
     """{"params": masters tree, "opt_state": {"m": tree, "v": tree, "step":
     int32}} as numpy, the trees a checkpoint holds (``train.checkpoint``).
-    Masters and moments keep their types; bf16 moments raise there."""
+    Masters and moments keep their types; bf16 leaves become raw |V2
+    arrays of their bits, as the reference's checkpoint stores them."""
     opt = state.opt_state
     return {"params": _tree_from_named(state.params),
             "opt_state": {"m": _tree_from_named(opt["m"]), "v": _tree_from_named(opt["v"]),

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-On first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface under ``build/repro_torch/`` at
-the repository root; the file name carries a hash of the sources, so an
+On first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+process a source, all started together) and links them into one shared
+library with a plain C interface under ``build/repro_torch/`` at the
+repository root; the file name carries a hash of the sources, so an
 edited kernel is rebuilt and an unchanged one is loaded as it is. The
 library is loaded with ``ctypes``. Nothing here runs at import time.
 
@@ -31,21 +32,23 @@ __all__ = ["library", "build", "check", "dtype_code", "stream_of", "sm_count"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     # name: (restype, argtypes)
     "rmsnorm_launch": (_I, [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P]),
-    "rmsnorm_bwd_launch": (_I, [_P] * 6 + [_I, _I, ctypes.c_float, _I, _I, _I, _P]),
-    "flash_attention_wgmma_launch": (_I, [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
-                                          _I, _I, _I, _I, _I, _I, _I, _P]),
-    "flash_attention_mma_launch": (_I, [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
-                                        _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "flash_attention_bwd_launch": (_I, [_P] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
-                                   + [_I] * 8 + [_P]),
+    "rmsnorm_bwd_launch": (_I, [_P] * 6 + [_I, _I, ctypes.c_float, _I, _I, _I, _I, _P]),
+    "rmsnorm_bwd_rows_info": (_I, [_I, ctypes.POINTER(ctypes.c_int)]),
+    "flash_attention_wgmma_launch": (_I, [_P] * 5 + [_LL] + [_I] * 8 + [_P]),
+    "flash_attention_mma_launch": (_I, [_P] * 5 + [_LL] + [_I] * 9 + [_P]),
+    "flash_attention_bwd_delta_launch": (_I, [_P] * 3 + [_LL] + [_I] * 6 + [_P]),
+    "flash_attention_bwd_launch": (_I, [_P] * 9 + [_LL] + [_I] * 9 + [_P]),
+    "flash_attention_bwd_wgmma_launch": (_I, [_P] * 10 + [_LL] + [_I] * 9 + [_P]),
+    "flash_attention_bwd_wgmma_info": (_I, [_I, ctypes.POINTER(ctypes.c_int)]),
     "ssd_scan_fma_launch": (_I, [_P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
                                  _I, _I, _I, _I, _I, _I, _P]),
     "ssd_scan_wgmma_launch": (_I, [_P] * 11 + [ctypes.POINTER(ctypes.c_longlong),
@@ -68,8 +71,9 @@ def _nvcc() -> str:
 
 
 def build():
-    """Compile the kernels if this source hash has no library yet.
-    Returns (path, seconds spent compiling, nvcc's output)."""
+    """Compile the kernels if this source hash has no library yet: one nvcc
+    a source file, run side by side, then one link. Returns (path, seconds
+    spent compiling and linking, nvcc's output)."""
     digest = hashlib.sha256()
     for src in _sources():
         digest.update(src.name.encode() + src.read_bytes())
@@ -78,16 +82,36 @@ def build():
     if path.is_file():
         return path, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objdir = BUILD_DIR / f"obj_{digest.hexdigest()[:16]}_{os.getpid()}"
+    objdir.mkdir()
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        jobs = [(src, objdir / f"{src.stem}.o") for src in sorted(CSRC.glob("*.cu"))]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in jobs]
+        out = []
+        for (src, _), proc in zip(jobs, procs):
+            text = proc.communicate()[0]
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src.name}:\n{text}")
+            out.append(text)
+        link = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj in jobs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
+                               f"{proc.stderr}")
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
     os.replace(tmp, path)   # atomic: a concurrent loader never sees half a library
-    return path, seconds, proc.stdout + proc.stderr
+    return path, seconds, "".join(out)
 
 
 @functools.lru_cache(maxsize=None)

@@ -18,6 +18,22 @@ template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16
   return __bfloat162float(v);
 }
 
+// Registers a thread, local-memory bytes a thread (spills), dynamic shared
+// memory bytes and CTAs an SM of `kernel` launched with `threads` threads
+// and `smem` bytes, into out[0..3]. Returns a cudaError_t.
+template <typename K> inline int kernel_info(K kernel, int threads, int smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = smem;
+  out[3] = blocks;
+  return static_cast<int>(e);
+}
+
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {

@@ -46,6 +46,9 @@
 //    in the future or outside the window are never loaded.
 //  * Epilogue: o is scaled by 1/l in registers, rounded once to bf16 and
 //    stored into o's strided layout; rows at or past S are not written.
+//    When the caller passes an LSE buffer (training), each row's
+//    log-sum-exp in log2 units, m * scale_log2 + log2(l) (-inf for a row
+//    with nothing to attend to), goes to it for the backward.
 // The mbarrier, TMA, descriptor and wgmma helpers, and the host-side map
 // encoding, live in hopper.cuh (shared with ssd_scan.cu).
 #include <math.h>
@@ -80,19 +83,11 @@ template <int HD> struct Smem {
 
 struct Params {
   void* o;
+  float* lse;          // [B, nh, lse_ld] fp32, or null
   long long o_sb, o_sh, o_ss;
-  int B, nh, nkv, S, causal, window, n_qtiles, n_items;
+  int B, nh, nkv, S, causal, window, n_qtiles, n_items, lse_ld;
   float scale_log2;   // hd^-0.5 * log2(e): scores go through exp2
 };
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 128) {
-    wgmma_rs_n128(o, a, db, 1);
-  } else {
-    wgmma_rs_n64(o, a, db, 1);
-  }
-}
 
 // Online softmax over one [64 x kBK] score tile of a warpgroup, in fp32:
 // the running row max m (unscaled) and this thread's share l of the row
@@ -256,7 +251,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     auto issue_pv = [&](int stage) {
       const uint64_t dv = sw128_desc(sV + stage * L::kTile, kBoxBytes, 1024);
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_pv<HD>(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
+      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<HD>(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
       wgmma_commit();
     };
     auto wait_full = [&](uint32_t bar, uint32_t parity) {
@@ -331,6 +326,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       for (int i = 0; i < 2; ++i) {
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        const int row = it.q0 + row_in + 8 * i;
+        if (p.lse != nullptr && lane % 4 == 0 && row < S)
+          p.lse[(static_cast<long long>(it.b) * p.nh + it.h) * p.lse_ld + row] =
+              l[i] > 0.f ? fmaf(sm.m[i], p.scale_log2, log2f(l[i])) : -INFINITY;
         l[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;   // rows with nothing to attend to -> 0
       }
       __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + it.b * p.o_sb + it.h * p.o_sh;
@@ -346,21 +345,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       }
     }
   }
-}
-
-// 4-D map over (hd, S, heads, batch) of a bf16 tensor with element strides
-// (seq, head, batch) and hd contiguous; [128 rows][64 columns] boxes,
-// 128-byte swizzle, rows past S read as zeros.
-int make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B,
-             const long long* strides) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
-  // bytes, for dims 1..3 (the seq, head and batch strides)
-  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
-                               static_cast<cuuint64_t>(strides[1]) * 2,
-                               static_cast<cuuint64_t>(strides[0]) * 2};
-  const cuuint32_t box[4] = {kBoxCols, 128, 1, 1};
-  return make_bf16_map(map, ptr, 4, dims, bytes, box);
 }
 
 template <int HD>
@@ -387,21 +371,26 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
 // bf16 only, hd 64 or 128. q, o: [B, nh, S, hd] and k, v: [B, nkv, S, hd]
 // as element strides (batch, head, seq) in `strides` (q, k, v, o in turn,
 // 12 values, each a multiple of 8); hd contiguous; q, k, v 16-byte aligned.
-// Returns the cudaError_t of the launch (0 on success), or 100000 plus the
-// CUresult of a tensor map the driver refused.
+// lse: fp32 [B, nh, lse_ld] (lse_ld >= S) for each row's log-sum-exp, or
+// null. Returns the cudaError_t of the launch (0 on success), or 100000
+// plus the CUresult of a tensor map the driver refused.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
-                                            const long long* strides, int B, int nh, int nkv,
-                                            int S, int hd, int causal, int window, void* stream) {
+                                            void* lse, const long long* strides, int B, int nh,
+                                            int nkv, int S, int hd, int causal, int window,
+                                            int lse_ld, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || (hd != 64 && hd != 128))
+  if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || (hd != 64 && hd != 128) ||
+      (lse != nullptr && lse_ld < S))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, q, hd, S, nh, B, strides);
-  if (err == 0) err = make_map(&tk, k, hd, S, nkv, B, strides + 3);
-  if (err == 0) err = make_map(&tv, v, hd, S, nkv, B, strides + 6);
+  int err = make_head_map(&tq, q, hd, S, nh, B, strides, 128);
+  if (err == 0) err = make_head_map(&tk, k, hd, S, nkv, B, strides + 3, 128);
+  if (err == 0) err = make_head_map(&tv, v, hd, S, nkv, B, strides + 6, 128);
   if (err != 0) return err;
   Params p;
   p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.lse_ld = lse_ld;
   p.o_sb = strides[9];
   p.o_sh = strides[10];
   p.o_ss = strides[11];

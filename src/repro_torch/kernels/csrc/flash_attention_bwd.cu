@@ -1,23 +1,30 @@
-// Causal / windowed GQA flash attention, backward, for Hopper (sm_90a).
+// Causal / windowed GQA flash attention, backward, for Hopper (sm_90a): the
+// mma.sync / FMA kernels, for fp32 at head_dim 32, 64 and 128 and bf16 at
+// head_dim 32 (bf16 at head_dim 64 and 128 goes to the wgmma + TMA kernels
+// of flash_attention_bwd_wgmma.cu), and the D = rowsum(dO * O) launch that
+// both paths run first; kernels/flash_attention.py picks by
+// (dtype, head_dim).
 //
 // The TPU kernel (src/repro/kernels/flash_attention.py, flash_attention /
 // _flash_kernel) is forward only; this is the gradient of the port's
 // forward (csrc/flash_attention.cu, csrc/flash_attention_mma.cu), the math
 // of kernels/ref.py flash_attention_bwd_ref (FA2's backward):
-//   P  = exp(mask(q k^T * scale) - LSE)       recomputed, never stored
+//   P  = exp2(mask(q k^T * scale * log2(e)) - LSE)   recomputed, never stored
 //   D  = rowsum(dO * O)
 //   dV = P^T dO          dS = P * (dO V^T - D)
 //   dQ = dS K * scale    dK = dS^T Q * scale
 // with dK and dV summed over the nh / nkv query heads of each kv head.
 //
 // Bound on the H100: operations, five products of 2*B*nh*hd*S(S+1)/2 flops
-// each over the causal pairs (one more, q k^T for the row statistics, is
-// not counted); bf16 on the tensor cores, fp32 on the FMA units.
+// each over the causal pairs; bf16 on the tensor cores, fp32 on the FMA
+// units.
 //
-// Design (a first kernel, simple and right; wgmma and TMA come later):
-//  * Three launches. `stats`: per (q tile, head, b), LSE (one pass of
-//    q k^T over the row's live keys, an online max and sum in log2 units)
-//    and D, both fp32 [B, nh, S]; the forward kernels stay as they are.
+// Design (the port's first backward, kept for the paths above):
+//  * LSE (log2 units) is the forward kernels' (flash_attention.cu,
+//    flash_attention_mma.cu write it when a gradient is wanted); `delta`
+//    writes D, a group of lanes per (b, h, row) with one 16-byte vector of
+//    o and dO each; both fp32 [B, nh, ld], rows past S of D zero. Then two
+//    launches.
 //    `dkdv`: per (kv tile, kv head, b), a loop over the group's query
 //    heads and their live q tiles, with dK and dV in registers, so the GQA
 //    sum needs no atomics. `dq`: per (q tile, head, b), a loop over the
@@ -49,15 +56,15 @@ constexpr int kLdP = kTile + 4;  // fp32 P scratch row stride (fp32 path only)
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdParams {
-  const void *q, *k, *v, *o, *dO;
+  const void *q, *k, *v, *dO;
   void *dq, *dk, *dv;
-  float *lse, *delta;  // [B, nh, S]: LSE in log2 units, rowsum(dO * O)
-  long long s[24];     // (batch, head, seq) strides of q, k, v, o, dO, dq, dk, dv
-  int nh, nkv, S, causal, window;
+  const float *lse, *delta;  // [B, nh, ld]: LSE in log2 units, rowsum(dO * O)
+  long long s[21];           // (batch, head, seq) strides of q, k, v, dO, dq, dk, dv
+  int nh, nkv, S, causal, window, ld;
   float scale, scale_log2;
 };
 
-enum { Q = 0, K = 1, V = 2, O = 3, DO = 4, DQ = 5, DK = 6, DV = 7 };
+enum { Q = 0, K = 1, V = 2, DO = 3, DQ = 4, DK = 5, DV = 6 };
 
 template <typename T, int HD> __host__ __device__ constexpr int tile_ld() {
   return HD + 16 / sizeof(T);
@@ -260,83 +267,38 @@ __device__ __forceinline__ void q_tiles(const BwdParams& p, int k0, int& begin, 
   end = p.window > 0 ? min(n, (k0 + kTile - 1 + p.window - 1) / kTile + 1) : n;
 }
 
-// ---- 1. row statistics: LSE (log2 units) and D = rowsum(dO * O) ----------
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_bwd_stats_kernel(const BwdParams p) {
-  constexpr int LD = tile_ld<T, HD>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kTile * LD;
-
-  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.nh / p.nkv);
-  const int q0 = qt * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const T* kg = static_cast<const T*>(p.k) + b * p.s[3 * K] + hk * p.s[3 * K + 1];
-
-  load_tile<T, HD>(sQ, static_cast<const T*>(p.q) + b * p.s[3 * Q] + h * p.s[3 * Q + 1],
-                   p.s[3 * Q + 2], q0, p.S);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  int kt_begin, kt_end;
-  kv_tiles(p, q0, kt_begin, kt_end);
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<T, HD>(sK, kg, p.s[3 * K + 2], k0, p.S);
-    __syncthreads();
-    float s[kTile / 8][4];
-    zero(s);
-    Mma<T, HD>::ab_t(s, sQ, sK, nullptr, warp, g, t);
-    float mx[2] = {-INFINITY, -INFINITY};
+// ---- D = rowsum(dO * O): a group of `width` lanes per row, a 16-byte
+// vector of o and of dO each; rows in [S, ld) get 0 -------------------------
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const T* o, const T* dO, float* delta,
+                                                              long long o_sb, long long o_sh,
+                                                              long long o_ss, long long d_sb,
+                                                              long long d_sh, long long d_ss,
+                                                              int nh, int S, int ld, int width,
+                                                              long long rows) {
+  constexpr int kVec = 16 / sizeof(T);
+  const long long t = blockIdx.x * 256ll + threadIdx.x;
+  const long long r = t / width;
+  float d = 0.f;
+  if (r < rows) {
+    const int row = static_cast<int>(r % ld);
+    const long long bh = r / ld;
+    const int h = static_cast<int>(bh % nh), b = static_cast<int>(bh / nh);
+    const int c = static_cast<int>(t % width) * kVec;
+    if (row < S) {
+      const uint4 ou = *reinterpret_cast<const uint4*>(o + b * o_sb + h * o_sh + row * o_ss + c);
+      const uint4 du = *reinterpret_cast<const uint4*>(dO + b * d_sb + h * d_sh + row * d_ss + c);
+      const T* oe = reinterpret_cast<const T*>(&ou);
+      const T* de = reinterpret_cast<const T*>(&du);
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = live(p, row[e / 2], k0 + j * 8 + 2 * t + (e & 1));
-        s[j][e] = ok ? s[j][e] * p.scale_log2 : -INFINITY;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    float m_use[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      m_use[i] = m_new == -INFINITY ? 0.f : m_new;  // nothing live yet
-      l[i] *= exp2f(m[i] - m_use[i]);
-      m[i] = m_new;
+      for (int j = 0; j < kVec; ++j) d = fmaf(to_f32(oe[j]), to_f32(de[j]), d);
     }
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) l[e / 2] += exp2f(s[j][e] - m_use[e / 2]);
   }
-  float* lse = p.lse + (static_cast<long long>(b) * p.nh + h) * p.S;
-  float* delta = p.delta + (static_cast<long long>(b) * p.nh + h) * p.S;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (t == 0 && row[i] < p.S) lse[row[i]] = l[i] > 0.f ? m[i] + log2f(l[i]) : -INFINITY;
-  }
-  // D for the warp's 16 rows: lanes across hd, a shuffle sum a row
-  const T* og = static_cast<const T*>(p.o) + b * p.s[3 * O] + h * p.s[3 * O + 1];
-  const T* dog = static_cast<const T*>(p.dO) + b * p.s[3 * DO] + h * p.s[3 * DO + 1];
-  for (int i = 0; i < 16; ++i) {
-    const int r = q0 + warp * 16 + i;
-    if (r >= p.S) break;
-    float d = 0.f;
-    for (int c = lane; c < HD; c += 32)
-      d = fmaf(to_f32(og[r * p.s[3 * O + 2] + c]), to_f32(dog[r * p.s[3 * DO + 2] + c]), d);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-    if (lane == 0) delta[r] = d;
-  }
+  for (int off = width / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+  if (r < rows && t % width == 0) delta[r] = d;
 }
 
-// ---- 2. dK, dV per (kv tile, kv head, b) ----------------------------------
+// ---- dK, dV per (kv tile, kv head, b) ----------------------------------
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdParams p) {
   constexpr int LD = tile_ld<T, HD>();
@@ -368,8 +330,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdParam
   for (int h = hk * group; h < (hk + 1) * group; ++h) {
     const T* qg = static_cast<const T*>(p.q) + b * p.s[3 * Q] + h * p.s[3 * Q + 1];
     const T* dog = static_cast<const T*>(p.dO) + b * p.s[3 * DO] + h * p.s[3 * DO + 1];
-    const float* lse = p.lse + (static_cast<long long>(b) * p.nh + h) * p.S;
-    const float* delta = p.delta + (static_cast<long long>(b) * p.nh + h) * p.S;
+    const float* lse = p.lse + (static_cast<long long>(b) * p.nh + h) * p.ld;
+    const float* delta = p.delta + (static_cast<long long>(b) * p.nh + h) * p.ld;
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * kTile;
       __syncthreads();  // every warp is done with the previous q, dO tiles
@@ -410,7 +372,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdParam
                     p.s[3 * DV + 2], k0, p.S, dv, 1.f, warp, g, t);
 }
 
-// ---- 3. dQ per (q tile, head, b) ------------------------------------------
+// ---- dQ per (q tile, head, b) ------------------------------------------
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int LD = tile_ld<T, HD>();
@@ -429,7 +391,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const T* kg = static_cast<const T*>(p.k) + b * p.s[3 * K] + hk * p.s[3 * K + 1];
   const T* vg = static_cast<const T*>(p.v) + b * p.s[3 * V] + hk * p.s[3 * V + 1];
-  const long long bh = (static_cast<long long>(b) * p.nh + h) * p.S;
+  const long long bh = (static_cast<long long>(b) * p.nh + h) * p.ld;
   float L[2], D[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -483,23 +445,19 @@ cudaError_t run(Kernel kernel, dim3 grid, int bytes, const BwdParams& p, cudaStr
 template <typename T, int HD>
 int launch(const BwdParams& p, int B, cudaStream_t stream) {
   const int tiles = (p.S + kTile - 1) / kTile;
-  cudaError_t e = run(flash_bwd_stats_kernel<T, HD>, dim3(tiles, p.nh, B),
-                      smem_bytes<T, HD>(2, 0, false), p, stream);
-  if (e == cudaSuccess)
-    e = run(flash_bwd_dkdv_kernel<T, HD>, dim3(tiles, p.nkv, B), smem_bytes<T, HD>(4, 2, true),
-            p, stream);
+  cudaError_t e = run(flash_bwd_dkdv_kernel<T, HD>, dim3(tiles, p.nkv, B),
+                      smem_bytes<T, HD>(4, 2, true), p, stream);
   if (e == cudaSuccess)
     e = run(flash_bwd_dq_kernel<T, HD>, dim3(tiles, p.nh, B), smem_bytes<T, HD>(4, 0, true), p,
             stream);
   return static_cast<int>(e);
 }
 
-template <typename T>
-int launch_hd(const BwdParams& p, int B, int hd, cudaStream_t stream) {
+int launch_f32(const BwdParams& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
+    case 32: return launch<float, 32>(p, B, stream);
+    case 64: return launch<float, 64>(p, B, stream);
+    case 128: return launch<float, 128>(p, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -507,40 +465,69 @@ int launch_hd(const BwdParams& p, int B, int hd, cudaStream_t stream) {
 }  // namespace
 }  // namespace repro_torch
 
-// q, o, dO, dq: [B, nh, S, hd]; k, v, dk, dv: [B, nkv, S, hd], as element
-// strides (batch, head, seq) in `strides` (q, k, v, o, dO, dq, dk, dv in
-// turn, 24 values); hd contiguous. lse, delta: fp32 scratch [B, nh, S].
-// Returns the cudaError_t of the launches (0 on success).
+// q, dO, dq: [B, nh, S, hd]; k, v, dk, dv: [B, nkv, S, hd], as element
+// strides (batch, head, seq) in `strides` (q, k, v, dO, dq, dk, dv in turn,
+// 21 values); hd contiguous. lse (log2 units, the forward's) and delta:
+// fp32 [B, nh, ld]. Returns the cudaError_t of the launches (0 on success).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
-                                          const void* o, const void* dO, void* dq, void* dk,
-                                          void* dv, void* lse, void* delta,
+                                          const void* dO, void* dq, void* dk, void* dv,
+                                          const void* lse, const void* delta,
                                           const long long* strides, int B, int nh, int nkv, int S,
-                                          int hd, int causal, int window, int dtype,
+                                          int hd, int causal, int window, int ld, int dtype,
                                           void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || window < 0)
+  if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || window < 0 || ld < S)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p;
   p.q = q;
   p.k = k;
   p.v = v;
-  p.o = o;
   p.dO = dO;
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
-  p.lse = static_cast<float*>(lse);
-  p.delta = static_cast<float*>(delta);
-  for (int i = 0; i < 24; ++i) p.s[i] = strides[i];
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  for (int i = 0; i < 21; ++i) p.s[i] = strides[i];
   p.nh = nh;
   p.nkv = nkv;
   p.S = S;
   p.causal = causal;
   p.window = window;
+  p.ld = ld;
   p.scale = 1.f / sqrtf(static_cast<float>(hd));
   p.scale_log2 = kLog2e * p.scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_hd<float>(p, B, hd, s);
-  if (dtype == kBFloat16) return launch_hd<__nv_bfloat16>(p, B, hd, s);
+  if (dtype == kFloat32) return launch_f32(p, B, hd, s);
+  if (dtype == kBFloat16 && hd == 32) return launch<__nv_bfloat16, 32>(p, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// D = rowsum(dO * O) for both backward paths: o, dO [B, nh, S, hd] as
+// element strides (batch, head, seq) in `strides` (o, dO: 6 values), hd
+// contiguous, rows 16-byte aligned; delta: fp32 [B, nh, ld], written in full
+// (0 past S). Returns the cudaError_t of the launch (0 on success).
+extern "C" int flash_attention_bwd_delta_launch(const void* o, const void* dO, void* delta,
+                                                const long long* strides, int B, int nh, int S,
+                                                int hd, int ld, int dtype, void* stream) {
+  using namespace repro_torch;
+  if (B <= 0 || S <= 0 || ld < S) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != kFloat32 && dtype != kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
+  const int width = hd * (dtype == kFloat32 ? 4 : 2) / 16;   // lanes a row
+  if (width < 1 || width > 32 || (width & (width - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(B) * nh * ld;
+  const unsigned blocks = static_cast<unsigned>((rows * width + 255) / 256);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* d = static_cast<float*>(delta);
+  const long long* st = strides;
+  if (dtype == kFloat32)
+    flash_bwd_delta_kernel<float><<<blocks, 256, 0, s>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dO), d, st[0], st[1], st[2],
+        st[3], st[4], st[5], nh, S, ld, width, rows);
+  else
+    flash_bwd_delta_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dO), d, st[0],
+        st[1], st[2], st[3], st[4], st[5], nh, S, ld, width, rows);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -33,6 +33,9 @@
 //    repeated k/v in device memory.
 //  * Strides are arguments: q, k, v and o may be [B,nh,S,hd] tensors or
 //    views of [B,S,nh,hd] ones, with hd contiguous.
+//  * Given an LSE buffer (training), each row's log-sum-exp in log2 units,
+//    m + log2(l) (-inf for a row with nothing to attend to), goes to it for
+//    the backward.
 #include <math.h>
 
 #include "common.cuh"
@@ -51,8 +54,9 @@ struct FlashParams {
   const void* k;
   const void* v;
   void* o;
+  float* lse;   // [B, nh, lse_ld] fp32, or null
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-  int nh, nkv, S, causal, window;
+  int nh, nkv, S, causal, window, lse_ld;
   float scale_log2;  // hd^-0.5 * log2(e): scores go through exp2
 };
 
@@ -323,6 +327,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (p.lse != nullptr && t == 0 && row[i] < S)
+      p.lse[(static_cast<long long>(b) * p.nh + h) * p.lse_ld + row[i]] =
+          l[i] > 0.f ? m[i] + log2f(l[i]) : -INFINITY;
     l[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;  // rows with nothing to attend to -> 0
   }
 #pragma unroll
@@ -360,19 +367,23 @@ int launch_f32(const FlashParams& p, int B, int hd, cudaStream_t stream) {
 
 // q, o: [B, nh, S, hd] and k, v: [B, nkv, S, hd] as element strides
 // (batch, head, seq) in `strides` (q, k, v, o in turn, 12 values); hd is
-// contiguous. Returns the cudaError_t of the launch (0 on success).
+// contiguous. lse: fp32 [B, nh, lse_ld] (lse_ld >= S) for each row's
+// log-sum-exp, or null. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int flash_attention_mma_launch(const void* q, const void* k, const void* v, void* o,
-                                          const long long* strides, int B, int nh, int nkv, int S,
-                                          int hd, int causal, int window, int dtype,
-                                          void* stream) {
+                                          void* lse, const long long* strides, int B, int nh,
+                                          int nkv, int S, int hd, int causal, int window,
+                                          int lse_ld, int dtype, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0)
+  if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || (lse != nullptr && lse_ld < S))
     return static_cast<int>(cudaErrorInvalidValue);
   FlashParams p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.lse_ld = lse_ld;
   p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
   p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_ss = strides[5];
   p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];

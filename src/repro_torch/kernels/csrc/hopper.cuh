@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (flash_attention.cu, ssd_scan.cu): mbarriers, TMA loads, 128-byte-swizzle
+// (flash_attention.cu, flash_attention_bwd_wgmma.cu, ssd_scan.cu):
+// mbarriers, TMA tensor and bulk loads, 128-byte-swizzle
 // wgmma descriptors, the wgmma instructions the kernels issue, and the
 // host-side encoding of TMA tensor maps through the driver entry point
 // that the runtime already loaded (so the library needs no -lcuda).
@@ -78,6 +79,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global memory into shared memory (both
+// 16-byte aligned, bytes a multiple of 16), completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -214,6 +225,17 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d (+)= a b, a [64 x 16] from registers, b [16 x N] MN-major: N = 64 or 128
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 64 || N == 128, "wgmma_rs takes N 64 or 128");
+  if constexpr (N == 128) {
+    wgmma_rs_n128(d, a, db, 1);
+  } else {
+    wgmma_rs_n64(d, a, db, 1);
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -263,6 +285,21 @@ inline int make_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuui
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
+}
+
+// A 4-D map over (hd, S, heads, batch) of a bf16 [B, heads, S, hd] tensor
+// given as element strides (batch, head, seq) with hd contiguous: boxes of
+// [rows][64 columns], 128-byte swizzle, rows past S read as zeros.
+inline int make_head_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B,
+                         const long long* strides, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
+  // bytes, for dims 1..3 (the seq, head and batch strides)
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
+                               static_cast<cuuint64_t>(strides[1]) * 2,
+                               static_cast<cuuint64_t>(strides[0]) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  return make_bf16_map(map, ptr, 4, dims, bytes, box);
 }
 
 }  // namespace repro_torch

@@ -586,18 +586,6 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tb, const CUtensorMap& tc, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename K> int kernel_info(K kernel, int smem, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  int blocks = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
-  out[0] = a.numRegs;
-  out[1] = static_cast<int>(a.localSizeBytes);
-  out[2] = smem;
-  out[3] = blocks;
-  return static_cast<int>(e);
-}
-
 }  // namespace
 }  // namespace repro_torch
 
@@ -668,13 +656,17 @@ extern "C" int ssd_scan_wgmma_info(int N, int* out) {
   int err = N == 128 ? set_smem_limits<128>() : set_smem_limits<64>();
   if (err != 0) return err;
   if (N == 128) {
-    err = kernel_info(ssd_cb_kernel<128>, cb_smem_bytes<128>(), out);
-    if (err == 0) err = kernel_info(ssd_segment_states_kernel<128>, Smem<128, false>::kBytes, out + 4);
-    if (err == 0) err = kernel_info(ssd_chunk_scan_kernel<128>, Smem<128, true>::kBytes, out + 8);
+    err = kernel_info(ssd_cb_kernel<128>, kThreads, cb_smem_bytes<128>(), out);
+    if (err == 0) err = kernel_info(ssd_segment_states_kernel<128>, kThreads,
+                                    Smem<128, false>::kBytes, out + 4);
+    if (err == 0) err = kernel_info(ssd_chunk_scan_kernel<128>, kThreads,
+                                    Smem<128, true>::kBytes, out + 8);
   } else {
-    err = kernel_info(ssd_cb_kernel<64>, cb_smem_bytes<64>(), out);
-    if (err == 0) err = kernel_info(ssd_segment_states_kernel<64>, Smem<64, false>::kBytes, out + 4);
-    if (err == 0) err = kernel_info(ssd_chunk_scan_kernel<64>, Smem<64, true>::kBytes, out + 8);
+    err = kernel_info(ssd_cb_kernel<64>, kThreads, cb_smem_bytes<64>(), out);
+    if (err == 0) err = kernel_info(ssd_segment_states_kernel<64>, kThreads,
+                                    Smem<64, false>::kBytes, out + 4);
+    if (err == 0) err = kernel_info(ssd_chunk_scan_kernel<64>, kThreads,
+                                    Smem<64, true>::kBytes, out + 8);
   }
   return err;
 }

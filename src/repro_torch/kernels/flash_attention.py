@@ -14,11 +14,19 @@ Both take strides, so q, k and v may be [B,nh,S,hd] tensors or
 [B,nh,S,hd] views of the model's [B,S,nh,hd] layout (``t.transpose(1, 2)``):
 no copy either way. The output is allocated in q's own layout.
 
-Gradients: ``flash_attention`` is a ``torch.autograd.Function`` that saves
-q, k, v and o. Its backward is ``flash_attention_bwd``: the CUDA kernels of
-``csrc/flash_attention_bwd.cu`` for CUDA tensors (every dtype and head dim
-the forward takes, mma.sync / FMA), the plain ``ref.flash_attention_bwd_ref``
-for CPU tensors.
+Gradients: ``flash_attention`` is a ``torch.autograd.Function`` whose
+forward also writes each row's log-sum-exp (LSE, fp32, log2 units; only
+when an input needs a gradient) and saves it beside q, k, v and o. Its
+backward is ``flash_attention_bwd``, picked by ``bwd_kernel_path``:
+* ``"wgmma"``, ``csrc/flash_attention_bwd_wgmma.cu``: bf16 at head_dim 64
+  and 128. dK/dV per (kv tile, kv head, batch, slice of the GQA group)
+  into fp32 partials summed in a fixed order, dQ per (q tile, head,
+  batch); TMA and wgmma, warp-specialised.
+* ``"mma"``, ``csrc/flash_attention_bwd.cu``: fp32 and bf16 at head_dim
+  32 (mma.sync / FMA).
+Both read the forward's LSE and D = rowsum(dO o) from a launch of its own
+(``csrc/flash_attention_bwd.cu``); nothing recomputes the row statistics.
+CPU tensors take ``ref.flash_attention_bwd_ref``.
 """
 
 from __future__ import annotations
@@ -28,13 +36,21 @@ import ctypes
 import torch
 
 from . import build
-from .ref import flash_attention_bwd_ref, flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref, flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_bwd", "check_args", "check_bwd_args",
-           "kernel_path", "HEAD_DIMS", "WGMMA_HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "check_args",
+           "check_bwd_args", "kernel_path", "bwd_kernel_path", "bwd_slices", "lse_stride",
+           "HEAD_DIMS", "WGMMA_HEAD_DIMS"]
 
 HEAD_DIMS = (32, 64, 128)       # head dims some kernel is instantiated for
-WGMMA_HEAD_DIMS = (64, 128)     # bf16 head dims of the wgmma kernel
+WGMMA_HEAD_DIMS = (64, 128)     # bf16 head dims of the wgmma kernels
+LSE_ROWS = 128                  # the LSE and D rows of a (b, h) are padded to this
+# dK/dV work items of the wgmma backward the grid should have per SM
+# before the GQA group is split further. yi-6b at S 2048 (64 kv items,
+# group 8) read 0.6192 / 0.3962 / 0.2973 / 0.3208 ms at 1 / 2 / 4 / 8
+# slices on an H100 (scripts/flash_bwd_probe.py, PERF.md): 4 slices, 256
+# items; 8 double the partials' traffic and the K, V loads
+BWD_ITEMS_PER_SM = 1.5
 
 
 def kernel_path(dtype: torch.dtype, hd: int) -> str:
@@ -46,6 +62,31 @@ def kernel_path(dtype: torch.dtype, hd: int) -> str:
     if dtype == torch.float32:
         return "mma"
     raise TypeError(f"flash kernel takes float32 or bfloat16, got {dtype}")
+
+
+def bwd_kernel_path(dtype: torch.dtype, hd: int) -> str:
+    """The CUDA backward that serves (dtype, hd): ``"wgmma"`` or ``"mma"``
+    (the forward's rule, ``kernel_path``)."""
+    return kernel_path(dtype, hd)
+
+
+def bwd_slices(group: int, kv_items: int, sms: int) -> int:
+    """How many slices the wgmma backward cuts each kv head's GQA group of
+    ``group`` query heads into: the smallest divisor of ``group`` that gives
+    ``kv_items`` (kv tiles x kv heads x batch) times it at least
+    ``BWD_ITEMS_PER_SM`` work items an SM, else ``group``. Each slice is a
+    dK/dV work item of its own with fp32 partials."""
+    for d in range(1, group + 1):
+        if group % d == 0 and kv_items * d >= BWD_ITEMS_PER_SM * sms:
+            return d
+    return group
+
+
+def lse_stride(S: int) -> int:
+    """Row stride of the kernels' LSE and D buffers [B, nh, lse_stride(S)]:
+    S padded to a multiple of ``LSE_ROWS`` (16-byte aligned rows and whole
+    tiles for the bulk copies)."""
+    return -(-S // LSE_ROWS) * LSE_ROWS
 
 
 def check_args(q, k, v, window) -> str:
@@ -85,34 +126,49 @@ def strides_ok(t) -> bool:
     return t.stride(3) == 1 and not any(s % vec for s in t.stride()[:3])
 
 
-def check_bwd_args(q, k, v, o, do, window) -> None:
+def check_bwd_args(q, k, v, o, do, window) -> str:
     """``check_args`` for the backward, plus o and do: q's shape and dtype,
-    the same layout rules."""
+    the same layout rules. Returns ``bwd_kernel_path``."""
     check_args(q, k, v, window)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype:
             raise ValueError(f"{name} must be {q.dtype} {tuple(q.shape)} like q, got "
                              f"{t.dtype} {tuple(t.shape)}")
         _check_layout(name, t, q.device)
+    return bwd_kernel_path(q.dtype, q.shape[3])
 
 
 def _strides(*ts):
     return (ctypes.c_longlong * (3 * len(ts)))(*(s for t in ts for s in t.stride()[:3]))
 
 
-def _forward(q, k, v, causal, window):
+def _lse_buffer(B, nh, S, device) -> torch.Tensor:
+    """An LSE or D buffer as the kernels take it, seen as [B, nh, S]."""
+    return torch.empty(B, nh, lse_stride(S), dtype=torch.float32, device=device)[..., :S]
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0, lse: bool = True):
+    """(o, lse or None): the forward, and with ``lse`` each row's
+    log-sum-exp (``ref.flash_attention_fwd_ref``'s definition: fp32
+    [B,nh,S], log2 units of the scaled scores), which the backward reads.
+    On CUDA tensors the LSE is a [B,nh,S] view of a buffer whose rows are
+    ``lse_stride(S)`` apart."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        if lse:
+            return flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window), None
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
     path = check_args(q, k, v, window)
     B, nh, S, hd = q.shape
     out = torch.empty_like(q)           # keeps a dense q's strides: [B,S,nh,hd] views stay so
+    row_lse = _lse_buffer(B, nh, S, q.device) if lse else None
     if B == 0 or S == 0:
-        return out
+        return out, row_lse
     lib = build.library()
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q, k, v, out),
-            B, nh, k.shape[1], S, hd, int(causal), int(window))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            row_lse.data_ptr() if lse else None, _strides(q, k, v, out),
+            B, nh, k.shape[1], S, hd, int(causal), int(window), lse_stride(S))
     with torch.cuda.device(q.device):
         if path == "wgmma":
             err = lib.flash_attention_wgmma_launch(*args, build.stream_of(q))
@@ -120,56 +176,94 @@ def _forward(q, k, v, causal, window):
             err = lib.flash_attention_mma_launch(*args, build.dtype_code(q), build.stream_of(q))
     build.check(err, f"flash_attention ({path})")
     flash_attention.launches += 1
-    return out
+    return out, row_lse
 
 
-def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0):
-    """(q, k, v, o = flash_attention(q, k, v), do = dL/do) -> (dq, dk, dv),
-    each in its input's type and layout. CUDA tensors: three kernels, one
-    launch counted (the row statistics LSE and D = rowsum(do o) per (b, h,
-    row), then dK/dV per (kv tile, kv head, b) looping over the group's
-    query heads, then dQ per (q tile, head, b))."""
+def _kernel_lse(lse, B, nh, S):
+    """``lse`` as the kernels read it: rows ``lse_stride(S)`` apart, 16-byte
+    aligned; anything else (a caller's own [B,nh,S] tensor) is copied so."""
+    ld = lse_stride(S)
+    if (lse.shape != (B, nh, S) or lse.dtype != torch.float32
+            or lse.stride() != (nh * ld, ld, 1) or lse.data_ptr() % 16):
+        buf = _lse_buffer(B, nh, S, lse.device)
+        buf.copy_(lse)
+        return buf
+    return lse
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int = 0,
+                        slices: int = 0):
+    """(q, k, v, o and lse = flash_attention_fwd(q, k, v), do = dL/do) ->
+    (dq, dk, dv), each in its input's type and layout. CUDA tensors: one
+    launch counted, which runs D = rowsum(do o) per (b, h, row), then the
+    ``bwd_kernel_path`` kernels (wgmma: dK/dV into per-slice fp32 partials,
+    dQ, the fixed-order sum of the partials; mma: dK/dV looping over the
+    group, dQ). ``slices`` overrides ``bwd_slices`` (a divisor of the GQA
+    group; wgmma path only)."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+        return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention_bwd runs on CUDA or CPU tensors, got {q.device}")
-    check_bwd_args(q, k, v, o, do, window)
+    path = check_bwd_args(q, k, v, o, do, window)
     B, nh, S, hd = q.shape
+    nkv = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0 or S == 0:
         return dq, dk, dv
-    lse = torch.empty(B, nh, S, dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    lse = _kernel_lse(lse, B, nh, S)
+    delta = _lse_buffer(B, nh, S, q.device)
+    ld = lse_stride(S)
     lib = build.library()
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            _strides(q, k, v, o, do, dq, dk, dv), B, nh, k.shape[1], S, hd, int(causal),
-            int(window), build.dtype_code(q), build.stream_of(q))
-    build.check(err, "flash_attention_bwd")
+        stream = build.stream_of(q)
+        err = lib.flash_attention_bwd_delta_launch(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(), _strides(o, do), B, nh, S, hd, ld,
+            build.dtype_code(q), stream)
+        build.check(err, "flash_attention_bwd (D)")
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr())
+        strides = _strides(q, k, v, do, dq, dk, dv)
+        if path == "wgmma":
+            gs = slices or bwd_slices(nh // nkv, -(-S // 128) * nkv * B,
+                                      build.sm_count(q.device.index or 0))
+            if gs < 1 or (nh // nkv) % gs:
+                raise ValueError(f"slices must divide the GQA group {nh // nkv}, got {gs}")
+            # fp32 partial dK and dV of each slice; none when one slice
+            parts = (torch.empty(2, gs, B, nkv, S, hd, dtype=torch.float32, device=q.device)
+                     if gs > 1 else None)
+            err = lib.flash_attention_bwd_wgmma_launch(
+                *ptrs, parts.data_ptr() if parts is not None else None, strides, B, nh, nkv,
+                S, hd, int(causal), int(window), ld, gs, stream)
+        else:
+            err = lib.flash_attention_bwd_launch(*ptrs, strides, B, nh, nkv, S, hd, int(causal),
+                                                 int(window), ld, build.dtype_code(q), stream)
+    build.check(err, f"flash_attention_bwd ({path})")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """The forward kernel, with ``flash_attention_bwd`` as its gradient."""
+    """The forward kernel, with ``flash_attention_bwd`` as its gradient.
+    The LSE is written (and saved) only when a gradient will be taken
+    (``need_lse``: grad mode on and an input that requires grad)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o = _forward(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, o)
+    def forward(ctx, q, k, v, causal, window, need_lse):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, lse=need_lse)
+        if need_lse:
+            ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         do = do.to(q.dtype)
         if do.device.type == "cuda" and not (strides_ok(do) and do.data_ptr() % 16 == 0):
             do = do.contiguous()        # e.g. a broadcast gradient (stride 0)
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -177,7 +271,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B,nh,S,hd]; k,v: [B,nkv,S,hd] -> [B,nh,S,hd] (kv head of q head h
     is h // (nh // nkv)); fp32 online softmax, fully-masked rows give 0.
     Differentiable in q, k and v (``FlashAttention``)."""
-    return FlashAttention.apply(q, k, v, causal, window)
+    need_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return FlashAttention.apply(q, k, v, causal, window, need_lse)
 
 
 flash_attention.launches = 0

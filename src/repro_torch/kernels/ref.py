@@ -8,6 +8,9 @@ The two backwards (``flash_attention_bwd_ref``, ``rmsnorm_bwd_ref``) are
 written out, not taken from autograd: they are the math of the CUDA
 backward kernels, and ``tests/test_torch_grad.py`` holds them against
 autograd of the forwards here and ``jax.vjp`` of ``repro.kernels.ref``.
+The flash backward takes the row log-sum-exp that the forward
+(``flash_attention_fwd_ref``, and the forward kernels) returns beside o:
+log2 units of the scaled scores, so P = exp2(log2(e) hd^-0.5 q.k - LSE).
 Everything computes in fp32, or in fp64 for fp64 inputs (gradcheck)."""
 
 from __future__ import annotations
@@ -15,8 +18,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["flash_attention_ref", "flash_attention_bwd_ref", "rmsnorm_ref", "rmsnorm_bwd_ref",
-           "ssd_scan_ref"]
+__all__ = ["flash_attention_ref", "flash_attention_fwd_ref", "flash_attention_bwd_ref",
+           "rmsnorm_ref", "rmsnorm_bwd_ref", "ssd_scan_ref", "LOG2E"]
+
+LOG2E = 1.4426950408889634       # log2(e): the LSE's units
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -38,43 +43,68 @@ def attention_mask(S: int, causal: bool, window: int, device) -> torch.Tensor:
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0):
     """q: [B,nh,S,hd]; k,v: [B,nkv,S,hd] -> [B,nh,S,hd]. Naive softmax in fp32."""
+    return flash_attention_fwd_ref(q, k, v, causal=causal, window=window)[0]
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal=True, window=0):
+    """(o, lse): ``flash_attention_ref``'s output and each row's log-sum-exp
+    of the scaled, masked scores in log2 units, lse[b,h,i] = log2 sum_j
+    exp2(log2(e) hd^-0.5 q_i.k_j) over the live keys j: [B,nh,S] in fp32
+    (fp64 for fp64 inputs), -inf for a row with no live key. The forward
+    kernels write the same for the backward."""
+    return flash_fwd_masked(q, k, v, attention_mask(q.shape[2], causal, window, q.device))
+
+
+def _masked_scores(q, k, mask):
+    """The grouped q [B,nkv,g,S,hd] and its scaled scores against k with
+    masked entries at -inf, [B,nkv,g,S,S], in the compute type."""
     B, nh, S, hd = q.shape
     nkv = k.shape[1]
     acc = _acc(q.dtype)
     qg = q.reshape(B, nkv, nh // nkv, S, hd).to(acc)
     scores = torch.einsum("bkgqh,bksh->bkgqs", qg, k.to(acc)) * hd ** -0.5
-    mask = attention_mask(S, causal, window, q.device)
-    scores = scores.masked_fill(~mask, float("-inf"))
+    return qg, scores.masked_fill(~mask, float("-inf"))
+
+
+def flash_fwd_masked(q, k, v, mask):
+    """``flash_attention_fwd_ref`` under any [S,S] boolean ``mask`` (True =
+    attend): rows with no live key give o = 0 and lse = -inf."""
+    B, nh, S, hd = q.shape
+    _, scores = _masked_scores(q, k, mask)
     probs = torch.softmax(scores, dim=-1)
     probs = torch.nan_to_num(probs, nan=0.0)          # fully-masked rows -> 0
-    out = torch.einsum("bkgqs,bksh->bkgqh", probs, v.to(acc))
-    return out.reshape(B, nh, S, hd).to(q.dtype)
+    out = torch.einsum("bkgqs,bksh->bkgqh", probs, v.to(scores.dtype))
+    lse = torch.logsumexp(scores, dim=-1) * LOG2E
+    return out.reshape(B, nh, S, hd).to(q.dtype), lse.reshape(B, nh, S)
 
 
-def flash_attention_bwd_ref(q, k, v, o, do, *, causal=True, window=0):
+def flash_attention_bwd_ref(q, k, v, o, do, lse=None, *, causal=True, window=0):
     """The backward of ``flash_attention_ref``: (q, k, v, its output o, the
-    gradient do of o) -> (dq, dk, dv) in the types of q, k, v. FA2's math:
-    P recomputed from q, k and the row log-sum-exp, D = rowsum(do o),
-    dV = P^T dO, dS = P (dO V^T - D), dQ = dS K scale, dK = dS^T Q scale,
-    dK and dV summed over the nh / nkv query heads of each kv head."""
-    return flash_bwd_masked(q, k, v, o, do, attention_mask(q.shape[2], causal, window, q.device))
+    gradient do of o, the forward's row log-sum-exp ``lse`` [B,nh,S] in
+    log2 units) -> (dq, dk, dv) in the types of q, k, v. FA2's math: P
+    recomputed from q, k and lse, D = rowsum(do o), dV = P^T dO,
+    dS = P (dO V^T - D), dQ = dS K scale, dK = dS^T Q scale, dK and dV
+    summed over the nh / nkv query heads of each kv head. Without ``lse``
+    (a caller that has no forward's) it is computed here from q and k."""
+    return flash_bwd_masked(q, k, v, o, do, attention_mask(q.shape[2], causal, window, q.device),
+                            lse)
 
 
-def flash_bwd_masked(q, k, v, o, do, mask):
+def flash_bwd_masked(q, k, v, o, do, mask, lse=None):
     """``flash_attention_bwd_ref`` under any [S,S] boolean ``mask`` (True =
     attend). Rows with no live key give zero gradients: their log-sum-exp
     is -inf, and every entry is masked before the exp."""
     B, nh, S, hd = q.shape
     nkv = k.shape[1]
-    acc = _acc(q.dtype)
     scale = hd ** -0.5
+    qg, s = _masked_scores(q, k, mask)
+    acc = s.dtype
     grp = lambda t: t.reshape(B, nkv, nh // nkv, S, hd).to(acc)
-    qg, og, dog = grp(q), grp(o), grp(do)
+    og, dog = grp(o), grp(do)
     kf, vf = k.to(acc), v.to(acc)
-    s = torch.einsum("bkgqh,bksh->bkgqs", qg, kf) * scale
-    s = s.masked_fill(~mask, float("-inf"))
-    lse = torch.logsumexp(s, dim=-1, keepdim=True)
-    p = torch.exp((s - lse).masked_fill(~mask, float("-inf")))
+    lse = (torch.logsumexp(s, dim=-1, keepdim=True) * LOG2E if lse is None
+           else lse.reshape(B, nkv, nh // nkv, S, 1).to(acc))
+    p = torch.exp2((s * LOG2E - lse).masked_fill(~mask, float("-inf")))
     d = (dog * og).sum(dim=-1, keepdim=True)
     dv = torch.einsum("bkgqs,bkgqh->bksh", p, dog)
     ds = p * (torch.einsum("bkgqh,bksh->bkgqs", dog, vf) - d)

@@ -7,10 +7,14 @@ bf16 row in registers and reads it once, for H = 256 * v with v in
 ``"loop"`` takes fp32 and every other H that is a multiple of 8.
 
 Gradients: ``rmsnorm`` is a ``torch.autograd.Function`` that saves x and w.
-Its backward is ``rmsnorm_bwd``: ``csrc/rmsnorm_bwd.cu`` for CUDA tensors
-(dx a warp per row, dw as fp32 partial sums per block, then a second
-launch that sums them in a fixed order and casts), the plain
-``ref.rmsnorm_bwd_ref`` for CPU tensors.
+Its backward is ``rmsnorm_bwd``: ``csrc/rmsnorm_bwd.cu`` for CUDA tensors,
+the plain ``ref.rmsnorm_bwd_ref`` for CPU tensors. ``bwd_kernel_path``
+picks its version by the forward's rule: ``"rows"`` spreads a bf16 row of
+a ``ROW_VPL`` width over 128 threads that hold it in registers (x and dy
+read once, the dw partial in registers across rows, one partial row per
+CTA, one CTA an SM); ``"loop"`` takes a warp a row and fp32 partial sums
+per block. A second launch sums the partial rows in a fixed order and
+casts.
 """
 
 from __future__ import annotations
@@ -20,15 +24,17 @@ import torch
 from . import build
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
-__all__ = ["rmsnorm", "rmsnorm_bwd", "check_args", "bwd_blocks", "kernel_path", "ROW_VPL",
-           "BWD_MAX_H"]
+__all__ = ["rmsnorm", "rmsnorm_bwd", "check_args", "kernel_path", "bwd_kernel_path", "bwd_grid",
+           "ROW_VPL", "BWD_MAX_H", "BWD_ROW_GROUPS"]
 
 # 16-byte vectors per lane of the register version's instantiations
 # (csrc/rmsnorm.cu rmsnorm_launch)
 ROW_VPL = (10, 16, 20)
-# the backward's dw slices (one fp32 row of H per warp) must fit shared memory
+# the loop backward's dw slices (one fp32 row of H per warp) must fit shared memory
 BWD_SMEM = 96 * 1024
 BWD_MAX_H = 2 * BWD_SMEM // 4
+# rows in flight in one CTA of the register backward (csrc/rmsnorm_bwd.cu kGroups)
+BWD_ROW_GROUPS = 4
 
 
 def kernel_path(dtype: torch.dtype, H: int) -> str:
@@ -81,19 +87,32 @@ def _forward(x, w, eps):
     return out
 
 
-def bwd_blocks(T: int, H: int, sms: int):
-    """(blocks, warps a block) of the backward: 4 warps a block where their
-    four fp32 dw slices fit ``BWD_SMEM``, else 1 (up to ``BWD_MAX_H``);
-    two blocks an SM, at most one warp a row."""
-    if H > BWD_MAX_H:
+def bwd_kernel_path(dtype: torch.dtype, H: int) -> str:
+    """The backward's version: ``"rows"`` where the forward holds the row in
+    registers (bf16, H = 256 * v for v in ROW_VPL), else ``"loop"``, which
+    takes H up to ``BWD_MAX_H``."""
+    path = kernel_path(dtype, H)
+    if path == "loop" and H > BWD_MAX_H:
         raise ValueError(f"rmsnorm backward takes H up to {BWD_MAX_H}, got {H}")
+    return path
+
+
+def bwd_grid(path: str, T: int, H: int, sms: int):
+    """(blocks, warps a block) of the backward's first launch; ``blocks`` is
+    also the number of fp32 dw partial rows. rows: one CTA an SM of
+    ``BWD_ROW_GROUPS`` row groups of 4 warps, at most one group a row.
+    loop: 4 warps a block where their four fp32 dw slices fit ``BWD_SMEM``,
+    else 1; two blocks an SM, at most one warp a row."""
+    if path == "rows":
+        return max(1, min(sms, -(-T // BWD_ROW_GROUPS))), 4 * BWD_ROW_GROUPS
     warps = 4 if 4 * 4 * H <= BWD_SMEM else 1
     return max(1, min(2 * sms, -(-T // warps))), warps
 
 
 def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-5):
     """(x [T,H], w [H], dy [T,H]) -> (dx in x's type, dw in w's type).
-    CUDA tensors: two kernels, one launch counted."""
+    CUDA tensors: two kernels (``bwd_kernel_path``'s, then the sum of the
+    dw partials), one launch counted."""
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(x, w, dy, eps)
     if x.device.type != "cuda":
@@ -108,14 +127,16 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-5):
     dx, dw = torch.empty_like(x), torch.empty_like(w)
     if T == 0:
         return dx, dw.zero_()
-    blocks, warps = bwd_blocks(T, H, build.sm_count(x.device.index or 0))
+    path = bwd_kernel_path(x.dtype, H)
+    blocks, warps = bwd_grid(path, T, H, build.sm_count(x.device.index or 0))
     partial = torch.empty(blocks, H, dtype=torch.float32, device=x.device)
     lib = build.library()
     with torch.cuda.device(x.device):
         err = lib.rmsnorm_bwd_launch(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                                      dw.data_ptr(), partial.data_ptr(), T, H, float(eps),
-                                     build.dtype_code(x), blocks, warps, build.stream_of(x))
-    build.check(err, "rmsnorm_bwd")
+                                     build.dtype_code(x), H // 256 if path == "rows" else 0,
+                                     blocks, warps, build.stream_of(x))
+    build.check(err, f"rmsnorm_bwd ({path})")
     rmsnorm_bwd.launches += 1
     return dx, dw
 

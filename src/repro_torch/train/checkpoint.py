@@ -11,9 +11,12 @@ corrupts the latest checkpoint; ``keep_last`` prunes old steps.
 
 Trees here are nested dicts of numpy arrays (or anything ``np.asarray``
 takes, CPU or CUDA tensors included); ``repro_torch.convert`` turns a
-train state into them and back. bf16 has no numpy dtype (the reference
-writes bf16 leaves with ``ml_dtypes``, which this port does not use), so a
-bf16 leaf raises.
+train state into them and back. bf16 has no numpy dtype: the reference
+writes a bf16 leaf through ``ml_dtypes``, which ``np.savez`` stores as raw
+2-byte values (``|V2``) under the manifest dtype ``"bfloat16"``. The port
+writes the same bytes without ``ml_dtypes`` (the tensor's bits viewed as
+``|V2``) and, reading the dtype from the manifest, restores such a leaf as
+a CPU bf16 tensor.
 """
 
 from __future__ import annotations
@@ -28,18 +31,40 @@ import numpy as np
 import torch
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "restore_latest", "latest_step",
-           "CheckpointManager", "to_numpy_tree"]
+           "CheckpointManager", "to_numpy_tree", "leaf_tensor"]
 
 _SEP = "/"
+BF16 = "bfloat16"           # manifest dtype of a bf16 leaf, stored as raw |V2
+_RAW2 = np.dtype("V2")
 
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach()
         if leaf.dtype == torch.bfloat16:
-            raise TypeError("bf16 leaves have no numpy dtype without ml_dtypes; checkpoint "
-                            "fp32 moments (OptimizerCfg.moment_dtype), ROADMAP queue 1")
-        return leaf.detach().cpu().numpy()
+            return leaf.contiguous().view(torch.int16).cpu().numpy().view(_RAW2)
+        return leaf.cpu().numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    """The manifest dtype: ``"bfloat16"`` for raw 2-byte leaves (and for
+    ml_dtypes' bfloat16, whose name it already is)."""
+    return BF16 if a.dtype == _RAW2 else str(a.dtype)
+
+
+def leaf_tensor(leaf) -> torch.Tensor:
+    """A checkpoint leaf as a CPU tensor: tensors as they are; raw |V2
+    arrays and ml_dtypes bfloat16 arrays as bf16 (their bits); any other
+    array through ``torch.from_numpy``."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    a = np.asarray(leaf)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = a.copy()
+    if a.dtype == _RAW2 or a.dtype.name == BF16:
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def to_numpy_tree(tree):
@@ -74,7 +99,7 @@ def save_checkpoint(ckpt_dir, step: int, state: Dict[str, Any],
     for name, tree in state.items():
         flat = {k: _host(v) for k, v in _flatten(tree).items()}
         manifest["trees"][name] = {
-            k: {"shape": list(v.shape), "dtype": str(v.dtype)} for k, v in flat.items()}
+            k: {"shape": list(v.shape), "dtype": _dtype_name(v)} for k, v in flat.items()}
         for k, v in flat.items():
             arrays[f"{name}::{k}"] = v
     np.savez(tmp / "arrays.npz", **arrays)
@@ -108,12 +133,17 @@ def _unflatten(flat: Dict[str, Any]) -> Dict:
 
 
 def restore_checkpoint(ckpt_dir, step: int) -> Tuple[Dict[str, Any], Dict]:
-    """(every tree of the checkpoint as nested dicts of numpy arrays,
-    extra)."""
+    """(every tree of the checkpoint as nested dicts of numpy arrays, and
+    of CPU bf16 tensors where the manifest says ``"bfloat16"``, extra)."""
     path = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((path / "manifest.json").read_text())
+
+    def leaf(a, meta):
+        return leaf_tensor(a.view(_RAW2)) if meta["dtype"] == BF16 else a
+
     with np.load(path / "arrays.npz") as data:
-        state = {name: _unflatten({k: data[f"{name}::{k}"] for k in keys})
+        state = {name: _unflatten({k: leaf(data[f"{name}::{k}"], meta)
+                                   for k, meta in keys.items()})
                  for name, keys in manifest["trees"].items()}
     return state, manifest["extra"]
 

@@ -21,7 +21,9 @@ torch = pytest.importorskip("torch")
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_path as flash_path  # noqa: E402
+from repro_torch.kernels.rmsnorm import bwd_kernel_path as rmsnorm_bwd_path  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel_path as rmsnorm_path  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref, ssd_scan_ref  # noqa: E402
@@ -479,6 +481,11 @@ def _bwd_gate(out, ref, dtype, single_key=False):
 # 127, 200 and 2048, causal, one window; B, S, nh, nkv, window
 FLASH_BWD_CASES = [(1, 1, 2, 2, 0), (2, 127, 4, 2, 0), (1, 200, 8, 1, 0), (1, 200, 4, 4, 37),
                    (1, 2048, 8, 1, 0), (1, 2048, 32, 4, 0)]
+# hymba-1.5b's attention: nh 25, nkv 5 (group 5), hd 64, window 1024
+FLASH_BWD_HYMBA = (1, 2048, 25, 5, 1024)
+# the forward kernels' LSE against the plain forward's: max |err| / (1 + |ref|)
+# (chip_smoke.py LSE_LIMITS)
+LSE_LIMITS = {"float32": 1e-5, "bfloat16": 2 ** -10}
 
 
 @pytest.mark.cuda
@@ -486,22 +493,85 @@ FLASH_BWD_CASES = [(1, 1, 2, 2, 0), (2, 127, 4, 2, 0), (1, 200, 8, 1, 0), (1, 20
 @pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_matches_plain(card, B, S, nh, nkv, window, hd, dtype):
+    """The backward path of ``bwd_kernel_path`` (wgmma for bf16 hd 64/128),
+    fed the forward kernel's LSE, against the plain backward fed the plain
+    forward's."""
     rng = np.random.default_rng(S + hd + nh)
     q = _randn(rng, (B, nh, S, hd), dtype, card)
     k, v = (_randn(rng, (B, nkv, S, hd), dtype, card) for _ in range(2))
     do = _randn(rng, (B, nh, S, hd), dtype, card)
-    o = flash_attention(q, k, v, causal=True, window=window)
+    o, lse = flash_attention_fwd(q, k, v, causal=True, window=window)
     before = kernels.flash_attention_bwd.launches
-    got = kernels.flash_attention_bwd(q, k, v, o, do, causal=True, window=window)
+    got = kernels.flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=window)
     assert kernels.flash_attention_bwd.launches == before + 1
+    _, lse_ref = ref.flash_attention_fwd_ref(q.float(), k.float(), v.float(), causal=True,
+                                             window=window)
     want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), do.float(),
-                                       causal=True, window=window)
+                                       lse_ref, causal=True, window=window)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == DTYPES[dtype] and g.shape == w.shape
         if S == 1 and i < 2:
             _bwd_gate(g, want[2].abs().max().item(), dtype, single_key=True)
         else:
             _bwd_gate(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_wgmma_bwd_hymba_shape(card, hd):
+    """The wgmma backward at hymba-1.5b's attention shape (GQA group 5, one
+    slice or five, window 1024, S 2048), at hd 64 and 128."""
+    B, S, nh, nkv, window = FLASH_BWD_HYMBA
+    rng = np.random.default_rng(hd)
+    q = _randn(rng, (B, nh, S, hd), "bfloat16", card)
+    k, v = (_randn(rng, (B, nkv, S, hd), "bfloat16", card) for _ in range(2))
+    do = _randn(rng, (B, nh, S, hd), "bfloat16", card)
+    o, lse = flash_attention_fwd(q, k, v, window=window)
+    _, lse_ref = ref.flash_attention_fwd_ref(q.float(), k.float(), v.float(), window=window)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), do.float(),
+                                       lse_ref, window=window)
+    for slices in (1, 5):
+        got = kernels.flash_attention_bwd(q, k, v, o, do, lse, window=window, slices=slices)
+        for g, w in zip(got, want):
+            _bwd_gate(g, w, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,nh,nkv,window", FLASH_BWD_CASES + [FLASH_BWD_HYMBA])
+@pytest.mark.parametrize("hd,dtype", [(32, "float32"), (128, "float32"), (32, "bfloat16"),
+                                      (64, "bfloat16"), (128, "bfloat16")])
+def test_flash_forward_lse_matches_plain(card, B, S, nh, nkv, window, hd, dtype):
+    """The LSE that each forward kernel writes for the backward (log2 units)
+    against the plain forward's; o is the same with and without it."""
+    rng = np.random.default_rng(S + hd + 7)
+    q = _randn(rng, (B, nh, S, hd), dtype, card)
+    k, v = (_randn(rng, (B, nkv, S, hd), dtype, card) for _ in range(2))
+    o, lse = flash_attention_fwd(q, k, v, window=window)
+    o_plain, none = flash_attention_fwd(q, k, v, window=window, lse=False)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(o, o_plain)
+    _, want = ref.flash_attention_fwd_ref(q.float(), k.float(), v.float(), window=window)
+    assert lse.shape == (B, nh, S) and torch.isfinite(lse).all()
+    assert ((lse - want).abs() / (1 + want.abs())).max().item() <= LSE_LIMITS[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype,slices", [(32, "float32", 0), (32, "bfloat16", 0)] + [
+    (hd, "bfloat16", slices) for hd in (64, 128) for slices in (0, 1, 2, 8)])
+def test_flash_bwd_gives_the_same_bits_twice(card, hd, dtype, slices):
+    """No atomics: two backward calls on the same inputs give identical
+    bits, on both paths and for any number of GQA slices (0: the
+    wrapper's choice)."""
+    B, S, nh, nkv = 1, 1000, 16, 2
+    rng = np.random.default_rng(hd + slices)
+    q = _randn(rng, (B, nh, S, hd), dtype, card)
+    k, v = (_randn(rng, (B, nkv, S, hd), dtype, card) for _ in range(2))
+    do = _randn(rng, (B, nh, S, hd), dtype, card)
+    o, lse = flash_attention_fwd(q, k, v)
+    first = kernels.flash_attention_bwd(q, k, v, o, do, lse, slices=slices)
+    second = kernels.flash_attention_bwd(q, k, v, o, do, lse, slices=slices)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
@@ -523,6 +593,27 @@ def test_flash_autograd_on_the_card_launches_the_backward(card, dtype):
                                        o.detach().float(), do.float(), window=100)
     for g, w in zip(got, want):
         _bwd_gate(g, w.transpose(1, 2), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,H", [(1, 2560), (5, 2560), (2048, 2560), (3, 4096), (2048, 4096),
+                                 (1, 5120), (600, 5120), (2048, 5120)])
+def test_rmsnorm_bwd_register_version(card, T, H):
+    """The register backward (bf16 at the ROW_VPL widths), against the plain
+    backward, the same bits twice, and routed as ``bwd_kernel_path`` says;
+    fp32 at the same widths takes the loop version."""
+    assert rmsnorm_bwd_path(torch.bfloat16, H) == "rows"
+    assert rmsnorm_bwd_path(torch.float32, H) == "loop"
+    rng = np.random.default_rng(T * 7 + H)
+    x, dy = _randn(rng, (T, H), "bfloat16", card), _randn(rng, (T, H), "bfloat16", card)
+    w = _randn(rng, (H,), "bfloat16", card)
+    dx, dw = kernels.rmsnorm_bwd(x, w, dy)
+    dx2, dw2 = kernels.rmsnorm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    want = ref.rmsnorm_bwd_ref(x.float(), w.float(), dy.float())
+    _bwd_gate(dx, want[0], "bfloat16")
+    _bwd_gate(dw[None], want[1][None], "bfloat16")
 
 
 @pytest.mark.cuda

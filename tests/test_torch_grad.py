@@ -71,6 +71,107 @@ def test_flash_bwd_ref_matches_autograd_and_jax(B, S, nh, nkv, hd, causal, windo
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL, err_msg=f"{name} vs jax")
 
 
+@pytest.mark.parametrize("B,S,nh,nkv,hd", FLASH_CASES)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_fwd_ref_lse_matches_logsumexp_and_jax(B, S, nh, nkv, hd, causal, window):
+    """The plain forward's (o, lse): o equal to JAX's reference attention,
+    lse the log-sum-exp of the masked scaled scores in log2 units."""
+    q, k, v, _ = _flash_inputs(S * 10 + nh + 1, B, S, nh, nkv, hd)
+    o, lse = ref.flash_attention_fwd_ref(*_t(q, k, v), causal=causal, window=window)
+    want_o = jax_flash_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                           window=window)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **TOL)
+    kk = np.repeat(k, nh // nkv, axis=1)
+    scores = torch.from_numpy(np.einsum("bhqd,bhsd->bhqs", q, kk) * hd ** -0.5)
+    mask = ref.attention_mask(S, causal, window, "cpu")
+    want = torch.logsumexp(scores.masked_fill(~mask, float("-inf")), dim=-1) / np.log(2.0)
+    assert lse.shape == (B, nh, S) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want.float(), **TOL)
+    torch.testing.assert_close(ref.flash_attention_ref(*_t(q, k, v), causal=causal,
+                                                       window=window), o, rtol=0, atol=0)
+
+
+def test_flash_fwd_fully_masked_row_gives_minus_inf_and_zero():
+    """A row with no live key (only an explicit mask makes one): lse -inf,
+    o 0, every other row as under the causal mask."""
+    B, S, nh, nkv, hd = 1, 11, 4, 2, 8
+    q, k, v, _ = _t(*_flash_inputs(4, B, S, nh, nkv, hd))
+    mask = ref.attention_mask(S, True, 0, "cpu")
+    mask[6] = False
+    o, lse = ref.flash_fwd_masked(q, k, v, mask)
+    assert torch.isneginf(lse[:, :, 6]).all() and (o[:, :, 6] == 0).all()
+    o_c, lse_c = ref.flash_attention_fwd_ref(q, k, v, causal=True)
+    rows = [i for i in range(S) if i != 6]
+    torch.testing.assert_close(o[:, :, rows], o_c[:, :, rows], rtol=0, atol=0)
+    torch.testing.assert_close(lse[:, :, rows], lse_c[:, :, rows], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,S,nh,nkv,hd", FLASH_CASES)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_bwd_ref_given_the_lse_matches_jax(B, S, nh, nkv, hd, causal, window):
+    """The plain backward fed the plain forward's LSE (as the kernels are fed
+    the forward kernel's) against ``jax.vjp`` of the reference, and equal to
+    the same backward that computes the LSE itself."""
+    q, k, v, do = _flash_inputs(S * 10 + nh + 2, B, S, nh, nkv, hd)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    o, lse = ref.flash_attention_fwd_ref(tq, tk, tv, causal=causal, window=window)
+    got = ref.flash_attention_bwd_ref(tq, tk, tv, o, tdo, lse, causal=causal, window=window)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash_ref(a, b, c, causal=causal, window=window),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    itself = ref.flash_attention_bwd_ref(tq, tk, tv, o, tdo, causal=causal, window=window)
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want, itself):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL, err_msg=f"{name} vs jax")
+        torch.testing.assert_close(g, a, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("nh,nkv,slices", [(8, 2, 1), (8, 2, 2), (8, 2, 4), (6, 3, 2),
+                                           (10, 2, 5), (8, 1, 8)])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_bwd_slice_partials_sum_to_the_grouped_backward(nh, nkv, slices, causal, window):
+    """The wgmma backward's decomposition, modelled in plain PyTorch: the
+    kv head's GQA group cut into ``slices`` slices of consecutive query
+    heads, each slice's unscaled dK and its dV an fp32 partial, the
+    partials summed in slice order and dK scaled after. Equal to the
+    grouped plain backward within fp32 rounding."""
+    B, S, hd = 2, 23, 8
+    q, k, v, do = _t(*_flash_inputs(nh * 10 + slices, B, S, nh, nkv, hd))
+    o, lse = ref.flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
+    _, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
+    group = nh // nkv
+    per = group // slices
+    dk_sum, dv_sum = torch.zeros_like(k), torch.zeros_like(v)
+    for s in range(slices):
+        heads = [hk * group + s * per + i for hk in range(nkv) for i in range(per)]
+        pick = lambda t: t[:, heads].contiguous()
+        _, dk_s, dv_s = ref.flash_attention_bwd_ref(pick(q), k, v, pick(o), pick(do),
+                                                    pick(lse), causal=causal, window=window)
+        dk_sum += dk_s / hd ** -0.5       # the partial is unscaled
+        dv_sum += dv_s
+    torch.testing.assert_close(dk_sum * hd ** -0.5, dk, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(dv_sum, dv, rtol=1e-6, atol=1e-6)
+
+
+def test_flash_function_saves_the_forwards_lse_only_for_a_gradient():
+    """``kernels.flash_attention`` asks the forward for the LSE only when a
+    gradient will be taken, and its backward reads that LSE: the result
+    equals the plain backward given the plain forward's LSE."""
+    B, S, nh, nkv, hd = 1, 17, 4, 2, 8
+    q, k, v, do = _t(*_flash_inputs(9, B, S, nh, nkv, hd))
+    with torch.no_grad():
+        assert kernels.flash_attention(q, k, v).grad_fn is None
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    o = kernels.flash_attention(qg, kg, vg, window=5)
+    saved = o.grad_fn.saved_tensors
+    assert len(saved) == 5 and saved[4].shape == (B, nh, S)
+    got = torch.autograd.grad(o, (qg, kg, vg), do)
+    _, lse = ref.flash_attention_fwd_ref(q, k, v, window=5)
+    torch.testing.assert_close(saved[4], lse, rtol=0, atol=0)
+    want = ref.flash_attention_bwd_ref(q, k, v, o.detach(), do, lse, window=5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 def test_flash_bwd_fully_masked_row_gives_zero():
     """The public masks always keep the diagonal, so no row is ever empty
     there; an empty row of an explicit mask has LSE -inf, and every entry

@@ -347,9 +347,10 @@ def test_data_pipeline_is_bit_identical(name):
                 np.testing.assert_array_equal(a[k], b[k])
 
 
-def _jax_state_after_one_step(jarch, params, batch):
+def _jax_state_after_one_step(jarch, params, batch, moment_dtype=jnp.float32):
     jcfg = jstep.TrainCfg(run=jlm.RunCfg(q_chunk=0, remat=False),
-                          opt=joptim.OptimizerCfg(peak_lr=1e-3, warmup_steps=0),
+                          opt=joptim.OptimizerCfg(peak_lr=1e-3, warmup_steps=0,
+                                                  moment_dtype=moment_dtype),
                           num_microbatches=2)
     jp = jax.tree.map(jnp.asarray, params)
     jp, jo, _ = jstep.make_train_step(jarch, jcfg)(jp, joptim.init_opt_state(jcfg.opt, jp),
@@ -357,8 +358,9 @@ def _jax_state_after_one_step(jarch, params, batch):
     return jax.tree.map(np.asarray, {"params": jp, "opt_state": jo})
 
 
-def _port_state(arch):
-    cfg = TrainCfg(run=RunCfg(remat=False), opt=optim.OptimizerCfg(), num_microbatches=2)
+def _port_state(arch, moment_dtype=torch.float32):
+    cfg = TrainCfg(run=RunCfg(remat=False), opt=optim.OptimizerCfg(moment_dtype=moment_dtype),
+                   num_microbatches=2)
     return init_train_state(arch, cfg, torch.Generator().manual_seed(1), "cpu")
 
 
@@ -396,11 +398,113 @@ def test_port_checkpoint_restores_into_jax(setup, tmp_path):
 
 
 def test_bf16_moments_do_not_checkpoint(setup, tmp_path):
+    """bf16 moments used to raise here; they now leave as raw |V2 arrays
+    holding the tensors' bits, as the reference's checkpoint stores them."""
     _, arch, _, _ = setup
     cfg = TrainCfg(opt=optim.OptimizerCfg(moment_dtype=torch.bfloat16))
     state = init_train_state(arch, cfg, torch.Generator().manual_seed(1), "cpu")
-    with pytest.raises(TypeError, match="ml_dtypes"):
-        train_state_to_numpy(state)
+    for t in state.opt_state["m"].values():
+        t.normal_(generator=torch.Generator().manual_seed(2))
+    trees = train_state_to_numpy(state)
+    flat = _raw(trees)
+    name = "blocks.0.attn.wq"
+    got = flat["opt_state/m/layers/attn/wq"]
+    assert got.dtype == np.dtype("V2") and got.shape[1:] == tuple(state.opt_state["m"][name].shape)
+    np.testing.assert_array_equal(got[0].view(np.uint16),
+                                  state.opt_state["m"][name].view(torch.int16).numpy()
+                                  .view(np.uint16))
+
+
+def _raw(tree, prefix=""):
+    """{"a/b/c": leaf} of a nested dict, leaves as they are."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_raw(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _bits(leaf):
+    """A bf16 leaf's 16-bit patterns: JAX or ml_dtypes arrays, raw |V2 arrays
+    or torch tensors."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.contiguous().view(torch.int16).numpy().view(np.uint16)
+    return np.ascontiguousarray(np.asarray(leaf)).view(np.uint16)
+
+
+def test_jax_bf16_checkpoint_restores_into_the_port_bit_exactly(setup, tmp_path):
+    """A reference train state with bf16 Adam moments (the `_BF16_STATE`
+    policy), saved by the reference's ``save_checkpoint`` (bf16 leaves as
+    raw |V2), restores into the port's bf16 moments bit for bit, through
+    the port's restore and through the reference's raw arrays alike."""
+    jarch, arch, params, batch = setup
+    jstate = _jax_state_after_one_step(jarch, params, batch, moment_dtype=jnp.bfloat16)
+    assert jstate["opt_state"]["m"]["layers"]["attn"]["wq"].dtype.name == "bfloat16"
+    jckpt.save_checkpoint(tmp_path, 1, jstate)
+    _, trees, _ = ckpt.restore_latest(tmp_path)
+    like = jax.tree.map(np.asarray, jstate)
+    _, jtrees, _ = jckpt.restore_latest(tmp_path, like)
+    flat_j = _raw(jstate)
+    for source in (trees, jax.tree.map(np.asarray, jtrees)):
+        state = _port_state(arch, torch.bfloat16)
+        train_state_from_numpy(state, source)
+        back = _raw(train_state_to_numpy(state))
+        assert sorted(back) == sorted(flat_j)
+        for k, want in flat_j.items():
+            if k.startswith("opt_state/") and k != "opt_state/step":
+                np.testing.assert_array_equal(_bits(back[k]), _bits(want), err_msg=k)
+            else:
+                np.testing.assert_array_equal(back[k], np.asarray(want), err_msg=k)
+
+
+def test_port_bf16_checkpoint_writes_the_reference_bytes(setup, tmp_path):
+    """The port's save of the reference's bf16-moment state writes the same
+    array bytes (dtype |V2 for bf16 leaves) and the same manifest entries
+    as the reference's save."""
+    import json
+    jarch, arch, params, batch = setup
+    jstate = _jax_state_after_one_step(jarch, params, batch, moment_dtype=jnp.bfloat16)
+    jckpt.save_checkpoint(tmp_path / "jax", 1, jstate)
+    state = _port_state(arch, torch.bfloat16)
+    _, trees, _ = ckpt.restore_latest(tmp_path / "jax")
+    train_state_from_numpy(state, trees)
+    ckpt.save_checkpoint(tmp_path / "port", 1, train_state_to_numpy(state))
+    man = {w: json.loads((tmp_path / w / "step_00000001" / "manifest.json").read_text())
+           for w in ("jax", "port")}
+    assert man["port"] == man["jax"]
+    assert man["port"]["trees"]["opt_state"]["m/layers/attn/wq"]["dtype"] == "bfloat16"
+    with np.load(tmp_path / "jax" / "step_00000001" / "arrays.npz") as a, \
+            np.load(tmp_path / "port" / "step_00000001" / "arrays.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            assert a[key].dtype == b[key].dtype and a[key].shape == b[key].shape, key
+            assert a[key].tobytes() == b[key].tobytes(), key
+
+
+def test_port_round_trips_bf16_moments(setup, tmp_path):
+    """A port train step with bf16 moments, checkpointed by the
+    ``CheckpointManager`` and restored into a fresh state: masters, bf16
+    moments and step equal bit for bit."""
+    _, arch, _, batch = setup
+    cfg = TrainCfg(run=RunCfg(remat=False), opt=optim.OptimizerCfg(moment_dtype=torch.bfloat16),
+                   num_microbatches=2)
+    state = init_train_state(arch, cfg, torch.Generator().manual_seed(1), "cpu")
+    state, _ = make_train_step(arch, cfg)(state, batch)
+    mgr = ckpt.CheckpointManager(tmp_path, every_steps=1)
+    assert mgr.maybe_save(1, lambda: train_state_to_numpy(state), block=True)
+    _, trees, _ = ckpt.restore_latest(tmp_path)
+    assert trees["opt_state"]["v"]["embed"].dtype == torch.bfloat16
+    fresh = init_train_state(arch, cfg, torch.Generator().manual_seed(9), "cpu")
+    train_state_from_numpy(fresh, trees)
+    for tree in ("m", "v"):
+        for n, t in state.opt_state[tree].items():
+            assert fresh.opt_state[tree][n].dtype == torch.bfloat16
+            assert torch.equal(fresh.opt_state[tree][n].view(torch.int16), t.view(torch.int16)), n
+    for n, t in state.params.items():
+        assert torch.equal(fresh.params[n], t), n
+    assert int(fresh.opt_state["step"]) == int(state.opt_state["step"]) == 1
 
 
 # ------------------------------------------------------------------ end to end

@@ -11,9 +11,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.flash_attention import (LSE_ROWS, WGMMA_HEAD_DIMS,  # noqa: E402
+                                                 bwd_slices, lse_stride)
+from repro_torch.kernels.flash_attention import bwd_kernel_path as flash_bwd_path  # noqa: E402
 from repro_torch.kernels.flash_attention import check_args as flash_check  # noqa: E402
+from repro_torch.kernels.flash_attention import check_bwd_args as flash_bwd_check  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_path as flash_path  # noqa: E402
-from repro_torch.kernels.rmsnorm import ROW_VPL  # noqa: E402
+from repro_torch.kernels.rmsnorm import BWD_MAX_H, BWD_ROW_GROUPS, ROW_VPL  # noqa: E402
+from repro_torch.kernels.rmsnorm import bwd_grid as rmsnorm_bwd_grid  # noqa: E402
+from repro_torch.kernels.rmsnorm import bwd_kernel_path as rmsnorm_bwd_path  # noqa: E402
 from repro_torch.kernels.rmsnorm import check_args as rmsnorm_check  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel_path as rmsnorm_path  # noqa: E402
 from repro_torch.kernels.ssd_scan import WGMMA_STATE_DIMS, segment_chunks  # noqa: E402
@@ -244,3 +250,94 @@ def test_ssd_wgmma_state_dims_are_the_instantiated_ones():
     assert "N == 128 ? launch<128>(tx, tb, tc, p, s) : launch<64>(tx, tb, tc, p, s)" in src
     assert "(N != 64 && N != 128)" in src
     assert WGMMA_STATE_DIMS == (64, 128)
+
+
+# ---------------------------------------------------------------- backward routing
+
+@pytest.mark.parametrize("dtype,hd,path", [
+    (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "mma"),
+    (F32, 32, "mma"), (F32, 64, "mma"), (F32, 128, "mma")])
+def test_flash_bwd_dispatch_by_dtype_and_head_dim(dtype, hd, path):
+    """bf16 at hd 64/128 (yi-6b, hymba-1.5b) takes the wgmma + TMA backward;
+    fp32 and bf16 hd 32 the mma.sync / FMA one; ``check_bwd_args`` says so."""
+    assert flash_bwd_path(dtype, hd) == path
+    q, k, v = _qkv(hd=hd, dtype=dtype)
+    assert flash_bwd_check(q, k, v, torch.zeros_like(q), torch.zeros_like(q), 0) == path
+
+
+@pytest.mark.parametrize("hd", [16, 80, 192])
+def test_flash_bwd_rejects_head_dims_no_kernel_has(hd):
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_bwd_path(BF16, hd)
+
+
+def test_flash_bwd_head_dims_are_the_instantiated_ones():
+    """The wgmma backward takes exactly WGMMA_HEAD_DIMS; the mma backward
+    instantiates bf16 only at hd 32."""
+    src = (CSRC / "flash_attention_bwd_wgmma.cu").read_text()
+    assert "hd == 128 ? launch<128>(m, p, s) : launch<64>(m, p, s)" in src
+    assert "(hd != 64 && hd != 128)" in src
+    assert WGMMA_HEAD_DIMS == (64, 128)
+    mma = (CSRC / "flash_attention_bwd.cu").read_text()
+    assert "dtype == kBFloat16 && hd == 32" in mma
+    assert "flash_bwd_stats" not in mma + src
+
+
+@pytest.mark.parametrize("group,kv_items,sms,want", [
+    (8, 64, 132, 4),       # yi-6b training, S 2048: 16 kv tiles x 4 kv heads -> 256 items
+    (8, 256, 132, 1),      # B 4: 256 kv items are enough unsplit
+    (8, 128, 132, 2),
+    (5, 80, 132, 5),       # hymba-1.5b, S 2048: 16 x 5 kv heads, group 5
+    (1, 10, 132, 1),       # no GQA: nothing to split
+    (6, 60, 132, 6)])      # 2 and 3 are not enough: the whole group
+def test_flash_bwd_slices(group, kv_items, sms, want):
+    got = bwd_slices(group, kv_items, sms)
+    assert got == want and group % got == 0
+
+
+@pytest.mark.parametrize("S,ld", [(1, 128), (127, 128), (128, 128), (129, 256), (2000, 2048)])
+def test_flash_lse_stride(S, ld):
+    """LSE and D rows are padded to whole 128-row tiles (16-byte aligned
+    for the bulk copies)."""
+    assert lse_stride(S) == ld
+
+
+def test_flash_lse_rows_match_the_kernels_constant():
+    src = (CSRC / "flash_attention_bwd_wgmma.cu").read_text()
+    assert "ld % 128 != 0" in src and LSE_ROWS == 128
+
+
+@pytest.mark.parametrize("dtype,H,path", [
+    (BF16, 2560, "rows"), (BF16, 4096, "rows"), (BF16, 5120, "rows"), (BF16, 1600, "loop"),
+    (BF16, 3072, "loop"), (BF16, 12288, "loop"), (F32, 4096, "loop"), (F32, 8, "loop")])
+def test_rmsnorm_bwd_dispatch_by_dtype_and_width(dtype, H, path):
+    """The backward holds a row in registers where the forward does."""
+    assert rmsnorm_bwd_path(dtype, H) == path == rmsnorm_path(dtype, H)
+
+
+def test_rmsnorm_bwd_rejects_rows_wider_than_its_shared_memory():
+    assert rmsnorm_bwd_path(F32, BWD_MAX_H) == "loop"
+    with pytest.raises(ValueError, match="up to"):
+        rmsnorm_bwd_path(F32, BWD_MAX_H + 8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rmsnorm_bwd_path(BF16, 12)
+
+
+@pytest.mark.parametrize("path,T,H,sms,want", [
+    ("rows", 2048, 4096, 132, (132, 16)),    # yi-6b training: one partial row an SM
+    ("rows", 7, 4096, 132, (2, 16)),         # a group of 4 warps a row, at most
+    ("rows", 1, 2560, 132, (1, 16)),
+    ("loop", 300, 1000, 132, (75, 4)),       # 4 warps a block where 4 slices fit
+    ("loop", 4096, 12288, 132, (264, 1)),    # wide rows: one warp a block, 2 blocks an SM
+    ("loop", 2048, 4096, 132, (264, 4))])
+def test_rmsnorm_bwd_grid(path, T, H, sms, want):
+    assert rmsnorm_bwd_grid(path, T, H, sms) == want
+
+
+def test_rmsnorm_bwd_register_widths_are_the_instantiated_ones():
+    """The register backward instantiates the forward's ROW_VPL widths, with
+    BWD_ROW_GROUPS row groups a CTA."""
+    src = (CSRC / "rmsnorm_bwd.cu").read_text()
+    cases = [int(v) for v in re.findall(r"case (\d+): e = launch_rows<(?:\d+)>", src)]
+    assert tuple(cases) == ROW_VPL
+    assert f"constexpr int kGroups = {BWD_ROW_GROUPS};" in src
