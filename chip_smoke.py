@@ -18,17 +18,19 @@ Phases, each of which fails the run by raising:
   4. after each model's path, time its kernels beside their bound, their
      plain version and one PyTorch library call where there is one, and
      time prefill and decode;
-  5. hold the backward kernels (flash attention, RMSNorm) against their
-     plain backwards (``kernels/ref.py``);
-  6. train full-width yi-6b cut to 16 of its 32 layers (fp32 masters and
-     Adam moments, bf16 compute, microbatch 1 x 2048 tokens, G = 2) through
-     the port's entry points: gradients through the kernels against the
-     plain versions (bf16 against fp32, fp32 at 2 layers against fp64),
-     ``train_loop`` for 10 steps into a checkpoint and a restore that must
-     give the saved state bit for bit, 10 ``make_train_step`` steps on one
-     batch whose loss must fall, the first with its launches counted
-     exactly, then the train step's time, tokens/s and peak memory and the
-     backward kernels' times.
+  5. hold the backward kernels (flash attention, RMSNorm, the SSD scan)
+     against their plain backwards (``kernels/ref.py``), each call repeated
+     for the same bits;
+  6. train full-width yi-6b cut to 16 of its 32 layers, then full-width
+     mamba2-2.7b at all 64 (fp32 masters and Adam moments, bf16 compute,
+     microbatch 1 x 2048 tokens, G = 2) through the port's entry points:
+     gradients through the kernels against the plain versions (bf16 against
+     fp32, fp32 at 2 layers against fp64), ``train_loop`` for 10 steps into
+     a checkpoint and a restore that must give the saved state bit for bit
+     (yi-6b at 4 layers there), 10 ``make_train_step`` steps on one batch
+     whose loss must fall, the first with its launches counted exactly,
+     then the train step's time, tokens/s and peak memory and the backward
+     kernels' times.
 The last line is one JSON object with ``"ok": true`` and the device. It
 needs a CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -101,7 +103,18 @@ FLASH_BWD_HYMBA = (1, 2048, 25, 5, 1024, 64)   # hymba-1.5b's attention (GQA gro
 RMS_BWD_CASES = [(1, 256), (7, 4096), (300, 1000), (4096, 256), (4096, 4096), (33, 12288),
                  (2048, 2560), (5, 2560), (2048, 5120), (1, 5120)]
 RMS_BWD_MAIN = (2048, 4096)                    # yi-6b training, one microbatch
-TRAIN_LAYERS, TRAIN_S, TRAIN_G = 16, 2048, 2   # yi-6b cut to fit one card (PERF.md)
+# the SSD backward, beside SSD_CASES and SSD_WGMMA_CASES: mamba2-2.7b's
+# training shape (B, nh, S, hp, N) and an hp 64 / N 16 case (hymba-1.5b's
+# SSM heads)
+SSD_BWD_MAIN = (1, 80, 2048, 64, 128)
+SSD_BWD_N16 = (1, 25, 2048, 64, 16)
+# layers each model trains at: yi-6b cut to fit one card, mamba2-2.7b whole (PERF.md)
+TRAIN_LAYERS = {"yi-6b": 16, "mamba2-2.7b": 64}
+# layers of each model's train_loop and checkpoint round trip: yi-6b's is
+# cut to 4 (a 16 GB checkpoint, not 39.5 GB) to keep the run near 600 s
+# beside mamba2's 34 GB one, which stays at full depth (PERF.md)
+TRAIN_LOOP_LAYERS = {"yi-6b": 4, "mamba2-2.7b": 64}
+TRAIN_S, TRAIN_G = 2048, 2
 TRAIN_STEPS = 10
 SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:87"),
@@ -112,7 +125,9 @@ SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu"
            "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                            "src/repro/kernels/rmsnorm.py:24"),
            "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
-                        "src/repro/kernels/ssd_scan.py:65")}
+                        "src/repro/kernels/ssd_scan.py:65"),
+           "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                            "src/repro/kernels/ssd_scan.py:65")}
 
 
 def log(*args):
@@ -139,6 +154,7 @@ def phase_build():
             log(f"[build] {line.strip()}")
     log_ssd_wgmma_resources()
     log_bwd_resources()
+    log_ssd_bwd_resources()
 
 
 def log_ssd_wgmma_resources():
@@ -159,6 +175,26 @@ def log_ssd_wgmma_resources():
                 raise AssertionError(f"{name}<N={N}> spills {local} bytes a thread")
         if info[11] < 2:
             raise AssertionError(f"ssd_chunk_scan<N={N}>: {info[11]} CTA an SM, want 2")
+
+
+def log_ssd_bwd_resources():
+    """Registers, spills (local memory), dynamic shared memory and CTAs an
+    SM of the SSD backward's three bf16 kernels at mamba2's (hp 64, N 128)
+    and a few other shapes, from the runtime; fails if a CTA does not fit
+    on an SM. A spill is logged, not failed: the kernel is a first,
+    simple version."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library()
+    for hp, N in ((64, 128), (64, 64), (64, 16), (32, 16)):
+        info = (ctypes.c_int * 12)()
+        build.check(lib.ssd_scan_bwd_info(hp, N, info), "ssd_scan_bwd_info")
+        for k, name in enumerate(("ssd_bwd_states", "ssd_bwd_dstates", "ssd_bwd_chunk")):
+            regs, local, smem, ctas = info[4 * k:4 * k + 4]
+            log(f"[build] {name}<hp={hp},N={N}>: {regs} registers, {local} bytes local (spills), "
+                f"{smem} bytes dynamic shared memory, {ctas} CTAs an SM")
+            if ctas < 1:
+                raise AssertionError(f"{name}<hp={hp},N={N}> does not fit on an SM")
 
 
 def log_bwd_resources():
@@ -830,6 +866,89 @@ def _flash_bwd_case(name, q, k, v, window, do=None):
     return max(errs)
 
 
+def _ssd_bwd_case(name, chunk, x, dt, A, Bm, Cm, initial_state=None, d_final=None):
+    """The SSD backward kernel against the plain backward in fp32 on the same
+    inputs (the plain one at its own ``chunk``), each output through
+    ``_bwd_gate``: the fp32 outputs (all six of an fp32 call; ddt, dA and
+    d_initial of a bf16 one) within relative L2 SSD_F32_REL_L2, which equals
+    ``_bwd_gate``'s fp32 limit; bf16 dx, dBm and dCm within BF16_LIMITS. dA
+    [nh], a sum over b and s, is gated as one vector. Where the exact
+    gradient is 0 (dA at S = 1 from a zero state), |out| must stay below
+    1e-3 of max |ddt|. A second call must give the same bits. Returns the
+    largest max abs error of dx, dBm and dCm."""
+    from repro_torch.kernels import ssd_scan_bwd
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    assert SSD_F32_REL_L2 == 1e-4       # _bwd_gate's fp32 limit
+    gen = torch.Generator(device="cuda").manual_seed(x.shape[2])
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+    got = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state, d_final)
+    again = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state, d_final)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two backward calls differ")
+    want = ssd_scan_bwd_ref(x.float(), dt, A, Bm.float(), Cm.float(), dy.float(), initial_state,
+                            d_final, chunk=chunk)
+    errs = []
+    for part, out, ref in zip(("dx", "ddt", "dA", "dBm", "dCm", "d_initial"), got, want):
+        if part == "dA":
+            out, ref = out[None], ref[None]
+        zero = want[1].abs().max().item() if not ref.abs().max().item() else None
+        err = _bwd_gate(f"{name} {part}", out, ref, exact_zero_scale=zero)
+        if part in ("dx", "dBm", "dCm"):
+            errs.append(err)
+    return max(errs)
+
+
+def ssd_bwd_bound(x, dt, A, Bm, Cm, dtype):
+    """(bound ms, "bytes" or "operations") of the SSD backward on these
+    inputs: read x, dy, dt, A, Bm, Cm once and write dx, ddt, dA, dBm, dCm
+    once; the products the kernel's 64-token chunks need: C.B^T per (b,
+    chunk) and, per (b, h, chunk), dy.x^T and the dx, dB and dC products
+    over the causal pairs, and per token the five [hp, N] products (the
+    entering state, its gradient, dx's and dB's state terms, h_c^T dy)."""
+    from repro_torch.kernels.ssd_scan import KERNEL_CHUNK
+    B, nh, S, hp = x.shape
+    N = Bm.shape[-1]
+    e = x.element_size()
+    nbytes = 3 * x.numel() * e + 2 * (dt.numel() + A.numel()) * 4 + 4 * Bm.numel() * e
+    pairs = sum(n * (n + 1) // 2 for n in
+                [KERNEL_CHUNK] * (S // KERNEL_CHUNK) + [S % KERNEL_CHUNK])
+    flops = B * pairs * 2 * N + B * nh * (pairs * 2 * (2 * hp + 2 * N) + S * 5 * 2 * hp * N)
+    return _bound(nbytes, flops, dtype)
+
+
+def phase_ssd_bwd_parity():
+    """The SSD backward kernel against its plain backward, fp32 and bf16:
+    SSD_CASES and SSD_WGMMA_CASES (S 1 to 2000 around the 64-token chunks),
+    each with the tests' draw and the long-memory one; mamba2's training
+    shape and an hp 64 / N 16 case in the model's layout (x, Bm, Cm column
+    slices of one buffer, dt a [B,nh,S] view) with both draws; an
+    initial_state with a final-state gradient at both shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        for B, nh, S, hp, N, chunk in SSD_CASES + [c + (256,) for c in SSD_WGMMA_CASES]:
+            for long_memory in (False, True):
+                _ssd_bwd_case(f"ssd_bwd {tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N})"
+                              f"{' long-memory' if long_memory else ''}", chunk,
+                              *_ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory))
+        for B, nh, S, hp, N in (SSD_BWD_N16, SSD_BWD_MAIN):
+            for long_memory in (False, True):
+                err = _ssd_bwd_case(f"ssd_bwd {tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N}) "
+                                    f"[B,S,.] views{' long-memory' if long_memory else ''}", 256,
+                                    *_ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory, True))
+                if (B, nh, S, hp, N) == SSD_BWD_MAIN and long_memory:
+                    errs[("ssd_scan_bwd", dtype)] = err
+            h0 = torch.randn(B, nh, hp, N, generator=gen, device="cuda")
+            d_final = torch.randn(B, nh, hp, N, generator=gen, device="cuda")
+            _ssd_bwd_case(f"ssd_bwd {tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N}) [B,S,.] views "
+                          f"long-memory, initial_state and d_final", 256,
+                          *_ssd_inputs(gen, B, nh, S, hp, N, dtype, True, True),
+                          initial_state=h0, d_final=d_final)
+    return errs
+
+
 def phase_bwd_parity():
     """Each backward kernel against its plain backward (``kernels/ref.py``)
     on the same inputs, the forward kernels' LSE against the plain
@@ -878,13 +997,15 @@ def phase_bwd_parity():
 
 
 # --------------------------------------------------------------------------
-# 6. training slice: full-width yi-6b, 16 layers
+# 6. training slices: full-width yi-6b at 16 layers, mamba2-2.7b at 64
 # --------------------------------------------------------------------------
 
-def _train_arch(layers):
+def _train_arch(name, layers=None):
+    """``name`` at full width, cut to ``layers`` (TRAIN_LAYERS[name] by
+    default)."""
     import dataclasses
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config("yi-6b"), num_layers=layers)
+    return dataclasses.replace(get_config(name), num_layers=layers or TRAIN_LAYERS[name])
 
 
 def _train_cfg(dtype=torch.bfloat16, remat=False):
@@ -902,12 +1023,16 @@ def _train_data(arch):
                                           num_microbatches=TRAIN_G, seed=0))
 
 
-def _step_launches(layers):
-    """Kernel launches of one train step, remat off: a flash forward and
-    backward per layer, two RMSNorms and their backwards per layer plus the
-    final norm, for each of the G microbatches."""
-    return _launches(flash_attention=layers * TRAIN_G, flash_attention_bwd=layers * TRAIN_G,
-                     rmsnorm=(2 * layers + 1) * TRAIN_G, rmsnorm_bwd=(2 * layers + 1) * TRAIN_G)
+def _step_launches(arch):
+    """Kernel launches of one train step, remat off, for each of the G
+    microbatches: per layer a flash forward and backward (attention) or an
+    SSD forward and backward (SSM), two RMSNorms and their backwards (norm1
+    and norm2, or norm1 and ssm_norm), and the final norm."""
+    L, G = arch.num_layers, TRAIN_G
+    mixer = ("ssd_scan", "ssd_scan_bwd") if arch.block == "ssm" else \
+        ("flash_attention", "flash_attention_bwd")
+    return _launches(**{mixer[0]: L * G, mixer[1]: L * G, "rmsnorm": (2 * L + 1) * G,
+                        "rmsnorm_bwd": (2 * L + 1) * G})
 
 
 def _grads(model, batch, cfg, plain=False, remat=None):
@@ -936,11 +1061,17 @@ def _rel_by_leaf(grads, ref):
 
 @torch.no_grad()
 def _fan_in_h(model):
-    """Rescale wq, wk, wv, wi and wg from the reference's std (1/L)^0.5 to
-    (1/H)^0.5 (``lm._dense`` takes fan-in from the layer axis; ROADMAP §3)."""
+    """Rescale wq, wk, wv, wi and wg (attention archs) or the SSM's
+    in_proj from the reference's std (1/L)^0.5 to (1/H)^0.5 (``lm._dense``
+    takes fan-in from the layer axis; ROADMAP §3)."""
     a = model.arch
     for blk in model.blocks:
-        for p in (blk.attn["wq"], blk.attn["wk"], blk.attn["wv"], blk.mlp["wi"], blk.mlp["wg"]):
+        if a.block == "ssm":
+            weights = (blk.ssm["in_proj"],)
+        else:
+            weights = (blk.attn["wq"], blk.attn["wk"], blk.attn["wv"], blk.mlp["wi"],
+                       blk.mlp["wg"])
+        for p in weights:
             p.mul_((a.num_layers / a.d_model) ** 0.5)
     return model
 
@@ -958,9 +1089,8 @@ def _bf16_grads_vs_fp32(arch, batch, init):
     del model32
     torch.cuda.empty_cache()
     gk, lk, nk, counts = _grads(model, batch, _train_cfg())
-    if counts != _step_launches(arch.num_layers):
-        raise AssertionError(f"gradients launched {counts}, expected "
-                             f"{_step_launches(arch.num_layers)}")
+    if counts != _step_launches(arch):
+        raise AssertionError(f"gradients launched {counts}, expected {_step_launches(arch)}")
     rel_k = _rel_by_leaf(gk, g32)
     del gk
     gp, lp, np_, counts = _grads(model, batch, _train_cfg(), plain=True, remat=True)
@@ -998,17 +1128,18 @@ def _fp32_grads_vs_fp64(arch, batch, init):
     return (lk, lp, l64), (nk, np_, n64), rels, whole
 
 
-def train_grads_gate():
+def train_grads_gate(name):
     """(a) The gradients of the G microbatches (``accumulate_grads``, the
     train step's gradient half) through the kernels and through the plain
     versions from the same weights and batch, under two inits of the same
-    seed: the reference's, and the same weights with wq, wk, wv, wi, wg at
-    fan-in H (``_fan_in_h``). Under the reference's init attention is a
+    seed: the reference's, and the same weights with wq, wk, wv, wi, wg
+    (mamba2: in_proj) at fan-in H (``_fan_in_h``). yi-6b at 16 layers,
+    mamba2 at all 64. Under the reference's init attention is a
     hard argmax (logits of std ~250 at 16 layers, ~2000 at 2): dS = P (dP
     - D) cancels for the one live entry of a row, so gradients upstream of
     the scores turn on rounding, and two correct backwards (the kernels'
     FA2 form, autograd's softmax form) differ by percents even in fp32.
-    bf16 at 16 layers: each route against fp32 of the same weights (plain
+    bf16 at TRAIN_LAYERS: each route against fp32 of the same weights (plain
     versions): the kernels' distance to fp32 of the loss, the global norm
     and each leaf within 1.5x the plain versions' (or 1e-3 of the loss,
     1e-2 relative of a norm or leaf, where the plain versions land
@@ -1021,15 +1152,16 @@ def train_grads_gate():
     reference's init it is reported, and the whole gradient's distance
     gated. On fan-in-H weights also kernels against plain versions within
     1e-3 relative L2 for the norm and each leaf, 1e-5 for the loss."""
-    arch = _train_arch(TRAIN_LAYERS)
+    arch = _train_arch(name)
     batch = _train_data(arch).batch_at(0)
-    for name, init in (("reference init", lambda m: m), ("fan-in-H init", _fan_in_h)):
+    for init_name, init in (("reference init", lambda m: m), ("fan-in-H init", _fan_in_h)):
         r = _bf16_grads_vs_fp32(arch, batch, init)
         (l32, lk, lp), (n32, nk, np_), rel_k, rel_p = r["loss"], r["norm"], r["rel_k"], r["rel_p"]
         ratios = {n: rel_k[n] / max(rel_p[n], 1e-30) for n in rel_k}
         worst = sorted(ratios, key=ratios.get)[-3:]
-        gated = name != "reference init"
-        log(f"[train] (a) bf16 {TRAIN_LAYERS} layers, {name} ({'gated' if gated else 'reported'}),"
+        gated = init_name != "reference init"
+        log(f"[train] (a) {name} bf16 {arch.num_layers} layers, {init_name} "
+            f"({'gated' if gated else 'reported'}),"
             f" G={TRAIN_G} x S={TRAIN_S}: loss fp32 {l32:.6f}, kernels {lk:.6f}, plain {lp:.6f}; "
             f"grad norm fp32 {n32:.6g}, kernels {nk:.6g}, plain {np_:.6g}; leaf rel_l2 to fp32: "
             f"kernels median {statistics.median(rel_k.values()):.4g} max "
@@ -1037,7 +1169,7 @@ def train_grads_gate():
             f"max {max(rel_p.values()):.4g}; highest kernels/plain "
             + ", ".join(f"{n} {rel_k[n]:.4g}/{rel_p[n]:.4g}" for n in worst))
         if not all(math.isfinite(x) for x in (l32, lk, lp, n32, nk, np_)):
-            raise AssertionError(f"bf16 gradients ({name}): a loss or norm is not finite")
+            raise AssertionError(f"bf16 gradients ({init_name}): a loss or norm is not finite")
         if not gated:
             continue
         for what, k, p, floor in (("loss", abs(lk - l32), abs(lp - l32), 1e-3 * abs(l32)),
@@ -1050,14 +1182,15 @@ def train_grads_gate():
             raise AssertionError("bf16 gradients further from fp32 than the plain versions "
                                  "allow: " + ", ".join(f"{n} {rel_k[n]:.4g}/{rel_p[n]:.4g}"
                                                         for n in bad))
-    arch2 = _train_arch(2)
+    arch2 = _train_arch(name, 2)
     batch2 = _train_data(arch2).batch_at(0)
-    for name, init in (("reference init", lambda m: m), ("fan-in-H init", _fan_in_h)):
+    for init_name, init in (("reference init", lambda m: m), ("fan-in-H init", _fan_in_h)):
         (lk, lp, l64), (nk, np_, n64), (rel, rel_k, rel_p), (whole_k, whole_p) = \
             _fp32_grads_vs_fp64(arch2, batch2, init)
         ratios = {n: rel_k[n] / max(rel_p[n], 1e-30) for n in rel_k}
         worst = sorted(ratios, key=ratios.get)[-3:]
-        log(f"[train] (a) fp32 2 layers, {name}: loss kernels {lk:.7f} plain {lp:.7f} fp64 "
+        log(f"[train] (a) {name} fp32 2 layers, {init_name}: loss kernels {lk:.7f} plain "
+            f"{lp:.7f} fp64 "
             f"{l64:.7f}; grad norm kernels {nk:.7g} plain {np_:.7g} fp64 {n64:.7g}; whole "
             f"gradient rel_l2 to fp64 kernels {whole_k:.3e} plain {whole_p:.3e}; leaf rel_l2 "
             f"kernels to plain max {max(rel.values()):.3e} ({max(rel, key=rel.get)}) median "
@@ -1070,14 +1203,14 @@ def train_grads_gate():
                                    1e-5),
                                   ("whole gradient", whole_k, whole_p, 1e-4)):
             if not k <= max(1.5 * p, floor):
-                raise AssertionError(f"fp32 {what} ({name}): kernels {k:.4g} from fp64, plain "
+                raise AssertionError(f"fp32 {what} ({init_name}): kernels {k:.4g} from fp64, plain "
                                      f"{p:.4g}")
         bad = [n for n in rel_k if not rel_k[n] <= max(1.5 * rel_p[n], 1e-4)]
         if bad:
-            raise AssertionError(f"fp32 gradients ({name}) further from fp64 than the plain "
+            raise AssertionError(f"fp32 gradients ({init_name}) further from fp64 than the plain "
                                  "versions allow: " + ", ".join(
                                      f"{n} {rel_k[n]:.4g}/{rel_p[n]:.4g}" for n in bad))
-        if name != "reference init" and not (abs(lk - lp) <= 1e-5 * abs(lp)
+        if init_name != "reference init" and not (abs(lk - lp) <= 1e-5 * abs(lp)
                                              and abs(nk - np_) <= 1e-3 * np_
                                              and max(rel.values()) <= 1e-3):
             raise AssertionError("fp32 gradients through the kernels differ from the plain "
@@ -1109,16 +1242,16 @@ def _check_against_checkpoint(state, ckpt_dir, step):
     return len(leaves)
 
 
-def train_loop_and_restore(total):
+def train_loop_and_restore(name, total, layers=None):
     """(b) ``train_loop`` for TRAIN_STEPS steps on the synthetic stream into
     a checkpoint directory, its launches gated exactly (and added to
     ``total``): finite losses and grad norms; the checkpoint equal to the
     state bit for bit; a second ``train_loop`` over the same directory
-    restores it (running no step) to the same state bit for bit. Frees the
-    state."""
+    restores it (running no step) to the same state bit for bit. ``name``
+    at ``layers`` (TRAIN_LAYERS[name] by default). Frees the state."""
     from repro_torch.launch.train import train_loop
     from repro_torch.train.data import DataCfg
-    arch, cfg = _train_arch(TRAIN_LAYERS), _train_cfg()
+    arch, cfg = _train_arch(name, layers), _train_cfg()
     data = DataCfg(seq_len=TRAIN_S, global_batch=TRAIN_G, num_microbatches=TRAIN_G, seed=0)
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -1128,10 +1261,11 @@ def train_loop_and_restore(total):
             log_fn=lambda m: log(f"[train] (b) {m}"), device="cuda"))
         seconds = time.perf_counter() - t0
         _add(total, counts)
-        want = {k: n * TRAIN_STEPS for k, n in _step_launches(TRAIN_LAYERS).items()}
+        want = {k: n * TRAIN_STEPS for k, n in _step_launches(arch).items()}
         if counts != want:
             raise AssertionError(f"train_loop launched {counts}, expected {want}")
-        log(f"[train] (b) train_loop {TRAIN_STEPS} steps in {seconds:.1f} s (init, steps and a "
+        log(f"[train] (b) {name} {arch.num_layers} layers: train_loop {TRAIN_STEPS} steps in "
+            f"{seconds:.1f} s (init, steps and a "
             f"checkpoint): losses {[round(x, 4) for x in losses]}, grad norms "
             f"{[round(x, 4) for x in gnorms]}; launches {counts}")
         if not all(math.isfinite(x) for x in losses + gnorms):
@@ -1158,7 +1292,7 @@ def train_loop_and_restore(total):
     torch.cuda.empty_cache()
 
 
-def train_step_descent_and_times(total):
+def train_step_descent_and_times(name, total):
     """(c) ``make_train_step`` for TRAIN_STEPS steps on one fixed batch from
     a fresh train state (the seed of (b)), remat off: the first step's
     launches counted exactly (and added to ``total``); finite losses, the
@@ -1169,7 +1303,7 @@ def train_step_descent_and_times(total):
     only wanders by the batches' own spread (PERF.md); a fixed batch shows
     whether the steps descend."""
     from repro_torch.train.step import init_train_state, make_train_step
-    arch, cfg = _train_arch(TRAIN_LAYERS), _train_cfg()
+    arch, cfg = _train_arch(name), _train_cfg()
     batch = _train_data(arch).batch_at(0)
     state = init_train_state(arch, cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     step = make_train_step(arch, cfg)
@@ -1186,22 +1320,23 @@ def train_step_descent_and_times(total):
         ms.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
             _add(total, counts)
-            if counts != _step_launches(TRAIN_LAYERS):
+            if counts != _step_launches(arch):
                 raise AssertionError(f"one train step launched {counts}, expected "
-                                     f"{_step_launches(TRAIN_LAYERS)}")
-            log(f"[train] (c) one train step, remat off, G={TRAIN_G}: launches {counts} (exact)")
+                                     f"{_step_launches(arch)}")
+            log(f"[train] (c) {name} one train step, remat off, G={TRAIN_G}: launches {counts} "
+                f"(exact)")
     peak = torch.cuda.max_memory_allocated() / 2**30
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[train] (c) {TRAIN_STEPS} steps on one fixed batch: losses "
+    log(f"[train] (c) {name} {TRAIN_STEPS} steps on one fixed batch: losses "
         f"{[round(x, 4) for x in losses]}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train step losses not finite: {losses}")
     if not statistics.mean(losses[-3:]) < losses[0]:
         raise AssertionError(f"train step: loss did not fall ({losses})")
     med = statistics.median(ms[2:])
-    log(f"[time] train step yi-6b {TRAIN_LAYERS} layers, G={TRAIN_G} x 1 x {TRAIN_S} tokens, "
+    log(f"[time] train step {name} {arch.num_layers} layers, G={TRAIN_G} x 1 x {TRAIN_S} tokens, "
         f"bf16 compute, fp32 masters and moments, remat off: median {med:.2f} ms of "
         f"{[round(x, 2) for x in ms[2:]]} (warm-up {ms[0]:.2f}, {ms[1]:.2f}); "
         f"{TRAIN_G * TRAIN_S / med * 1e3:.1f} tokens/s; peak memory {peak:.2f} GiB")
@@ -1255,16 +1390,39 @@ def times_train_kernels(gen):
     return rows
 
 
+def times_ssd_bwd_kernel(gen):
+    """(d) The SSD backward at mamba2's training shape, bf16, in the model's
+    layout (x, Bm, Cm column slices of one buffer, dt a [B,nh,S] view),
+    beside its bound and its plain backward. No single PyTorch call
+    computes it, so there is no library time."""
+    from repro_torch.kernels import ssd_scan_bwd
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    B, nh, S, hp, N = SSD_BWD_MAIN
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, True, True)
+    dy = _randn(gen, B, S, nh, hp, dtype=torch.bfloat16).transpose(1, 2)
+    bound, by = ssd_bwd_bound(x, dt, A, Bm, Cm, torch.bfloat16)
+    row = dict(name="ssd_scan_bwd", ms=time_device(lambda: ssd_scan_bwd(x, dt, A, Bm, Cm, dy)),
+               plain_ms=time_device(lambda: ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy), n=3, reps=3),
+               library_ms=None, bound_ms=bound, bound_by=by,
+               shape=f"x{list(x.shape)} B/C{list(Bm.shape)} bf16, dt fp32, views")
+    log(f"[time] ssd_scan_bwd: {100 * bound / row['ms']:.1f}% of the bound")
+    return row
+
+
 def phase_train(total):
-    """Section 6: (a) gradients, (b) train_loop and restore, (c) descent on
-    one batch, one step's launches and the step's time, then the backward
-    kernels' times."""
-    t0 = time.perf_counter()
-    train_grads_gate()
-    log(f"[train] (a) done in {time.perf_counter() - t0:.1f} s")
-    train_loop_and_restore(total)
-    train_step_descent_and_times(total)
-    rows = times_train_kernels(torch.Generator(device="cuda").manual_seed(23))
+    """Section 6, yi-6b then mamba2-2.7b: (a) gradients, (b) train_loop and
+    restore, (c) descent on one batch, one step's launches and the step's
+    time; then the backward kernels' times (yi-6b's flash and RMSNorm,
+    mamba2's SSD)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = []
+    for name in TRAIN_LAYERS:
+        t0 = time.perf_counter()
+        train_grads_gate(name)
+        log(f"[train] (a) {name} done in {time.perf_counter() - t0:.1f} s")
+        train_loop_and_restore(name, total, TRAIN_LOOP_LAYERS[name])
+        train_step_descent_and_times(name, total)
+        rows += (times_train_kernels(gen) if name == "yi-6b" else [times_ssd_bwd_kernel(gen)])
     for r in rows:
         _log_row(r)
     return rows
@@ -1306,6 +1464,7 @@ def main() -> int:
     phase_build()
     errs = phase_parity()
     errs.update(phase_bwd_parity())
+    errs.update(phase_ssd_bwd_parity())
     total = {}
     # yi-6b: decode after a short prompt, and at the prefill's context in a
     # 2,048-token cache (decode attention reads pos + 1 slots)
@@ -1316,7 +1475,7 @@ def main() -> int:
     for name, n in total.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")
-    log(f"[slice] main-path launches, both models' serving and yi-6b's training {total}")
+    log(f"[slice] main-path launches, both models' serving and training {total}")
     kernels = kernel_line(rows, errs, total)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()

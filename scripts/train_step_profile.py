@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Where the time of one train step goes, on one NVIDIA card.
 
-    python3 scripts/train_step_profile.py
+    python3 scripts/train_step_profile.py [--arch yi-6b|mamba2-2.7b]
 
-Builds chip_smoke.py's training slice from chip_smoke.py's own config
-(full-width yi-6b cut to 16 layers, fp32 masters and Adam moments, bf16
-compute, G = 2 microbatches of 1 x 2048 tokens, remat off), runs one
-warm-up step, then 2 steps under ``torch.profiler``. Prints the
-host-clock step time, the device time by kernel (grouped: the port's kernels, each
-``flash_bwd_*`` launch, GEMMs, elementwise, other), the share of the step
-the device was idle, and the card's name and power limit. Imports no JAX.
+Builds chip_smoke.py's training slice of ``--arch`` from chip_smoke.py's
+own config (full-width yi-6b cut to 16 layers, the default, or
+mamba2-2.7b at all 64; fp32 masters and Adam moments, bf16 compute, G = 2
+microbatches of 1 x 2048 tokens, remat off), runs one warm-up step, then 2
+steps under ``torch.profiler``. Prints the host-clock step time, the
+device time by kernel (grouped: the port's kernels, each ``flash_bwd_*``
+and ``ssd_bwd_*`` launch, GEMMs, elementwise, other), the share of the
+step the device was idle, and the card's name and power limit. Imports no
+JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -26,7 +29,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-GROUPS = (("flash_bwd_delta", "flash bwd: D = rowsum(dO o)"), ("flash_bwd_dkdv", "flash bwd: dK dV"),
+GROUPS = (("ssd_bwd_states", "ssd bwd: (a) entering states"),
+          ("ssd_bwd_dstates", "ssd bwd: (b) state gradients"),
+          ("ssd_bwd_chunk", "ssd bwd: (c) in-chunk gradients"),
+          ("ssd_bwd_sum", "ssd bwd: (d) partials' sums"),
+          ("ssd_", "ssd forward"),
+          ("flash_bwd_delta", "flash bwd: D = rowsum(dO o)"), ("flash_bwd_dkdv", "flash bwd: dK dV"),
           ("flash_bwd_dq", "flash bwd: dQ"), ("flash_bwd_sum", "flash bwd: dK dV partials' sum"),
           ("flash_fwd", "flash forward"),
           ("flash_wgmma", "flash forward"),
@@ -53,7 +61,10 @@ def main() -> int:
     from chip_smoke import TRAIN_G, TRAIN_LAYERS, TRAIN_S, _train_arch, _train_cfg, _train_data
     from repro_torch.train.step import init_train_state, make_train_step
 
-    arch, cfg = _train_arch(TRAIN_LAYERS), _train_cfg()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="yi-6b", choices=sorted(TRAIN_LAYERS))
+    args = ap.parse_args()
+    arch, cfg = _train_arch(args.arch), _train_cfg()
     data = _train_data(arch)
     state = init_train_state(arch, cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     step = make_train_step(arch, cfg)
@@ -73,7 +84,7 @@ def main() -> int:
         by_group[group(e.name)] = by_group.get(group(e.name), 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     busy_ms = sum(by_group.values()) / 1e3 / STEPS
-    print(f"[profile] yi-6b {TRAIN_LAYERS} layers, G={TRAIN_G} x 1 x {TRAIN_S} tokens, bf16, "
+    print(f"[profile] {args.arch} {arch.num_layers} layers, G={TRAIN_G} x 1 x {TRAIN_S} tokens, bf16, "
           f"remat off: {wall_ms:.2f} ms a step (host clock, under the profiler); device busy "
           f"{busy_ms:.2f} ms a step, idle share {100 * (1 - busy_ms / wall_ms):.1f}%")
     for label, us in sorted(by_group.items(), key=lambda kv: -kv[1]):

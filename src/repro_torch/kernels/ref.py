@@ -4,10 +4,11 @@
 match the kernel entry points: head-major attention, [T,H] rmsnorm,
 head-major SSD scan.
 
-The two backwards (``flash_attention_bwd_ref``, ``rmsnorm_bwd_ref``) are
-written out, not taken from autograd: they are the math of the CUDA
-backward kernels, and ``tests/test_torch_grad.py`` holds them against
-autograd of the forwards here and ``jax.vjp`` of ``repro.kernels.ref``.
+The three backwards (``flash_attention_bwd_ref``, ``rmsnorm_bwd_ref``,
+``ssd_scan_bwd_ref``) are written out, not taken from autograd: they are
+the math of the CUDA backward kernels, and ``tests/test_torch_grad.py``
+holds them against autograd of the forwards here and ``jax.vjp`` of
+``repro.kernels.ref``.
 The flash backward takes the row log-sum-exp that the forward
 (``flash_attention_fwd_ref``, and the forward kernels) returns beside o:
 log2 units of the scaled scores, so P = exp2(log2(e) hd^-0.5 q.k - LSE).
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["flash_attention_ref", "flash_attention_fwd_ref", "flash_attention_bwd_ref",
-           "rmsnorm_ref", "rmsnorm_bwd_ref", "ssd_scan_ref", "LOG2E"]
+           "rmsnorm_ref", "rmsnorm_bwd_ref", "ssd_scan_ref", "ssd_scan_bwd_ref", "LOG2E"]
 
 LOG2E = 1.4426950408889634       # log2(e): the LSE's units
 
@@ -113,32 +114,63 @@ def flash_bwd_masked(q, k, v, o, do, mask, lse=None):
     return dq.reshape(B, nh, S, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk=256, initial_state=None, return_state=False):
-    """Mamba2 SSD scan, chunked (the math of ``repro.models.layers.ssd_scan``
-    and of the Pallas kernel). x: [B,nh,S,hp]; dt: [B,nh,S] (softplus-ed);
-    A: [nh] (negative); Bm/Cm: [B,S,N], shared across heads -> [B,nh,S,hp]
-    in x's dtype, and with ``return_state`` also the final state
-    [B,nh,hp,N] fp32. The recurrence starts from ``initial_state``
-    ([B,nh,hp,N]) or zeros. fp32 inside; the tail is padded with dt = 0,
-    which makes the padded tokens no-ops (they leave the state as it is).
-    Vectorised over chunks; only the inter-chunk recurrence loops, once per
-    chunk."""
+def _ssd_chunks(x, dt, A, Bm, Cm, chunk):
+    """The SSD inputs in chunks of ``chunk`` tokens, in the compute type,
+    the tail padded with zeros (dt = 0 makes a padded token a no-op: it
+    leaves the state as it is): xc [B,nh,nc,Q,hp], dtc [B,nh,nc,Q], Bc/Cc
+    [B,nc,Q,N], and acs [B,nh,nc,Q], the cumulative log-decay a = dt A
+    from each chunk's start."""
     B, nh, S, hp = x.shape
     N = Bm.shape[-1]
     Q = chunk
     nc = -(-S // Q)
     pad = nc * Q - S
-    f32 = torch.float32
-    xc = F.pad(x.to(f32), (0, 0, 0, pad)).reshape(B, nh, nc, Q, hp)
-    dtc = F.pad(dt.to(f32), (0, pad)).reshape(B, nh, nc, Q)
-    Bc = F.pad(Bm.to(f32), (0, 0, 0, pad)).reshape(B, nc, Q, N)
-    Cc = F.pad(Cm.to(f32), (0, 0, 0, pad)).reshape(B, nc, Q, N)
+    acc = _acc(x.dtype)
+    xc = F.pad(x.to(acc), (0, 0, 0, pad)).reshape(B, nh, nc, Q, hp)
+    dtc = F.pad(dt.to(acc), (0, pad)).reshape(B, nh, nc, Q)
+    Bc = F.pad(Bm.to(acc), (0, 0, 0, pad)).reshape(B, nc, Q, N)
+    Cc = F.pad(Cm.to(acc), (0, 0, 0, pad)).reshape(B, nc, Q, N)
+    acs = torch.cumsum(dtc * A.to(acc)[None, :, None, None], dim=-1)
+    return xc, dtc, Bc, Cc, acs
 
-    acs = torch.cumsum(dtc * A.to(f32)[None, :, None, None], dim=-1)    # [B,nh,nc,Q]
-    # 1) intra-chunk, attention form: C_i.B_j exp(acs_i - acs_j) dt_j for
-    # j <= i, masked before exp (acs_i - acs_j > 0 above the diagonal)
-    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
-    decay = torch.exp((acs[..., :, None] - acs[..., None, :]).masked_fill(~tri, float("-inf")))
+
+def _ssd_decay(acs):
+    """L [..., Q, Q]: exp(acs_i - acs_j) for j <= i, else 0, masked before
+    exp (acs_i - acs_j > 0 above the diagonal)."""
+    Q = acs.shape[-1]
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=acs.device).tril()
+    return torch.exp((acs[..., :, None] - acs[..., None, :]).masked_fill(~tri, float("-inf")))
+
+
+def _ssd_entering(states, chunk_decay, initial_state):
+    """The state entering each chunk [B,nh,nc,hp,N] and the final state,
+    from each chunk's own state update ``states`` [B,nh,nc,hp,N] and decay
+    [B,nh,nc]."""
+    B, nh, nc, hp, N = states.shape
+    h = (torch.zeros(B, nh, hp, N, dtype=states.dtype, device=states.device)
+         if initial_state is None else initial_state.to(states.dtype))
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = h * chunk_decay[:, :, c, None, None] + states[:, :, c]
+    return torch.stack(entering, dim=2), h
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk=256, initial_state=None, return_state=False):
+    """Mamba2 SSD scan, chunked (the math of ``repro.models.layers.ssd_scan``
+    and of the Pallas kernel). x: [B,nh,S,hp]; dt: [B,nh,S] (softplus-ed);
+    A: [nh] (negative); Bm/Cm: [B,S,N], shared across heads -> [B,nh,S,hp]
+    in x's dtype, and with ``return_state`` also the final state
+    [B,nh,hp,N] in the compute type. The recurrence starts from
+    ``initial_state`` ([B,nh,hp,N]) or zeros. Computes in fp32 (fp64 for
+    fp64 inputs); the tail is padded with dt = 0, which makes the padded
+    tokens no-ops (they leave the state as it is). Vectorised over chunks;
+    only the inter-chunk recurrence loops, once per chunk."""
+    B, nh, S, hp = x.shape
+    xc, dtc, Bc, Cc, acs = _ssd_chunks(x, dt, A, Bm, Cm, chunk)
+    nc, Q = dtc.shape[2:]
+    # 1) intra-chunk, attention form: C_i.B_j exp(acs_i - acs_j) dt_j for j <= i
+    decay = _ssd_decay(acs)
     cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)                        # [B,nc,Q,Q]
     scores = cb[:, None] * decay * dtc[..., None, :]                    # [B,nh,nc,Q,Q]
     y = torch.einsum("bhcij,bhcjp->bhcip", scores, xc)
@@ -147,18 +179,95 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk=256, initial_state=None, return_stat
     w = torch.exp(acs[..., -1:] - acs) * dtc
     states = torch.einsum("bhcjp,bcjn->bhcpn", xc * w[..., None], Bc)   # [B,nh,nc,hp,N]
     # 3) inter-chunk recurrence: the state entering each chunk
-    chunk_decay = torch.exp(acs[..., -1])                               # [B,nh,nc]
-    h = (torch.zeros(B, nh, hp, N, dtype=f32, device=x.device) if initial_state is None
-         else initial_state.to(f32))
-    entering = []
-    for c in range(nc):
-        entering.append(h)
-        h = h * chunk_decay[:, :, c, None, None] + states[:, :, c]
-    h_prev = torch.stack(entering, dim=2)                               # [B,nh,nc,hp,N]
+    h_prev, h = _ssd_entering(states, torch.exp(acs[..., -1]), initial_state)
     # 4) inter-chunk output: (C_i . h_prev) exp(acs_i)
     y = y + torch.einsum("bcin,bhcpn->bhcip", Cc, h_prev) * torch.exp(acs)[..., None]
     y = y.reshape(B, nh, nc * Q, hp)[:, :, :S].to(x.dtype)
     return (y, h) if return_state else y
+
+
+def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, chunk=256):
+    """The backward of ``ssd_scan_ref``: (its inputs, dy = dL/dy [B,nh,S,hp],
+    the forward's ``initial_state`` or None, d_final = dL/d(final state) or
+    None) -> (dx, ddt, dA, dBm, dCm, d_initial), each in its input's type,
+    d_initial [B,nh,hp,N] in the compute type (the gradient of the state
+    the recurrence starts from, zeros or ``initial_state``).
+
+    Per (b, h) and chunk c, with a_j = dt_j A, acs the in-chunk cumsum,
+    L_ij = exp(acs_i - acs_j) (j <= i), w_j = exp(acs_last - acs_j) dt_j,
+    h_c the state entering chunk c and dh_c' the gradient of the state
+    leaving it:
+      dh_c = exp(acs_last) dh_c' + sum_i exp(acs_i) dy_i C_i^T  (d_final last);
+      dx_j = dt_j sum_{i>=j} (C_i.B_j) L_ij dy_i + w_j dh_c' B_j;
+      with G_ij = dy_i.x_j: dC_i = sum_h [sum_j G_ij L_ij dt_j B_j
+      + exp(acs_i) h_c^T dy_i], dB_j = sum_h [sum_i G_ij L_ij dt_j C_i
+      + w_j dh_c'^T x_j];
+      dt_j and a: the direct factor dt_j of the scores and of w_j, and
+      d a_m = sum_{k>=m} d acs_k from L, exp(acs_i), w_j and exp(acs_last);
+      ddt_j += A d a_j, dA = sum over b and s of dt_j d a_j.
+    Padded tail tokens (x = B = C = dt = 0) contribute nothing. Computes in
+    fp32, or fp64 for fp64 inputs."""
+    B, nh, S, hp = x.shape
+    N = Bm.shape[-1]
+    xc, dtc, Bc, Cc, acs = _ssd_chunks(x, dt, A, Bm, Cm, chunk)
+    nc, Q = dtc.shape[2:]
+    acc = xc.dtype
+    dyc = F.pad(dy.to(acc), (0, 0, 0, nc * Q - S)).reshape(B, nh, nc, Q, hp)
+    decay = _ssd_decay(acs)                                    # L [B,nh,nc,Q,Q]
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[:, None]      # C_i.B_j [B,1,nc,Q,Q]
+    ea = torch.exp(acs)                                        # exp(acs_i)
+    chunk_decay = torch.exp(acs[..., -1])                      # [B,nh,nc]
+    el = torch.exp(acs[..., -1:] - acs)                        # exp(acs_last - acs_j)
+    w = el * dtc
+    # the state entering each chunk (forward), then the gradient of the
+    # state leaving each chunk (reverse)
+    states = torch.einsum("bhcjp,bcjn->bhcpn", xc * w[..., None], Bc)
+    h_prev, _ = _ssd_entering(states, chunk_decay, initial_state)
+    del states
+    dy_c = torch.einsum("bhcip,bcin->bhcpn", dyc * ea[..., None], Cc)
+    g = (torch.zeros(B, nh, hp, N, dtype=acc, device=x.device) if d_final is None
+         else d_final.to(acc))
+    leaving = [None] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = g
+        g = g * chunk_decay[:, :, c, None, None] + dy_c[:, :, c]
+    dh = torch.stack(leaving, dim=2)                           # [B,nh,nc,hp,N]
+    d_initial = g
+    del dy_c
+    # intra-chunk products
+    G = torch.einsum("bhcip,bhcjp->bhcij", dyc, xc)            # dy_i.x_j
+    ldt = decay * dtc[..., None, :]                            # L_ij dt_j
+    dx = torch.einsum("bhcij,bhcip->bhcjp", cb * ldt, dyc)
+    T = G * ldt
+    E = G * cb * decay                                         # d score_ij / d dt_j, times G
+    del ldt, decay, G
+    r = torch.einsum("bhcpn,bcjn->bhcjp", dh, Bc)              # dh_c' B_j
+    dx = dx + w[..., None] * r
+    u = torch.einsum("bhcpn,bhcip->bhcin", h_prev, dyc)        # h_c^T dy_i
+    v = torch.einsum("bhcpn,bhcjp->bhcjn", dh, xc)             # dh_c'^T x_j
+    dC = torch.einsum("bhcij,bcjn->bcin", T, Bc) + torch.einsum("bhci,bhcin->bcin", ea, u)
+    dB = torch.einsum("bhcij,bcin->bcjn", T, Cc) + torch.einsum("bhcj,bhcjn->bcjn", w, v)
+    del T
+    bv = (Bc[:, None] * v).sum(-1)                             # x_j.(dh_c' B_j)
+    col = E.sum(-2)                                            # sum_i E_ij
+    # d a_m = sum_{k>=m} d acs_k, summed where each term lands: the scores
+    # whose pair (i, j) straddles m (i >= m > j), exp(acs_i) for i >= m, w_j
+    # for j < m, and exp(acs_last). The same sum taken as a reverse cumsum of
+    # d acs cancels row and column sums of the scores and loses digits.
+    mask = (torch.arange(Q, device=x.device)[:, None]
+            >= torch.arange(Q, device=x.device)[None, :])     # [i, m]: i >= m
+    before = F.pad(torch.cumsum(E * dtc[..., None, :], dim=-1)[..., :-1], (1, 0))  # sum_{j<m}
+    da = ((before * mask).sum(-2)
+          + torch.flip(torch.cumsum(torch.flip(ea * (Cc[:, None] * u).sum(-1), [-1]), -1), [-1])
+          + F.pad(torch.cumsum(w * bv, dim=-1)[..., :-1], (1, 0))
+          + (chunk_decay * (dh * h_prev).sum((-1, -2)))[..., None])
+    ddt = col + el * bv + A.to(acc)[None, :, None, None] * da
+    dA = (dtc * da).sum((0, 2, 3))
+    dx = dx.reshape(B, nh, nc * Q, hp)[:, :, :S]
+    ddt = ddt.reshape(B, nh, nc * Q)[:, :, :S]
+    dB, dC = (t.reshape(B, nc * Q, N)[:, :S] for t in (dB, dC))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(Bm.dtype), dC.to(Cm.dtype),
+            d_initial)
 
 
 def rmsnorm_ref(x, w, eps=1e-5):

@@ -11,10 +11,11 @@ Two CUDA paths serve it, picked by (dtype, hp, N) in ``kernel_path``:
   and bf16 elsewhere (hymba-1.5b's N 16): one CTA per (b, h), fp32 FMAs.
 There is no fallback between them: a launch that fails raises.
 
-There is no backward kernel yet (ROADMAP queue 2): on CUDA tensors
-``ssd_scan`` raises when autograd would need one, rather than return a y
-that carries no gradient. CPU tensors go through the plain version, which
-autograd differentiates.
+``ssd_scan`` is differentiable in every input (``SSDScan``): its backward
+is ``ssd_scan_bwd``, ``csrc/ssd_scan_bwd.cu`` on CUDA tensors (every
+(dtype, hp, N) the forward takes; four launches, one counted) and the
+plain ``ref.ssd_scan_bwd_ref`` on CPU tensors. It saves the forward's
+inputs and recomputes the chunk states.
 
 Both take strides, so x may be a [B,nh,S,hp] view of the model's
 [B,S,nh,hp] tensor, Bm and Cm column slices of the conv output and dt a
@@ -28,15 +29,16 @@ import ctypes
 import torch
 
 from . import build
-from .ref import ssd_scan_ref
+from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
-__all__ = ["ssd_scan", "check_args", "kernel_path", "segment_chunks", "launch_fma", "HEAD_DIMS",
-           "STATE_DIMS", "WGMMA_STATE_DIMS", "KERNEL_CHUNK"]
+__all__ = ["ssd_scan", "ssd_scan_bwd", "SSDScan", "check_args", "check_bwd_args", "kernel_path",
+           "bwd_kernel_path", "segment_chunks", "launch_fma", "HEAD_DIMS", "STATE_DIMS",
+           "WGMMA_STATE_DIMS", "KERNEL_CHUNK"]
 
 HEAD_DIMS = (16, 32, 64)           # hp some kernel is instantiated for
 STATE_DIMS = (16, 32, 64, 128)     # ... and N
 WGMMA_STATE_DIMS = (64, 128)       # N of the bf16 wgmma path (hp 64)
-KERNEL_CHUNK = 64                  # tokens per chunk in both CUDA kernels
+KERNEL_CHUNK = 64                  # tokens per chunk in the CUDA kernels
 
 
 def kernel_path(dtype: torch.dtype, hp: int, N: int) -> str:
@@ -51,19 +53,22 @@ def kernel_path(dtype: torch.dtype, hp: int, N: int) -> str:
     raise TypeError(f"SSD kernel takes float32 or bfloat16, got {dtype}")
 
 
-def _check_rows(name, t):
-    """Unit stride along the last dim, rows 16-byte aligned (the FMA kernel
-    stages rows in 16-byte vectors; TMA takes only such strides and bases)."""
+def _rows_ok(t) -> bool:
+    """Unit stride along the last dim, rows 16-byte aligned (the FMA kernels
+    stage rows in 16-byte vectors; TMA takes only such strides and bases)."""
     vec = 16 // t.element_size()
-    if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) or t.data_ptr() % 16:
+    return t.stride(-1) == 1 and not any(s % vec for s in t.stride()[:-1]) and t.data_ptr() % 16 == 0
+
+
+def _check_rows(name, t):
+    if not _rows_ok(t):
         raise ValueError(f"{name} needs a unit last stride and 16-byte aligned rows, got "
                          f"strides {t.stride()} at address {t.data_ptr():#x}")
 
 
-def check_args(x, dt, A, Bm, Cm, initial_state=None, return_state=False) -> str:
-    """Raise on what the kernels do not take; return ``kernel_path``. Looks
-    at shapes, dtypes, strides and addresses only, so it runs on any
-    device."""
+def _check_inputs(x, dt, A, Bm, Cm):
+    """Shapes, dtypes and devices of the forward's inputs, which the
+    backward takes too; returns (hp, N)."""
     if x.dim() != 4:
         raise ValueError(f"ssd_scan takes x [B,nh,S,hp], got {tuple(x.shape)}")
     B, nh, S, hp = x.shape
@@ -74,22 +79,66 @@ def check_args(x, dt, A, Bm, Cm, initial_state=None, return_state=False) -> str:
                          f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
     if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"x, Bm, Cm must share a dtype, got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
-    path = kernel_path(x.dtype, hp, N)
+    kernel_path(x.dtype, hp, N)
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise TypeError(f"dt and A must be float32, got {dt.dtype}, {A.dtype}")
     for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    return hp, N
+
+
+def _check_state(name, t, x, hp, N):
+    B, nh = x.shape[:2]
+    if t.shape != (B, nh, hp, N) or t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 [B,nh,hp,N] = {(B, nh, hp, N)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.device != x.device:
+        raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def check_args(x, dt, A, Bm, Cm, initial_state=None, return_state=False) -> str:
+    """Raise on what the kernels do not take; return ``kernel_path``. Looks
+    at shapes, dtypes, strides and addresses only, so it runs on any
+    device."""
+    hp, N = _check_inputs(x, dt, A, Bm, Cm)
+    path = kernel_path(x.dtype, hp, N)
     if (initial_state is not None or return_state) and path != "wgmma":
         raise ValueError(f"initial_state / return_state are served by the wgmma path only "
                          f"(bf16, hp 64, N in {WGMMA_STATE_DIMS}), got {x.dtype}, hp {hp}, N {N}")
     if initial_state is not None:
-        if initial_state.shape != (B, nh, hp, N) or initial_state.dtype != torch.float32:
-            raise ValueError(f"initial_state must be float32 [B,nh,hp,N] = {(B, nh, hp, N)}, got "
-                             f"{initial_state.dtype} {tuple(initial_state.shape)}")
-        if initial_state.device != x.device:
-            raise ValueError(f"initial_state is on {initial_state.device}, x on {x.device}")
+        _check_state("initial_state", initial_state, x, hp, N)
     for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        _check_rows(name, t)
+    return path
+
+
+def bwd_kernel_path(dtype: torch.dtype, hp: int, N: int) -> str:
+    """The backward kernel that serves (dtype, hp, N): ``"fma"``
+    (``csrc/ssd_scan_bwd.cu``, fp32 FMAs), for fp32 and bf16 at every
+    (hp, N) in HEAD_DIMS x STATE_DIMS; raises elsewhere."""
+    if hp not in HEAD_DIMS or N not in STATE_DIMS:
+        raise ValueError(f"SSD backward kernel is instantiated for hp in {HEAD_DIMS} and N in "
+                         f"{STATE_DIMS}, got hp {hp}, N {N}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"SSD backward kernel takes float32 or bfloat16, got {dtype}")
+    return "fma"
+
+
+def check_bwd_args(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None) -> str:
+    """Raise on what the backward kernel does not take; return
+    ``bwd_kernel_path``. The forward's inputs as ``check_args`` takes them
+    (the state options on every path), dy like x, and ``initial_state`` and
+    ``d_final`` fp32 [B,nh,hp,N] or None. Runs on any device."""
+    hp, N = _check_inputs(x, dt, A, Bm, Cm)
+    path = bwd_kernel_path(x.dtype, hp, N)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must be {x.dtype} {tuple(x.shape)} on {x.device} like x, got "
+                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    for name, t in (("initial_state", initial_state), ("d_final", d_final)):
+        if t is not None:
+            _check_state(name, t, x, hp, N)
+    for name, t in (("x", x), ("dy", dy), ("Bm", Bm), ("Cm", Cm)):
         _check_rows(name, t)
     return path
 
@@ -161,31 +210,14 @@ def _launch_wgmma(x, dt, A, Bm, Cm, initial_state, return_state):
     return y, final
 
 
-def _device_type(t: torch.Tensor) -> str:
-    return t.device.type
-
-
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-             Cm: torch.Tensor, *, chunk: int = 256, initial_state: torch.Tensor | None = None,
-             return_state: bool = False):
-    """x: [B,nh,S,hp]; dt: [B,nh,S] fp32 (softplus-ed); A: [nh] fp32
-    (negative); Bm/Cm: [B,S,N] -> y [B,nh,S,hp] in x's dtype, and with
-    ``return_state`` also the final state [B,nh,hp,N] fp32. The recurrence
-    starts from ``initial_state`` (fp32 [B,nh,hp,N]) or zeros. On CUDA
-    tensors both options need the wgmma path; elsewhere they raise.
-
-    ``chunk`` sets the plain version's chunk length only: the kernels block
-    by their own (64 tokens), and in exact arithmetic the result does not
-    depend on it."""
-    if _device_type(x) == "cpu":
+def _forward(x, dt, A, Bm, Cm, chunk, initial_state, return_state):
+    """The forward on either device: the plain version for CPU tensors, the
+    ``kernel_path`` kernel (one launch counted) for CUDA tensors."""
+    if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state,
                             return_state=return_state)
-    if _device_type(x) != "cuda":
+    if x.device.type != "cuda":
         raise RuntimeError(f"ssd_scan runs on CUDA or CPU tensors, got {x.device}")
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (x, dt, A, Bm, Cm, initial_state)):
-        raise RuntimeError("SSD backward not ported; ROADMAP queue 2 (ssd_scan on CUDA tensors "
-                           "that require grad; run it under torch.no_grad() or on the CPU)")
     path = check_args(x, dt, A, Bm, Cm, initial_state, return_state)
     B, nh, S, hp = x.shape
     if B == 0 or S == 0:
@@ -203,4 +235,97 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     return (y, final) if return_state else y
 
 
+def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, chunk: int = 256):
+    """(the forward's inputs, dy = dL/dy [B,nh,S,hp], the forward's
+    ``initial_state`` or None, d_final = dL/d(final state) or None) ->
+    (dx, ddt, dA, dBm, dCm, d_initial): each in its input's type, dx in x's
+    layout, ddt in dt's, dBm and dCm dense [B,S,N], d_initial fp32
+    [B,nh,hp,N] (the gradient of the state the recurrence starts from).
+    CPU tensors: ``ref.ssd_scan_bwd_ref`` (``chunk`` is its chunk length).
+    CUDA tensors: ``csrc/ssd_scan_bwd.cu``, four launches (the entering
+    states, their gradients, the in-chunk gradients, the fixed-order sums
+    of the per-head dB/dC and per-chunk dA partials), one counted."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, initial_state, d_final, chunk=chunk)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"ssd_scan_bwd runs on CUDA or CPU tensors, got {x.device}")
+    check_bwd_args(x, dt, A, Bm, Cm, dy, initial_state, d_final)
+    B, nh, S, hp = x.shape
+    N = Bm.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)    # dense, in x's / dt's dim order
+    dA = torch.empty(nh, **f32)
+    dBm, dCm = (torch.empty(B, S, N, dtype=x.dtype, device=x.device) for _ in range(2))
+    d_initial = torch.empty(B, nh, hp, N, **f32)
+    if B == 0 or S == 0:            # no token: the state passes through
+        if d_final is None:
+            d_initial.zero_()
+        else:
+            d_initial.copy_(d_final)
+        return dx, ddt, dA.zero_(), dBm, dCm, d_initial
+    _check_rows("dx", dx)
+    nc = -(-S // KERNEL_CHUNK)
+    # scratch: the state entering each chunk and the gradient of the state
+    # leaving it; the per-head dB, dC and per-chunk dA partials
+    states, dstates = (torch.empty(B, nh, nc, hp, N, **f32) for _ in range(2))
+    dBp, dCp = (torch.empty(B, nh, S, N, **f32) for _ in range(2))
+    dAp = torch.empty(B, nh, nc, **f32)
+    init = None if initial_state is None else initial_state.contiguous()
+    fin = None if d_final is None else d_final.contiguous()
+    strides = (ctypes.c_longlong * 19)(*x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
+                                       *Cm.stride()[:2], *dy.stride()[:3], *dx.stride()[:3],
+                                       *ddt.stride())
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.contiguous().data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            dy.data_ptr(), ptr(init), ptr(fin), states.data_ptr(), dstates.data_ptr(),
+            dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), d_initial.data_ptr(), strides,
+            B, nh, S, hp, N, build.dtype_code(x), build.stream_of(x))
+    build.check(err, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dBm, dCm, d_initial
+
+
+class SSDScan(torch.autograd.Function):
+    """The forward kernel, with ``ssd_scan_bwd`` as its gradient. Saves the
+    forward's inputs (the backward recomputes the chunk states)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, initial_state, chunk, return_state):
+        ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
+        ctx.chunk = chunk
+        return _forward(x, dt, A, Bm, Cm, chunk, initial_state, return_state)
+
+    @staticmethod
+    def backward(ctx, dy, d_final=None):
+        x, dt, A, Bm, Cm, initial_state = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        if dy.device.type == "cuda" and not _rows_ok(dy):
+            dy = dy.contiguous()            # e.g. a broadcast gradient (stride 0)
+        dx, ddt, dA, dBm, dCm, d_initial = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state,
+                                                        d_final, chunk=ctx.chunk)
+        return (dx, ddt, dA, dBm, dCm, None if initial_state is None else d_initial, None, None)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, *, chunk: int = 256, initial_state: torch.Tensor | None = None,
+             return_state: bool = False):
+    """x: [B,nh,S,hp]; dt: [B,nh,S] fp32 (softplus-ed); A: [nh] fp32
+    (negative); Bm/Cm: [B,S,N] -> y [B,nh,S,hp] in x's dtype, and with
+    ``return_state`` also the final state [B,nh,hp,N] fp32. The recurrence
+    starts from ``initial_state`` (fp32 [B,nh,hp,N]) or zeros. On CUDA
+    tensors both options need the wgmma path; elsewhere they raise.
+    Differentiable in x, dt, A, Bm, Cm and the initial state
+    (``SSDScan``).
+
+    ``chunk`` sets the plain versions' chunk length only: the kernels block
+    by their own (64 tokens), and in exact arithmetic the result does not
+    depend on it."""
+    return SSDScan.apply(x, dt, A, Bm, Cm, initial_state, chunk, return_state)
+
+
 ssd_scan.launches = 0
+ssd_scan_bwd.launches = 0

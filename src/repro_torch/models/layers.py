@@ -134,14 +134,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     None (zeros). Returns y [B,S,nh,hp] in x's dtype, and with
     ``return_state`` (y, final state [B,nh,hp,N] fp32), as the reference
     does. dt, A and the initial state are taken in fp32, as the reference
-    casts them. The kernel takes strides, so the [B,nh,S,.] views below
-    cost no copy and y comes back in x's [B,S,nh,hp] order. ``chunk`` is
-    the plain version's chunk length (the kernels block by their own). On
-    the card the two state options are served by the bf16 wgmma path only
-    (hp 64, N 64 or 128; ``kernels.ssd_scan.kernel_path``)."""
-    f32 = torch.float32
-    init = None if initial_state is None else initial_state.to(f32)
-    out = kernels.ssd_scan(x.transpose(1, 2), dt.to(f32).transpose(1, 2), A.to(f32), Bm, Cm,
+    casts them, or in fp64 for an fp64 x, whose plain version computes in
+    fp64. The kernel takes strides, so the [B,nh,S,.] views below cost no
+    copy and y comes back in x's [B,S,nh,hp] order. ``chunk`` is the plain
+    version's chunk length (the kernels block by their own). On the card
+    the two state options are served by the bf16 wgmma path only (hp 64,
+    N 64 or 128; ``kernels.ssd_scan.kernel_path``). Differentiable in
+    every input (``kernels.ssd_scan.SSDScan``)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    init = None if initial_state is None else initial_state.to(acc)
+    out = kernels.ssd_scan(x.transpose(1, 2), dt.to(acc).transpose(1, 2), A.to(acc), Bm, Cm,
                            chunk=chunk, initial_state=init, return_state=return_state)
     if return_state:
         y, final = out
@@ -153,11 +155,12 @@ def ssm_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torc
                     Cm: torch.Tensor, state: torch.Tensor):
     """One token of the SSD recurrence (decode), plain PyTorch as in the
     reference. x: [B,nh,hp]; dt: [B,nh]; A: [nh]; Bm/Cm: [B,N]; state:
-    [B,nh,hp,N] fp32 -> (y [B,nh,hp] in x's dtype, new state)."""
-    f32 = torch.float32
-    dtf = dt.to(f32)
-    dec = torch.exp(dtf * A.to(f32))                                          # [B,nh]
-    upd = torch.einsum("bh,bhp,bn->bhpn", dtf, x.to(f32), Bm.to(f32))
+    [B,nh,hp,N] fp32 -> (y [B,nh,hp] in x's dtype, new state). Computes in
+    fp32, or fp64 for an fp64 x."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    dtf = dt.to(acc)
+    dec = torch.exp(dtf * A.to(acc))                                          # [B,nh]
+    upd = torch.einsum("bh,bhp,bn->bhpn", dtf, x.to(acc), Bm.to(acc))
     new_state = state * dec[..., None, None] + upd
-    y = torch.einsum("bn,bhpn->bhp", Cm.to(f32), new_state)
+    y = torch.einsum("bn,bhpn->bhp", Cm.to(acc), new_state)
     return y.to(x.dtype), new_state

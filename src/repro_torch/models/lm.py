@@ -38,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from .layers import (attention, decode_attention, mlp, rmsnorm, rope, silu, softplus, ssd_scan,
+from .layers import (attention, decode_attention, mlp, rmsnorm, rope, softplus, ssd_scan,
                      ssm_decode_step)
 
 __all__ = ["RunCfg", "LM", "Block", "init_params", "loss_fn", "param_count"]
@@ -131,7 +131,12 @@ class Block(nn.Module):
         depthwise conv is the reference's K shifted multiply-adds in the
         activation type (not ``F.conv1d``: that keeps its rounding, and
         keeps cuDNN's TF32 off the fp32 path); the fp32 leaves are rounded
-        to the compute dtype, as the reference's ``forward`` casts them."""
+        to the compute dtype, as the reference's ``forward`` casts them.
+        SiLU is ``F.silu``, computed in fp32 and rounded once for bf16, as
+        XLA fuses the reference's ``x * sigmoid(x)``: with two bf16
+        roundings the port's bf16 gradients of A_log and dt_bias sat 1.9x
+        further from fp32 than the reference's own bf16 (tiny mamba2,
+        tests/test_torch_train.py). The MLP's ``silu`` keeps its two."""
         a, p = self.arch, self.ssm
         B, S, _ = h.shape
         di, N, nh, hp, K = a.d_inner, a.ssm_state, a.ssm_n_heads, a.ssm_headdim, a.conv_width
@@ -139,13 +144,14 @@ class Block(nn.Module):
         z, xbc, dtr = self._split(h @ p["in_proj"])
         padded = F.pad(xbc, (0, 0, K - 1, 0))
         conv = sum(padded[:, k:k + S] * p["conv_w"][k] for k in range(K)) + p["conv_b"].to(cdt)
-        xs, Bm, Cm = silu(conv).split([di, N, N], dim=-1)
-        dt = softplus(dtr.float() + p["dt_bias"].to(cdt).float())
+        xs, Bm, Cm = F.silu(conv).split([di, N, N], dim=-1)
+        acc = torch.promote_types(cdt, torch.float32)          # fp32, or fp64 for fp64
+        dt = softplus(dtr.to(acc) + p["dt_bias"].to(cdt).to(acc))
         A = -torch.exp(p["A_log"].to(cdt))
         x4 = xs.reshape(B, S, nh, hp)
         y = ssd_scan(x4, dt, A, Bm, Cm)
         y = y + p["D"].to(cdt)[:, None] * x4
-        y = rmsnorm(y.reshape(B, S, di) * silu(z), p["ssm_norm"])
+        y = rmsnorm(y.reshape(B, S, di) * F.silu(z), p["ssm_norm"])
         return y @ p["out_proj"]
 
     def _ssm_decode(self, h: torch.Tensor, conv_cache: torch.Tensor,
@@ -161,14 +167,14 @@ class Block(nn.Module):
         hist = torch.cat([conv_cache, xbc[:, None]], dim=1)          # [B,K,conv_dim]
         conv = (hist * p["conv_w"]).sum(dim=1) + p["conv_b"]
         conv_cache.copy_(hist[:, 1:])
-        xs, Bm, Cm = silu(conv).to(h.dtype).split([di, N, N], dim=-1)
+        xs, Bm, Cm = F.silu(conv).to(h.dtype).split([di, N, N], dim=-1)
         dt = softplus(dtr.float() + p["dt_bias"])
         A = -torch.exp(p["A_log"])
         x3 = xs.reshape(B, nh, hp)
         y, new_state = ssm_decode_step(x3, dt, A, Bm, Cm, ssm_cache)
         ssm_cache.copy_(new_state)
         y = y + p["D"].to(y.dtype)[:, None] * x3
-        y = rmsnorm(y.reshape(B, 1, di) * silu(z)[:, None], p["ssm_norm"])
+        y = rmsnorm(y.reshape(B, 1, di) * F.silu(z)[:, None], p["ssm_norm"])
         return y @ p["out_proj"]
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:

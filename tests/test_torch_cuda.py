@@ -418,7 +418,8 @@ def test_tiny_prefill_on_the_card_matches_the_cpu(card):
     torch.cuda.synchronize()
     L = arch.num_layers
     assert kernels.launch_counts() == {"flash_attention": L, "flash_attention_bwd": 0,
-                                       "rmsnorm": 2 * L + 1, "rmsnorm_bwd": 0, "ssd_scan": 0}
+                                       "rmsnorm": 2 * L + 1, "rmsnorm_bwd": 0, "ssd_scan": 0,
+                                       "ssd_scan_bwd": 0}
     ref = make_prefill_step(cpu)({"tokens": tokens})
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
 
@@ -438,7 +439,8 @@ def test_tiny_mamba2_prefill_on_the_card_matches_the_cpu(card):
     torch.cuda.synchronize()
     L = arch.num_layers
     assert kernels.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
-                                       "rmsnorm": 2 * L + 1, "rmsnorm_bwd": 0, "ssd_scan": L}
+                                       "rmsnorm": 2 * L + 1, "rmsnorm_bwd": 0, "ssd_scan": L,
+                                       "ssd_scan_bwd": 0}
     ref = make_prefill_step(cpu)({"tokens": tokens})
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
 
@@ -635,34 +637,110 @@ def test_rmsnorm_bwd_matches_plain(card, T, H, dtype):
     _bwd_gate(dw[None], want[1][None], dtype)
 
 
-@pytest.mark.cuda
-def test_ssd_scan_refuses_grad_on_the_card(card):
-    x = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device=card, requires_grad=True)
-    args = (torch.zeros(1, 2, 64, device=card), -torch.ones(2, device=card),
-            torch.zeros(1, 64, 64, dtype=torch.bfloat16, device=card),
-            torch.zeros(1, 64, 64, dtype=torch.bfloat16, device=card))
-    with pytest.raises(RuntimeError, match="SSD backward not ported"):
-        ssd_scan(x, *args)
-    with torch.no_grad():
-        assert ssd_scan(x, *args).shape == x.shape
+def _ssd_bwd_close(got, want, dtype):
+    """The SSD backward kernel's (dx, ddt, dA, dBm, dCm, d_initial) against
+    the plain backward in fp32 on the same inputs: ``_bwd_gate`` per output,
+    fp32 outputs (ddt, dA, d_initial, and all of an fp32 call) at relative
+    L2 1e-4; dA, a sum over b and s, as one vector; an exactly-zero dA (S =
+    1 from a zero state) must come out exactly zero."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 2:
+            g, w = g[None], w[None]
+        if not w.abs().max().item():
+            torch.cuda.synchronize()
+            assert not g.abs().max().item()
+            continue
+        _bwd_gate(g, w, dtype if g.dtype == torch.bfloat16 else "float32")
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,nh,S,hp,N", SSD_GRID + [(2, 3, 1, 64, 128), (1, 2, 2048, 64, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("long_memory", [False, True])
+def test_ssd_scan_bwd_matches_plain(card, B, nh, S, hp, N, dtype, long_memory):
+    """``csrc/ssd_scan_bwd.cu`` against the plain backward, one launch
+    counted, and a second call equal bit for bit."""
+    from repro_torch.kernels import ssd_scan_bwd
+    rng = np.random.default_rng(S + hp + N)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, B, nh, S, hp, N, dtype, card, long_memory)
+    dy = _randn(rng, x.shape, dtype, card)
+    before = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(x, dt, A, Bm, Cm, dy)
+    assert ssd_scan_bwd.launches == before + 1
+    again = ssd_scan_bwd(x, dt, A, Bm, Cm, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert [t.dtype for t in got] == [x.dtype, torch.float32, torch.float32, x.dtype, x.dtype,
+                                      torch.float32]
+    want = ref.ssd_scan_bwd_ref(x.float(), dt, A, Bm.float(), Cm.float(), dy.float())
+    _ssd_bwd_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hp,N", [(64, 128), (32, 16)])
+def test_ssd_scan_bwd_model_layout_and_state(card, dtype, hp, N):
+    """x, Bm, Cm column slices of one buffer, dt and dy [B,nh,S] / [B,nh,S,hp]
+    views of [B,S,.] tensors, an initial state and a final-state gradient:
+    dx and ddt come back in x's and dt's layouts."""
+    from repro_torch.kernels import ssd_scan_bwd
+    rng = np.random.default_rng(hp + N)
+    B, S, nh = 2, 300, 4
+    buf = _randn(rng, (B, S, nh * hp + 2 * N), dtype, card)
+    x = buf[..., :nh * hp].view(B, S, nh, hp).transpose(1, 2)
+    Bm, Cm = buf[..., nh * hp:nh * hp + N], buf[..., nh * hp + N:]
+    dt = torch.from_numpy(rng.uniform(1e-3, 1e-1, (B, S, nh)).astype(np.float32)).to(card)
+    dt = dt.transpose(1, 2)
+    A = -torch.from_numpy(rng.uniform(1.0, 16.0, nh).astype(np.float32)).to(card)
+    dy = _randn(rng, (B, S, nh, hp), dtype, card).transpose(1, 2)
+    h0, d_final = (torch.from_numpy(rng.standard_normal((B, nh, hp, N), dtype=np.float32))
+                   .to(card) for _ in range(2))
+    got = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, h0, d_final)
+    assert got[0].transpose(1, 2).is_contiguous() and got[1].transpose(1, 2).is_contiguous()
+    want = ref.ssd_scan_bwd_ref(x.float(), dt, A, Bm.float(), Cm.float(), dy.float(), h0,
+                                d_final)
+    _ssd_bwd_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_autograd_on_the_card_launches_the_backward(card, dtype):
+    """``kernels.ssd_scan`` on CUDA tensors that require grad carries a
+    gradient: one forward and one backward launch, the backward equal to
+    the wrapper's on the same dy."""
+    from repro_torch.kernels import ssd_scan_bwd
+    rng = np.random.default_rng(2)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 1, 2, 130, 64, 128, dtype, card)
+    leaves = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    dy = _randn(rng, x.shape, dtype, card)
+    kernels.reset_launch_counts()
+    y = ssd_scan(*leaves)
+    assert y.grad_fn is not None
+    grads = torch.autograd.grad(y, leaves, dy)
+    counts = kernels.launch_counts()
+    assert counts["ssd_scan"] == 1 and counts["ssd_scan_bwd"] == 1
+    want = ssd_scan_bwd(x, dt, A, Bm, Cm, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(grads, want[:5]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yi-6b", "mamba2-2.7b"])
 @pytest.mark.parametrize("scale,layers", [("tiny", None), ("full", 2)])
-def test_train_step_kernels_match_plain(card, scale, layers):
+def test_train_step_kernels_match_plain(card, name, scale, layers):
     """The gradients of one fp32 train step (G = 2) on the card through the
     kernels against the plain versions, from the same masters and batch:
     loss within 1e-5 and each gradient within 1e-3 relative L2. Tiny
-    yi-6b, and full-width yi-6b cut to 2 layers; wq, wk, wv, wi, wg at
-    fan-in H, as chip_smoke.py gates: under the reference's init attention
-    is a hard argmax and two correct backwards differ by percents even in
-    fp32 (PERF.md, ROADMAP §3)."""
+    yi-6b and mamba2, and full width cut to 2 layers; wq, wk, wv, wi, wg
+    (mamba2: in_proj) at fan-in H, as chip_smoke.py gates: under the
+    reference's init attention is a hard argmax and two correct backwards
+    differ by percents even in fp32 (PERF.md, ROADMAP §3)."""
     import dataclasses
     from repro_torch.train.data import DataCfg, SyntheticDataset
     from repro_torch.train.optim import OptimizerCfg
     from repro_torch.train.step import TrainCfg, accumulate_grads, init_train_state, sync_model
 
-    arch = scale_arch(get_config("yi-6b"), scale)
+    arch = scale_arch(get_config(name), scale)
     if layers:
         arch = dataclasses.replace(arch, num_layers=layers)
     cfg = TrainCfg(run=RunCfg(compute_dtype=torch.float32, remat=False), opt=OptimizerCfg(),
@@ -672,16 +750,18 @@ def test_train_step_kernels_match_plain(card, scale, layers):
         .batch_at(0)
     state = init_train_state(arch, cfg, torch.Generator(device=card).manual_seed(0), card)
     with torch.no_grad():
-        for name, master in state.params.items():
-            if name.split(".")[-1] in ("wq", "wk", "wv", "wi", "wg"):
+        for leaf, master in state.params.items():
+            if leaf.split(".")[-1] in ("wq", "wk", "wv", "wi", "wg", "in_proj"):
                 master.mul_((arch.num_layers / arch.d_model) ** 0.5)
     sync_model(state)
     kernels.reset_launch_counts()
     gk, lk, _ = accumulate_grads(state.model, batch, cfg)
     counts = kernels.launch_counts()
     L = arch.num_layers
-    assert counts == {"flash_attention": 2 * L, "flash_attention_bwd": 2 * L,
-                      "rmsnorm": 2 * (2 * L + 1), "rmsnorm_bwd": 2 * (2 * L + 1), "ssd_scan": 0}
+    mixer = 2 * L if name == "yi-6b" else 0
+    assert counts == {"flash_attention": mixer, "flash_attention_bwd": mixer,
+                      "rmsnorm": 2 * (2 * L + 1), "rmsnorm_bwd": 2 * (2 * L + 1),
+                      "ssd_scan": 2 * L - mixer, "ssd_scan_bwd": 2 * L - mixer}
     with _plain_versions():
         gp, lp, _ = accumulate_grads(state.model, batch, cfg)
     assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
@@ -692,11 +772,13 @@ def test_train_step_kernels_match_plain(card, scale, layers):
 
 @contextlib.contextmanager
 def _plain_versions():
-    """The model's flash and RMSNorm calls through their plain versions."""
-    saved = {n: getattr(kernels, n) for n in ("flash_attention", "rmsnorm")}
+    """The model's flash, RMSNorm and SSD calls through their plain
+    versions."""
+    saved = {n: getattr(kernels, n) for n in ("flash_attention", "rmsnorm", "ssd_scan")}
     try:
         kernels.flash_attention = ref.flash_attention_ref
         kernels.rmsnorm = ref.rmsnorm_ref
+        kernels.ssd_scan = ref.ssd_scan_ref
         yield
     finally:
         for n, f in saved.items():
@@ -704,21 +786,22 @@ def _plain_versions():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yi-6b", "mamba2-2.7b"])
 @pytest.mark.parametrize("scale,layers", [("tiny", None), ("full", 2)])
-def test_train_grads_as_close_to_fp64_as_plain(card, scale, layers):
+def test_train_grads_as_close_to_fp64_as_plain(card, name, scale, layers):
     """Under the reference's own init, where fp32 rounding alone moves the
     gradients by percents at full width (hard-argmax attention; PERF.md):
     the fp32 gradients of G = 2 microbatches through the kernels sit as
     close to fp64 of the same weights (plain versions) as the fp32 plain
     versions do: each leaf and the whole gradient within 1.5x the plain
     versions' relative L2 distance, or 1e-4. Tiny yi-6b, and full-width
-    yi-6b cut to 2 layers, as chip_smoke.py gates."""
+    yi-6b cut to 2 layers, as chip_smoke.py gates; the same for mamba2."""
     import dataclasses
     from repro_torch.models.lm import LM
     from repro_torch.train.data import DataCfg, SyntheticDataset
     from repro_torch.train.step import TrainCfg, accumulate_grads
 
-    arch = scale_arch(get_config("yi-6b"), scale)
+    arch = scale_arch(get_config(name), scale)
     if layers:
         arch = dataclasses.replace(arch, num_layers=layers)
     S = 256 if scale == "tiny" else 1024

@@ -186,6 +186,104 @@ def test_ssd_plain_version_equals_decode_recurrence(long_memory):
     np.testing.assert_allclose(_np(out), _np(torch.stack(ys, dim=2)), rtol=3e-4, atol=3e-4)
 
 
+@pytest.mark.parametrize("long_memory", [False, True])
+def test_ssd_plain_version_computes_in_fp64_for_fp64(long_memory):
+    """fp64 inputs: the chunked plain version, through ``kernels.ssd_scan``
+    and ``layers.ssd_scan`` (initial state and final state too), equals an
+    fp64 token-by-token loop of ``ssm_decode_step`` to 1e-12, and returns
+    fp64; an fp32 computation would sit ~1e-6 away."""
+    B, nh, S, hp, N = 1, 2, 96, 16, 32
+    x, dt, A, Bm, Cm = (a.astype(np.float64) for a in _ssd_inputs(5, B, nh, S, hp, N,
+                                                                  long_memory))
+    h0 = np.random.default_rng(6).standard_normal((B, nh, hp, N))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    state, ys = t(h0), []
+    for s in range(S):
+        y, state = ssm_decode_step(t(x[:, :, s]), t(dt[:, :, s]), t(A), t(Bm[:, s]), t(Cm[:, s]),
+                                   state)
+        ys.append(y)
+    want, want_h = torch.stack(ys, dim=2), state
+    assert want.dtype == torch.float64
+    out = ssd_scan(t(x), t(dt), t(A), t(Bm), t(Cm), chunk=32)
+    y, h = layers_ssd_scan(t(x.transpose(0, 2, 1, 3)), t(dt.transpose(0, 2, 1)), t(A), t(Bm),
+                           t(Cm), 32, initial_state=t(h0), return_state=True)
+    y0 = ssd_scan(t(x), t(dt), t(A), t(Bm), t(Cm), chunk=32, initial_state=t(h0))
+    for got, ref_ in ((y0, want), (y.transpose(1, 2), want), (h, want_h)):
+        assert got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), ref_.numpy(), rtol=1e-12, atol=1e-12)
+    # from a zero state
+    state, ys = torch.zeros(B, nh, hp, N, dtype=torch.float64), []
+    for s in range(S):
+        yy, state = ssm_decode_step(t(x[:, :, s]), t(dt[:, :, s]), t(A), t(Bm[:, s]), t(Cm[:, s]),
+                                    state)
+        ys.append(yy)
+    np.testing.assert_allclose(out.numpy(), torch.stack(ys, dim=2).numpy(), rtol=1e-12,
+                               atol=1e-12)
+
+
+def _ssd_scan_ref_as_it_stood(x, dt, A, Bm, Cm, *, chunk=256, initial_state=None,
+                              return_state=False):
+    """``ref.ssd_scan_ref`` before it computed in fp64 for fp64 inputs: fp32
+    whatever the input type. Kept verbatim to hold fp32 and bf16 to it."""
+    import torch.nn.functional as F
+    B, nh, S, hp = x.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    f32 = torch.float32
+    xc = F.pad(x.to(f32), (0, 0, 0, pad)).reshape(B, nh, nc, Q, hp)
+    dtc = F.pad(dt.to(f32), (0, pad)).reshape(B, nh, nc, Q)
+    Bc = F.pad(Bm.to(f32), (0, 0, 0, pad)).reshape(B, nc, Q, N)
+    Cc = F.pad(Cm.to(f32), (0, 0, 0, pad)).reshape(B, nc, Q, N)
+    acs = torch.cumsum(dtc * A.to(f32)[None, :, None, None], dim=-1)
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp((acs[..., :, None] - acs[..., None, :]).masked_fill(~tri, float("-inf")))
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    scores = cb[:, None] * decay * dtc[..., None, :]
+    y = torch.einsum("bhcij,bhcjp->bhcip", scores, xc)
+    del decay, scores
+    w = torch.exp(acs[..., -1:] - acs) * dtc
+    states = torch.einsum("bhcjp,bcjn->bhcpn", xc * w[..., None], Bc)
+    chunk_decay = torch.exp(acs[..., -1])
+    h = (torch.zeros(B, nh, hp, N, dtype=f32, device=x.device) if initial_state is None
+         else initial_state.to(f32))
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = h * chunk_decay[:, :, c, None, None] + states[:, :, c]
+    h_prev = torch.stack(entering, dim=2)
+    y = y + torch.einsum("bcin,bhcpn->bhcip", Cc, h_prev) * torch.exp(acs)[..., None]
+    y = y.reshape(B, nh, nc * Q, hp)[:, :, :S].to(x.dtype)
+    return (y, h) if return_state else y
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("long_memory", [False, True])
+def test_ssd_plain_version_fp32_and_bf16_bits_unchanged(dtype, long_memory):
+    """The fp64 repair leaves fp32 and bf16 as they were, bit for bit: y
+    and the final state of ``kernels.ssd_scan`` and ``layers.ssd_scan``
+    (which took dt, A and the state in fp32 and still does for these types)
+    equal the fp32 path as it stood."""
+    B, nh, S, hp, N = 2, 3, 300, 32, 64
+    x, dt, A, Bm, Cm = _ssd_inputs(9, B, nh, S, hp, N, long_memory)
+    td = DTYPES[dtype][1]
+    tx, tb, tc = (torch.from_numpy(a).to(td) for a in (x, Bm, Cm))
+    tdt, tA = torch.from_numpy(dt), torch.from_numpy(A)
+    h0 = torch.from_numpy(np.random.default_rng(2).standard_normal((B, nh, hp, N),
+                                                                   dtype=np.float32))
+    old = _ssd_scan_ref_as_it_stood(tx, tdt, tA, tb, tc, chunk=64, initial_state=h0,
+                                    return_state=True)
+    new = ssd_scan(tx, tdt, tA, tb, tc, chunk=64, initial_state=h0, return_state=True)
+    lay = layers_ssd_scan(tx.transpose(1, 2), tdt.transpose(1, 2), tA, tb, tc, 64,
+                          initial_state=h0, return_state=True)
+    for got in (new, (lay[0].transpose(1, 2), lay[1])):
+        assert got[0].dtype == td and got[1].dtype == torch.float32
+        assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+    assert torch.equal(ssd_scan(tx, tdt, tA, tb, tc, chunk=64),
+                       _ssd_scan_ref_as_it_stood(tx, tdt, tA, tb, tc, chunk=64))
+
+
 def _rel_l2(a, b):
     a, b = _np(a), _np(b)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
@@ -267,7 +365,8 @@ def test_cpu_calls_launch_no_kernel():
     rmsnorm(torch.ones(4, 8), torch.ones(8))
     ssd_scan(*(torch.from_numpy(a) for a in _ssd_inputs(1, 1, 2, 40, 16, 16)))
     assert kernels.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
-                                       "rmsnorm": 0, "rmsnorm_bwd": 0, "ssd_scan": 0}
+                                       "rmsnorm": 0, "rmsnorm_bwd": 0, "ssd_scan": 0,
+                                       "ssd_scan_bwd": 0}
 
 
 def test_no_silent_cpu_fallback(monkeypatch):

@@ -1,13 +1,14 @@
 """The port's training path against ``repro.train`` / ``repro.models.lm``
-on the CPU, tiny yi-6b (``scale_arch(..., "tiny")``).
+on the CPU, tiny yi-6b and tiny mamba2-2.7b (``scale_arch(..., "tiny")``):
+the module fixture and the end-to-end tests run once for each.
 
 Weights and optimizer states cross as numpy (``repro_torch.convert``);
 batches come from each package's ``SyntheticDataset``, which must agree
 bit for bit.
 
 Tolerances. Gradients are compared under two inits of the same draw:
-the reference's, and the same weights with wq, wk, wv, wi, wg rescaled to
-fan-in H. The reference's init (fan-in from the layer axis, ROADMAP §3)
+the reference's, and the same weights with wq, wk, wv, wi, wg (mamba2:
+in_proj) rescaled to fan-in H. The reference's init (fan-in from the layer axis, ROADMAP §3)
 makes attention a hard argmax (logits of std ~128), which amplifies
 rounding in every gradient upstream of the attention scores. fp32
 compute: the loss at 1e-5 relative; each gradient at 1e-4 relative L2
@@ -60,12 +61,14 @@ from repro_torch.train.data import DataCfg, SyntheticDataset  # noqa: E402
 from repro_torch.train.step import (TrainCfg, init_train_state, make_eval_step,  # noqa: E402
                                     make_train_step)
 
-NAME = "yi-6b"
+NAMES = ["yi-6b", "mamba2-2.7b"]
 DT = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# a per-layer leaf of each arch whose optimizer state the checkpoint tests read
+LEAF = {"yi-6b": ("attn", "wq"), "mamba2-2.7b": ("ssm", "in_proj")}
 
 
-def _archs():
-    return jax_scale_arch(jax_get_config(NAME), "tiny"), scale_arch(get_config(NAME), "tiny")
+def _archs(name):
+    return jax_scale_arch(jax_get_config(name), "tiny"), scale_arch(get_config(name), "tiny")
 
 
 def _rel(a, b):
@@ -100,13 +103,16 @@ def _port_tree(named):
 
 
 def _fan_in_h(params, arch):
-    """wq, wk, wv, wi, wg from the reference's std (1/L)^0.5 (fan-in taken
-    from the layer axis, ROADMAP §3) to (1/H)^0.5: attention that is not a
-    hard argmax."""
+    """wq, wk, wv, wi, wg (mamba2: in_proj) from the reference's std
+    (1/L)^0.5 (fan-in taken from the layer axis, ROADMAP §3) to (1/H)^0.5:
+    attention that is not a hard argmax, SSM inputs of unit scale."""
     f = (arch.num_layers / arch.d_model) ** 0.5
     layers = dict(params["layers"])
-    layers["attn"] = {k: v * f if k != "wo" else v for k, v in layers["attn"].items()}
-    layers["mlp"] = {k: v * f if k != "wo" else v for k, v in layers["mlp"].items()}
+    for group in ("attn", "mlp"):
+        if group in layers:
+            layers[group] = {k: v * f if k != "wo" else v for k, v in layers[group].items()}
+    if "ssm" in layers:
+        layers["ssm"] = dict(layers["ssm"], in_proj=layers["ssm"]["in_proj"] * f)
     return dict(params, layers=layers)
 
 
@@ -115,9 +121,9 @@ INITS = {"reference": lambda params, arch: params, "fan-in-H": _fan_in_h}
 FP32_GRAD_TOL = {"reference": 1e-3, "fan-in-H": 1e-4}
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jarch, arch = _archs()
+@pytest.fixture(scope="module", params=NAMES)
+def setup(request):
+    jarch, arch = _archs(request.param)
     params = jax.tree.map(np.asarray, jlm.init_params(jarch, jax.random.PRNGKey(0),
                                                       jlm.RunCfg()))
     data = DataCfg(seq_len=24, global_batch=4, num_microbatches=2, seed=3)
@@ -282,8 +288,17 @@ def test_global_norm_matches_jax():
 
 # ------------------------------------------------------------------ train step
 
+# The init each arch's G=2 step is compared under. mamba2 under the
+# reference's init: JAX's own fp32 gradient of conv_w[0, 2, 269] sits 16%
+# from fp64 (1.2768e-5 against 1.1032e-5; the port's fp32 reads 1.1141e-5),
+# and at |x| = 121 eps Adam's step still turns on that digit, so the step
+# is compared on fan-in-H weights, where the fp32 gradients agree to ~1e-6.
+STEP_INIT = {"yi-6b": "reference", "mamba2-2.7b": "fan-in-H"}
+
+
 def test_train_step_g2_matches_jax(setup):
     jarch, arch, params, batch = setup
+    params = INITS[STEP_INIT[arch.name]](params, arch)
     kw = dict(peak_lr=1e-3, warmup_steps=0, decay_steps=10)
     jcfg = jstep.TrainCfg(run=jlm.RunCfg(q_chunk=0, remat=False, compute_dtype=jnp.float32),
                           opt=joptim.OptimizerCfg(**kw), num_microbatches=2)
@@ -407,8 +422,9 @@ def test_bf16_moments_do_not_checkpoint(setup, tmp_path):
         t.normal_(generator=torch.Generator().manual_seed(2))
     trees = train_state_to_numpy(state)
     flat = _raw(trees)
-    name = "blocks.0.attn.wq"
-    got = flat["opt_state/m/layers/attn/wq"]
+    group, leaf = LEAF[arch.name]
+    name = f"blocks.0.{group}.{leaf}"
+    got = flat[f"opt_state/m/layers/{group}/{leaf}"]
     assert got.dtype == np.dtype("V2") and got.shape[1:] == tuple(state.opt_state["m"][name].shape)
     np.testing.assert_array_equal(got[0].view(np.uint16),
                                   state.opt_state["m"][name].view(torch.int16).numpy()
@@ -441,7 +457,8 @@ def test_jax_bf16_checkpoint_restores_into_the_port_bit_exactly(setup, tmp_path)
     the port's restore and through the reference's raw arrays alike."""
     jarch, arch, params, batch = setup
     jstate = _jax_state_after_one_step(jarch, params, batch, moment_dtype=jnp.bfloat16)
-    assert jstate["opt_state"]["m"]["layers"]["attn"]["wq"].dtype.name == "bfloat16"
+    group, leaf = LEAF[arch.name]
+    assert jstate["opt_state"]["m"]["layers"][group][leaf].dtype.name == "bfloat16"
     jckpt.save_checkpoint(tmp_path, 1, jstate)
     _, trees, _ = ckpt.restore_latest(tmp_path)
     like = jax.tree.map(np.asarray, jstate)
@@ -474,7 +491,8 @@ def test_port_bf16_checkpoint_writes_the_reference_bytes(setup, tmp_path):
     man = {w: json.loads((tmp_path / w / "step_00000001" / "manifest.json").read_text())
            for w in ("jax", "port")}
     assert man["port"] == man["jax"]
-    assert man["port"]["trees"]["opt_state"]["m/layers/attn/wq"]["dtype"] == "bfloat16"
+    group, leaf = LEAF[arch.name]
+    assert man["port"]["trees"]["opt_state"][f"m/layers/{group}/{leaf}"]["dtype"] == "bfloat16"
     with np.load(tmp_path / "jax" / "step_00000001" / "arrays.npz") as a, \
             np.load(tmp_path / "port" / "step_00000001" / "arrays.npz") as b:
         assert sorted(a.files) == sorted(b.files)
@@ -509,8 +527,9 @@ def test_port_round_trips_bf16_moments(setup, tmp_path):
 
 # ------------------------------------------------------------------ end to end
 
-def test_train_loop_loss_decreases():
-    _, arch = _archs()
+@pytest.mark.parametrize("name", NAMES)
+def test_train_loop_loss_decreases(name):
+    _, arch = _archs(name)
     cfg = TrainCfg(run=RunCfg(remat=False),
                    opt=optim.OptimizerCfg(peak_lr=1e-3, warmup_steps=5, decay_steps=40),
                    num_microbatches=2)
@@ -521,8 +540,9 @@ def test_train_loop_loss_decreases():
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.1
 
 
-def test_train_restart_resumes_deterministically(tmp_path):
-    _, arch = _archs()
+@pytest.mark.parametrize("name", NAMES)
+def test_train_restart_resumes_deterministically(tmp_path, name):
+    _, arch = _archs(name)
     cfg = TrainCfg(run=RunCfg(remat=False),
                    opt=optim.OptimizerCfg(peak_lr=1e-3, warmup_steps=2, decay_steps=20),
                    num_microbatches=1)
@@ -540,8 +560,9 @@ def test_train_restart_resumes_deterministically(tmp_path):
         torch.testing.assert_close(resumed.params[n], p, rtol=1e-4, atol=1e-5)
 
 
-def test_scaled_down_arch_is_the_reference_one():
-    jarch, arch = _archs()
+@pytest.mark.parametrize("name", NAMES)
+def test_scaled_down_arch_is_the_reference_one(name):
+    jarch, arch = _archs(name)
     assert dataclasses.asdict(jarch) == dataclasses.asdict(arch)
 
 
@@ -584,8 +605,9 @@ def test_run_with_restart_matches_the_reference():
     assert state == list(range(10)) and info == {"restarts": 2, "final_step": 10}
 
 
-def test_main_runs_on_the_cpu(capsys):
+@pytest.mark.parametrize("name", NAMES)
+def test_main_runs_on_the_cpu(capsys, name):
     from repro_torch.launch.train import main
-    assert main(["--arch", "yi-6b", "--scale", "tiny", "--steps", "3", "--global-batch", "4",
+    assert main(["--arch", name, "--scale", "tiny", "--steps", "3", "--global-batch", "4",
                  "--seq-len", "16", "--device", "cpu"]) == 0
     assert "done: loss" in capsys.readouterr().out
