@@ -18,9 +18,10 @@ Phases, each of which fails the run by raising:
   4. after each model's path, time its kernels beside their bound, their
      plain version and one PyTorch library call where there is one, and
      time prefill and decode;
-  5. hold the backward kernels (flash attention, RMSNorm, the SSD scan)
-     against their plain backwards (``kernels/ref.py``), each call repeated
-     for the same bits;
+  5. hold the backward kernels (flash attention, RMSNorm, the SSD scan on
+     both its paths: wgmma for bf16 at hp 64 / N 64, 128, and the FMA
+     kernel, which also runs each of those cases) against their plain
+     backwards (``kernels/ref.py``), each call repeated for the same bits;
   6. train full-width yi-6b cut to 16 of its 32 layers, then full-width
      mamba2-2.7b at all 64 (fp32 masters and Adam moments, bf16 compute,
      microbatch 1 x 2048 tokens, G = 2) through the port's entry points:
@@ -30,7 +31,8 @@ Phases, each of which fails the run by raising:
      (yi-6b at 4 layers there), 10 ``make_train_step`` steps on one batch
      whose loss must fall, the first with its launches counted exactly,
      then the train step's time, tokens/s and peak memory and the backward
-     kernels' times.
+     kernels' times (the SSD backward's wgmma path beside its FMA kernel,
+     which it must beat).
 The last line is one JSON object with ``"ok": true`` and the device. It
 needs a CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -126,8 +128,10 @@ SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu"
                            "src/repro/kernels/rmsnorm.py:24"),
            "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan.py:65"),
-           "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+           "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd_wgmma.cu",
                             "src/repro/kernels/ssd_scan.py:65")}
+# the SSD backward's other path (fp32, and bf16 off the wgmma shapes)
+SSD_BWD_FMA_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
 
 
 def log(*args):
@@ -155,6 +159,7 @@ def phase_build():
     log_ssd_wgmma_resources()
     log_bwd_resources()
     log_ssd_bwd_resources()
+    log_ssd_bwd_wgmma_resources()
 
 
 def log_ssd_wgmma_resources():
@@ -195,6 +200,27 @@ def log_ssd_bwd_resources():
                 f"{smem} bytes dynamic shared memory, {ctas} CTAs an SM")
             if ctas < 1:
                 raise AssertionError(f"{name}<hp={hp},N={N}> does not fit on an SM")
+
+
+def log_ssd_bwd_wgmma_resources():
+    """Registers, spills (local memory), dynamic shared memory and CTAs an
+    SM of the wgmma SSD backward's five kernels at N 64 and 128, from the
+    runtime; fails on a spill, or if a CTA does not fit on an SM."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library()
+    for N in (64, 128):
+        info = (ctypes.c_int * 20)()
+        build.check(lib.ssd_scan_bwd_wgmma_info(N, info), "ssd_scan_bwd_wgmma_info")
+        for k, name in enumerate(("ssd_cb<transposed too>", "ssd_bwd_segment_ends",
+                                  "ssd_bwd_fold", "ssd_bwd_chunk", "ssd_bwd_sums")):
+            regs, local, smem, ctas = info[4 * k:4 * k + 4]
+            log(f"[build] {name}<N={N}>: {regs} registers, {local} bytes local (spills), "
+                f"{smem} bytes dynamic shared memory, {ctas} CTAs an SM")
+            if local:
+                raise AssertionError(f"{name}<N={N}> spills {local} bytes a thread")
+            if ctas < 1:
+                raise AssertionError(f"{name}<N={N}> does not fit on an SM")
 
 
 def log_bwd_resources():
@@ -866,9 +892,11 @@ def _flash_bwd_case(name, q, k, v, window, do=None):
     return max(errs)
 
 
-def _ssd_bwd_case(name, chunk, x, dt, A, Bm, Cm, initial_state=None, d_final=None):
+def _ssd_bwd_case(name, chunk, x, dt, A, Bm, Cm, initial_state=None, d_final=None, fma=False):
     """The SSD backward kernel against the plain backward in fp32 on the same
-    inputs (the plain one at its own ``chunk``), each output through
+    inputs (the plain one at its own ``chunk``): the ``bwd_kernel_path``
+    kernel through ``ssd_scan_bwd``, or with ``fma`` the FMA kernel whatever
+    the path (``launch_bwd_fma``, not counted). Each output through
     ``_bwd_gate``: the fp32 outputs (all six of an fp32 call; ddt, dA and
     d_initial of a bf16 one) within relative L2 SSD_F32_REL_L2, which equals
     ``_bwd_gate``'s fp32 limit; bf16 dx, dBm and dCm within BF16_LIMITS. dA
@@ -878,11 +906,13 @@ def _ssd_bwd_case(name, chunk, x, dt, A, Bm, Cm, initial_state=None, d_final=Non
     largest max abs error of dx, dBm and dCm."""
     from repro_torch.kernels import ssd_scan_bwd
     from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan import launch_bwd_fma
     assert SSD_F32_REL_L2 == 1e-4       # _bwd_gate's fp32 limit
     gen = torch.Generator(device="cuda").manual_seed(x.shape[2])
     dy = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
-    got = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state, d_final)
-    again = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state, d_final)
+    fn = launch_bwd_fma if fma else ssd_scan_bwd
+    got = fn(x, dt, A, Bm, Cm, dy, initial_state, d_final)
+    again = fn(x, dt, A, Bm, Cm, dy, initial_state, d_final)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{name}: two backward calls differ")
@@ -918,34 +948,51 @@ def ssd_bwd_bound(x, dt, A, Bm, Cm, dtype):
 
 
 def phase_ssd_bwd_parity():
-    """The SSD backward kernel against its plain backward, fp32 and bf16:
+    """The SSD backward against its plain backward, fp32 and bf16:
     SSD_CASES and SSD_WGMMA_CASES (S 1 to 2000 around the 64-token chunks),
     each with the tests' draw and the long-memory one; mamba2's training
     shape and an hp 64 / N 16 case in the model's layout (x, Bm, Cm column
     slices of one buffer, dt a [B,nh,S] view) with both draws; an
-    initial_state with a final-state gradient at both shapes."""
+    initial_state with a final-state gradient at both shapes. bf16 at hp 64
+    / N 64, 128 runs on the wgmma path, and each such case runs again on
+    the FMA kernel, as every case did before the wgmma path existed.
+    Returns the max abs errors at the training shape, long-memory draw:
+    {("ssd_scan_bwd", dtype): err} and {("ssd_scan_bwd fma", bf16): err}."""
+    from repro_torch.kernels.ssd_scan import bwd_kernel_path
     gen = torch.Generator(device="cuda").manual_seed(19)
     errs = {}
+
+    def case(tag, dtype, B, nh, S, hp, N, chunk, *inputs, **state):
+        paths = ([False, True] if bwd_kernel_path(dtype, hp, N) == "wgmma" else [False])
+        out = {}
+        for fma in paths:
+            label = "fma" if fma or len(paths) == 1 else "wgmma"
+            out[label] = _ssd_bwd_case(f"ssd_bwd [{label}] {tag}", chunk, *inputs, fma=fma,
+                                       **state)
+        return out
+
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         for B, nh, S, hp, N, chunk in SSD_CASES + [c + (256,) for c in SSD_WGMMA_CASES]:
             for long_memory in (False, True):
-                _ssd_bwd_case(f"ssd_bwd {tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N})"
-                              f"{' long-memory' if long_memory else ''}", chunk,
-                              *_ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory))
+                case(f"{tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N})"
+                     f"{' long-memory' if long_memory else ''}", dtype, B, nh, S, hp, N, chunk,
+                     *_ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory))
         for B, nh, S, hp, N in (SSD_BWD_N16, SSD_BWD_MAIN):
             for long_memory in (False, True):
-                err = _ssd_bwd_case(f"ssd_bwd {tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N}) "
-                                    f"[B,S,.] views{' long-memory' if long_memory else ''}", 256,
-                                    *_ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory, True))
+                got = case(f"{tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N}) [B,S,.] views"
+                           f"{' long-memory' if long_memory else ''}", dtype, B, nh, S, hp, N, 256,
+                           *_ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory, True))
                 if (B, nh, S, hp, N) == SSD_BWD_MAIN and long_memory:
-                    errs[("ssd_scan_bwd", dtype)] = err
+                    errs[("ssd_scan_bwd", dtype)] = got.get("wgmma", got["fma"])
+                    if dtype == torch.bfloat16:
+                        errs[("ssd_scan_bwd fma", dtype)] = got["fma"]
             h0 = torch.randn(B, nh, hp, N, generator=gen, device="cuda")
             d_final = torch.randn(B, nh, hp, N, generator=gen, device="cuda")
-            _ssd_bwd_case(f"ssd_bwd {tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N}) [B,S,.] views "
-                          f"long-memory, initial_state and d_final", 256,
-                          *_ssd_inputs(gen, B, nh, S, hp, N, dtype, True, True),
-                          initial_state=h0, d_final=d_final)
+            case(f"{tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N}) [B,S,.] views long-memory, "
+                 f"initial_state and d_final", dtype, B, nh, S, hp, N, 256,
+                 *_ssd_inputs(gen, B, nh, S, hp, N, dtype, True, True),
+                 initial_state=h0, d_final=d_final)
     return errs
 
 
@@ -1392,20 +1439,29 @@ def times_train_kernels(gen):
 
 def times_ssd_bwd_kernel(gen):
     """(d) The SSD backward at mamba2's training shape, bf16, in the model's
-    layout (x, Bm, Cm column slices of one buffer, dt a [B,nh,S] view),
-    beside its bound and its plain backward. No single PyTorch call
-    computes it, so there is no library time."""
+    layout (x, Bm, Cm column slices of one buffer, dt a [B,nh,S] view):
+    the wgmma path (``ssd_scan_bwd``) beside its bound and its plain
+    backward, and the FMA kernel on the same inputs (``launch_bwd_fma``,
+    under "paths"). No single PyTorch call computes it, so there is no
+    library time."""
     from repro_torch.kernels import ssd_scan_bwd
     from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan import launch_bwd_fma
     B, nh, S, hp, N = SSD_BWD_MAIN
     x, dt, A, Bm, Cm = _ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, True, True)
     dy = _randn(gen, B, S, nh, hp, dtype=torch.bfloat16).transpose(1, 2)
     bound, by = ssd_bwd_bound(x, dt, A, Bm, Cm, torch.bfloat16)
-    row = dict(name="ssd_scan_bwd", ms=time_device(lambda: ssd_scan_bwd(x, dt, A, Bm, Cm, dy)),
+    ms = time_device(lambda: ssd_scan_bwd(x, dt, A, Bm, Cm, dy))
+    fma_ms = time_device(lambda: launch_bwd_fma(x, dt, A, Bm, Cm, dy))
+    row = dict(name="ssd_scan_bwd", ms=ms,
                plain_ms=time_device(lambda: ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy), n=3, reps=3),
-               library_ms=None, bound_ms=bound, bound_by=by,
+               library_ms=None, bound_ms=bound, bound_by=by, fma_ms=fma_ms,
                shape=f"x{list(x.shape)} B/C{list(Bm.shape)} bf16, dt fp32, views")
-    log(f"[time] ssd_scan_bwd: {100 * bound / row['ms']:.1f}% of the bound")
+    log(f"[time] ssd_scan_bwd: wgmma {ms:.4f} ms ({100 * bound / ms:.1f}% of the bound), "
+        f"fma {fma_ms:.4f} ms ({100 * bound / fma_ms:.1f}%); fma / wgmma = {fma_ms / ms:.2f}")
+    if not ms < fma_ms:
+        raise AssertionError(f"ssd_scan_bwd: the wgmma path ({ms:.4f} ms) is not faster than the "
+                             f"FMA kernel ({fma_ms:.4f} ms) at {SSD_BWD_MAIN}")
     return row
 
 
@@ -1429,13 +1485,23 @@ def phase_train(total):
 
 
 def kernel_line(rows, errs, total):
+    """The kernels line: one entry a kernel of the main path. The SSD
+    backward's entry lists its FMA path under "paths" (the same shape and
+    inputs; the main path runs the wgmma one)."""
     out = []
     for r in rows:
         src, replaces = SOURCES[r["name"]]
-        out.append({"name": r["name"], "route": "cuda", "source": src, "replaces": replaces,
-                    "launches": total[r["name"]], "max_abs_err": errs[(r["name"], torch.bfloat16)],
-                    "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        entry = {"name": r["name"], "route": "cuda", "source": src, "replaces": replaces,
+                 "launches": total[r["name"]], "max_abs_err": errs[(r["name"], torch.bfloat16)],
+                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if r["name"] == "ssd_scan_bwd":
+            entry["paths"] = [
+                {"path": "wgmma", "source": src, "ms": r["ms"],
+                 "max_abs_err": errs[("ssd_scan_bwd", torch.bfloat16)]},
+                {"path": "fma", "source": SSD_BWD_FMA_SOURCE, "ms": r["fma_ms"],
+                 "max_abs_err": errs[("ssd_scan_bwd fma", torch.bfloat16)]}]
+        out.append(entry)
     return out
 
 
@@ -1461,17 +1527,31 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 references in full fp32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    mark = [t0]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f"[phase] {name}: {now - mark[0]:.1f} s")
+        mark[0] = now
+
     phase_build()
+    phase_done("build")
     errs = phase_parity()
+    phase_done("forward parity")
     errs.update(phase_bwd_parity())
+    phase_done("flash and RMSNorm backward parity")
     errs.update(phase_ssd_bwd_parity())
+    phase_done("SSD backward parity")
     total = {}
     # yi-6b: decode after a short prompt, and at the prefill's context in a
     # 2,048-token cache (decode attention reads pos + 1 slots)
     rows = run_model("yi-6b", 64, 32, total, times_attn_kernels, ((40, 1), (2048, 1984)))
+    phase_done("yi-6b serving")
     # mamba2-2.7b: decode cost does not depend on the context (a fixed state)
     rows += run_model("mamba2-2.7b", 300, 8, total, times_ssm_kernels, ((40, 1),))
+    phase_done("mamba2-2.7b serving")
     rows += phase_train(total)
+    phase_done("training")
     for name, n in total.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")

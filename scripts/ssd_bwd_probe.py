@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""The SSD scan's backward kernel on one NVIDIA card, at mamba2-2.7b's
+"""The SSD scan's backward kernels on one NVIDIA card, at mamba2-2.7b's
 training shape.
 
-    python3 scripts/ssd_bwd_probe.py [--quick]
+    python3 scripts/ssd_bwd_probe.py [--quick] [--sweep]
 
-Builds the kernels, prints the backward's registers, spills and shared
-memory (``-Xptxas -v`` and the runtime), holds it against the plain
+Builds the kernels, prints the backwards' registers, spills and shared
+memory (``-Xptxas -v`` and the runtime), holds both paths against the plain
 backward on ``chip_smoke.py``'s SSD backward cases and gates, then times
-(median of 5 x 20 launches, CUDA events) the backward at x [1,80,2048,64],
-N 128 in the model's layout, bf16 and fp32, beside its bound, the plain
-backward and the forward, and its device time by launch (a) to (d)
-(``torch.profiler``). ``--quick`` stops after the parity checks. Prints
-the card's name and power limit. Imports no JAX.
+(median of 5 x 20 launches, CUDA events) at x [1,80,2048,64], N 128 in the
+model's layout: the wgmma path (bf16) and the FMA kernel on the same
+inputs (bf16 and fp32), beside the bound, the plain backward and the
+forward, with each path's device time by launch (``torch.profiler``) and
+the wgmma path's scratch bytes. ``--sweep`` also times the wgmma path at
+each (chunks per segment, heads per group) around ``bwd_plan``'s choice, the
+data ``bwd_plan``'s cost model is fitted to. ``--quick`` stops after the
+parity checks. Prints the card's name and power limit. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -28,28 +31,52 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from chip_smoke import (SSD_BWD_MAIN, _ssd_inputs, log, log_ssd_bwd_resources,  # noqa: E402
-                        phase_ssd_bwd_parity, ssd_bwd_bound, time_device)
+                        log_ssd_bwd_wgmma_resources, phase_ssd_bwd_parity, ssd_bwd_bound,
+                        time_device)
 
-LAUNCHES = ("ssd_bwd_states", "ssd_bwd_dstates", "ssd_bwd_chunk", "ssd_bwd_sum_bc",
-            "ssd_bwd_sum_da")
+LAUNCHES = ("ssd_cb_kernel", "ssd_bwd_segment_ends", "ssd_bwd_fold", "ssd_bwd_chunk_kernel",
+            "ssd_bwd_sums", "ssd_bwd_states", "ssd_bwd_dstates", "ssd_bwd_chunk",
+            "ssd_bwd_sum_bc", "ssd_bwd_sum_da")
 
 
-def times(gen):
-    from repro_torch.kernels import ssd_scan, ssd_scan_bwd
+def times(gen, sweep):
+    from repro_torch.kernels import build, ssd_scan, ssd_scan_bwd
     from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan import (_bwd_outputs, _launch_bwd_wgmma, bwd_plan,
+                                              bwd_scratch_bytes, launch_bwd_fma)
     B, nh, S, hp, N = SSD_BWD_MAIN
     for dtype in (torch.bfloat16, torch.float32):
         x, dt, A, Bm, Cm = _ssd_inputs(gen, B, nh, S, hp, N, dtype, True, True)
         dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
         bound, by = ssd_bwd_bound(x, dt, A, Bm, Cm, dtype)
-        ms = [time_device(lambda: ssd_scan_bwd(x, dt, A, Bm, Cm, dy)) for _ in range(2)]
+        tag = str(dtype).replace("torch.", "")
         fwd = time_device(lambda: ssd_scan(x, dt, A, Bm, Cm))
         plain = time_device(lambda: ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy), n=3, reps=3)
-        tag = str(dtype).replace("torch.", "")
-        log(f"[time] ssd_scan_bwd {tag} x{list(x.shape)} N {N} views: {ms[0]:.4f}, {ms[1]:.4f} ms;"
-            f" bound {bound:.4f} ms ({by}, {100 * bound / min(ms):.1f}%); plain {plain:.4f} ms;"
-            f" forward {fwd:.4f} ms")
-        kernel_split(lambda: ssd_scan_bwd(x, dt, A, Bm, Cm, dy), tag)
+        fma = lambda: launch_bwd_fma(x, dt, A, Bm, Cm, dy)
+        runs = {"fma": fma}
+        if dtype == torch.bfloat16:
+            runs = {"wgmma": lambda: ssd_scan_bwd(x, dt, A, Bm, Cm, dy), "fma": fma}
+        for name, fn in runs.items():
+            ms = [time_device(fn) for _ in range(2)]
+            log(f"[time] ssd_scan_bwd [{name}] {tag} x{list(x.shape)} N {N} views: {ms[0]:.4f}, "
+                f"{ms[1]:.4f} ms; bound {bound:.4f} ms ({by}, {100 * bound / min(ms):.1f}%); "
+                f"plain {plain:.4f} ms; forward {fwd:.4f} ms")
+            kernel_split(fn, f"[{name}] {tag}")
+        if dtype != torch.bfloat16:
+            continue
+        plan = bwd_plan(B, nh, S, build.sm_count(0), N)
+        log(f"[plan] bwd_plan{(B, nh, S)} = (chunks per segment, heads per group) {plan}; "
+            f"scratch {bwd_scratch_bytes(B, nh, S, N, *plan) / 1e6:.1f} MB; FMA path "
+            f"{(4 * B * nh * S * N * 2 + 2 * 4 * B * nh * -(-S // 64) * hp * N) / 1e6:.1f} MB")
+        if sweep:
+            out = _bwd_outputs(x, dt, Bm)
+            for seg in (1, 2, 4, 8, 16, 32):
+                for group in (1, 2, 3, 4, 5, 8, 10, 16, 20):
+                    fn = lambda: _launch_bwd_wgmma(x, dt, A, Bm, Cm, dy, None, None, out,
+                                                   (seg, group))
+                    ms = time_device(fn, n=10, reps=3)
+                    log(f"[sweep] seg {seg} group {group}: {ms:.4f} ms, scratch "
+                        f"{bwd_scratch_bytes(B, nh, S, N, seg, group) / 1e6:.1f} MB")
 
 
 def kernel_split(fn, tag, calls=10):
@@ -76,6 +103,8 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true", help="stop after the parity checks")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time the wgmma path at each (segment length, head group)")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import build
@@ -91,9 +120,10 @@ def main() -> int:
         elif "error" in line or "warning" in line:
             log(f"[build] {line.strip()}")
     log_ssd_bwd_resources()
+    log_ssd_bwd_wgmma_resources()
     phase_ssd_bwd_parity()
     if not args.quick:
-        times(torch.Generator(device="cuda").manual_seed(5))
+        times(torch.Generator(device="cuda").manual_seed(5), args.sweep)
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                        capture_output=True, text=True, check=True).stdout.strip())
     return 0

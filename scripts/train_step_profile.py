@@ -9,7 +9,8 @@ mamba2-2.7b at all 64; fp32 masters and Adam moments, bf16 compute, G = 2
 microbatches of 1 x 2048 tokens, remat off), runs one warm-up step, then 2
 steps under ``torch.profiler``. Prints the host-clock step time, the
 device time by kernel (grouped: the port's kernels, each ``flash_bwd_*``
-and ``ssd_bwd_*`` launch, GEMMs, elementwise, other), the share of the
+and ``ssd_bwd_*`` launch of either SSD backward path, GEMMs, elementwise,
+other), the share of the
 step the device was idle, and the card's name and power limit. Imports no
 JAX.
 """
@@ -29,10 +30,20 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-GROUPS = (("ssd_bwd_states", "ssd bwd: (a) entering states"),
-          ("ssd_bwd_dstates", "ssd bwd: (b) state gradients"),
-          ("ssd_bwd_chunk", "ssd bwd: (c) in-chunk gradients"),
-          ("ssd_bwd_sum", "ssd bwd: (d) partials' sums"),
+# matched in order, lower case: the first key in a kernel's name names its group
+# (names come demangled or mangled: the backward's C.B^T is ssd_cb_kernel<N, true>)
+GROUPS = (("ssd_cb_kernel<128, true>", "ssd bwd wgmma: C.B^T, B.C^T"),
+          ("ssd_cb_kernel<64, true>", "ssd bwd wgmma: C.B^T, B.C^T"),
+          ("ssd_cb_kernelili128elb1e", "ssd bwd wgmma: C.B^T, B.C^T"),
+          ("ssd_cb_kernelili64elb1e", "ssd bwd wgmma: C.B^T, B.C^T"),
+          ("ssd_bwd_segment_ends", "ssd bwd wgmma: segment ends"),
+          ("ssd_bwd_fold", "ssd bwd wgmma: fold"),
+          ("ssd_bwd_chunk_kernel", "ssd bwd wgmma: in-chunk gradients"),
+          ("ssd_bwd_sums", "ssd bwd wgmma: group and dA sums"),
+          ("ssd_bwd_states", "ssd bwd fma: (a) entering states"),
+          ("ssd_bwd_dstates", "ssd bwd fma: (b) state gradients"),
+          ("ssd_bwd_chunk", "ssd bwd fma: (c) in-chunk gradients"),
+          ("ssd_bwd_sum", "ssd bwd fma: (d) partials' sums"),
           ("ssd_", "ssd forward"),
           ("flash_bwd_delta", "flash bwd: D = rowsum(dO o)"), ("flash_bwd_dkdv", "flash bwd: dK dV"),
           ("flash_bwd_dq", "flash bwd: dQ"), ("flash_bwd_sum", "flash bwd: dK dV partials' sum"),

@@ -56,6 +56,8 @@ SIGNATURES = {
     "ssd_scan_wgmma_info": (_I, [_I, ctypes.POINTER(ctypes.c_int)]),
     "ssd_scan_bwd_launch": (_I, [_P] * 19 + [_LL] + [_I] * 6 + [_P]),
     "ssd_scan_bwd_info": (_I, [_I, _I, ctypes.POINTER(ctypes.c_int)]),
+    "ssd_scan_bwd_wgmma_launch": (_I, [_P] * 20 + [_LL] + [_I] * 6 + [_P]),
+    "ssd_scan_bwd_wgmma_info": (_I, [_I, ctypes.POINTER(ctypes.c_int)]),
     "cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

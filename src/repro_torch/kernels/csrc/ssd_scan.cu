@@ -16,7 +16,8 @@
 // across heads, are ~21 GFLOP, 0.022 ms on the bf16 tensor cores.
 //
 // Design: three launches on the caller's stream.
-//  1. ssd_cb_kernel, grid (chunk, b): C.B^T of each 64-token chunk, once
+//  1. ssd_cb_kernel (ssd_common.cuh, shared with the backward), grid
+//     (chunk, b): C.B^T of each 64-token chunk, once
 //     for all heads (wgmma m64n64, K = N, fp32 sums), into fp32 scratch
 //     [B, nc, 64 x 64] kept in the order of the wgmma accumulator (float4
 //     q of thread tid at q*128 + tid), so the scan reads it back coalesced
@@ -54,18 +55,10 @@
 //  The cumulative sums, exponentials, the state and every sum stay fp32;
 //  only product operands (x o w; P and h as hi + lo pairs) are bf16.
 //  Shared memory: the scan 98 KB (N 128), so two CTAs share an SM.
-#include <math.h>
-
-#include "hopper.cuh"
+#include "ssd_common.cuh"
 
 namespace repro_torch {
 namespace {
-
-constexpr int kQ = 64;                 // tokens per chunk
-constexpr int kHP = 64;                // head dim served
-constexpr int kThreads = 128;          // one warpgroup
-constexpr int kBox = kQ * 128;         // a [64 rows][64 bf16] box: 8 KB
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory from a 1024-byte aligned base (the 128-byte swizzle repeats
 // every 8 rows of 128 bytes). Both kernels: a 2-slot ring of x [64 tokens]
@@ -96,58 +89,6 @@ struct Params {
   long long dt_sb, dt_sh, dt_ss, y_sb, y_sh, y_ss;
   int B, nh, S, nc, seg_chunks, n_seg;
 };
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float lo, float hi) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-  return pack_bf16(f.x * lo, f.y * hi);
-}
-
-// a ~ hi + lo and b likewise, as bf16 pairs: hi = bf16(v), lo = bf16(v - hi)
-__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 f = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(a - f.x, b - f.y);
-}
-
-// dt of tokens r0 + 2 lane and r0 + 2 lane + 1, 0 at or past S
-__device__ __forceinline__ void load_dt(const float* dtg, long long ss, int r0, int S, int lane,
-                                        float& d0, float& d1) {
-  const int t0 = r0 + 2 * lane;
-  d0 = t0 < S ? __ldg(dtg + t0 * ss) : 0.f;
-  d1 = t0 + 1 < S ? __ldg(dtg + (t0 + 1) * ss) : 0.f;
-}
-
-// One warp: a = dt * A over the chunk, its inclusive cumsum acs, the state
-// weights w_j = exp(acs_last - acs_j) dt_j and exp(acs_i); two rows a lane.
-__device__ __forceinline__ void scan_chunk(float d0, float d1, float A, int lane, float* sDt,
-                                           float* sAcs, float* sW, float* sEa) {
-  const float a0 = d0 * A, a1 = d1 * A;
-  float incl = a0 + a1;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += t;
-  }
-  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = 0.f;
-  const float c0 = excl + a0, c1 = c0 + a1;
-  const float last = __shfl_sync(0xffffffffu, c1, 31);
-  sDt[2 * lane] = d0;
-  sDt[2 * lane + 1] = d1;
-  sAcs[2 * lane] = c0;
-  sAcs[2 * lane + 1] = c1;
-  sW[2 * lane] = expf(last - c0) * d0;
-  sW[2 * lane + 1] = expf(last - c1) * d1;
-  sEa[2 * lane] = expf(c0);
-  sEa[2 * lane + 1] = expf(c1);
-}
 
 // The A operand of the state update: (x o w)^T, [hp rows][16 tokens] per
 // k step, from the swizzled x tile with ldmatrix.trans (lane: matrix
@@ -207,49 +148,7 @@ __device__ __forceinline__ void init_barriers(uint32_t full) {
   __syncthreads();
 }
 
-// ---- 1. C.B^T per (b, chunk) ----
-template <int N>
-__global__ void __launch_bounds__(kThreads)
-ssd_cb_kernel(const __grid_constant__ CUtensorMap tb, const __grid_constant__ CUtensorMap tc,
-              float* cb, int nc) {
-  constexpr int kNB = N / 64;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sC = base, sB = base + kNB * kBox, full = sB + kNB * kBox;
-  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  if (tid == 0) {
-    mbar_init(full, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(full, 2 * kNB * kBox);
-#pragma unroll
-    for (int i = 0; i < kNB; ++i) {
-      tma_load(sC + i * kBox, &tc, full, 64 * i, c * kQ, b);
-      tma_load(sB + i * kBox, &tb, full, 64 * i, c * kQ, b);
-    }
-  }
-  mbar_wait_or_trap(full, 0);
-  __syncwarp();
-  float d[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
-  const uint64_t dc = sw128_desc(sC, 16, 1024), db = sw128_desc(sB, 16, 1024);
-  fence_regs(d);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    const uint32_t step = ((kk / 4) * kBox + (kk % 4) * 32) >> 4;
-    wgmma_ss_n64(d, dc + step, db + step, kk > 0);
-  }
-  wgmma_commit();
-  wgmma_wait();
-  fence_regs(d);
-  float4* out = reinterpret_cast<float4*>(cb) + static_cast<size_t>(b * nc + c) * 8 * kThreads + tid;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) out[q * kThreads] = make_float4(d[4 * q], d[4 * q + 1], d[4 * q + 2], d[4 * q + 3]);
-}
+// ---- 1. C.B^T per (b, chunk): ssd_cb_kernel<N, false> (ssd_common.cuh) ----
 
 // ---- 2. end state of each segment but the last, from a zero state ----
 template <int N>
@@ -553,10 +452,9 @@ ssd_chunk_scan_kernel(const __grid_constant__ CUtensorMap tx, const __grid_const
   }
 }
 
-template <int N> constexpr int cb_smem_bytes() { return 2 * (N / 64) * kBox + 16 + 1024; }
-
 template <int N> int set_smem_limits() {
-  cudaError_t e = cudaFuncSetAttribute(ssd_cb_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(ssd_cb_kernel<N, false>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        cb_smem_bytes<N>());
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(ssd_segment_states_kernel<N>,
@@ -572,7 +470,8 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tb, const CUtensorMap& tc, 
            cudaStream_t stream) {
   int err = set_smem_limits<N>();
   if (err != 0) return err;
-  ssd_cb_kernel<N><<<dim3(p.nc, p.B), kThreads, cb_smem_bytes<N>(), stream>>>(tb, tc, p.cb, p.nc);
+  ssd_cb_kernel<N, false><<<dim3(p.nc, p.B), kThreads, cb_smem_bytes<N>(), stream>>>(tb, tc, p.cb,
+                                                                                    p.nc);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   if (p.n_seg > 1) {
@@ -656,13 +555,13 @@ extern "C" int ssd_scan_wgmma_info(int N, int* out) {
   int err = N == 128 ? set_smem_limits<128>() : set_smem_limits<64>();
   if (err != 0) return err;
   if (N == 128) {
-    err = kernel_info(ssd_cb_kernel<128>, kThreads, cb_smem_bytes<128>(), out);
+    err = kernel_info(ssd_cb_kernel<128, false>, kThreads, cb_smem_bytes<128>(), out);
     if (err == 0) err = kernel_info(ssd_segment_states_kernel<128>, kThreads,
                                     Smem<128, false>::kBytes, out + 4);
     if (err == 0) err = kernel_info(ssd_chunk_scan_kernel<128>, kThreads,
                                     Smem<128, true>::kBytes, out + 8);
   } else {
-    err = kernel_info(ssd_cb_kernel<64>, kThreads, cb_smem_bytes<64>(), out);
+    err = kernel_info(ssd_cb_kernel<64, false>, kThreads, cb_smem_bytes<64>(), out);
     if (err == 0) err = kernel_info(ssd_segment_states_kernel<64>, kThreads,
                                     Smem<64, false>::kBytes, out + 4);
     if (err == 0) err = kernel_info(ssd_chunk_scan_kernel<64>, kThreads,

@@ -186,7 +186,86 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk=256, initial_state=None, return_stat
     return (y, h) if return_state else y
 
 
-def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, chunk=256):
+def _ssd_leaving(dy_c, chunk_decay, d_final):
+    """The gradient of the state leaving each chunk [B,nh,nc,hp,N] and the
+    gradient of the state entering the first, walking the chunks backward
+    from d_final (or zeros), each chunk adding its own ``dy_c``
+    [B,nh,nc,hp,N]: g <- decay g + dy_c."""
+    B, nh, nc, hp, N = dy_c.shape
+    g = (torch.zeros(B, nh, hp, N, dtype=dy_c.dtype, device=dy_c.device) if d_final is None
+         else d_final.to(dy_c.dtype))
+    leaving = [None] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = g
+        g = g * chunk_decay[:, :, c, None, None] + dy_c[:, :, c]
+    return torch.stack(leaving, dim=2), g
+
+
+def ssd_bwd_segment_walks(states, dy_c, log_decay, initial_state, d_final, seg_chunks):
+    """The two state walks of the SSD backward as the wgmma kernel splits
+    them (``csrc/ssd_scan_bwd_wgmma.cu``): the chunks cut into segments of
+    ``seg_chunks``; each segment's end state from a zero state and the
+    gradient reaching its start from a zero gradient; those folded over the
+    segments into the state entering each segment (from ``initial_state``)
+    and the gradient leaving it (from ``d_final``); then each segment
+    walked on its own. ``states`` and ``dy_c`` [B,nh,nc,hp,N] are each
+    chunk's own terms, ``log_decay`` [B,nh,nc] its total log-decay. Returns
+    (state entering each chunk, gradient of the state leaving each chunk,
+    gradient of the initial state), which in exact arithmetic equal the
+    serial walks (``_ssd_entering``, ``_ssd_leaving``)."""
+    B, nh, nc, hp, N = states.shape
+    zero = torch.zeros(B, nh, hp, N, dtype=states.dtype, device=states.device)
+    bounds = [(lo, min(nc, lo + seg_chunks)) for lo in range(0, nc, seg_chunks)]
+    decay = torch.exp(log_decay)
+
+    def forward(h, lo, hi, keep=None):
+        for c in range(lo, hi):
+            if keep is not None:
+                keep[c] = h
+            h = h * decay[:, :, c, None, None] + states[:, :, c]
+        return h
+
+    def backward(g, lo, hi, keep=None):
+        for c in reversed(range(lo, hi)):
+            if keep is not None:
+                keep[c] = g
+            g = g * decay[:, :, c, None, None] + dy_c[:, :, c]
+        return g
+
+    seg_decay = [torch.exp(log_decay[:, :, lo:hi].sum(-1))[..., None, None] for lo, hi in bounds]
+    h_in = [zero if initial_state is None else initial_state.to(states.dtype)]
+    for s, (lo, hi) in enumerate(bounds[:-1]):
+        h_in.append(seg_decay[s] * h_in[-1] + forward(zero, lo, hi))
+    d_out = [zero if d_final is None else d_final.to(states.dtype)]
+    for s in reversed(range(1, len(bounds))):
+        d_out.insert(0, seg_decay[s] * d_out[0] + backward(zero, *bounds[s]))
+    entering, leaving = [None] * nc, [None] * nc
+    for s, (lo, hi) in enumerate(bounds):
+        forward(h_in[s], lo, hi, entering)
+        g = backward(d_out[s], lo, hi, leaving)
+        if s == 0:
+            d_initial = g
+    return torch.stack(entering, dim=2), torch.stack(leaving, dim=2), d_initial
+
+
+def sum_head_groups(t, group):
+    """t [B,nh,...] summed over the heads as the wgmma backward sums dB and
+    dC: within each group of ``group`` consecutive heads in head order, then
+    over the groups in order."""
+    parts = []
+    for lo in range(0, t.shape[1], group):
+        acc = t[:, lo]
+        for h in range(lo + 1, min(t.shape[1], lo + group)):
+            acc = acc + t[:, h]
+        parts.append(acc)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, chunk=256,
+                     seg_chunks=None, group=None):
     """The backward of ``ssd_scan_ref``: (its inputs, dy = dL/dy [B,nh,S,hp],
     the forward's ``initial_state`` or None, d_final = dL/d(final state) or
     None) -> (dx, ddt, dA, dBm, dCm, d_initial), each in its input's type,
@@ -206,7 +285,11 @@ def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, 
       d a_m = sum_{k>=m} d acs_k from L, exp(acs_i), w_j and exp(acs_last);
       ddt_j += A d a_j, dA = sum over b and s of dt_j d a_j.
     Padded tail tokens (x = B = C = dt = 0) contribute nothing. Computes in
-    fp32, or fp64 for fp64 inputs."""
+    fp32, or fp64 for fp64 inputs. ``seg_chunks`` and ``group`` take the
+    wgmma kernel's order: the state walks split into segments of that many
+    chunks (``ssd_bwd_segment_walks``), dB and dC summed over head groups
+    (``sum_head_groups``); by default, serial walks and one einsum over the
+    heads."""
     B, nh, S, hp = x.shape
     N = Bm.shape[-1]
     xc, dtc, Bc, Cc, acs = _ssd_chunks(x, dt, A, Bm, Cm, chunk)
@@ -222,18 +305,14 @@ def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, 
     # the state entering each chunk (forward), then the gradient of the
     # state leaving each chunk (reverse)
     states = torch.einsum("bhcjp,bcjn->bhcpn", xc * w[..., None], Bc)
-    h_prev, _ = _ssd_entering(states, chunk_decay, initial_state)
-    del states
     dy_c = torch.einsum("bhcip,bcin->bhcpn", dyc * ea[..., None], Cc)
-    g = (torch.zeros(B, nh, hp, N, dtype=acc, device=x.device) if d_final is None
-         else d_final.to(acc))
-    leaving = [None] * nc
-    for c in reversed(range(nc)):
-        leaving[c] = g
-        g = g * chunk_decay[:, :, c, None, None] + dy_c[:, :, c]
-    dh = torch.stack(leaving, dim=2)                           # [B,nh,nc,hp,N]
-    d_initial = g
-    del dy_c
+    if seg_chunks is None:
+        h_prev, _ = _ssd_entering(states, chunk_decay, initial_state)
+        dh, d_initial = _ssd_leaving(dy_c, chunk_decay, d_final)    # dh [B,nh,nc,hp,N]
+    else:
+        h_prev, dh, d_initial = ssd_bwd_segment_walks(states, dy_c, acs[..., -1], initial_state,
+                                                      d_final, seg_chunks)
+    del states, dy_c
     # intra-chunk products
     G = torch.einsum("bhcip,bhcjp->bhcij", dyc, xc)            # dy_i.x_j
     ldt = decay * dtc[..., None, :]                            # L_ij dt_j
@@ -245,8 +324,12 @@ def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, 
     dx = dx + w[..., None] * r
     u = torch.einsum("bhcpn,bhcip->bhcin", h_prev, dyc)        # h_c^T dy_i
     v = torch.einsum("bhcpn,bhcjp->bhcjn", dh, xc)             # dh_c'^T x_j
-    dC = torch.einsum("bhcij,bcjn->bcin", T, Bc) + torch.einsum("bhci,bhcin->bcin", ea, u)
-    dB = torch.einsum("bhcij,bcin->bcjn", T, Cc) + torch.einsum("bhcj,bhcjn->bcjn", w, v)
+    if group is None:
+        dC = torch.einsum("bhcij,bcjn->bcin", T, Bc) + torch.einsum("bhci,bhcin->bcin", ea, u)
+        dB = torch.einsum("bhcij,bcin->bcjn", T, Cc) + torch.einsum("bhcj,bhcjn->bcjn", w, v)
+    else:
+        dC = sum_head_groups(ea[..., None] * u + torch.einsum("bhcij,bcjn->bhcin", T, Bc), group)
+        dB = sum_head_groups(w[..., None] * v + torch.einsum("bhcij,bcin->bhcjn", T, Cc), group)
     del T
     bv = (Bc[:, None] * v).sum(-1)                             # x_j.(dh_c' B_j)
     col = E.sum(-2)                                            # sum_i E_ij

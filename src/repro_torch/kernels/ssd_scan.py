@@ -12,10 +12,17 @@ Two CUDA paths serve it, picked by (dtype, hp, N) in ``kernel_path``:
 There is no fallback between them: a launch that fails raises.
 
 ``ssd_scan`` is differentiable in every input (``SSDScan``): its backward
-is ``ssd_scan_bwd``, ``csrc/ssd_scan_bwd.cu`` on CUDA tensors (every
-(dtype, hp, N) the forward takes; four launches, one counted) and the
-plain ``ref.ssd_scan_bwd_ref`` on CPU tensors. It saves the forward's
-inputs and recomputes the chunk states.
+is ``ssd_scan_bwd``, the plain ``ref.ssd_scan_bwd_ref`` on CPU tensors and
+on CUDA tensors the kernel ``bwd_kernel_path`` names (one launch counted):
+* ``"wgmma"``, ``csrc/ssd_scan_bwd_wgmma.cu``: bf16 at hp 64 and N 64 or
+  128, the forward's wgmma shapes. Five launches: C.B^T and B.C^T once per
+  (b, chunk), each segment's end state and end gradient from zero, their
+  fold, the in-chunk gradients per (segment, head group, b) on wgmma with
+  dB/dC summed over the group's heads in order, and the fixed-order sums
+  over groups; ``bwd_plan`` picks the segment length and the group.
+* ``"fma"``, ``csrc/ssd_scan_bwd.cu``: fp32 and every other bf16 shape,
+  fp32 FMAs, four launches.
+It saves the forward's inputs and recomputes the chunk states.
 
 Both take strides, so x may be a [B,nh,S,hp] view of the model's
 [B,S,nh,hp] tensor, Bm and Cm column slices of the conv output and dt a
@@ -26,14 +33,16 @@ in x's layout (dense, dims in x's stride order).
 from __future__ import annotations
 
 import ctypes
+import functools
+
 import torch
 
 from . import build
 from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 __all__ = ["ssd_scan", "ssd_scan_bwd", "SSDScan", "check_args", "check_bwd_args", "kernel_path",
-           "bwd_kernel_path", "segment_chunks", "launch_fma", "HEAD_DIMS", "STATE_DIMS",
-           "WGMMA_STATE_DIMS", "KERNEL_CHUNK"]
+           "bwd_kernel_path", "segment_chunks", "bwd_plan", "launch_fma", "launch_bwd_fma",
+           "HEAD_DIMS", "STATE_DIMS", "WGMMA_STATE_DIMS", "KERNEL_CHUNK"]
 
 HEAD_DIMS = (16, 32, 64)           # hp some kernel is instantiated for
 STATE_DIMS = (16, 32, 64, 128)     # ... and N
@@ -114,15 +123,19 @@ def check_args(x, dt, A, Bm, Cm, initial_state=None, return_state=False) -> str:
 
 
 def bwd_kernel_path(dtype: torch.dtype, hp: int, N: int) -> str:
-    """The backward kernel that serves (dtype, hp, N): ``"fma"``
-    (``csrc/ssd_scan_bwd.cu``, fp32 FMAs), for fp32 and bf16 at every
-    (hp, N) in HEAD_DIMS x STATE_DIMS; raises elsewhere."""
+    """The backward kernel that serves (dtype, hp, N): ``"wgmma"``
+    (``csrc/ssd_scan_bwd_wgmma.cu``) for bf16 at hp 64 and N 64 or 128, as
+    the forward's ``kernel_path``; ``"fma"`` (``csrc/ssd_scan_bwd.cu``, fp32
+    FMAs) for fp32 and every other bf16 (hp, N) in HEAD_DIMS x STATE_DIMS;
+    raises elsewhere."""
     if hp not in HEAD_DIMS or N not in STATE_DIMS:
         raise ValueError(f"SSD backward kernel is instantiated for hp in {HEAD_DIMS} and N in "
                          f"{STATE_DIMS}, got hp {hp}, N {N}")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"SSD backward kernel takes float32 or bfloat16, got {dtype}")
-    return "fma"
+    if dtype == torch.bfloat16:
+        return "wgmma" if hp == 64 and N in WGMMA_STATE_DIMS else "fma"
+    if dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"SSD backward kernel takes float32 or bfloat16, got {dtype}")
 
 
 def check_bwd_args(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None) -> str:
@@ -161,6 +174,47 @@ def segment_chunks(B: int, nh: int, S: int, sms: int) -> int:
         if best_cost is None or cost < best_cost:
             best, best_cost = seg, cost
     return best
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(B: int, nh: int, S: int, sms: int, N: int = 128) -> tuple[int, int]:
+    """(chunks per segment, heads per group) of the wgmma backward, from a
+    cost model in microseconds (``BWD_COST``): its in-chunk kernel runs B *
+    n_seg * n_groups CTAs, two to an SM, each over group x seg_chunks
+    (chunk, head) items plus a forward step for each chunk of its segment
+    but the last; each segment boundary moves four [hp, N] fp32 states a
+    head (the segment-ends kernel writes two, the fold reads and writes
+    them, the in-chunk kernel reads them), and each group's dB/dC partial
+    is written and read once. Those bytes are charged at 1 TB/s, which
+    trades some kernel time for scratch: at mamba2-2.7b's training shape
+    (B 1, nh 80, S 2048, N 128, 132 SMs) the sweep in PERF.md read (4, 3)
+    at 0.512 ms with 123 MB of scratch and per-head partials (4, 1) at 0.433
+    ms with 289 MB. Takes the least cost; on a tie the larger group, then
+    the fewer segments. Cached: the wrapper asks on every call."""
+    nc = -(-S // KERNEL_CHUNK)
+    item, step, rate = BWD_COST["item_us"], BWD_COST["step_us"], BWD_COST["bytes_per_us"]
+    state = 4 * 64 * N
+    best, best_key = None, None
+    for seg in sorted({-(-nc // n) for n in range(1, nc + 1)}):
+        n_seg = -(-nc // seg)
+        ends = 8 * state * (n_seg - 1) * nh * B / rate
+        for group in range(1, nh + 1):
+            n_groups = -(-nh // group)
+            if n_groups * group - nh >= group:
+                continue
+            waves = -(-B * n_seg * n_groups // (2 * sms))
+            partials = 2 * n_groups * 2 * B * nc * KERNEL_CHUNK * N * 4 / rate
+            cost = waves * group * (seg * item + (seg - 1) * step) + ends + partials
+            key = (round(cost, 6), -group, n_seg)
+            if best_key is None or key < best_key:
+                best, best_key = (seg, group), key
+    return best
+
+
+# bwd_plan's cost model, fitted to the sweep (PERF.md): one in-chunk (chunk,
+# head) item and one forward state step in a CTA, and the rate at which the
+# plan's scratch bytes are charged
+BWD_COST = {"item_us": 24.0, "step_us": 5.0, "bytes_per_us": 1.0e6}
 
 
 def _strides(x, dt, Bm, Cm, y):
@@ -235,35 +289,26 @@ def _forward(x, dt, A, Bm, Cm, chunk, initial_state, return_state):
     return (y, final) if return_state else y
 
 
-def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, chunk: int = 256):
-    """(the forward's inputs, dy = dL/dy [B,nh,S,hp], the forward's
-    ``initial_state`` or None, d_final = dL/d(final state) or None) ->
-    (dx, ddt, dA, dBm, dCm, d_initial): each in its input's type, dx in x's
-    layout, ddt in dt's, dBm and dCm dense [B,S,N], d_initial fp32
-    [B,nh,hp,N] (the gradient of the state the recurrence starts from).
-    CPU tensors: ``ref.ssd_scan_bwd_ref`` (``chunk`` is its chunk length).
-    CUDA tensors: ``csrc/ssd_scan_bwd.cu``, four launches (the entering
-    states, their gradients, the in-chunk gradients, the fixed-order sums
-    of the per-head dB/dC and per-chunk dA partials), one counted."""
-    if x.device.type == "cpu":
-        return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, initial_state, d_final, chunk=chunk)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"ssd_scan_bwd runs on CUDA or CPU tensors, got {x.device}")
-    check_bwd_args(x, dt, A, Bm, Cm, dy, initial_state, d_final)
+def _bwd_strides(x, dt, Bm, Cm, dy, dx, ddt):
+    return (ctypes.c_longlong * 19)(*x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
+                                    *Cm.stride()[:2], *dy.stride()[:3], *dx.stride()[:3],
+                                    *ddt.stride())
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def launch_bwd_fma(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, out=None):
+    """Launch the FMA backward on checked CUDA arguments with B, S > 0,
+    whatever ``bwd_kernel_path`` says (``ssd_scan_bwd`` calls it on its
+    "fma" path; timing scripts and chip_smoke.py call it to hold the wgmma
+    path against it). Not counted. Returns (dx, ddt, dA, dBm, dCm,
+    d_initial), or fills ``out``, a tuple of such tensors."""
     B, nh, S, hp = x.shape
     N = Bm.shape[-1]
+    dx, ddt, dA, dBm, dCm, d_initial = out if out is not None else _bwd_outputs(x, dt, Bm)
     f32 = dict(dtype=torch.float32, device=x.device)
-    dx, ddt = torch.empty_like(x), torch.empty_like(dt)    # dense, in x's / dt's dim order
-    dA = torch.empty(nh, **f32)
-    dBm, dCm = (torch.empty(B, S, N, dtype=x.dtype, device=x.device) for _ in range(2))
-    d_initial = torch.empty(B, nh, hp, N, **f32)
-    if B == 0 or S == 0:            # no token: the state passes through
-        if d_final is None:
-            d_initial.zero_()
-        else:
-            d_initial.copy_(d_final)
-        return dx, ddt, dA.zero_(), dBm, dCm, d_initial
-    _check_rows("dx", dx)
     nc = -(-S // KERNEL_CHUNK)
     # scratch: the state entering each chunk and the gradient of the state
     # leaving it; the per-head dB, dC and per-chunk dA partials
@@ -272,21 +317,102 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, chun
     dAp = torch.empty(B, nh, nc, **f32)
     init = None if initial_state is None else initial_state.contiguous()
     fin = None if d_final is None else d_final.contiguous()
-    strides = (ctypes.c_longlong * 19)(*x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
-                                       *Cm.stride()[:2], *dy.stride()[:3], *dx.stride()[:3],
-                                       *ddt.stride())
-    ptr = lambda t: None if t is None else t.data_ptr()
     lib = build.library()
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_bwd_launch(
             x.data_ptr(), dt.data_ptr(), A.contiguous().data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            dy.data_ptr(), ptr(init), ptr(fin), states.data_ptr(), dstates.data_ptr(),
+            dy.data_ptr(), _ptr(init), _ptr(fin), states.data_ptr(), dstates.data_ptr(),
             dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-            dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), d_initial.data_ptr(), strides,
-            B, nh, S, hp, N, build.dtype_code(x), build.stream_of(x))
-    build.check(err, "ssd_scan_bwd")
-    ssd_scan_bwd.launches += 1
+            dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), d_initial.data_ptr(),
+            _bwd_strides(x, dt, Bm, Cm, dy, dx, ddt), B, nh, S, hp, N, build.dtype_code(x),
+            build.stream_of(x))
+    build.check(err, "ssd_scan_bwd (fma)")
     return dx, ddt, dA, dBm, dCm, d_initial
+
+
+def bwd_scratch_bytes(B: int, nh: int, S: int, N: int, seg: int, group: int,
+                      hp: int = 64) -> int:
+    """fp32 scratch bytes of one wgmma backward call (``_launch_bwd_wgmma``)."""
+    nc = -(-S // KERNEL_CHUNK)
+    n_seg, n_groups = -(-nc // seg), -(-nh // group)
+    floats = (B * nc * 2 * KERNEL_CHUNK ** 2 + B * nh * 2 * (n_seg - 1) * hp * N + B * nh * n_seg
+              + B * n_groups * nc * hp * N + 2 * n_groups * B * nc * KERNEL_CHUNK * N
+              + B * nh * nc)
+    return 4 * floats
+
+
+def _launch_bwd_wgmma(x, dt, A, Bm, Cm, dy, initial_state, d_final, out, plan=None):
+    B, nh, S, hp = x.shape
+    N = Bm.shape[-1]
+    dx, ddt, dA, dBm, dCm, d_initial = out
+    seg, group = plan or bwd_plan(B, nh, S, build.sm_count(x.device.index or 0), N)
+    nc = -(-S // KERNEL_CHUNK)
+    n_seg, n_groups = -(-nc // seg), -(-nh // group)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    # scratch: C.B^T and B.C^T per (b, chunk); segment ends (then folded) and
+    # log-decays; the state entering each chunk, per head group; the dB/dC
+    # partial of each head group; the dA term of each (chunk, head)
+    cb = torch.empty(B, nc, 2, KERNEL_CHUNK * KERNEL_CHUNK, **f32)
+    ends = torch.empty(B, nh, 2, max(n_seg - 1, 1), hp * N, **f32)
+    ld = torch.empty(B, nh, n_seg, **f32)
+    stash = torch.empty(B, n_groups, nc, hp * N, **f32)
+    part = torch.empty(2, n_groups, B, nc * KERNEL_CHUNK, N, **f32)
+    dAp = torch.empty(B, nh, nc, **f32)
+    init = None if initial_state is None else initial_state.contiguous()
+    fin = None if d_final is None else d_final.contiguous()
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_bwd_wgmma_launch(
+            x.data_ptr(), dt.data_ptr(), A.contiguous().data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            dy.data_ptr(), _ptr(init), _ptr(fin), cb.data_ptr(), ends.data_ptr(), ld.data_ptr(),
+            stash.data_ptr(), part.data_ptr(), dAp.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), d_initial.data_ptr(),
+            _bwd_strides(x, dt, Bm, Cm, dy, dx, ddt), B, nh, S, N, seg, group,
+            build.stream_of(x))
+    build.check(err, "ssd_scan_bwd (wgmma)")
+
+
+def _bwd_outputs(x, dt, Bm):
+    """dx, ddt (dense, in x's / dt's dim order), dA, dBm, dCm (dense
+    [B,S,N]) and d_initial, uninitialised."""
+    B, nh, S, hp = x.shape
+    N = Bm.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dBm, dCm = (torch.empty(B, S, N, dtype=x.dtype, device=x.device) for _ in range(2))
+    return dx, ddt, torch.empty(nh, **f32), dBm, dCm, torch.empty(B, nh, hp, N, **f32)
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, chunk: int = 256):
+    """(the forward's inputs, dy = dL/dy [B,nh,S,hp], the forward's
+    ``initial_state`` or None, d_final = dL/d(final state) or None) ->
+    (dx, ddt, dA, dBm, dCm, d_initial): each in its input's type, dx in x's
+    layout, ddt in dt's, dBm and dCm dense [B,S,N], d_initial fp32
+    [B,nh,hp,N] (the gradient of the state the recurrence starts from).
+    CPU tensors: ``ref.ssd_scan_bwd_ref`` (``chunk`` is its chunk length).
+    CUDA tensors: the ``bwd_kernel_path`` kernel, ``csrc/ssd_scan_bwd_wgmma.cu``
+    (five launches) or ``csrc/ssd_scan_bwd.cu`` (four), one launch counted."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, initial_state, d_final, chunk=chunk)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"ssd_scan_bwd runs on CUDA or CPU tensors, got {x.device}")
+    path = check_bwd_args(x, dt, A, Bm, Cm, dy, initial_state, d_final)
+    B, nh, S, hp = x.shape
+    out = _bwd_outputs(x, dt, Bm)
+    dx, ddt, dA, dBm, dCm, d_initial = out
+    if B == 0 or S == 0:            # no token: the state passes through
+        if d_final is None:
+            d_initial.zero_()
+        else:
+            d_initial.copy_(d_final)
+        return dx, ddt, dA.zero_(), dBm, dCm, d_initial
+    _check_rows("dx", dx)
+    if path == "wgmma":
+        _launch_bwd_wgmma(x, dt, A, Bm, Cm, dy, initial_state, d_final, out)
+    else:
+        launch_bwd_fma(x, dt, A, Bm, Cm, dy, initial_state, d_final, out)
+    ssd_scan_bwd.launches += 1
+    return out
 
 
 class SSDScan(torch.autograd.Function):

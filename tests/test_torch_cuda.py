@@ -703,6 +703,37 @@ def test_ssd_scan_bwd_model_layout_and_state(card, dtype, hp, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,nh,S,N", [(2, 3, 1, 128), (1, 5, 130, 64), (2, 7, 700, 128),
+                                      (1, 80, 2048, 128)])
+@pytest.mark.parametrize("long_memory", [False, True])
+def test_ssd_bwd_wgmma_path_and_plans(card, B, nh, S, N, long_memory):
+    """bf16 at hp 64 routes to ``csrc/ssd_scan_bwd_wgmma.cu``. Its outputs
+    pass the gate against the plain backward at ``bwd_plan``'s plan and at
+    other (segment length, head group) plans, each of which repeats its own
+    bits; and the FMA kernel on the same inputs passes it too."""
+    from repro_torch.kernels.ssd_scan import (_bwd_outputs, _launch_bwd_wgmma, bwd_kernel_path,
+                                              launch_bwd_fma)
+    assert bwd_kernel_path(torch.bfloat16, 64, N) == "wgmma"
+    rng = np.random.default_rng(S + N)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, B, nh, S, 64, N, "bfloat16", card, long_memory)
+    dy = _randn(rng, x.shape, "bfloat16", card)
+    h0, d_final = (torch.from_numpy(rng.standard_normal((B, nh, 64, N), dtype=np.float32))
+                   .to(card) for _ in range(2))
+    want = ref.ssd_scan_bwd_ref(x.float(), dt, A, Bm.float(), Cm.float(), dy.float(), h0,
+                                d_final)
+    nc = -(-S // 64)
+    for plan in (None, (1, 1), (2, 3), (nc, nh), (max(1, nc // 3), 2)):
+        got = _bwd_outputs(x, dt, Bm)
+        _launch_bwd_wgmma(x, dt, A, Bm, Cm, dy, h0, d_final, got, plan)
+        again = _bwd_outputs(x, dt, Bm)
+        _launch_bwd_wgmma(x, dt, A, Bm, Cm, dy, h0, d_final, again, plan)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), plan
+        _ssd_bwd_close(got, want, "bfloat16")
+    _ssd_bwd_close(launch_bwd_fma(x, dt, A, Bm, Cm, dy, h0, d_final), want, "bfloat16")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_autograd_on_the_card_launches_the_backward(card, dtype):
     """``kernels.ssd_scan`` on CUDA tensors that require grad carries a

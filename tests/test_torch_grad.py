@@ -11,16 +11,8 @@ plumbing (GQA, strided [B,S,nh,hd] views, a broadcast gradient, bf16) is
 exercised through them. The CUDA kernels are held against the same plain
 backwards on the card (tests/test_torch_cuda.py, chip_smoke.py).
 
-The SSD scan's explicit chunked backward (``ref.ssd_scan_bwd_ref``) is
-held against autograd of the chunked forward in fp64 (to 1e-9: only
-summation order differs), and against ``jax.vjp`` of the JAX package's
-sequential oracle (``repro.kernels.ref.ssd_scan_ref``) and of
-``repro.models.layers.ssd_scan`` with its state options, in fp32, at the
-forward's tolerance (tests/test_kernels.py:55-56, 2e-3) plus relative L2
-1e-4 per output (read: at most 4e-6).
+The SSD scan's backward is tested in tests/test_torch_ssd_bwd.py.
 """
-
-import importlib
 
 import numpy as np
 import pytest
@@ -31,13 +23,19 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.ref import flash_attention_ref as jax_flash_ref  # noqa: E402
 from repro.kernels.ref import rmsnorm_ref as jax_rmsnorm_ref  # noqa: E402
-from repro.kernels.ref import ssd_scan_ref as jax_ssd_ref  # noqa: E402
-from repro.models.layers import ssd_scan as jax_layers_ssd_scan  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
-# the module, which the package's ``ssd_scan`` (the function) shadows
-ssd_module = importlib.import_module("repro_torch.kernels.ssd_scan")
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread while this module runs: the suite runs in several
+    worker processes at once, and torch's default of a thread per core in
+    each of them oversubscribes the CPU (these small ops ran ~13x slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # B, S, nh, nkv, hd: GQA groups 1 and 2, S a multiple of nothing used here
@@ -277,221 +275,4 @@ def test_backward_wrappers_count_no_cpu_launches():
     kernels.reset_launch_counts()
     x = torch.ones(3, 8, requires_grad=True)
     kernels.rmsnorm(x, torch.ones(8)).sum().backward()
-    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
-
-
-# ---------------------------------------------------------------- SSD scan
-
-SSD_TOL = dict(rtol=2e-3, atol=2e-3)    # tests/test_kernels.py:55-56
-SSD_REL_L2 = 1e-4
-SSD_PARTS = ("dx", "ddt", "dA", "dBm", "dCm")
-
-
-def _ssd_inputs(seed, B, nh, S, hp, N, long_memory=False):
-    """x [B,nh,S,hp], dt [B,nh,S], A [nh], Bm/Cm [B,S,N], dy like x, fp32
-    numpy. The tests' draw (dt = softplus(N(0,1)), A = -exp(N(0,1)/2))
-    forgets within a few tokens; ``long_memory`` draws from the init's
-    ranges (dt ~ U(1e-3, 1e-1), A = -U(1, 16)), so the state carried
-    across chunks matters."""
-    rng = np.random.default_rng(seed)
-    x = _draw(rng, B, nh, S, hp)
-    if long_memory:
-        dt = rng.uniform(1e-3, 1e-1, (B, nh, S)).astype(np.float32)
-        A = -rng.uniform(1.0, 16.0, nh).astype(np.float32)
-    else:
-        dt = np.logaddexp(rng.standard_normal((B, nh, S)), 0).astype(np.float32)
-        A = -np.exp(0.5 * rng.standard_normal(nh)).astype(np.float32)
-    return x, dt, A, _draw(rng, B, S, N), _draw(rng, B, S, N), _draw(rng, B, nh, S, hp)
-
-
-def _rel(a, b):
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
-
-
-@pytest.mark.parametrize("hp", [16, 32, 64])
-@pytest.mark.parametrize("N", [16, 32, 64, 128])
-@pytest.mark.parametrize("S", [1, 63, 65, 300])
-@pytest.mark.parametrize("long_memory", [False, True])
-def test_ssd_bwd_ref_matches_autograd_fp64(hp, N, S, long_memory):
-    """The explicit backward against autograd of the chunked forward, fp64,
-    with an initial state and a gradient of the final state; chunk 64, so
-    S 63, 65 and 300 end in a padded tail and S 1 is one token."""
-    x, dt, A, Bm, Cm, dy = _ssd_inputs(S * 7 + hp + N, 2, 2, S, hp, N, long_memory)
-    rng = np.random.default_rng(S + N)
-    h0, d_final = (rng.standard_normal((2, 2, hp, N)) for _ in range(2))
-    args = [torch.from_numpy(a).double() for a in (x, dt, A, Bm, Cm, h0)]
-    leaves = [a.clone().requires_grad_() for a in args]
-    y, h = ref.ssd_scan_ref(*leaves[:5], chunk=64, initial_state=leaves[5], return_state=True)
-    loss = (y * torch.from_numpy(dy).double()).sum() + (h * torch.from_numpy(d_final)).sum()
-    auto = torch.autograd.grad(loss, leaves)
-    got = ref.ssd_scan_bwd_ref(*args[:5], torch.from_numpy(dy).double(), args[5],
-                               torch.from_numpy(d_final), chunk=64)
-    for name, g, a in zip(SSD_PARTS + ("d_initial",), got, auto):
-        assert g.dtype == torch.float64 and g.shape == a.shape, name
-        np.testing.assert_allclose(g.numpy(), a.numpy(), rtol=1e-9, atol=1e-9, err_msg=name)
-
-
-@pytest.mark.parametrize("B,nh,S,hp,N", [(1, 2, 300, 32, 64), (2, 2, 65, 64, 128),
-                                         (1, 2, 63, 16, 16), (1, 3, 1, 16, 32),
-                                         (1, 2, 130, 64, 16)])
-@pytest.mark.parametrize("long_memory", [False, True])
-def test_ssd_bwd_ref_matches_jax_oracle(B, nh, S, hp, N, long_memory):
-    """fp32: the explicit backward (chunk 256) against ``jax.vjp`` of the
-    JAX package's token-by-token oracle."""
-    x, dt, A, Bm, Cm, dy = _ssd_inputs(S + hp, B, nh, S, hp, N, long_memory)
-    got = ref.ssd_scan_bwd_ref(*_t(x, dt, A, Bm, Cm, dy))
-    _, vjp = jax.vjp(jax_ssd_ref, *(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)))
-    want = vjp(jnp.asarray(dy))
-    for name, g, w in zip(SSD_PARTS, got, want):
-        w = np.asarray(w)
-        assert g.dtype == torch.float32 and g.shape == w.shape, name
-        np.testing.assert_allclose(g.numpy(), w, **SSD_TOL, err_msg=name)
-        assert _rel(g.numpy(), w) <= SSD_REL_L2 or not np.abs(w).max(), name
-
-
-@pytest.mark.parametrize("B,nh,S,hp,N,chunk", [(2, 3, 300, 32, 64, 64), (1, 2, 100, 16, 32, 256),
-                                               (1, 2, 130, 64, 128, 64)])
-@pytest.mark.parametrize("long_memory", [False, True])
-def test_ssd_bwd_ref_matches_jax_layers_with_state(B, nh, S, hp, N, chunk, long_memory):
-    """fp32: through ``SSDScan`` in ``repro_torch.models.layers.ssd_scan``
-    ([B,S,nh,hp] layout, initial_state, return_state) against ``jax.vjp``
-    of ``repro.models.layers.ssd_scan`` on the same inputs, a gradient on
-    y and on the final state."""
-    x, dt, A, Bm, Cm, dy = _ssd_inputs(S + N, B, nh, S, hp, N, long_memory)
-    rng = np.random.default_rng(hp)
-    h0, d_final = (rng.standard_normal((B, nh, hp, N)).astype(np.float32) for _ in range(2))
-    xs, dts, dys = (np.ascontiguousarray(a.swapaxes(1, 2)) for a in (x, dt, dy))
-    f = lambda *a: jax_layers_ssd_scan(*a[:5], chunk=chunk, initial_state=a[5], return_state=True)
-    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (xs, dts, A, Bm, Cm, h0)))
-    want = vjp((jnp.asarray(dys), jnp.asarray(d_final)))
-    from repro_torch.models.layers import ssd_scan as layers_ssd_scan
-    leaves = _t(xs, dts, A, Bm, Cm, h0, grad=True)
-    y, h = layers_ssd_scan(*leaves[:5], chunk, initial_state=leaves[5], return_state=True)
-    got = torch.autograd.grad((y, h), leaves, (torch.from_numpy(dys), torch.from_numpy(d_final)))
-    for name, g, w in zip(("dx", "ddt", "dA", "dBm", "dCm", "d_initial"), got, want):
-        w = np.asarray(w)
-        assert g.shape == w.shape, name
-        np.testing.assert_allclose(g.numpy(), w, **SSD_TOL, err_msg=name)
-        assert _rel(g.numpy(), w) <= SSD_REL_L2, name
-
-
-@pytest.mark.parametrize("state", [False, True])
-@pytest.mark.parametrize("S,chunk", [(1, 64), (13, 4), (20, 8)])
-def test_ssd_function_gradcheck_fp64(state, S, chunk):
-    """gradcheck through ``kernels.ssd_scan`` (``SSDScan``), fp64, in every
-    input, with and without an initial state and the final state; S 13 and
-    20 span several chunks and end in a padded tail."""
-    x, dt, A, Bm, Cm, _ = _ssd_inputs(S, 1, 1, S, 16, 16)
-    leaves = [torch.from_numpy(a).double().requires_grad_() for a in (x, dt, A, Bm, Cm)]
-    if state:
-        h0 = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 1, 16, 16)))
-        fn = lambda *a: kernels.ssd_scan(*a[:5], chunk=chunk, initial_state=a[5],
-                                         return_state=True)
-        leaves.append(h0.requires_grad_())
-    else:
-        fn = lambda *a: kernels.ssd_scan(*a, chunk=chunk)
-    assert torch.autograd.gradcheck(fn, tuple(leaves))
-
-
-@pytest.mark.parametrize("long_memory", [False, True])
-def test_ssd_bwd_does_not_depend_on_the_chunk(long_memory):
-    """In exact arithmetic the backward does not depend on the chunk length
-    (the CUDA kernel blocks by 64, the plain version by 256): chunks 32, 64
-    and 256 agree in fp64 to 1e-10 and in fp32 within relative L2 1e-4."""
-    x, dt, A, Bm, Cm, dy = _ssd_inputs(11, 2, 3, 300, 32, 64, long_memory)
-    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, SSD_REL_L2)):
-        args = [torch.from_numpy(a).to(dtype) for a in (x, dt, A, Bm, Cm, dy)]
-        base = ref.ssd_scan_bwd_ref(*args, chunk=256)
-        for chunk in (32, 64):
-            other = ref.ssd_scan_bwd_ref(*args, chunk=chunk)
-            for name, g, w in zip(SSD_PARTS + ("d_initial",), other, base):
-                assert _rel(g.numpy(), w.numpy()) <= tol, (dtype, chunk, name)
-
-
-def test_ssd_function_routes_to_the_explicit_backward():
-    """Through ``kernels.ssd_scan`` a CPU tensor's backward is exactly
-    ``ref.ssd_scan_bwd_ref``: the model's strided views (x, Bm, Cm slices
-    of one buffer, dt a [B,nh,S] view), a broadcast incoming gradient,
-    bf16 gradients in the inputs' types, and no kernel launch counted."""
-    B, nh, S, hp, N = 1, 2, 70, 16, 16
-    x, dt, A, Bm, Cm, _ = _ssd_inputs(4, B, nh, S, hp, N)
-    buf = torch.from_numpy(np.concatenate([x.transpose(0, 2, 1, 3).reshape(B, S, nh * hp), Bm, Cm],
-                                          axis=-1)).to(torch.bfloat16).requires_grad_()
-    dtl = torch.from_numpy(dt.transpose(0, 2, 1).copy()).requires_grad_()
-    Al = torch.from_numpy(A).requires_grad_()
-    xv = buf[..., :nh * hp].view(B, S, nh, hp).transpose(1, 2)
-    bv, cv = buf[..., nh * hp:nh * hp + N], buf[..., nh * hp + N:]
-    kernels.reset_launch_counts()
-    y = kernels.ssd_scan(xv, dtl.transpose(1, 2), Al, bv, cv, chunk=32)
-    assert y.grad_fn is not None and y.dtype == torch.bfloat16
-    dbuf, ddt, dA = torch.autograd.grad(y.float().sum(), (buf, dtl, Al))
-    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
-    want = ref.ssd_scan_bwd_ref(xv.detach(), dtl.detach().transpose(1, 2), Al.detach(),
-                                bv.detach(), cv.detach(), torch.ones_like(xv), chunk=32)
-    assert dbuf.dtype == torch.bfloat16 and ddt.dtype == dA.dtype == torch.float32
-    got_x = dbuf[..., :nh * hp].view(B, S, nh, hp).transpose(1, 2)
-    torch.testing.assert_close(got_x, want[0], rtol=0, atol=0)
-    torch.testing.assert_close(ddt.transpose(1, 2), want[1], rtol=0, atol=0)
-    torch.testing.assert_close(dA, want[2], rtol=0, atol=0)
-    torch.testing.assert_close(dbuf[..., nh * hp:nh * hp + N], want[3], rtol=0, atol=0)
-    torch.testing.assert_close(dbuf[..., nh * hp + N:], want[4], rtol=0, atol=0)
-
-
-def _ssd_bwd_args(hp=64, N=128, dtype=torch.bfloat16, B=2, nh=3, S=40):
-    x = torch.zeros(B, nh, S, hp, dtype=dtype)
-    return (x, torch.zeros(B, nh, S), -torch.ones(nh), torch.zeros(B, S, N, dtype=dtype),
-            torch.zeros(B, S, N, dtype=dtype), torch.zeros_like(x))
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hp", [16, 32, 64])
-@pytest.mark.parametrize("N", [16, 32, 64, 128])
-def test_ssd_bwd_kernel_takes_every_forward_shape(dtype, hp, N):
-    """One backward kernel serves every (dtype, hp, N) the forward kernels
-    take, with the state options on every path."""
-    assert ssd_module.bwd_kernel_path(dtype, hp, N) == "fma"
-    args = _ssd_bwd_args(hp, N, dtype)
-    state = torch.zeros(2, 3, hp, N)
-    assert ssd_module.check_bwd_args(*args, state, state) == "fma"
-
-
-def test_ssd_bwd_rejects_what_the_kernel_does_not_take():
-    with pytest.raises(ValueError, match="instantiated"):
-        ssd_module.bwd_kernel_path(torch.bfloat16, 48, 128)
-    with pytest.raises(ValueError, match="instantiated"):
-        ssd_module.bwd_kernel_path(torch.float32, 64, 256)
-    with pytest.raises(TypeError):
-        ssd_module.bwd_kernel_path(torch.float16, 64, 128)
-    x, dt, A, Bm, Cm, dy = _ssd_bwd_args()
-    with pytest.raises(ValueError, match="instantiated"):
-        ssd_module.check_bwd_args(*_ssd_bwd_args(hp=128))
-    with pytest.raises(ValueError, match="dy must be"):
-        ssd_module.check_bwd_args(x, dt, A, Bm, Cm, dy.float())
-    with pytest.raises(ValueError, match="dy must be"):
-        ssd_module.check_bwd_args(x, dt, A, Bm, Cm, dy[:, :, :-1])
-    with pytest.raises(TypeError, match="float32"):
-        ssd_module.check_bwd_args(x, dt.double(), A, Bm, Cm, dy)
-    with pytest.raises(ValueError, match="initial_state"):
-        ssd_module.check_bwd_args(x, dt, A, Bm, Cm, dy, torch.zeros(2, 3, 128, 64))
-    with pytest.raises(ValueError, match="d_final"):
-        ssd_module.check_bwd_args(x, dt, A, Bm, Cm, dy, None,
-                                  torch.zeros(2, 3, 64, 128, dtype=torch.bfloat16))
-    with pytest.raises(ValueError, match="unit last stride"):
-        ssd_module.check_bwd_args(x, dt, A, Bm, Cm, dy.transpose(-1, -2).contiguous()
-                                  .transpose(-1, -2))
-    off = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:].view(x.shape)
-    with pytest.raises(ValueError, match="aligned"):
-        ssd_module.check_bwd_args(x, dt, A, Bm, Cm, off)
-
-
-def test_ssd_bwd_counts_no_cpu_launch():
-    kernels.reset_launch_counts()
-    out = ssd_module.ssd_scan_bwd(*(t.float() if t.is_floating_point() else t
-                                    for t in _ssd_bwd_args(hp=16, N=16)))
-    assert len(out) == 6 and all(torch.isfinite(t).all() for t in out)
-    x = torch.ones(1, 2, 8, 16, requires_grad=True)
-    kernels.ssd_scan(x, torch.ones(1, 2, 8), -torch.ones(2), torch.ones(1, 8, 16),
-                     torch.ones(1, 8, 16)).sum().backward()
-    assert x.grad is not None
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}

@@ -22,8 +22,11 @@ from repro_torch.kernels.rmsnorm import bwd_grid as rmsnorm_bwd_grid  # noqa: E4
 from repro_torch.kernels.rmsnorm import bwd_kernel_path as rmsnorm_bwd_path  # noqa: E402
 from repro_torch.kernels.rmsnorm import check_args as rmsnorm_check  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel_path as rmsnorm_path  # noqa: E402
-from repro_torch.kernels.ssd_scan import WGMMA_STATE_DIMS, segment_chunks  # noqa: E402
+from repro_torch.kernels.ssd_scan import (HEAD_DIMS, STATE_DIMS, WGMMA_STATE_DIMS,  # noqa: E402
+                                          segment_chunks)
+from repro_torch.kernels.ssd_scan import bwd_kernel_path as ssd_bwd_path  # noqa: E402
 from repro_torch.kernels.ssd_scan import check_args as ssd_check  # noqa: E402
+from repro_torch.kernels.ssd_scan import check_bwd_args as ssd_bwd_check  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel_path as ssd_path  # noqa: E402
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
@@ -167,6 +170,23 @@ def test_ssd_dispatch_by_dtype_and_shape(dtype, hp, N, path):
     assert ssd_path(dtype, hp, N) == path
     assert ssd_check(*_ssd(hp=hp, N=N, dtype=dtype)) == path
     assert (path == "wgmma") == (dtype == BF16 and hp == 64 and N in WGMMA_STATE_DIMS)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("hp", HEAD_DIMS)
+@pytest.mark.parametrize("N", STATE_DIMS)
+def test_ssd_bwd_dispatch_by_dtype_and_shape(dtype, hp, N):
+    """The backward's routing for every (dtype, hp, N) a kernel is
+    instantiated for: bf16 at hp 64 and N 64/128 takes the wgmma backward
+    (csrc/ssd_scan_bwd_wgmma.cu), as its forward takes the wgmma scan;
+    fp32 and every other bf16 shape the FMA backward (csrc/ssd_scan_bwd.cu).
+    check_bwd_args names the same path, the model's views included."""
+    path = "wgmma" if dtype == BF16 and hp == 64 and N in WGMMA_STATE_DIMS else "fma"
+    assert ssd_bwd_path(dtype, hp, N) == path == ssd_path(dtype, hp, N)
+    for views in (False, True):
+        x, dt, A, Bm, Cm = _ssd(hp=hp, N=N, dtype=dtype, views=views)
+        dy = torch.zeros_like(x)
+        assert ssd_bwd_check(x, dt, A, Bm, Cm, dy) == path
 
 
 @pytest.mark.parametrize("hp,N", [(48, 64), (128, 64), (64, 8), (64, 256)])

@@ -1,6 +1,12 @@
-"""The port's training path against ``repro.train`` / ``repro.models.lm``
-on the CPU, tiny yi-6b and tiny mamba2-2.7b (``scale_arch(..., "tiny")``):
-the module fixture and the end-to-end tests run once for each.
+"""Shared by tests/test_torch_train_yi.py and tests/test_torch_train_mamba2.py
+(pytest does not collect this module): the port's training path against
+``repro.train`` / ``repro.models.lm`` on the CPU. Each test file imports
+the tests it runs and gives them their arch: a module fixture ``setup``
+(``build_setup(name)``) and a fixture ``name``. The tests that are not
+about one arch (the optimizer, the schedule, the data pipeline, fault
+tolerance) run in the yi-6b file.
+
+The archs are tiny (``scale_arch(..., "tiny")``).
 
 Weights and optimizer states cross as numpy (``repro_torch.convert``);
 batches come from each package's ``SyntheticDataset``, which must agree
@@ -61,7 +67,17 @@ from repro_torch.train.data import DataCfg, SyntheticDataset  # noqa: E402
 from repro_torch.train.step import (TrainCfg, init_train_state, make_eval_step,  # noqa: E402
                                     make_train_step)
 
-NAMES = ["yi-6b", "mamba2-2.7b"]
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread while this module runs: the suite runs in several
+    worker processes at once, and torch's default of a thread per core in
+    each of them oversubscribes the CPU (these small ops ran ~13x slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 DT = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # a per-layer leaf of each arch whose optimizer state the checkpoint tests read
 LEAF = {"yi-6b": ("attn", "wq"), "mamba2-2.7b": ("ssm", "in_proj")}
@@ -121,9 +137,10 @@ INITS = {"reference": lambda params, arch: params, "fan-in-H": _fan_in_h}
 FP32_GRAD_TOL = {"reference": 1e-3, "fan-in-H": 1e-4}
 
 
-@pytest.fixture(scope="module", params=NAMES)
-def setup(request):
-    jarch, arch = _archs(request.param)
+def build_setup(name):
+    """The ``setup`` fixture's value for ``name``: both archs, the
+    reference's init as numpy, and one batch."""
+    jarch, arch = _archs(name)
     params = jax.tree.map(np.asarray, jlm.init_params(jarch, jax.random.PRNGKey(0),
                                                       jlm.RunCfg()))
     data = DataCfg(seq_len=24, global_batch=4, num_microbatches=2, seed=3)
@@ -527,7 +544,6 @@ def test_port_round_trips_bf16_moments(setup, tmp_path):
 
 # ------------------------------------------------------------------ end to end
 
-@pytest.mark.parametrize("name", NAMES)
 def test_train_loop_loss_decreases(name):
     _, arch = _archs(name)
     cfg = TrainCfg(run=RunCfg(remat=False),
@@ -540,7 +556,6 @@ def test_train_loop_loss_decreases(name):
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.1
 
 
-@pytest.mark.parametrize("name", NAMES)
 def test_train_restart_resumes_deterministically(tmp_path, name):
     _, arch = _archs(name)
     cfg = TrainCfg(run=RunCfg(remat=False),
@@ -560,7 +575,6 @@ def test_train_restart_resumes_deterministically(tmp_path, name):
         torch.testing.assert_close(resumed.params[n], p, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", NAMES)
 def test_scaled_down_arch_is_the_reference_one(name):
     jarch, arch = _archs(name)
     assert dataclasses.asdict(jarch) == dataclasses.asdict(arch)
@@ -605,7 +619,6 @@ def test_run_with_restart_matches_the_reference():
     assert state == list(range(10)) and info == {"restarts": 2, "final_step": 10}
 
 
-@pytest.mark.parametrize("name", NAMES)
 def test_main_runs_on_the_cpu(capsys, name):
     from repro_torch.launch.train import main
     assert main(["--arch", name, "--scale", "tiny", "--steps", "3", "--global-batch", "4",
