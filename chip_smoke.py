@@ -9,30 +9,33 @@ Phases, each of which fails the run by raising:
      (the cases of tests/test_kernels.py and the main path's shapes; bf16
      outputs against the fp32 result of the same bf16 inputs; each path of
      a kernel that has two, such as the SSD scan's wgmma and FMA kernels);
-  3. serve full-width yi-6b, then full-width mamba2-2.7b (random bf16
-     weights from a seed), through the port's entry points: prefill B=2
-     S=2000 with its kernel launches counted, the bf16 model's logits
-     through the kernels against its logits through the plain versions, a
-     teacher-forced forward/decode check, greedy generation and a few
-     serve steps;
+  3. serve full-width yi-6b, mamba2-2.7b, hymba-1.5b and
+     granite-moe-3b-a800m in turn (random bf16 weights from a seed),
+     through the port's entry points: prefill B=2 S=2000 with its kernel
+     launches counted, the bf16 model's logits through the kernels against
+     its logits through the plain versions, a teacher-forced forward/decode
+     check (hymba past its 1024-slot KV ring, granite-moe drop-free),
+     greedy generation and a few serve steps;
   4. after each model's path, time its kernels beside their bound, their
      plain version and one PyTorch library call where there is one, and
      time prefill and decode;
   5. hold the backward kernels (flash attention, RMSNorm, the SSD scan on
      both its paths: wgmma for bf16 at hp 64 / N 64, 128, and the FMA
-     kernel, which also runs each of those cases) against their plain
-     backwards (``kernels/ref.py``), each call repeated for the same bits;
-  6. train full-width yi-6b cut to 16 of its 32 layers, then full-width
-     mamba2-2.7b at all 64 (fp32 masters and Adam moments, bf16 compute,
-     microbatch 1 x 2048 tokens, G = 2) through the port's entry points:
-     gradients through the kernels against the plain versions (bf16 against
-     fp32, fp32 at 2 layers against fp64), ``train_loop`` for 10 steps into
-     a checkpoint and a restore that must give the saved state bit for bit
-     (yi-6b at 4 layers there), 10 ``make_train_step`` steps on one batch
-     whose loss must fall, the first with its launches counted exactly,
-     then the train step's time, tokens/s and peak memory and the backward
-     kernels' times (the SSD backward's wgmma path beside its FMA kernel,
-     which it must beat).
+     kernel, which also runs each of those cases and hymba's N 16) against
+     their plain backwards (``kernels/ref.py``), each call repeated for the
+     same bits;
+  6. train full-width yi-6b cut to 16 of its 32 layers, then mamba2-2.7b
+     at all 64, hymba-1.5b and granite-moe-3b-a800m at all 32 (fp32
+     masters and Adam moments, bf16 compute, microbatch 1 x 2048 tokens,
+     G = 2) through the port's entry points: gradients through the kernels
+     against the plain versions (bf16 against fp32, fp32 at 2 layers
+     against fp64), ``train_loop`` for 10 steps into a checkpoint and a
+     restore that must give the saved state bit for bit (at
+     TRAIN_LOOP_LAYERS), 10 ``make_train_step`` steps on one batch whose
+     loss must fall, the first with its launches counted exactly, then the
+     train step's time, tokens/s and peak memory and the backward kernels'
+     times (the SSD backward's wgmma path beside its FMA kernel, which it
+     must beat).
 The last line is one JSON object with ``"ok": true`` and the device. It
 needs a CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -82,12 +85,15 @@ RMS_BF16_RTOL = 1.01 * 2 ** -8
 FLASH_CASES = [(1, 128, 4, 4, 64), (2, 200, 4, 2, 64), (1, 384, 8, 1, 32), (2, 256, 6, 3, 128)]
 FLASH_MAIN = (2, 2000, 32, 4, 128)       # yi-6b prefill: B, S, nh, nkv, hd
 FLASH_HYMBA = (2, 2000, 25, 5, 64)       # hymba-1.5b prefill (window 1024)
+FLASH_GRANITE = (2, 2000, 24, 8, 64)     # granite-moe-3b-a800m prefill (GQA group 3)
+HYMBA_WINDOW = 1024
 RMS_CASES = [(64, 256), (100, 512), (256, 1024)]
 # prefill B*S, teacher-forced S, decode B, prefill's final norm (B), teacher-forced decode
 RMS_MAIN = [(4000, 4096), (64, 4096), (4, 4096), (2, 4096), (1, 4096)]
 # B, nh, S, hp, N and the plain version's chunk (tests/test_kernels.py:40-44)
 SSD_CASES = [(1, 2, 256, 64, 16, 128), (2, 3, 300, 32, 64, 64), (1, 4, 64, 16, 128, 32)]
 SSD_MAIN = (2, 80, 2000, 64, 128, 256)   # mamba2-2.7b prefill
+SSD_HYMBA = (2, 50, 2000, 64, 16, 256)   # hymba-1.5b prefill: its SSM's 50 heads, the FMA kernel
 # the bf16 wgmma path (hp 64, N 64/128): B, nh, S, hp, N around its 64-token
 # chunks and up to mamba2's prefill length, and the test grid's wgmma case
 SSD_WGMMA_CASES = ([(2, 3, S, 64, N) for S in (1, 63, 65, 500, 2000) for N in (64, 128)]
@@ -96,26 +102,41 @@ SSD_STATE_REL_L2 = 1e-2   # final state (fp32) of the wgmma path against the pla
 # mamba2-2.7b: prefill B*S, teacher-forced S, decode B, final norm B, teacher-forced decode
 RMS_MAIN_SSM = [(4000, 2560), (4000, 5120), (300, 2560), (300, 5120), (4, 2560), (4, 5120),
                 (2, 2560), (1, 2560), (1, 5120)]
+# hymba-1.5b (H 1600, ssm_norm over d_inner 3200) and granite-moe (H 1536),
+# all on the loop version: prefill B*S, decode B, prefill's final norm B,
+# teacher-forced S and its decode
+RMS_MAIN_NEW = [(4000, 1600), (4000, 3200), (4000, 1536), (4, 1600), (4, 3200), (4, 1536),
+                (2, 1600), (2, 1536), (1100, 1600), (1100, 3200), (64, 1536), (1, 1600),
+                (1, 3200), (1, 1536)]
 # backward cases, B, S, nh, nkv, window (GQA groups 1, 2, 8; S 1, 127, 200,
 # 2048; causal, one window), each at hd 32, 64 and 128; the training shape
 FLASH_BWD_CASES = [(1, 1, 2, 2, 0), (2, 127, 4, 2, 0), (1, 200, 8, 1, 0), (1, 200, 4, 4, 37),
                    (1, 2048, 8, 1, 0)]
 FLASH_BWD_MAIN = (1, 2048, 32, 4, 0, 128)      # yi-6b training: B, S, nh, nkv, window, hd
 FLASH_BWD_HYMBA = (1, 2048, 25, 5, 1024, 64)   # hymba-1.5b's attention (GQA group 5)
+FLASH_BWD_GRANITE = (1, 2048, 24, 8, 0, 64)    # granite-moe-3b-a800m's attention (group 3)
 RMS_BWD_CASES = [(1, 256), (7, 4096), (300, 1000), (4096, 256), (4096, 4096), (33, 12288),
                  (2048, 2560), (5, 2560), (2048, 5120), (1, 5120)]
 RMS_BWD_MAIN = (2048, 4096)                    # yi-6b training, one microbatch
+# hymba-1.5b (norm1, norm2 at 1600, ssm_norm at 3200) and granite-moe (1536)
+# training, one microbatch; the loop version
+RMS_BWD_NEW = [(2048, 1600), (2048, 3200), (2048, 1536)]
 # the SSD backward, beside SSD_CASES and SSD_WGMMA_CASES: mamba2-2.7b's
-# training shape (B, nh, S, hp, N) and an hp 64 / N 16 case (hymba-1.5b's
-# SSM heads)
+# training shape (B, nh, S, hp, N) and hymba-1.5b's (its SSM: d_inner
+# 2 x 1600 = 3200, so 50 heads of hp 64, N 16; the FMA kernel)
 SSD_BWD_MAIN = (1, 80, 2048, 64, 128)
-SSD_BWD_N16 = (1, 25, 2048, 64, 16)
-# layers each model trains at: yi-6b cut to fit one card, mamba2-2.7b whole (PERF.md)
-TRAIN_LAYERS = {"yi-6b": 16, "mamba2-2.7b": 64}
-# layers of each model's train_loop and checkpoint round trip: yi-6b's is
-# cut to 4 (a 16 GB checkpoint, not 39.5 GB) to keep the run near 600 s
-# beside mamba2's 34 GB one, which stays at full depth (PERF.md)
-TRAIN_LOOP_LAYERS = {"yi-6b": 4, "mamba2-2.7b": 64}
+SSD_BWD_N16 = (1, 50, 2048, 64, 16)
+# layers each model trains at: yi-6b cut to fit one card, the others whole (PERF.md)
+TRAIN_LAYERS = {"yi-6b": 16, "mamba2-2.7b": 64, "hymba-1.5b": 32, "granite-moe-3b-a800m": 32}
+# layers of each model's train_loop and checkpoint round trip, cut to keep
+# the run near 600 s: the checkpoint's save, check and restore run at ~0.4
+# GB/s (PERF.md). yi-6b at 4 (16 GB), mamba2 at 8 (4.4 GB), the new two at
+# 2, which holds every leaf kind of their trees (hymba's attention, SSM and
+# MLP, granite's [E,H,F] experts)
+TRAIN_LOOP_LAYERS = {"yi-6b": 4, "mamba2-2.7b": 8, "hymba-1.5b": 2, "granite-moe-3b-a800m": 2}
+# drop-free capacity factor for MoE checks that compare two routings of the
+# same tokens (tests/test_models.py:58-62)
+DROP_FREE = 8.0
 TRAIN_S, TRAIN_G = 2048, 2
 TRAIN_STEPS = 10
 SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -129,9 +150,13 @@ SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu"
            "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan.py:65"),
            "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd_wgmma.cu",
-                            "src/repro/kernels/ssd_scan.py:65")}
-# the SSD backward's other path (fp32, and bf16 off the wgmma shapes)
-SSD_BWD_FMA_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
+                            "src/repro/kernels/ssd_scan.py:65"),
+           # the SSD scan's FMA paths (fp32, and bf16 off the wgmma shapes:
+           # hymba-1.5b's N 16), counted apart from the wgmma ones
+           "ssd_scan_fma": ("src/repro_torch/kernels/csrc/ssd_scan_fma.cu",
+                            "src/repro/kernels/ssd_scan.py:65"),
+           "ssd_scan_bwd_fma": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                                "src/repro/kernels/ssd_scan.py:65")}
 
 
 def log(*args):
@@ -400,15 +425,20 @@ def phase_parity():
         # rows past a short window and a padded tail: finite, no NaN
         q, k, v = _flash_inputs(gen, 1, 130, 2, 2, 64, dtype)
         _flash_case(f"flash {tag} window=3 S=130", q, k, v, window=3)
-        # hymba-1.5b's attention (hd 64, GQA group 5, window 1024) at prefill
-        _flash_case(f"flash {tag} B,S,nh,nkv,hd={FLASH_HYMBA} window=1024",
-                    *_flash_inputs(gen, *FLASH_HYMBA, dtype), window=1024)
+        # hymba-1.5b's attention (hd 64, GQA group 5, window 1024) and
+        # granite-moe's (hd 64, group 3, causal) at prefill, in the model's
+        # [B,S,nh,hd] layout
+        for case, window in ((FLASH_HYMBA, HYMBA_WINDOW), (FLASH_GRANITE, 0)):
+            q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                       for t in _flash_inputs(gen, *case, dtype))
+            _flash_case(f"flash {tag} B,S,nh,nkv,hd={case} window={window} [B,S,nh,hd] views",
+                        q, k, v, window=window)
         # q based 16 bytes into a larger buffer: aligned for TMA, off the
         # 128-byte swizzle span
         q, k, v = _flash_inputs(gen, 2, 200, 4, 2, 128, dtype)
         q = torch.cat([q.new_zeros(16 // q.element_size()), q.flatten()])[16 // q.element_size():]
         _flash_case(f"flash {tag} q 16 bytes into a buffer", q.view(2, 4, 200, 128), k, v)
-        for T, H in RMS_CASES + RMS_MAIN + RMS_MAIN_SSM:
+        for T, H in RMS_CASES + RMS_MAIN + RMS_MAIN_SSM + RMS_MAIN_NEW:
             x, w = _randn(gen, T, H, dtype=dtype), _randn(gen, H, dtype=dtype)
             out = rmsnorm(x, w)
             torch.cuda.synchronize()
@@ -432,6 +462,15 @@ def phase_parity():
                                 *_ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory, views))
                 if views and not long_memory:
                     errs[("ssd_scan", dtype)] = err
+        # hymba-1.5b's SSM on the FMA kernel: 50 heads of hp 64, N 16, in the
+        # model's layout (x, B, C column slices of one [B,S,3232] buffer)
+        B, nh, S, hp, N, chunk = SSD_HYMBA
+        for long_memory in (False, True):
+            err = _ssd_case(f"ssd fma {tag} hymba B,nh,S,hp,N=({B},{nh},{S},{hp},{N}) [B,S,.] "
+                            f"views{' long-memory' if long_memory else ''}", chunk,
+                            *_ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory, True))
+            if not long_memory:
+                errs[("ssd_scan_fma", dtype)] = err
     # the bf16 wgmma path: its own cases, then the state options at the main
     # shape in the model's layout (the recurrence starts from a given state)
     from repro_torch.kernels.ssd_scan import kernel_path as ssd_path
@@ -461,8 +500,13 @@ def _counts_since_reset(fn):
     return result, kernels.launch_counts()
 
 
-def _add(total, counts):
+def _add(total, counts, fma=False):
+    """Add ``counts`` to ``total``; with ``fma`` (an arch whose SSD runs the
+    FMA kernels) the SSD launches count under ``ssd_scan_fma`` and
+    ``ssd_scan_bwd_fma``."""
     for k, n in counts.items():
+        if fma and k.startswith("ssd_scan"):
+            k += "_fma"
         total[k] = total.get(k, 0) + n
 
 
@@ -495,8 +539,10 @@ def check_model_bf16(model, tokens, want):
     kernels must land no further from fp32 than bf16 rounding puts the
     plain versions: relative L2 within 1.5x the plain gap, argmax agreement
     within 0.05 of it."""
-    from repro_torch.models.lm import LM, RunCfg
-    model32 = LM(model.arch, RunCfg(compute_dtype=torch.float32), device=model.device)
+    import dataclasses
+    from repro_torch.models.lm import LM
+    model32 = LM(model.arch, dataclasses.replace(model.cfg, compute_dtype=torch.float32),
+                 device=model.device)
     model32.load_state_dict(model.state_dict())
     with torch.inference_mode():
         kern, counts = _counts_since_reset(lambda: model(tokens, logits_positions="all"))
@@ -543,60 +589,68 @@ def _tf_summary(full, dec):
             f"rel_l2={rel:.3g} argmax agreement={agree:.3f}")
 
 
-def phase_slice(name, tf_len, tf_layers, total):
-    """Serve full-width ``name`` through the port's entry points; adds the
-    main path's launches to ``total``. The teacher-forced check runs
-    ``tf_len`` tokens and is gated on the first ``tf_layers`` layers."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.train import scale_arch
-    from repro_torch.models.lm import RunCfg, init_params, param_count
-    from repro_torch.serving.serve import greedy_generate, make_prefill_step, make_serve_step
+def _norms(arch):
+    """RMSNorm launches of one forward: norm1 per layer, norm2 where the
+    layer has an MLP or experts, ssm_norm where it has the SSM, and the
+    final norm."""
+    per_layer = 1 + (arch.has_attention and bool(arch.d_ff or arch.n_experts)) + \
+        (arch.block in ("ssm", "hymba"))
+    return per_layer * arch.num_layers + 1
 
-    arch = scale_arch(get_config(name), "full")
-    cfg = RunCfg(compute_dtype=torch.bfloat16)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.perf_counter()
-    model = init_params(arch, gen, cfg, device="cuda")
-    torch.cuda.synchronize()
-    log(f"[slice] {name} full width: {arch.num_layers} layers, d {arch.d_model}, "
-        f"{param_count(model) / 1e9:.3f} B params bf16, init {time.perf_counter() - t0:.2f} s")
-    V, L = arch.vocab, arch.num_layers
-    ssm = arch.block == "ssm"
-    norms = 2 * L + 1       # norm1 and norm2 (attn) or ssm_norm (ssm) per layer, final norm
 
-    # (a), (b) prefill with its launches counted
-    prefill = make_prefill_step(model)
-    tokens = torch.randint(0, V, (2, 2000), generator=gen, device="cuda")
-    logits, counts = _counts_since_reset(lambda: prefill({"tokens": tokens}))
-    if logits.shape != (2, 1, V) or not torch.isfinite(logits).all():
-        raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite [2,1,{V}]")
-    want = _launches(flash_attention=0 if ssm else L, rmsnorm=norms, ssd_scan=L if ssm else 0)
-    if counts != want:
-        raise AssertionError(f"prefill launched {counts}, expected {want}")
-    log(f"[slice] (a,b) {name} prefill B=2 S=2000: logits {tuple(logits.shape)} finite; "
-        f"launches {counts}")
-    _add(total, counts)
+def _forward_launches(arch):
+    """Kernel launches of one forward (prefill) of ``arch``."""
+    L, ssm = arch.num_layers, arch.block in ("ssm", "hymba")
+    return _launches(flash_attention=L if arch.has_attention else 0, rmsnorm=_norms(arch),
+                     ssd_scan=L if ssm else 0)
 
-    # (c) the bf16 model through the kernels against the plain versions, at
-    # the prefill's shape and in the model's layouts
-    check_model_bf16(model, tokens, want)
 
-    # (c) teacher-forced: forward over tf_len tokens vs tf_len decode steps
-    # (tests/test_models.py:55-85). Gated in fp32 compute, where the 2e-2 of
-    # that test applies. In bf16 the two paths round at different places
-    # (kernels vs plain decode attention or recurrence, GEMMs of S rows vs
-    # 1, the SSM leaves in bf16 in forward and fp32 in decode), and the
-    # reference's init amplifies rounding (yi-6b: attention a hard argmax
-    # over logits of std ~128), so there the numbers are only reported; the
-    # check above gates bf16. mamba2 runs 300 tokens, past a 256-token chunk.
-    tf_tokens = torch.randint(0, V, (1, tf_len), generator=gen, device="cuda")
+def _uses_ssd_fma(arch):
+    """Whether ``arch``'s SSD runs the FMA kernels (bf16, off the wgmma shapes)."""
+    from repro_torch.kernels.ssd_scan import kernel_path
+    return (arch.block in ("ssm", "hymba")
+            and kernel_path(torch.bfloat16, arch.ssm_headdim, arch.ssm_state) == "fma")
+
+
+def _teacher_forced_gate(name, arch, tf_len, tf_layers, tf_tokens, model, tf_cfg, bf16_tokens):
+    """(c) teacher-forced: a forward over ``tf_len`` tokens vs ``tf_len``
+    decode steps (tests/test_models.py:55-85). Gated in fp32 compute, where
+    the 2e-2 of that test applies. In bf16 the two paths round at different
+    places (kernels vs plain decode attention or recurrence, GEMMs of S rows
+    vs 1, the SSM leaves in bf16 in forward and fp32 in decode), and the
+    reference's init amplifies rounding (yi-6b: attention a hard argmax
+    over logits of std ~128), so there the numbers are only reported; the
+    bf16 logits check gates bf16. With ``tf_layers`` < L the gate runs on
+    the first ``tf_layers`` layers of the same weights; with
+    ``tf_cfg["full_depth"]`` false every check runs there (hymba: 1100
+    decode steps at 32 layers cost too much). ``tf_cfg["run"]``: RunCfg
+    fields of the checks (an MoE arch's drop-free capacity factor). With
+    ``tf_cfg["bf16_layers"]`` the bf16 logits check (``check_model_bf16``)
+    also runs, gated, on the first that many layers of the same weights:
+    at full depth granite-moe's bf16 logits sit 1.32 relative L2 from fp32
+    (kernels and plain versions alike, argmax agreement 0.0005), where a
+    gate sees nothing."""
+    import dataclasses
+    from repro_torch.models.lm import RunCfg, init_params
+    L = arch.num_layers
+    run = tf_cfg.get("run", {})
+    full_depth = tf_cfg.get("full_depth", True)
+    seeded = lambda: torch.Generator(device="cuda").manual_seed(0)
+    if not full_depth:
+        arch = dataclasses.replace(arch, num_layers=tf_layers)
+    if run or not full_depth:
+        model = init_params(arch, seeded(), RunCfg(compute_dtype=torch.bfloat16, **run),
+                            device="cuda")
+    depth = f"{arch.num_layers} layers"
     full, dec = _teacher_forced(model, tf_tokens)
-    log(f"[slice] (c) {name} teacher-forced S={tf_len} bf16 (reported): {_tf_summary(full, dec)}")
-    f32 = RunCfg(compute_dtype=torch.float32)
-    model32 = init_params(arch, torch.Generator(device="cuda").manual_seed(0), f32, device="cuda")
+    log(f"[slice] (c) {name} teacher-forced S={tf_len} bf16, {depth} (reported): "
+        f"{_tf_summary(full, dec)}")
+    del model
+    model32 = init_params(arch, seeded(), RunCfg(compute_dtype=torch.float32, **run),
+                          device="cuda")
     (full, dec), counts = _counts_since_reset(lambda: _teacher_forced(model32, tf_tokens))
-    gated = tf_layers == L
-    log(f"[slice] (c) {name} teacher-forced S={tf_len} fp32, {L} layers "
+    gated = tf_layers == arch.num_layers
+    log(f"[slice] (c) {name} teacher-forced S={tf_len} fp32, {depth} "
         f"({'gated' if gated else 'reported'}): {_tf_summary(full, dec)}; launches {counts}")
     if not gated:
         # Even fp32 rounding grows through mamba2's 64 layers under the
@@ -616,16 +670,66 @@ def phase_slice(name, tf_len, tf_layers, total):
     if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
         raise AssertionError("teacher-forced logits not finite")
     torch.testing.assert_close(dec, full, rtol=2e-2, atol=2e-2)
+    if tf_cfg.get("bf16_layers"):
+        cut = dataclasses.replace(arch, num_layers=tf_cfg["bf16_layers"])
+        model = init_params(cut, seeded(), RunCfg(compute_dtype=torch.bfloat16), device="cuda")
+        check_model_bf16(model, bf16_tokens, _forward_launches(cut))
+        del model
+        torch.cuda.empty_cache()
     agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
     if agree < 0.95:
         raise AssertionError(f"teacher-forced argmax agreement {agree:.3f} < 0.95")
 
+
+def phase_slice(name, tf_len, tf_layers, total, tf_cfg=None):
+    """Serve full-width ``name`` through the port's entry points; adds the
+    main path's launches to ``total``. The teacher-forced check runs
+    ``tf_len`` tokens and is gated on the first ``tf_layers`` layers
+    (``_teacher_forced_gate``, which takes ``tf_cfg``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import scale_arch
+    from repro_torch.models.lm import RunCfg, init_params, param_count
+    from repro_torch.serving.serve import greedy_generate, make_prefill_step, make_serve_step
+
+    arch = scale_arch(get_config(name), "full")
+    cfg = RunCfg(compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(arch, gen, cfg, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[slice] {name} full width: {arch.num_layers} layers, d {arch.d_model}, "
+        f"{param_count(model) / 1e9:.3f} B params bf16, init {time.perf_counter() - t0:.2f} s")
+    V = arch.vocab
+    fma = _uses_ssd_fma(arch)
+
+    # (a), (b) prefill with its launches counted
+    prefill = make_prefill_step(model)
+    tokens = torch.randint(0, V, (2, 2000), generator=gen, device="cuda")
+    logits, counts = _counts_since_reset(lambda: prefill({"tokens": tokens}))
+    if logits.shape != (2, 1, V) or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite [2,1,{V}]")
+    want = _forward_launches(arch)
+    if counts != want:
+        raise AssertionError(f"prefill launched {counts}, expected {want}")
+    log(f"[slice] (a,b) {name} prefill B=2 S=2000: logits {tuple(logits.shape)} finite; "
+        f"launches {counts}")
+    _add(total, counts, fma)
+
+    # (c) the bf16 model through the kernels against the plain versions, at
+    # the prefill's shape and in the model's layouts
+    check_model_bf16(model, tokens, want)
+
+    # (c) teacher-forced forward vs decode
+    tf_tokens = torch.randint(0, V, (1, tf_len), generator=gen, device="cuda")
+    _teacher_forced_gate(name, arch, tf_len, tf_layers, tf_tokens, model, tf_cfg or {}, tokens)
+
     # (d) greedy generation
     prompt = torch.randint(0, V, (4, 32), generator=gen, device="cuda")
     out, counts = _counts_since_reset(lambda: greedy_generate(model, prompt, 32))
-    _add(total, counts)
+    _add(total, counts, fma)
     if out.shape != (4, 32) or out.min() < 0 or out.max() >= V:
-        raise AssertionError(f"greedy_generate gave {tuple(out.shape)} in [{out.min()}, {out.max()}]")
+        raise AssertionError(f"greedy_generate gave {tuple(out.shape)} in "
+                             f"[{out.min()}, {out.max()}]")
     log(f"[slice] (d) {name} greedy_generate B=4 prompt 32 new 32: tokens {tuple(out.shape)}; "
         f"launches {counts}")
 
@@ -640,10 +744,10 @@ def phase_slice(name, tf_len, tf_layers, total):
         return tok, lg
 
     (tok, lg), counts = _counts_since_reset(serve_steps)
-    _add(total, counts)
+    _add(total, counts, fma)
     if lg.shape != (4, V) or not torch.isfinite(lg).all() or tok.shape != (4,):
         raise AssertionError("serve_step output malformed")
-    if counts != _launches(rmsnorm=4 * norms):
+    if counts != _launches(rmsnorm=4 * _norms(arch)):
         raise AssertionError(f"4 serve steps launched {counts}")
     log(f"[slice] (e) {name} 4 serve steps B=4: logits {tuple(lg.shape)} finite; "
         f"launches {counts}")
@@ -684,29 +788,43 @@ def _log_row(r):
         f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library {lib}")
 
 
-def _flash_row(gen, views):
-    """Flash at yi-6b's prefill shape, bf16, beside SDPA on the same
-    tensors: [B,nh,S,hd] tensors, or the model's [B,S,nh,hd] tensors seen
-    through transposed views."""
+def _causal_pairs(S, window=0):
+    """(query, key) pairs a causal, optionally windowed, attention of S
+    tokens computes."""
+    return sum(min(i + 1, window) if window else i + 1 for i in range(S))
+
+
+def _flash_row(gen, views, case=FLASH_MAIN, window=0):
+    """Flash at ``case`` (B, S, nh, nkv, hd; yi-6b's prefill shape by
+    default), bf16, beside SDPA on the same tensors (``is_causal``, or a
+    boolean band mask for a window; ``enable_gqa``): [B,nh,S,hd] tensors, or
+    the model's [B,S,nh,hd] tensors seen through transposed views."""
     from repro_torch.kernels import flash_attention
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.ref import attention_mask, flash_attention_ref
     dt = torch.bfloat16
-    B, S, nh, nkv, hd = FLASH_MAIN
+    B, S, nh, nkv, hd = case
     q, k, v = _flash_inputs(gen, B, S, nh, nkv, hd, dt)
     if views:
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    flops = 4 * B * nh * hd * S * (S + 1) // 2      # causal pairs this input needs
+    flops = 4 * B * nh * hd * _causal_pairs(S, window)      # the pairs this input needs
     bound, by = _bound(nbytes, flops, dt)
-    row = dict(name="flash_attention", ms=time_device(lambda: flash_attention(q, k, v)),
-               plain_ms=time_device(lambda: flash_attention_ref(q, k, v), n=3, reps=3),
-               library_ms=time_device(lambda: F.scaled_dot_product_attention(
-                   q, k, v, is_causal=True, enable_gqa=True)),
-               bound_ms=bound, bound_by=by,
-               shape=f"q{list(q.shape)} kv{list(k.shape)} bf16{' [B,S,nh,hd] views' if views else ''}")
-    log(f"[time] flash_attention{' views' if views else ''}: {flops / row['ms'] / 1e9:.1f} TFLOP/s, "
-        f"{100 * bound / row['ms']:.1f}% of the bound; SDPA {flops / row['library_ms'] / 1e9:.1f} "
-        f"TFLOP/s; kernel / SDPA = {row['ms'] / row['library_ms']:.3f}")
+    if window:
+        mask = attention_mask(S, True, window, q.device)
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+    else:
+        library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    row = dict(name="flash_attention",
+               ms=time_device(lambda: flash_attention(q, k, v, window=window)),
+               plain_ms=time_device(lambda: flash_attention_ref(q, k, v, window=window), n=3,
+                                    reps=3),
+               library_ms=time_device(library), bound_ms=bound, bound_by=by,
+               shape=f"q{list(q.shape)} kv{list(k.shape)} bf16 window={window}"
+                     f"{' [B,S,nh,hd] views' if views else ''}")
+    log(f"[time] flash_attention {list(case)} window={window}{' views' if views else ''}: "
+        f"{flops / row['ms'] / 1e9:.1f} TFLOP/s, {100 * bound / row['ms']:.1f}% of the bound; SDPA "
+        f"{flops / row['library_ms'] / 1e9:.1f} TFLOP/s; kernel / SDPA = "
+        f"{row['ms'] / row['library_ms']:.3f}")
     return row
 
 
@@ -736,6 +854,57 @@ def times_attn_kernels(gen):
     return rows
 
 
+def ssd_fwd_bound(x, dt, A, Bm, Cm, Q):
+    """(bound ms, "bytes" or "operations") of the SSD forward on these
+    inputs: each input read once, y written once; the chunked algorithm's
+    products at chunk Q with C.B^T shared across heads, per token: C.B^T
+    2QN; per head, scores x 2Q hp, chunk state 2 hp N, inter-chunk output
+    2 N hp."""
+    B, nh, S, hp = x.shape
+    N = Bm.shape[-1]
+    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4 + A.numel() * 4
+              + (Bm.numel() + Cm.numel()) * Bm.element_size())
+    flops = B * S * (2 * Q * N + nh * (2 * Q * hp + 4 * hp * N))
+    return _bound(nbytes, flops, x.dtype)
+
+
+def times_hymba_kernels(gen):
+    """hymba-1.5b's kernels at its prefill shapes, bf16: the windowed flash
+    (window 1024, GQA group 5) in the model's views; the SSD scan on the FMA
+    kernel (50 heads, N 16; blocked by 64-token chunks) in the model's
+    layout, beside its plain version (no library call computes it); RMSNorm
+    at H 1600 (norm1, norm2) and 3200 (ssm_norm). Returns the SSD row
+    (the kernel line's ``ssd_scan_fma``); logs the others and returns them
+    under "shapes"."""
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import KERNEL_CHUNK, kernel_path
+    shapes = [_flash_row(gen, True, FLASH_HYMBA, HYMBA_WINDOW)]
+    shapes += [_rms_row(gen, T, H) for T, H in RMS_MAIN_NEW[:2]]
+    B, nh, S, hp, N, Q = SSD_HYMBA
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, views=True)
+    assert kernel_path(x.dtype, hp, N) == "fma"
+    bound, by = ssd_fwd_bound(x, dt, A, Bm, Cm, KERNEL_CHUNK)
+    row = dict(name="ssd_scan_fma", ms=time_device(lambda: ssd_scan(x, dt, A, Bm, Cm)),
+               plain_ms=time_device(lambda: ssd_scan_ref(x, dt, A, Bm, Cm), n=3, reps=3),
+               library_ms=None, bound_ms=bound, bound_by=by,
+               shape=f"x{list(x.shape)} B/C{list(Bm.shape)} bf16, dt fp32, views")
+    log(f"[time] ssd_scan (fma) hymba: {100 * bound / row['ms']:.1f}% of the bound")
+    for r in shapes:
+        _log_row(r)
+    return [row]
+
+
+def times_granite_kernels(gen):
+    """granite-moe's kernels at its prefill shapes, bf16: flash at GQA group
+    3 in the model's views and RMSNorm at H 1536, each beside its bound, its
+    plain version and its library call; logged. The kernel line keeps
+    yi-6b's rows of these kernels, so this returns none."""
+    for r in (_flash_row(gen, True, FLASH_GRANITE), _rms_row(gen, *RMS_MAIN_NEW[2])):
+        _log_row(r)
+    return []
+
+
 def times_ssm_kernels(gen):
     """The SSD kernel at mamba2-2.7b's prefill shape, in the model's layout:
     bf16 x, B, C as column slices of the conv output, fp32 dt. No single
@@ -752,14 +921,7 @@ def times_ssm_kernels(gen):
         _log_row(_rms_row(gen, T, H))
     B, nh, S, hp, N, Q = SSD_MAIN
     x, dt, A, Bm, Cm = _ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, views=True)
-    # each input read once, y written once
-    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4 + A.numel() * 4
-              + (Bm.numel() + Cm.numel()) * Bm.element_size())
-    # the chunked algorithm's products at chunk Q with C.B^T shared across
-    # heads, per token: C.B^T 2QN; per head, scores x 2Q hp, chunk state
-    # 2 hp N, inter-chunk output 2 N hp
-    flops = B * S * (2 * Q * N + nh * (2 * Q * hp + 4 * hp * N))
-    bound, by = _bound(nbytes, flops, torch.bfloat16)
+    bound, by = ssd_fwd_bound(x, dt, A, Bm, Cm, Q)
     turns = []
     for which in ("fma", "wgmma", "wgmma", "fma"):
         fn = (lambda: launch_fma(x, dt, A, Bm, Cm)) if which == "fma" else \
@@ -951,13 +1113,14 @@ def phase_ssd_bwd_parity():
     """The SSD backward against its plain backward, fp32 and bf16:
     SSD_CASES and SSD_WGMMA_CASES (S 1 to 2000 around the 64-token chunks),
     each with the tests' draw and the long-memory one; mamba2's training
-    shape and an hp 64 / N 16 case in the model's layout (x, Bm, Cm column
+    shape and hymba's (50 heads, hp 64, N 16) in the model's layout (x, Bm, Cm column
     slices of one buffer, dt a [B,nh,S] view) with both draws; an
     initial_state with a final-state gradient at both shapes. bf16 at hp 64
     / N 64, 128 runs on the wgmma path, and each such case runs again on
     the FMA kernel, as every case did before the wgmma path existed.
-    Returns the max abs errors at the training shape, long-memory draw:
-    {("ssd_scan_bwd", dtype): err} and {("ssd_scan_bwd fma", bf16): err}."""
+    Returns the max abs errors at the training shapes, long-memory draw:
+    {("ssd_scan_bwd", dtype): err} and {("ssd_scan_bwd fma", bf16): err}
+    at mamba2's, {("ssd_scan_bwd_fma", dtype): err} at hymba's."""
     from repro_torch.kernels.ssd_scan import bwd_kernel_path
     gen = torch.Generator(device="cuda").manual_seed(19)
     errs = {}
@@ -987,6 +1150,8 @@ def phase_ssd_bwd_parity():
                     errs[("ssd_scan_bwd", dtype)] = got.get("wgmma", got["fma"])
                     if dtype == torch.bfloat16:
                         errs[("ssd_scan_bwd fma", dtype)] = got["fma"]
+                if (B, nh, S, hp, N) == SSD_BWD_N16 and long_memory:
+                    errs[("ssd_scan_bwd_fma", dtype)] = got["fma"]
             h0 = torch.randn(B, nh, hp, N, generator=gen, device="cuda")
             d_final = torch.randn(B, nh, hp, N, generator=gen, device="cuda")
             case(f"{tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N}) [B,S,.] views long-memory, "
@@ -1002,9 +1167,10 @@ def phase_bwd_parity():
     forward's, and each backward twice for the same bits: flash at hd
     32/64/128 (bf16 hd 64/128 on the wgmma path, the rest on the mma
     path), GQA groups 1, 2 and 8, S 1, 127, 200 and 2048, causal and one
-    window, the model's strided views, the training shape and hymba-1.5b's
-    (group 5, window 1024); RMSNorm at H 256, 1000, 2560, 4096, 5120 and
-    12288 (the register version at 2560/4096/5120 in bf16) and T 1-4096."""
+    window, the model's strided views, the training shape, hymba-1.5b's
+    (group 5, window 1024) and granite-moe's (group 3); RMSNorm at H 256,
+    1000, 1536, 1600, 2560, 3200, 4096, 5120 and 12288 (the register
+    version at 2560/4096/5120 in bf16) and T 1-4096."""
     from repro_torch.kernels import rmsnorm_bwd
     from repro_torch.kernels.ref import rmsnorm_bwd_ref
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -1017,10 +1183,15 @@ def phase_bwd_parity():
                                 f"window={window}", *_flash_inputs(gen, B, S, nh, nkv, hd, dtype),
                                 window)
         if dtype == torch.bfloat16:
-            B, S, nh, nkv, window, hd = FLASH_BWD_HYMBA
-            _flash_bwd_case(f"flash_bwd {tag} hymba {FLASH_BWD_HYMBA[:4]} hd={hd} "
-                            f"window={window}", *_flash_inputs(gen, B, S, nh, nkv, hd, dtype),
-                            window)
+            # hymba-1.5b's (group 5, window 1024) and granite-moe's (group 3)
+            # training shapes, in the model's [B,S,nh,hd] layout
+            for case in (FLASH_BWD_HYMBA, FLASH_BWD_GRANITE):
+                B, S, nh, nkv, window, hd = case
+                q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                           for t in _flash_inputs(gen, B, S, nh, nkv, hd, dtype))
+                do = _randn(gen, B, S, nh, hd, dtype=dtype).transpose(1, 2)
+                _flash_bwd_case(f"flash_bwd {tag} {case[:4]} hd={hd} window={window} "
+                                f"[B,S,nh,hd] views", q, k, v, window, do)
         B, S, nh, nkv, window, hd = FLASH_BWD_MAIN
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
                    for t in _flash_inputs(gen, B, S, nh, nkv, hd, dtype))
@@ -1028,7 +1199,7 @@ def phase_bwd_parity():
         errs[("flash_attention_bwd", dtype)] = _flash_bwd_case(
             f"flash_bwd {tag} main {FLASH_BWD_MAIN[:4]} hd={hd} [B,S,nh,hd] views", q, k, v,
             window, do)
-        for T, H in RMS_BWD_CASES + [RMS_BWD_MAIN]:
+        for T, H in RMS_BWD_CASES + [RMS_BWD_MAIN] + RMS_BWD_NEW:
             x, w, dy = _randn(gen, T, H, dtype=dtype), _randn(gen, H, dtype=dtype), \
                 _randn(gen, T, H, dtype=dtype)
             dx, dw = rmsnorm_bwd(x, w, dy)
@@ -1071,15 +1242,13 @@ def _train_data(arch):
 
 
 def _step_launches(arch):
-    """Kernel launches of one train step, remat off, for each of the G
-    microbatches: per layer a flash forward and backward (attention) or an
-    SSD forward and backward (SSM), two RMSNorms and their backwards (norm1
-    and norm2, or norm1 and ssm_norm), and the final norm."""
-    L, G = arch.num_layers, TRAIN_G
-    mixer = ("ssd_scan", "ssd_scan_bwd") if arch.block == "ssm" else \
-        ("flash_attention", "flash_attention_bwd")
-    return _launches(**{mixer[0]: L * G, mixer[1]: L * G, "rmsnorm": (2 * L + 1) * G,
-                        "rmsnorm_bwd": (2 * L + 1) * G})
+    """Kernel launches of one train step, remat off: for each of the G
+    microbatches a forward's (``_forward_launches``: per layer a flash
+    forward where the arch has attention, an SSD forward where it has the
+    SSM, its RMSNorms, the final norm) and a backward of each."""
+    fwd = _forward_launches(arch)
+    bwd = {f"{k}_bwd": n for k, n in fwd.items() if n and not k.endswith("_bwd")}
+    return _launches(**{k: n * TRAIN_G for k, n in {**fwd, **bwd}.items() if n})
 
 
 def _grads(model, batch, cfg, plain=False, remat=None):
@@ -1108,18 +1277,18 @@ def _rel_by_leaf(grads, ref):
 
 @torch.no_grad()
 def _fan_in_h(model):
-    """Rescale wq, wk, wv, wi and wg (attention archs) or the SSM's
-    in_proj from the reference's std (1/L)^0.5 to (1/H)^0.5 (``lm._dense``
-    takes fan-in from the layer axis; ROADMAP §3)."""
+    """Rescale wq, wk, wv, the MLP's or the experts' wi and wg, and the
+    SSM's in_proj, where the arch has them, from the reference's std
+    (1/L)^0.5 to (1/H)^0.5 (``lm._dense`` takes fan-in from the layer axis;
+    ROADMAP §3)."""
     a = model.arch
+    scaled = {"attn": ("wq", "wk", "wv"), "mlp": ("wi", "wg"), "moe": ("wi", "wg"),
+              "ssm": ("in_proj",)}
     for blk in model.blocks:
-        if a.block == "ssm":
-            weights = (blk.ssm["in_proj"],)
-        else:
-            weights = (blk.attn["wq"], blk.attn["wk"], blk.attn["wv"], blk.mlp["wi"],
-                       blk.mlp["wg"])
-        for p in weights:
-            p.mul_((a.num_layers / a.d_model) ** 0.5)
+        for group, names in scaled.items():
+            for name in names:
+                if hasattr(blk, group) and name in getattr(blk, group):
+                    getattr(blk, group)[name].mul_((a.num_layers / a.d_model) ** 0.5)
     return model
 
 
@@ -1307,7 +1476,7 @@ def train_loop_and_restore(name, total, layers=None):
             arch, cfg, data, TRAIN_STEPS, ckpt_dir=ckpt, log_every=1, ckpt_every=TRAIN_STEPS,
             log_fn=lambda m: log(f"[train] (b) {m}"), device="cuda"))
         seconds = time.perf_counter() - t0
-        _add(total, counts)
+        _add(total, counts, _uses_ssd_fma(arch))
         want = {k: n * TRAIN_STEPS for k, n in _step_launches(arch).items()}
         if counts != want:
             raise AssertionError(f"train_loop launched {counts}, expected {want}")
@@ -1366,7 +1535,7 @@ def train_step_descent_and_times(name, total):
         losses.append(float(metrics["loss"]))
         ms.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
-            _add(total, counts)
+            _add(total, counts, _uses_ssd_fma(arch))
             if counts != _step_launches(arch):
                 raise AssertionError(f"one train step launched {counts}, expected "
                                      f"{_step_launches(arch)}")
@@ -1389,74 +1558,123 @@ def train_step_descent_and_times(name, total):
         f"{TRAIN_G * TRAIN_S / med * 1e3:.1f} tokens/s; peak memory {peak:.2f} GiB")
 
 
-def times_train_kernels(gen):
-    """The backward kernels at yi-6b's training shapes, bf16, beside their
-    bound, their plain backward and the backward of one PyTorch call
-    through autograd (SDPA with ``enable_gqa``, ``F.rms_norm``)."""
-    from repro_torch.kernels import flash_attention_bwd, rmsnorm_bwd
+def _flash_bwd_row(gen, case):
+    """The flash backward at ``case`` (B, S, nh, nkv, window, hd), bf16,
+    beside its bound, its plain backward and SDPA's backward through
+    autograd (``enable_gqa``; a boolean band mask for a window)."""
+    from repro_torch.kernels import flash_attention_bwd
     from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.ref import flash_attention_bwd_ref, rmsnorm_bwd_ref
+    from repro_torch.kernels.ref import attention_mask, flash_attention_bwd_ref
     dt = torch.bfloat16
-    B, S, nh, nkv, window, hd = FLASH_BWD_MAIN
+    B, S, nh, nkv, window, hd = case
     q, k, v = _flash_inputs(gen, B, S, nh, nkv, hd, dt)
-    o, lse = flash_attention_fwd(q, k, v)
+    o, lse = flash_attention_fwd(q, k, v, window=window)
     do = _randn(gen, B, nh, S, hd, dtype=dt)
-    # read q, k, v, o, dO, write dq, dk, dv; five products over the causal pairs
+    # read q, k, v, o, dO, write dq, dk, dv; five products over the pairs
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
-    flops = 5 * 2 * B * nh * hd * S * (S + 1) // 2
+    flops = 5 * 2 * B * nh * hd * _causal_pairs(S, window)
     bound, by = _bound(nbytes, flops, dt)
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
-    rows = [dict(name="flash_attention_bwd",
-                 ms=time_device(lambda: flash_attention_bwd(q, k, v, o, do, lse)),
-                 plain_ms=time_device(lambda: flash_attention_bwd_ref(q, k, v, o, do, lse), n=3,
-                                      reps=3),
-                 library_ms=time_device(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
-                                                                    retain_graph=True)),
-                 bound_ms=bound, bound_by=by,
-                 shape=f"q{list(q.shape)} kv{list(k.shape)} bf16 causal")]
-    r = rows[0]
-    log(f"[time] flash_attention_bwd: {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+    if window:
+        lo = F.scaled_dot_product_attention(ql, kl, vl, enable_gqa=True,
+                                            attn_mask=attention_mask(S, True, window, q.device))
+    else:
+        lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    r = dict(name="flash_attention_bwd",
+             ms=time_device(lambda: flash_attention_bwd(q, k, v, o, do, lse, window=window)),
+             plain_ms=time_device(lambda: flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                                  window=window), n=3, reps=3),
+             library_ms=time_device(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                                                retain_graph=True)),
+             bound_ms=bound, bound_by=by,
+             shape=f"q{list(q.shape)} kv{list(k.shape)} bf16 causal window={window}")
+    log(f"[time] flash_attention_bwd {list(case)}: {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
         f"{100 * bound / r['ms']:.1f}% of the bound; SDPA backward "
         f"{flops / r['library_ms'] / 1e9:.1f} TFLOP/s; kernel / SDPA = "
         f"{r['ms'] / r['library_ms']:.3f}")
-    T, H = RMS_BWD_MAIN
+    return r
+
+
+def _rms_bwd_row(gen, T, H):
+    """The RMSNorm backward at [T, H], bf16, beside its bound, its plain
+    backward and ``F.rms_norm``'s backward through autograd."""
+    from repro_torch.kernels import rmsnorm_bwd
+    from repro_torch.kernels.ref import rmsnorm_bwd_ref
+    dt = torch.bfloat16
     x, w, dy = _randn(gen, T, H, dtype=dt), _randn(gen, H, dtype=dt), _randn(gen, T, H, dtype=dt)
     bound, by = _bound((3 * x.numel() + w.numel()) * x.element_size(), 10 * x.numel(),
                        torch.float32)
     xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
     yl = F.rms_norm(xl, (H,), wl, eps=1e-5)
-    rows.append(dict(name="rmsnorm_bwd", ms=time_device(lambda: rmsnorm_bwd(x, w, dy)),
-                     plain_ms=time_device(lambda: rmsnorm_bwd_ref(x, w, dy)),
-                     library_ms=time_device(lambda: torch.autograd.grad(yl, (xl, wl), dy,
-                                                                        retain_graph=True)),
-                     bound_ms=bound, bound_by=by, shape=f"x{list(x.shape)} bf16"))
-    r = rows[1]
+    r = dict(name="rmsnorm_bwd", ms=time_device(lambda: rmsnorm_bwd(x, w, dy)),
+             plain_ms=time_device(lambda: rmsnorm_bwd_ref(x, w, dy)),
+             library_ms=time_device(lambda: torch.autograd.grad(yl, (xl, wl), dy,
+                                                                retain_graph=True)),
+             bound_ms=bound, bound_by=by, shape=f"x{list(x.shape)} bf16")
     log(f"[time] rmsnorm_bwd x[{T}, {H}]: {100 * bound / r['ms']:.1f}% of the bound; "
         f"kernel / F.rms_norm backward = {r['ms'] / r['library_ms']:.3f}")
-    return rows
+    return r
+
+
+def times_train_kernels(gen):
+    """The backward kernels at yi-6b's training shapes, bf16, beside their
+    bound, their plain backward and the backward of one PyTorch call
+    through autograd (SDPA with ``enable_gqa``, ``F.rms_norm``)."""
+    return [_flash_bwd_row(gen, FLASH_BWD_MAIN), _rms_bwd_row(gen, *RMS_BWD_MAIN)]
+
+
+def times_hymba_train_kernels(gen):
+    """hymba-1.5b's backward kernels at its training shapes, bf16: the SSD
+    backward on the FMA kernel (50 heads, N 16; ``_ssd_bwd_row``, the
+    kernel line's ``ssd_scan_bwd_fma``); logged beside it, the windowed
+    flash backward and RMSNorm's at H 1600 and 3200."""
+    from repro_torch.kernels.ssd_scan import bwd_kernel_path
+    for r in [_flash_bwd_row(gen, FLASH_BWD_HYMBA)] + [_rms_bwd_row(gen, *c)
+                                                        for c in RMS_BWD_NEW[:2]]:
+        _log_row(r)
+    assert bwd_kernel_path(torch.bfloat16, *SSD_BWD_N16[3:]) == "fma"
+    row, _ = _ssd_bwd_row(gen, "ssd_scan_bwd_fma", SSD_BWD_N16)
+    log(f"[time] ssd_scan_bwd (fma) hymba: {100 * row['bound_ms'] / row['ms']:.1f}% of the bound")
+    return [row]
+
+
+def times_granite_train_kernels(gen):
+    """granite-moe's backward kernels at its training shapes, bf16 (flash at
+    GQA group 3, RMSNorm at H 1536), logged; the kernel line keeps yi-6b's
+    rows of these kernels."""
+    for r in (_flash_bwd_row(gen, FLASH_BWD_GRANITE), _rms_bwd_row(gen, *RMS_BWD_NEW[2])):
+        _log_row(r)
+    return []
+
+
+def _ssd_bwd_row(gen, name, case):
+    """The SSD backward (``ssd_scan_bwd``, the kernel ``bwd_kernel_path``
+    names) at ``case`` (B, nh, S, hp, N), bf16, in the model's layout (x,
+    Bm, Cm column slices of one buffer, dt a [B,nh,S] view), beside its
+    bound and its plain backward. No single PyTorch call computes it, so
+    there is no library time. Returns (the row, its inputs)."""
+    from repro_torch.kernels import ssd_scan_bwd
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    B, nh, S, hp, N = case
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, True, True)
+    dy = _randn(gen, B, S, nh, hp, dtype=torch.bfloat16).transpose(1, 2)
+    args = (x, dt, A, Bm, Cm, dy)
+    bound, by = ssd_bwd_bound(x, dt, A, Bm, Cm, torch.bfloat16)
+    row = dict(name=name, ms=time_device(lambda: ssd_scan_bwd(*args)),
+               plain_ms=time_device(lambda: ssd_scan_bwd_ref(*args), n=3, reps=3),
+               library_ms=None, bound_ms=bound, bound_by=by,
+               shape=f"x{list(x.shape)} B/C{list(Bm.shape)} bf16, dt fp32, views")
+    return row, args
 
 
 def times_ssd_bwd_kernel(gen):
-    """(d) The SSD backward at mamba2's training shape, bf16, in the model's
-    layout (x, Bm, Cm column slices of one buffer, dt a [B,nh,S] view):
-    the wgmma path (``ssd_scan_bwd``) beside its bound and its plain
-    backward, and the FMA kernel on the same inputs (``launch_bwd_fma``,
-    under "paths"). No single PyTorch call computes it, so there is no
-    library time."""
-    from repro_torch.kernels import ssd_scan_bwd
-    from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    """(d) The SSD backward at mamba2's training shape on the wgmma path
+    (``_ssd_bwd_row``), and the FMA kernel on the same inputs
+    (``launch_bwd_fma``, under "paths"), which it must beat."""
     from repro_torch.kernels.ssd_scan import launch_bwd_fma
-    B, nh, S, hp, N = SSD_BWD_MAIN
-    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, True, True)
-    dy = _randn(gen, B, S, nh, hp, dtype=torch.bfloat16).transpose(1, 2)
-    bound, by = ssd_bwd_bound(x, dt, A, Bm, Cm, torch.bfloat16)
-    ms = time_device(lambda: ssd_scan_bwd(x, dt, A, Bm, Cm, dy))
-    fma_ms = time_device(lambda: launch_bwd_fma(x, dt, A, Bm, Cm, dy))
-    row = dict(name="ssd_scan_bwd", ms=ms,
-               plain_ms=time_device(lambda: ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy), n=3, reps=3),
-               library_ms=None, bound_ms=bound, bound_by=by, fma_ms=fma_ms,
-               shape=f"x{list(x.shape)} B/C{list(Bm.shape)} bf16, dt fp32, views")
+    row, args = _ssd_bwd_row(gen, "ssd_scan_bwd", SSD_BWD_MAIN)
+    ms, bound = row["ms"], row["bound_ms"]
+    fma_ms = row["fma_ms"] = time_device(lambda: launch_bwd_fma(*args))
     log(f"[time] ssd_scan_bwd: wgmma {ms:.4f} ms ({100 * bound / ms:.1f}% of the bound), "
         f"fma {fma_ms:.4f} ms ({100 * bound / fma_ms:.1f}%); fma / wgmma = {fma_ms / ms:.2f}")
     if not ms < fma_ms:
@@ -1465,11 +1683,19 @@ def times_ssd_bwd_kernel(gen):
     return row
 
 
-def phase_train(total):
-    """Section 6, yi-6b then mamba2-2.7b: (a) gradients, (b) train_loop and
+# each training slice's backward kernel times (section 6)
+TRAIN_KERNEL_TIMES = {"yi-6b": times_train_kernels,
+                      "mamba2-2.7b": lambda g: [times_ssd_bwd_kernel(g)],
+                      "hymba-1.5b": times_hymba_train_kernels,
+                      "granite-moe-3b-a800m": times_granite_train_kernels}
+
+
+def phase_train(total, mark=lambda name: None):
+    """Section 6, each model of TRAIN_LAYERS in turn (yi-6b, mamba2-2.7b,
+    hymba-1.5b, granite-moe-3b-a800m): (a) gradients, (b) train_loop and
     restore, (c) descent on one batch, one step's launches and the step's
-    time; then the backward kernels' times (yi-6b's flash and RMSNorm,
-    mamba2's SSD)."""
+    time; then its backward kernels' times (TRAIN_KERNEL_TIMES). ``mark``
+    is called with each model's name when it is done."""
     gen = torch.Generator(device="cuda").manual_seed(23)
     rows = []
     for name in TRAIN_LAYERS:
@@ -1478,16 +1704,18 @@ def phase_train(total):
         log(f"[train] (a) {name} done in {time.perf_counter() - t0:.1f} s")
         train_loop_and_restore(name, total, TRAIN_LOOP_LAYERS[name])
         train_step_descent_and_times(name, total)
-        rows += (times_train_kernels(gen) if name == "yi-6b" else [times_ssd_bwd_kernel(gen)])
+        rows += TRAIN_KERNEL_TIMES[name](gen)
+        mark(f"{name} training")
     for r in rows:
         _log_row(r)
     return rows
 
 
 def kernel_line(rows, errs, total):
-    """The kernels line: one entry a kernel of the main path. The SSD
-    backward's entry lists its FMA path under "paths" (the same shape and
-    inputs; the main path runs the wgmma one)."""
+    """The kernels line: one entry a kernel of the main path, the SSD scan's
+    FMA paths (hymba-1.5b's) apart from its wgmma ones (mamba2-2.7b's). The
+    wgmma SSD backward's entry also lists the FMA kernel on its inputs
+    under "paths"."""
     out = []
     for r in rows:
         src, replaces = SOURCES[r["name"]]
@@ -1499,16 +1727,16 @@ def kernel_line(rows, errs, total):
             entry["paths"] = [
                 {"path": "wgmma", "source": src, "ms": r["ms"],
                  "max_abs_err": errs[("ssd_scan_bwd", torch.bfloat16)]},
-                {"path": "fma", "source": SSD_BWD_FMA_SOURCE, "ms": r["fma_ms"],
+                {"path": "fma", "source": SOURCES["ssd_scan_bwd_fma"][0], "ms": r["fma_ms"],
                  "max_abs_err": errs[("ssd_scan_bwd fma", torch.bfloat16)]}]
         out.append(entry)
     return out
 
 
-def run_model(name, tf_len, tf_layers, total, time_kernels, decode_spans):
+def run_model(name, tf_len, tf_layers, total, time_kernels, decode_spans, tf_cfg=None):
     """One model's main path (launches added to ``total``), then its kernel
     and end-to-end times. Returns the kernel rows; frees the model."""
-    model, prefill, serve = phase_slice(name, tf_len, tf_layers, total)
+    model, prefill, serve = phase_slice(name, tf_len, tf_layers, total, tf_cfg)
     gen = torch.Generator(device="cuda").manual_seed(11)
     rows = time_kernels(gen)
     for r in rows:
@@ -1550,12 +1778,26 @@ def main() -> int:
     # mamba2-2.7b: decode cost does not depend on the context (a fixed state)
     rows += run_model("mamba2-2.7b", 300, 8, total, times_ssm_kernels, ((40, 1),))
     phase_done("mamba2-2.7b serving")
-    rows += phase_train(total)
-    phase_done("training")
-    for name, n in total.items():
-        if n == 0:
+    # hymba-1.5b: the teacher-forced check runs 1100 tokens past the
+    # 1024-slot KV ring on its first 4 layers; decode after a short prompt
+    # and at 1985-2016 of a 2,048-token request, where the ring has wrapped
+    rows += run_model("hymba-1.5b", 1100, 4, total, times_hymba_kernels,
+                      ((40, 1), (2048, 1984)), tf_cfg={"full_depth": False})
+    phase_done("hymba-1.5b serving")
+    # granite-moe: teacher-forced drop-free (its decode's capacity is 1 slot
+    # an expert at B = 1), gated on its first 4 layers: under the
+    # reference's init fp32 rounding flips routing and attention argmaxes
+    # further in (0.378 relative L2 at 32 layers); bf16 logits gated there
+    # too; decode as yi-6b's
+    rows += run_model("granite-moe-3b-a800m", 64, 4, total, times_granite_kernels,
+                      ((40, 1), (2048, 1984)),
+                      tf_cfg={"run": {"capacity_factor": DROP_FREE}, "bf16_layers": 4})
+    phase_done("granite-moe-3b-a800m serving")
+    rows += phase_train(total, phase_done)
+    for name in [*SOURCES]:
+        if not total.get(name):
             raise AssertionError(f"kernel {name} was never launched on the main path")
-    log(f"[slice] main-path launches, both models' serving and training {total}")
+    log(f"[slice] main-path launches, every model's serving and training {total}")
     kernels = kernel_line(rows, errs, total)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()

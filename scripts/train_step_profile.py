@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of one train step goes, on one NVIDIA card.
 
-    python3 scripts/train_step_profile.py [--arch yi-6b|mamba2-2.7b]
+    python3 scripts/train_step_profile.py [--arch NAME]
 
 Builds chip_smoke.py's training slice of ``--arch`` from chip_smoke.py's
-own config (full-width yi-6b cut to 16 layers, the default, or
-mamba2-2.7b at all 64; fp32 masters and Adam moments, bf16 compute, G = 2
-microbatches of 1 x 2048 tokens, remat off), runs one warm-up step, then 2
+own config (``TRAIN_LAYERS``: full-width yi-6b cut to 16 layers, the
+default, mamba2-2.7b at all 64, hymba-1.5b or granite-moe-3b-a800m at all
+32; fp32 masters and Adam moments, bf16 compute, G = 2 microbatches of 1
+x 2048 tokens, remat off), runs one warm-up step, then 2
 steps under ``torch.profiler``. Prints the host-clock step time, the
 device time by kernel (grouped: the port's kernels, each ``flash_bwd_*``
 and ``ssd_bwd_*`` launch of either SSD backward path, GEMMs, elementwise,
@@ -52,7 +53,8 @@ GROUPS = (("ssd_cb_kernel<128, true>", "ssd bwd wgmma: C.B^T, B.C^T"),
           ("rmsnorm_bwd", "rmsnorm backward"), ("rmsnorm", "rmsnorm forward"),
           ("gemm", "GEMMs (cuBLAS)"), ("cutlass", "GEMMs (cuBLAS)"), ("xmma", "GEMMs (cuBLAS)"),
           ("nvjet", "GEMMs (cuBLAS)"), ("elementwise", "elementwise"),
-          ("vectorized", "elementwise"), ("reduce", "reductions"), ("index", "gather/scatter"),
+          ("vectorized", "elementwise"), ("reduce", "reductions"),
+          ("tensor_kernel_scan", "cumsum (MoE slots)"), ("index", "gather/scatter"),
           ("scatter", "gather/scatter"), ("sort", "gather/scatter"))
 STEPS = 2
 

@@ -1,5 +1,5 @@
-"""Model primitives of the port: the dense and SSM subset of
-``repro.models.layers``.
+"""Model primitives of the port: ``repro.models.layers`` without the
+expert-parallel ``moe_ep`` (it comes with distribution).
 
 ``rmsnorm``, ``attention`` and ``ssd_scan`` go through the port's kernels
 (``repro_torch.kernels``): the CUDA kernel for CUDA tensors, the plain
@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 
-__all__ = ["rmsnorm", "rope", "attention", "decode_attention", "mlp", "ssd_scan",
+__all__ = ["rmsnorm", "rope", "attention", "decode_attention", "mlp", "moe", "ssd_scan",
            "ssm_decode_step", "silu", "softplus", "squared_relu", "gelu"]
 
 
@@ -122,6 +122,64 @@ def mlp(x: torch.Tensor, params: Mapping[str, torch.Tensor], kind: str) -> torch
     if kind == "gated_silu":
         return (silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
     return ACTIVATIONS[kind](x @ params["wi"]) @ params["wo"]
+
+
+def moe(x: torch.Tensor, params: Mapping[str, torch.Tensor], top_k: int,
+        capacity_factor: float = 1.25, gated: bool = True):
+    """``repro.models.layers.moe``: scatter dispatch with a static capacity.
+    x [T,H]; params router [H,E], wg/wi [E,H,F], wo [E,F,H]. Returns (out
+    [T,H], aux {"load" [E] int64, "drop_fraction", "router_entropy"}).
+
+    The router runs in fp32 (fp64 for fp64 x): softmax, top-k, gates
+    renormalised. Each expert keeps C = int(max(1, cf k T / E)) slots, filled
+    in the flat (token, k) order; an assignment past its expert's C is
+    dropped. The reference adds every assignment into its slot, the dropped
+    ones as zeros at slot C - 1; here the kept rows are copied into their
+    slots (one writer a slot) and the dropped ones into a spare row that is
+    cut off, so the buffer is the same without atomics and with no host sync.
+    The experts are batched products in the compute type (the reference
+    computes them outside any Pallas kernel), and the combine gathers each
+    assignment's slot and weights it by its gate (0 where dropped).
+
+    The experts' SiLU is ``F.silu`` (one rounding in bf16, as XLA fuses the
+    reference's ``x * sigmoid(x)``), as in the SSM; see ROADMAP §3."""
+    T, H = x.shape
+    E = params["router"].shape[1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    probs = torch.softmax(x.to(acc) @ params["router"].to(acc), dim=-1)        # [T,E]
+    gate_vals, expert_idx = torch.topk(probs, top_k, dim=-1)                    # [T,k]
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+
+    C = int(max(1, capacity_factor * top_k * T / E))
+    flat_e = expert_idx.reshape(-1)                                             # [T*k]
+    # occupancy before each assignment, per expert; the count runs along the
+    # last dim of [E,T*k] (CUDA's scan down the first dim of [T*k,E] runs a
+    # thread a column: 203 ms of a granite-moe train step, PERF.md)
+    onehot = F.one_hot(flat_e, E).t().contiguous()                              # [E,T*k]
+    pos = (torch.cumsum(onehot, dim=1) - onehot).gather(0, flat_e[None])[0]
+    keep = pos < C                                                              # capacity drop
+    slot = flat_e * C + torch.clamp_max(pos, C - 1)                             # [T*k]
+
+    x_rep = x.repeat_interleave(top_k, dim=0)                                   # [T*k,H]
+    dest = torch.where(keep, slot, E * C)                                       # drops: spare row
+    buf = x.new_zeros(E * C + 1, H).index_copy(0, dest, x_rep)
+    he = buf[:-1].view(E, C, H)
+    if gated:
+        inner = F.silu(torch.bmm(he, params["wg"])) * torch.bmm(he, params["wi"])
+    else:
+        inner = gelu(torch.bmm(he, params["wi"]))
+    out_e = torch.bmm(inner, params["wo"]).reshape(E * C, H)
+
+    weight = (keep[:, None] * gate_vals.reshape(-1)[:, None]).to(x.dtype)
+    out = (out_e[slot] * weight).reshape(T, top_k, H).sum(dim=1)
+    # 1 - mean(keep) as the reference's compiled graph has it: the mean's
+    # fp32 reciprocal of T*k times the count, fused into the subtraction
+    # (one rounding); a plain fp32 mean differs in the last bit
+    recip = torch.tensor(1.0 / keep.numel(), dtype=torch.float32).item()
+    aux = {"load": onehot.sum(dim=1),
+           "drop_fraction": (1.0 - keep.sum(dtype=torch.float64) * recip).to(acc),
+           "router_entropy": -(probs * torch.log(probs + 1e-9)).sum(-1).mean()}
+    return out, aux
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Decoder LM of the port: the dense and SSM paths of ``repro.models.lm``
-(``block="attn"`` and ``block="ssm"``, no experts, token inputs).
+"""Decoder LM of the port: ``repro.models.lm`` for token inputs, with the
+attention, SSM and hybrid blocks (``block`` "attn", "ssm", "hymba") and the
+MLP or MoE sublayer.
 
 The reference keeps layer-stacked leaves ([L, ...]) scanned by
 ``lax.scan``; here each layer is a ``Block`` in an ``nn.ModuleList`` and
@@ -38,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from .layers import (attention, decode_attention, mlp, rmsnorm, rope, softplus, ssd_scan,
+from .layers import (attention, decode_attention, mlp, moe, rmsnorm, rope, softplus, ssd_scan,
                      ssm_decode_step)
 
 __all__ = ["RunCfg", "LM", "Block", "init_params", "loss_fn", "param_count"]
@@ -50,9 +51,10 @@ class RunCfg:
     arrive with distribution; ``q_chunk`` has no counterpart (the flash
     kernel is tiled), nor ``ssd_chunk``: no caller changes its 256, the
     plain SSD version's default chunk (the SSD kernel blocks by its own);
-    ``scan_layers`` has none (the layers are a loop) and the MoE knobs
-    arrive with MoE. ``param_dtype`` is the type of training's master
-    weights. ``remat`` recomputes each ``Block`` in the backward
+    ``scan_layers`` has none (the layers are a loop), nor ``expert_axis``
+    (expert parallelism comes with distribution). ``capacity_factor`` sets
+    the MoE layer's slots an expert (``layers.moe``). ``param_dtype`` is
+    the type of training's master weights. ``remat`` recomputes each ``Block`` in the backward
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
     layer body); it acts only where autograd records. Logits are always
     fp32 (the reference's default ``logits_fp32=True``, which no caller
@@ -61,15 +63,12 @@ class RunCfg:
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     remat: bool = True
+    capacity_factor: float = 1.25
 
 
 def _check_supported(arch: ArchConfig) -> None:
-    if arch.block not in ("attn", "ssm"):
-        raise NotImplementedError(
-            f"{arch.name}: block={arch.block!r} is not ported yet "
-            "(ROADMAP.md, queue 1: hybrid)")
-    if arch.n_experts:
-        raise NotImplementedError(f"{arch.name}: MoE is not ported yet (ROADMAP.md, queue 1: MoE)")
+    if arch.block not in ("attn", "ssm", "hymba"):
+        raise NotImplementedError(f"{arch.name}: block={arch.block!r} is unknown")
     if arch.embeds_input:
         raise NotImplementedError(
             f"{arch.name}: embeds-input archs are not ported yet "
@@ -81,19 +80,22 @@ def _empty(device, dtype, *shape) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One pre-norm layer: attention then the MLP (``block="attn"``), or
-    the Mamba2 mixer alone (``block="ssm"``, ``d_ff=0``)."""
+    """One pre-norm layer: attention (``block="attn"``), the Mamba2 mixer
+    (``block="ssm"``) or both in parallel on one normed input, their mean
+    added (``block="hymba"``, ``lm._block``); then the MLP or, for MoE
+    archs, the MoE layer (``lm._run_ffn``), where the arch has one."""
 
-    def __init__(self, arch: ArchConfig, dtype: torch.dtype, device):
+    def __init__(self, arch: ArchConfig, cfg: "RunCfg", device):
         super().__init__()
-        self.arch = arch
+        self.arch, self.capacity_factor = arch, cfg.capacity_factor
+        dtype = cfg.compute_dtype
         H, nh, nkv, hd, F = arch.d_model, arch.n_heads, arch.n_kv, arch.head_dim, arch.d_ff
         e = lambda *shape: _empty(device, dtype, *shape)
         self.norm1 = e(H)
         if arch.has_attention:
             self.attn = nn.ParameterDict({"wq": e(H, nh * hd), "wk": e(H, nkv * hd),
                                           "wv": e(H, nkv * hd), "wo": e(nh * hd, H)})
-        if arch.block == "ssm":
+        if arch.block in ("ssm", "hymba"):
             di, N, K = arch.d_inner, arch.ssm_state, arch.conv_width
             f32 = lambda *shape: _empty(device, torch.float32, *shape)
             self.ssm = nn.ParameterDict({
@@ -101,12 +103,17 @@ class Block(nn.Module):
                 "conv_w": e(K, di + 2 * N), "conv_b": f32(di + 2 * N),
                 "A_log": f32(arch.ssm_n_heads), "D": f32(arch.ssm_n_heads),
                 "dt_bias": f32(arch.ssm_n_heads), "ssm_norm": e(di), "out_proj": e(di, H)})
-        if F:
+        if arch.has_attention and (F or arch.n_experts):
             self.norm2 = e(H)
-            mlp_p = {"wi": e(H, F), "wo": e(F, H)}
-            if arch.mlp == "gated_silu":
-                mlp_p["wg"] = e(H, F)
-            self.mlp = nn.ParameterDict(mlp_p)
+            if arch.n_experts:
+                E, Fe = arch.n_experts, arch.d_ff_expert
+                self.moe = nn.ParameterDict({"router": e(H, E), "wg": e(E, H, Fe),
+                                             "wi": e(E, H, Fe), "wo": e(E, Fe, H)})
+            else:
+                mlp_p = {"wi": e(H, F), "wo": e(F, H)}
+                if arch.mlp == "gated_silu":
+                    mlp_p["wg"] = e(H, F)
+                self.mlp = nn.ParameterDict(mlp_p)
 
     def _qkv(self, h: torch.Tensor, positions: torch.Tensor):
         a = self.arch
@@ -116,10 +123,45 @@ class Block(nn.Module):
         v = (h @ self.attn["wv"]).reshape(B, S, a.n_kv, a.head_dim)
         return rope(q, positions), rope(k, positions), v
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.arch.d_ff:
-            return x
-        return x + mlp(rmsnorm(x, self.norm2), self.mlp, self.arch.mlp)
+    def _ffn(self, x: torch.Tensor):
+        """``lm._run_ffn``: x plus the MLP or MoE of its pre-norm -> (x,
+        aux). aux is {} without experts, else the layer's
+        {"moe_drop", "moe_load_max"} (fp32 scalars)."""
+        a = self.arch
+        if not hasattr(self, "norm2"):
+            return x, {}
+        h = rmsnorm(x, self.norm2)
+        if not a.n_experts:
+            return x + mlp(h, self.mlp, a.mlp), {}
+        B, S, H = x.shape
+        out, aux = moe(h.reshape(B * S, H), self.moe, a.top_k, self.capacity_factor,
+                       gated=a.mlp == "gated_silu")
+        return x + out.reshape(B, S, H), {"moe_drop": aux["drop_fraction"],
+                                          "moe_load_max": aux["load"].max().to(torch.float32)}
+
+    def _attn(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """``lm._run_attn``: h [B,S,H] -> [B,S,H] through the flash kernel."""
+        B, S, _ = h.shape
+        q, k, v = self._qkv(h, positions)
+        o = attention(q, k, v, causal=self.arch.causal, window=self.arch.window)
+        return o.reshape(B, S, -1) @ self.attn["wo"]
+
+    def _attn_decode(self, h: torch.Tensor, cache: Dict[str, torch.Tensor],
+                     pos: int) -> torch.Tensor:
+        """``lm._decode_attn``: h [B,1,H] -> [B,1,H]. Writes this token's k, v
+        into slot ``pos`` of the layer's cache, ``pos % span`` for window
+        archs (a ring of ``span`` slots), and attends over the
+        ``min(pos + 1, span)`` slots written."""
+        B = h.shape[0]
+        posb = torch.full((B, 1), pos, device=h.device)
+        q, k, v = self._qkv(h, posb)
+        k_cache, v_cache = cache["k"], cache["v"]
+        span = k_cache.shape[1]
+        slot = pos % span if self.arch.window else pos
+        k_cache[:, slot] = k[:, 0]
+        v_cache[:, slot] = v[:, 0]
+        o = decode_attention(q, k_cache, v_cache, min(pos + 1, span))
+        return o.reshape(B, 1, -1) @ self.attn["wo"]
 
     def _split(self, proj: torch.Tensor):
         """in_proj's output -> z [.,di], xbc [.,conv_dim], dt's input [.,nh]."""
@@ -177,14 +219,16 @@ class Block(nn.Module):
         y = rmsnorm(y.reshape(B, 1, di) * F.silu(z)[:, None], p["ssm_norm"])
         return y @ p["out_proj"]
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        """x [B,S,H] -> (x [B,S,H], aux: {} or the MoE layer's stats)."""
         h = rmsnorm(x, self.norm1)
-        if self.arch.block == "ssm":
-            return self._ffn(x + self._ssm(h))
-        B, S, _ = x.shape
-        q, k, v = self._qkv(h, positions)
-        o = attention(q, k, v, causal=self.arch.causal, window=self.arch.window)
-        x = x + o.reshape(B, S, -1) @ self.attn["wo"]
+        block = self.arch.block
+        if block == "attn":
+            x = x + self._attn(h, positions)
+        elif block == "ssm":
+            x = x + self._ssm(h)
+        else:                               # hymba: parallel attn + mamba heads, mean
+            x = x + 0.5 * (self._attn(h, positions) + self._ssm(h))
         return self._ffn(x)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
@@ -193,19 +237,16 @@ class Block(nn.Module):
         cache): k, v [B,span,nkv,hd] get this token's k, v; conv and ssm
         get the new conv window and SSM state."""
         h = rmsnorm(x, self.norm1)
-        if self.arch.block == "ssm":
-            return self._ffn(x + self._ssm_decode(h, cache["conv"], cache["ssm"]))
-        B = x.shape[0]
-        posb = torch.full((B, 1), pos, device=x.device)
-        q, k, v = self._qkv(h, posb)
-        k_cache, v_cache = cache["k"], cache["v"]
-        span = k_cache.shape[1]
-        slot = pos % span if self.arch.window else pos
-        k_cache[:, slot] = k[:, 0]
-        v_cache[:, slot] = v[:, 0]
-        o = decode_attention(q, k_cache, v_cache, min(pos + 1, span))
-        x = x + o.reshape(B, 1, -1) @ self.attn["wo"]
-        return self._ffn(x)
+        block = self.arch.block
+        if block == "attn":
+            x = x + self._attn_decode(h, cache, pos)
+        elif block == "ssm":
+            x = x + self._ssm_decode(h, cache["conv"], cache["ssm"])
+        else:
+            a = self._attn_decode(h, cache, pos)
+            s = self._ssm_decode(h, cache["conv"], cache["ssm"])
+            x = x + 0.5 * (a + s)
+        return self._ffn(x)[0]
 
 
 class LM(nn.Module):
@@ -218,7 +259,7 @@ class LM(nn.Module):
         self.arch, self.cfg = arch, cfg
         dt, H, V = cfg.compute_dtype, arch.d_model, arch.vocab
         self.embed = _empty(device, dt, V, H)
-        self.blocks = nn.ModuleList(Block(arch, dt, device) for _ in range(arch.num_layers))
+        self.blocks = nn.ModuleList(Block(arch, cfg, device) for _ in range(arch.num_layers))
         self.final_norm = _empty(device, dt, H)
         self.lm_head = _empty(device, dt, H, V)
 
@@ -226,26 +267,36 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.lm_head.device
 
-    def forward(self, tokens: torch.Tensor, logits_positions: str = "all") -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, logits_positions: str = "all",
+                with_aux: bool = False):
         """tokens [B,S] -> fp32 logits [B,S,V] (fp64 for an fp64 model), or
         [B,1,V] with ``logits_positions="last"`` (prefill: no [B,S,V]
-        buffer)."""
+        buffer). With ``with_aux``, (logits, aux): aux is {} without
+        experts, else {"moe_drop", "moe_load_max"}, each the mean over the
+        layers (the reference's ``lax.scan`` then ``jnp.mean``)."""
         x = self.embed[tokens]
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        per_layer = []
         for blk in self.blocks:
-            x = checkpoint(blk, x, positions, use_reentrant=False) if remat else blk(x, positions)
+            x, aux = (checkpoint(blk, x, positions, use_reentrant=False) if remat
+                      else blk(x, positions))
+            per_layer.append(aux)
         if logits_positions == "last":
             x = x[:, -1:]
         logits = rmsnorm(x, self.final_norm) @ self.lm_head
-        return logits.to(torch.promote_types(logits.dtype, torch.float32))
+        logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+        if not with_aux:
+            return logits
+        return logits, {k: torch.stack([a[k] for a in per_layer]).mean() for k in per_layer[0]}
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         """Attention archs: KV cache k, v [L,B,span,nkv,hd] in the compute
         dtype; window archs keep a ring buffer of ``window`` positions. SSM
-        archs: the conv window [L,B,K-1,conv_dim] in the compute dtype and
-        the state [L,B,nh,hp,N] in fp32, whatever ``max_len``."""
+        and hybrid archs: the conv window [L,B,K-1,conv_dim] in the compute
+        dtype and the state [L,B,nh,hp,N] in fp32, whatever ``max_len``
+        (hybrid archs keep both sets)."""
         a, L, dt = self.arch, self.arch.num_layers, self.cfg.compute_dtype
         z = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=self.device)
         cache = {}
@@ -253,7 +304,7 @@ class LM(nn.Module):
             span = min(a.window, max_len) if a.window else max_len
             cache["k"] = z((L, batch, span, a.n_kv, a.head_dim), dt)
             cache["v"] = z((L, batch, span, a.n_kv, a.head_dim), dt)
-        if a.block == "ssm":
+        if a.block in ("ssm", "hymba"):
             cache["conv"] = z((L, batch, a.conv_width - 1, a.d_inner + 2 * a.ssm_state), dt)
             cache["ssm"] = z((L, batch, a.ssm_n_heads, a.ssm_headdim, a.ssm_state),
                              torch.float32)
@@ -263,7 +314,7 @@ class LM(nn.Module):
                     pos: int) -> torch.Tensor:
         """One autoregressive step at position ``pos``: tokens [B] -> fp32
         logits [B,V]. ``cache`` is updated in place: the KV slots of
-        ``pos``, or the conv windows and SSM states (``lm._decode_ssm``)."""
+        ``pos`` and/or the conv windows and SSM states (``lm._decode_ssm``)."""
         x = self.embed[tokens][:, None]
         for i, blk in enumerate(self.blocks):
             x = blk.decode(x, {name: c[i] for name, c in cache.items()}, pos)
@@ -275,8 +326,9 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Di
     """``repro.models.lm.loss_fn``: next-token cross entropy in the
     logsumexp form on fp32 logits. batch: ``tokens`` and ``labels`` [B,S],
     optional ``loss_mask`` [B,S] (the mean over its ones, at least one).
-    Returns (loss, {"loss": loss})."""
-    logits = model(batch["tokens"])
+    Returns (loss, {"loss": loss, **aux}): MoE archs add the forward's
+    ``moe_drop`` and ``moe_load_max``."""
+    logits, aux = model(batch["tokens"], with_aux=True)
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
@@ -287,7 +339,7 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Di
     else:
         mask = mask.to(nll.dtype)
         loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return loss, {"loss": loss}
+    return loss, {"loss": loss, **aux}
 
 
 def _dense(gen: torch.Generator, shape, scale: float, cfg: RunCfg, device) -> torch.Tensor:
@@ -307,10 +359,12 @@ def init_params(arch: ArchConfig, generator: torch.Generator, cfg: RunCfg = RunC
 
     The reference's ``_dense`` takes fan-in from the first dim of the
     layer-stacked leaf, which is L: wq, wk, wv, wi, wg and in_proj have std
-    (1/L)^0.5. That is kept, so both packages draw from one distribution.
+    (1/L)^0.5, and so do the experts' wg and wi (their stacked leaf is
+    [L,E,H,F]). That is kept, so both packages draw from one distribution.
     The SSM leaves follow ``lm._ssm_layer_params``: conv_w std 0.3, conv_b
     0, A_log = log U(1, 16), D = 1, dt_bias the inverse softplus of
-    U(1e-3, 1e-1)."""
+    U(1e-3, 1e-1); the MoE leaves ``lm._moe_layer_params``: router std
+    0.02, wo (1/F)^0.5 / (2L)^0.5 with F = d_ff_expert."""
     model = LM(arch, cfg, device)
     dev = model.device
     if generator.device.type != dev.type:
@@ -320,6 +374,7 @@ def init_params(arch: ArchConfig, generator: torch.Generator, cfg: RunCfg = RunC
     out_attn = ((1.0 / (arch.n_heads * arch.head_dim)) ** 0.5 / (2 * L) ** 0.5
                 if arch.n_heads else 0.0)
     out_mlp = (1.0 / arch.d_ff) ** 0.5 / (2 * L) ** 0.5 if arch.d_ff else 0.0
+    out_moe = (1.0 / arch.d_ff_expert) ** 0.5 / (2 * L) ** 0.5 if arch.n_experts else 0.0
     out_ssm = (1.0 / arch.d_inner) ** 0.5 / (2 * L) ** 0.5 if arch.d_inner else 0.0
     for blk in model.blocks:
         blk.norm1.fill_(1.0)
@@ -327,7 +382,7 @@ def init_params(arch: ArchConfig, generator: torch.Generator, cfg: RunCfg = RunC
             for name in ("wq", "wk", "wv"):
                 blk.attn[name].copy_(_dense(generator, blk.attn[name].shape, stacked, cfg, dev))
             blk.attn["wo"].copy_(_dense(generator, blk.attn["wo"].shape, out_attn, cfg, dev))
-        if arch.block == "ssm":
+        if arch.block in ("ssm", "hymba"):
             p = blk.ssm
             p["in_proj"].copy_(_dense(generator, p["in_proj"].shape, stacked, cfg, dev))
             p["conv_w"].copy_(_dense(generator, p["conv_w"].shape, 0.3, cfg, dev))
@@ -338,11 +393,16 @@ def init_params(arch: ArchConfig, generator: torch.Generator, cfg: RunCfg = RunC
             p["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))     # inverse softplus
             p["ssm_norm"].fill_(1.0)
             p["out_proj"].copy_(_dense(generator, p["out_proj"].shape, out_ssm, cfg, dev))
-        if arch.d_ff:
+        if hasattr(blk, "norm2"):
             blk.norm2.fill_(1.0)
-            for name, p in blk.mlp.items():
-                scale = out_mlp if name == "wo" else stacked
-                p.copy_(_dense(generator, p.shape, scale, cfg, dev))
+            if arch.n_experts:
+                scales = {"router": 0.02, "wg": stacked, "wi": stacked, "wo": out_moe}
+                for name, p in blk.moe.items():
+                    p.copy_(_dense(generator, p.shape, scales[name], cfg, dev))
+            else:
+                for name, p in blk.mlp.items():
+                    scale = out_mlp if name == "wo" else stacked
+                    p.copy_(_dense(generator, p.shape, scale, cfg, dev))
     model.final_norm.fill_(1.0)
     model.lm_head.copy_(_dense(generator, model.lm_head.shape, 0.02, cfg, dev))
     model.embed.copy_(_dense(generator, model.embed.shape, 0.02, cfg, dev))

