@@ -19,11 +19,11 @@ Phases, each of which fails the run by raising:
   4. after each model's path, time its kernels beside their bound, their
      plain version and one PyTorch library call where there is one, and
      time prefill and decode;
-  5. hold the backward kernels (flash attention, RMSNorm, the SSD scan on
-     both its paths: wgmma for bf16 at hp 64 / N 64, 128, and the FMA
-     kernel, which also runs each of those cases and hymba's N 16) against
-     their plain backwards (``kernels/ref.py``), each call repeated for the
-     same bits;
+  5. hold the backward kernels (flash attention, RMSNorm on both its
+     versions, the SSD scan on both its paths: wgmma for bf16 at hp 64 /
+     N 16, 64, 128, and the FMA kernel, which also runs each of those
+     cases) against their plain backwards (``kernels/ref.py``), each call
+     repeated for the same bits;
   6. train full-width yi-6b cut to 16 of its 32 layers, then mamba2-2.7b
      at all 64, hymba-1.5b and granite-moe-3b-a800m at all 32 (fp32
      masters and Adam moments, bf16 compute, microbatch 1 x 2048 tokens,
@@ -34,8 +34,8 @@ Phases, each of which fails the run by raising:
      TRAIN_LOOP_LAYERS), 10 ``make_train_step`` steps on one batch whose
      loss must fall, the first with its launches counted exactly, then the
      train step's time, tokens/s and peak memory and the backward kernels'
-     times (the SSD backward's wgmma path beside its FMA kernel, which it
-     must beat).
+     times (the SSD backward's wgmma path, at mamba2's N 128 and hymba's
+     N 16, beside its FMA kernel, which it must beat).
 The last line is one JSON object with ``"ok": true`` and the device. It
 needs a CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -108,6 +108,9 @@ RMS_MAIN_SSM = [(4000, 2560), (4000, 5120), (300, 2560), (300, 5120), (4, 2560),
 RMS_MAIN_NEW = [(4000, 1600), (4000, 3200), (4000, 1536), (4, 1600), (4, 3200), (4, 1536),
                 (2, 1600), (2, 1536), (1100, 1600), (1100, 3200), (64, 1536), (1, 1600),
                 (1, 3200), (1, 1536)]
+# the SSD backward's wgmma path at N 16 (hymba-1.5b's state), around its
+# 64-token chunks; its forward runs the FMA kernel
+SSD_BWD_N16_CASES = [(2, 3, S, 64, 16) for S in (1, 63, 65, 500, 2000)] + [(1, 5, 130, 64, 16)]
 # backward cases, B, S, nh, nkv, window (GQA groups 1, 2, 8; S 1, 127, 200,
 # 2048; causal, one window), each at hd 32, 64 and 128; the training shape
 FLASH_BWD_CASES = [(1, 1, 2, 2, 0), (2, 127, 4, 2, 0), (1, 200, 8, 1, 0), (1, 200, 4, 4, 37),
@@ -116,14 +119,17 @@ FLASH_BWD_MAIN = (1, 2048, 32, 4, 0, 128)      # yi-6b training: B, S, nh, nkv, 
 FLASH_BWD_HYMBA = (1, 2048, 25, 5, 1024, 64)   # hymba-1.5b's attention (GQA group 5)
 FLASH_BWD_GRANITE = (1, 2048, 24, 8, 0, 64)    # granite-moe-3b-a800m's attention (group 3)
 RMS_BWD_CASES = [(1, 256), (7, 4096), (300, 1000), (4096, 256), (4096, 4096), (33, 12288),
-                 (2048, 2560), (5, 2560), (2048, 5120), (1, 5120)]
+                 (2048, 2560), (5, 2560), (2048, 5120), (1, 5120), (1, 1600), (9, 1536),
+                 (300, 3200)]
 RMS_BWD_MAIN = (2048, 4096)                    # yi-6b training, one microbatch
 # hymba-1.5b (norm1, norm2 at 1600, ssm_norm at 3200) and granite-moe (1536)
-# training, one microbatch; the loop version
+# training, one microbatch; the register version (the forward's loop)
 RMS_BWD_NEW = [(2048, 1600), (2048, 3200), (2048, 1536)]
+# the model that trains at each RMS_BWD_NEW width
+RMS_BWD_NEW_MODELS = {1600: "hymba-1.5b", 3200: "hymba-1.5b", 1536: "granite-moe-3b-a800m"}
 # the SSD backward, beside SSD_CASES and SSD_WGMMA_CASES: mamba2-2.7b's
 # training shape (B, nh, S, hp, N) and hymba-1.5b's (its SSM: d_inner
-# 2 x 1600 = 3200, so 50 heads of hp 64, N 16; the FMA kernel)
+# 2 x 1600 = 3200, so 50 heads of hp 64, N 16; the wgmma path at N 16)
 SSD_BWD_MAIN = (1, 80, 2048, 64, 128)
 SSD_BWD_N16 = (1, 50, 2048, 64, 16)
 # layers each model trains at: yi-6b cut to fit one card, the others whole (PERF.md)
@@ -151,8 +157,13 @@ SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu"
                         "src/repro/kernels/ssd_scan.py:65"),
            "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd_wgmma.cu",
                             "src/repro/kernels/ssd_scan.py:65"),
+           # the wgmma SSD backward at N 16 (hymba-1.5b), counted apart
+           "ssd_scan_bwd_n16": ("src/repro_torch/kernels/csrc/ssd_scan_bwd_wgmma.cu",
+                                "src/repro/kernels/ssd_scan.py:65"),
            # the SSD scan's FMA paths (fp32, and bf16 off the wgmma shapes:
-           # hymba-1.5b's N 16), counted apart from the wgmma ones
+           # hymba-1.5b's forward at N 16), counted apart from the wgmma ones;
+           # the FMA backward runs in the fp32 gradient gates of mamba2-2.7b
+           # and hymba-1.5b (counted there) and is timed beside the wgmma path
            "ssd_scan_fma": ("src/repro_torch/kernels/csrc/ssd_scan_fma.cu",
                             "src/repro/kernels/ssd_scan.py:65"),
            "ssd_scan_bwd_fma": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
@@ -229,15 +240,17 @@ def log_ssd_bwd_resources():
 
 def log_ssd_bwd_wgmma_resources():
     """Registers, spills (local memory), dynamic shared memory and CTAs an
-    SM of the wgmma SSD backward's five kernels at N 64 and 128, from the
-    runtime; fails on a spill, or if a CTA does not fit on an SM."""
+    SM of the wgmma SSD backward's five kernels at N 16, 64 and 128, from
+    the runtime; fails on a spill, or if a CTA does not fit on an SM."""
     import ctypes
     from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import BWD_WGMMA_STATE_DIMS
     lib = build.library()
-    for N in (64, 128):
+    for N in BWD_WGMMA_STATE_DIMS:
         info = (ctypes.c_int * 20)()
         build.check(lib.ssd_scan_bwd_wgmma_info(N, info), "ssd_scan_bwd_wgmma_info")
-        for k, name in enumerate(("ssd_cb<transposed too>", "ssd_bwd_segment_ends",
+        for k, name in enumerate(("ssd_cb16" if N == 16 else "ssd_cb<transposed too>",
+                                  "ssd_bwd_segment_ends",
                                   "ssd_bwd_fold", "ssd_bwd_chunk", "ssd_bwd_sums")):
             regs, local, smem, ctas = info[4 * k:4 * k + 4]
             log(f"[build] {name}<N={N}>: {regs} registers, {local} bytes local (spills), "
@@ -251,12 +264,12 @@ def log_ssd_bwd_wgmma_resources():
 def log_bwd_resources():
     """Registers, spills (local memory), dynamic shared memory and CTAs an
     SM of the wgmma flash backward's kernels (dK/dV, dQ, the partials' sum)
-    at hd 64 and 128 and of the register RMSNorm backward at each ROW_VPL
-    width, from the runtime; fails on a spill, or if a wgmma kernel's CTA
-    does not fit on an SM."""
+    at hd 64 and 128 and of the register RMSNorm backward at each of its
+    widths (BWD_ROW_GROUPS), from the runtime; fails on a spill, or if a
+    CTA does not fit on an SM."""
     import ctypes
     from repro_torch.kernels import build
-    from repro_torch.kernels.rmsnorm import ROW_VPL
+    from repro_torch.kernels.rmsnorm import BWD_ROW_GROUPS
     lib = build.library()
     for hd in (64, 128):
         info = (ctypes.c_int * 12)()
@@ -269,16 +282,16 @@ def log_bwd_resources():
                 raise AssertionError(f"{name}<hd={hd}> spills {local} bytes a thread")
             if ctas < 1:
                 raise AssertionError(f"{name}<hd={hd}> does not fit on an SM")
-    for vpl in ROW_VPL:
+    for H, groups in BWD_ROW_GROUPS.items():
         info = (ctypes.c_int * 4)()
-        build.check(lib.rmsnorm_bwd_rows_info(vpl, info), "rmsnorm_bwd_rows_info")
+        build.check(lib.rmsnorm_bwd_rows_info(H, info), "rmsnorm_bwd_rows_info")
         regs, local, smem, ctas = info
-        log(f"[build] rmsnorm_bwd_rows<H={256 * vpl}>: {regs} registers, {local} bytes local "
-            f"(spills), {smem} bytes dynamic shared memory, {ctas} CTAs an SM")
+        log(f"[build] rmsnorm_bwd_rows<H={H}, {groups} row groups>: {regs} registers, {local} "
+            f"bytes local (spills), {smem} bytes dynamic shared memory, {ctas} CTAs an SM")
         if local:
-            raise AssertionError(f"rmsnorm_bwd_rows<H={256 * vpl}> spills {local} bytes a thread")
+            raise AssertionError(f"rmsnorm_bwd_rows<H={H}> spills {local} bytes a thread")
         if ctas < 1:
-            raise AssertionError(f"rmsnorm_bwd_rows<H={256 * vpl}> does not fit on an SM")
+            raise AssertionError(f"rmsnorm_bwd_rows<H={H}> does not fit on an SM")
 
 
 # --------------------------------------------------------------------------
@@ -500,14 +513,23 @@ def _counts_since_reset(fn):
     return result, kernels.launch_counts()
 
 
-def _add(total, counts, fma=False):
-    """Add ``counts`` to ``total``; with ``fma`` (an arch whose SSD runs the
-    FMA kernels) the SSD launches count under ``ssd_scan_fma`` and
-    ``ssd_scan_bwd_fma``."""
-    for k, n in counts.items():
-        if fma and k.startswith("ssd_scan"):
-            k += "_fma"
-        total[k] = total.get(k, 0) + n
+class Launches(dict):
+    """Main-path launches under the kernel line's names, and by (model,
+    compute dtype) (``by_model``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.by_model = {}
+
+    def add(self, counts, arch, dtype=torch.bfloat16):
+        """Add one run's ``counts`` of ``arch`` at compute ``dtype``: the SSD
+        launches under the name of the path they took (``_ssd_names``)."""
+        names = _ssd_names(arch, dtype)
+        mine = self.by_model.setdefault((arch.name, dtype), {})
+        for k, n in counts.items():
+            k = names.get(k, k)
+            self[k] = self.get(k, 0) + n
+            mine[k] = mine.get(k, 0) + n
 
 
 @contextlib.contextmanager
@@ -605,11 +627,23 @@ def _forward_launches(arch):
                      ssd_scan=L if ssm else 0)
 
 
-def _uses_ssd_fma(arch):
-    """Whether ``arch``'s SSD runs the FMA kernels (bf16, off the wgmma shapes)."""
-    from repro_torch.kernels.ssd_scan import kernel_path
-    return (arch.block in ("ssm", "hymba")
-            and kernel_path(torch.bfloat16, arch.ssm_headdim, arch.ssm_state) == "fma")
+def _ssd_names(arch, dtype=torch.bfloat16):
+    """The kernel line's names for ``arch``'s SSD launches at ``dtype``:
+    ``ssd_scan_fma`` / ``ssd_scan_bwd_fma`` where a pass takes the FMA
+    kernel, ``ssd_scan_bwd_n16`` where the backward takes the wgmma path at
+    N 16; the wrappers' own names otherwise."""
+    from repro_torch.kernels.ssd_scan import bwd_kernel_path, kernel_path
+    if arch.block not in ("ssm", "hymba"):
+        return {}
+    hp, N = arch.ssm_headdim, arch.ssm_state
+    names = {}
+    if kernel_path(dtype, hp, N) == "fma":
+        names["ssd_scan"] = "ssd_scan_fma"
+    if bwd_kernel_path(dtype, hp, N) == "fma":
+        names["ssd_scan_bwd"] = "ssd_scan_bwd_fma"
+    elif N == 16:
+        names["ssd_scan_bwd"] = "ssd_scan_bwd_n16"
+    return names
 
 
 def _teacher_forced_gate(name, arch, tf_len, tf_layers, tf_tokens, model, tf_cfg, bf16_tokens):
@@ -700,7 +734,6 @@ def phase_slice(name, tf_len, tf_layers, total, tf_cfg=None):
     log(f"[slice] {name} full width: {arch.num_layers} layers, d {arch.d_model}, "
         f"{param_count(model) / 1e9:.3f} B params bf16, init {time.perf_counter() - t0:.2f} s")
     V = arch.vocab
-    fma = _uses_ssd_fma(arch)
 
     # (a), (b) prefill with its launches counted
     prefill = make_prefill_step(model)
@@ -713,7 +746,7 @@ def phase_slice(name, tf_len, tf_layers, total, tf_cfg=None):
         raise AssertionError(f"prefill launched {counts}, expected {want}")
     log(f"[slice] (a,b) {name} prefill B=2 S=2000: logits {tuple(logits.shape)} finite; "
         f"launches {counts}")
-    _add(total, counts, fma)
+    total.add(counts, arch)
 
     # (c) the bf16 model through the kernels against the plain versions, at
     # the prefill's shape and in the model's layouts
@@ -726,7 +759,7 @@ def phase_slice(name, tf_len, tf_layers, total, tf_cfg=None):
     # (d) greedy generation
     prompt = torch.randint(0, V, (4, 32), generator=gen, device="cuda")
     out, counts = _counts_since_reset(lambda: greedy_generate(model, prompt, 32))
-    _add(total, counts, fma)
+    total.add(counts, arch)
     if out.shape != (4, 32) or out.min() < 0 or out.max() >= V:
         raise AssertionError(f"greedy_generate gave {tuple(out.shape)} in "
                              f"[{out.min()}, {out.max()}]")
@@ -744,7 +777,7 @@ def phase_slice(name, tf_len, tf_layers, total, tf_cfg=None):
         return tok, lg
 
     (tok, lg), counts = _counts_since_reset(serve_steps)
-    _add(total, counts, fma)
+    total.add(counts, arch)
     if lg.shape != (4, V) or not torch.isfinite(lg).all() or tok.shape != (4,):
         raise AssertionError("serve_step output malformed")
     if counts != _launches(rmsnorm=4 * _norms(arch)):
@@ -1111,16 +1144,18 @@ def ssd_bwd_bound(x, dt, A, Bm, Cm, dtype):
 
 def phase_ssd_bwd_parity():
     """The SSD backward against its plain backward, fp32 and bf16:
-    SSD_CASES and SSD_WGMMA_CASES (S 1 to 2000 around the 64-token chunks),
-    each with the tests' draw and the long-memory one; mamba2's training
-    shape and hymba's (50 heads, hp 64, N 16) in the model's layout (x, Bm, Cm column
-    slices of one buffer, dt a [B,nh,S] view) with both draws; an
-    initial_state with a final-state gradient at both shapes. bf16 at hp 64
-    / N 64, 128 runs on the wgmma path, and each such case runs again on
-    the FMA kernel, as every case did before the wgmma path existed.
-    Returns the max abs errors at the training shapes, long-memory draw:
-    {("ssd_scan_bwd", dtype): err} and {("ssd_scan_bwd fma", bf16): err}
-    at mamba2's, {("ssd_scan_bwd_fma", dtype): err} at hymba's."""
+    SSD_CASES, SSD_WGMMA_CASES and SSD_BWD_N16_CASES (S 1 to 2000 around
+    the 64-token chunks), each with the tests' draw and the long-memory
+    one; mamba2's training shape and hymba's (50 heads, hp 64, N 16) in the
+    model's layout (x, Bm, Cm column slices of one buffer, dt a [B,nh,S]
+    view) with both draws; an initial_state with a final-state gradient at
+    both shapes. bf16 at hp 64 / N 16, 64, 128 runs on the wgmma path, and
+    each such case runs again on the FMA kernel, as every case did before
+    the wgmma path existed. Returns the max abs errors at the training
+    shapes, long-memory draw: {("ssd_scan_bwd", dtype): err} and
+    {("ssd_scan_bwd fma", bf16): err} at mamba2's,
+    {("ssd_scan_bwd_n16", bf16): err} (wgmma) and {("ssd_scan_bwd_fma",
+    dtype): err} (the FMA kernel) at hymba's."""
     from repro_torch.kernels.ssd_scan import bwd_kernel_path
     gen = torch.Generator(device="cuda").manual_seed(19)
     errs = {}
@@ -1136,7 +1171,8 @@ def phase_ssd_bwd_parity():
 
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
-        for B, nh, S, hp, N, chunk in SSD_CASES + [c + (256,) for c in SSD_WGMMA_CASES]:
+        for B, nh, S, hp, N, chunk in SSD_CASES + [c + (256,) for c in SSD_WGMMA_CASES
+                                                   + SSD_BWD_N16_CASES]:
             for long_memory in (False, True):
                 case(f"{tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N})"
                      f"{' long-memory' if long_memory else ''}", dtype, B, nh, S, hp, N, chunk,
@@ -1152,6 +1188,8 @@ def phase_ssd_bwd_parity():
                         errs[("ssd_scan_bwd fma", dtype)] = got["fma"]
                 if (B, nh, S, hp, N) == SSD_BWD_N16 and long_memory:
                     errs[("ssd_scan_bwd_fma", dtype)] = got["fma"]
+                    if dtype == torch.bfloat16:
+                        errs[("ssd_scan_bwd_n16", dtype)] = got["wgmma"]
             h0 = torch.randn(B, nh, hp, N, generator=gen, device="cuda")
             d_final = torch.randn(B, nh, hp, N, generator=gen, device="cuda")
             case(f"{tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N}) [B,S,.] views long-memory, "
@@ -1170,7 +1208,7 @@ def phase_bwd_parity():
     window, the model's strided views, the training shape, hymba-1.5b's
     (group 5, window 1024) and granite-moe's (group 3); RMSNorm at H 256,
     1000, 1536, 1600, 2560, 3200, 4096, 5120 and 12288 (the register
-    version at 2560/4096/5120 in bf16) and T 1-4096."""
+    version at 1536/1600/2560/3200/4096/5120 in bf16) and T 1-4096."""
     from repro_torch.kernels import rmsnorm_bwd
     from repro_torch.kernels.ref import rmsnorm_bwd_ref
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -1211,6 +1249,8 @@ def phase_bwd_parity():
                       _bwd_gate(f"rmsnorm_bwd {tag} T,H=({T},{H}) dw", dw[None], want[1][None]))
             if (T, H) == RMS_BWD_MAIN:
                 errs[("rmsnorm_bwd", dtype)] = err
+            if (T, H) in RMS_BWD_NEW:
+                errs[("rmsnorm_bwd", dtype, H)] = err
     return errs
 
 
@@ -1318,18 +1358,21 @@ def _bf16_grads_vs_fp32(arch, batch, init):
     return dict(loss=(l32, lk, lp), norm=(n32, nk, np_), rel_k=rel_k, rel_p=rel_p)
 
 
-def _fp32_grads_vs_fp64(arch, batch, init):
+def _fp32_grads_vs_fp64(arch, batch, init, total):
     """fp32 gradients through the kernels and through the plain versions,
     and fp64 gradients through the plain versions, of the same weights and
-    batch: ((loss kernels, plain, fp64), (grad norms), (leaf relative L2 of
-    kernels to plain, of kernels to fp64, of plain to fp64), (relative L2
-    of the whole gradient of kernels to fp64, of plain to fp64))."""
+    batch: ((loss kernels, plain, fp64), (grad norms), (leaf relative L2
+    of kernels to plain, of kernels to fp64, of plain to fp64), (relative L2
+    of the whole gradient of kernels to fp64, of plain to fp64)). The
+    kernels' launches (the fp32 paths: the SSD's FMA kernels) are added to
+    ``total``."""
     import dataclasses
     from repro_torch.models.lm import LM, RunCfg, init_params
     model = init(init_params(arch, torch.Generator(device="cuda").manual_seed(0),
                              RunCfg(compute_dtype=torch.float32, remat=False), device="cuda"))
     cfg = _train_cfg(torch.float32)
-    gk, lk, nk, _ = _grads(model, batch, cfg)
+    gk, lk, nk, counts = _grads(model, batch, cfg)
+    total.add(counts, arch, torch.float32)
     gp, lp, np_, _ = _grads(model, batch, cfg, plain=True)
     model64 = LM(arch, RunCfg(compute_dtype=torch.float64, remat=False), device="cuda")
     model64.load_state_dict(model.state_dict())
@@ -1344,7 +1387,7 @@ def _fp32_grads_vs_fp64(arch, batch, init):
     return (lk, lp, l64), (nk, np_, n64), rels, whole
 
 
-def train_grads_gate(name):
+def train_grads_gate(name, total):
     """(a) The gradients of the G microbatches (``accumulate_grads``, the
     train step's gradient half) through the kernels and through the plain
     versions from the same weights and batch, under two inits of the same
@@ -1367,7 +1410,8 @@ def train_grads_gate(name):
     rounding noise moves by a few percent either way, so under the
     reference's init it is reported, and the whole gradient's distance
     gated. On fan-in-H weights also kernels against plain versions within
-    1e-3 relative L2 for the norm and each leaf, 1e-5 for the loss."""
+    1e-3 relative L2 for the norm and each leaf, 1e-5 for the loss. The
+    fp32 runs' kernel launches are added to ``total``."""
     arch = _train_arch(name)
     batch = _train_data(arch).batch_at(0)
     for init_name, init in (("reference init", lambda m: m), ("fan-in-H init", _fan_in_h)):
@@ -1402,7 +1446,7 @@ def train_grads_gate(name):
     batch2 = _train_data(arch2).batch_at(0)
     for init_name, init in (("reference init", lambda m: m), ("fan-in-H init", _fan_in_h)):
         (lk, lp, l64), (nk, np_, n64), (rel, rel_k, rel_p), (whole_k, whole_p) = \
-            _fp32_grads_vs_fp64(arch2, batch2, init)
+            _fp32_grads_vs_fp64(arch2, batch2, init, total)
         ratios = {n: rel_k[n] / max(rel_p[n], 1e-30) for n in rel_k}
         worst = sorted(ratios, key=ratios.get)[-3:]
         log(f"[train] (a) {name} fp32 2 layers, {init_name}: loss kernels {lk:.7f} plain "
@@ -1476,7 +1520,7 @@ def train_loop_and_restore(name, total, layers=None):
             arch, cfg, data, TRAIN_STEPS, ckpt_dir=ckpt, log_every=1, ckpt_every=TRAIN_STEPS,
             log_fn=lambda m: log(f"[train] (b) {m}"), device="cuda"))
         seconds = time.perf_counter() - t0
-        _add(total, counts, _uses_ssd_fma(arch))
+        total.add(counts, arch)
         want = {k: n * TRAIN_STEPS for k, n in _step_launches(arch).items()}
         if counts != want:
             raise AssertionError(f"train_loop launched {counts}, expected {want}")
@@ -1535,7 +1579,7 @@ def train_step_descent_and_times(name, total):
         losses.append(float(metrics["loss"]))
         ms.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
-            _add(total, counts, _uses_ssd_fma(arch))
+            total.add(counts, arch)
             if counts != _step_launches(arch):
                 raise AssertionError(f"one train step launched {counts}, expected "
                                      f"{_step_launches(arch)}")
@@ -1597,9 +1641,11 @@ def _flash_bwd_row(gen, case):
 
 def _rms_bwd_row(gen, T, H):
     """The RMSNorm backward at [T, H], bf16, beside its bound, its plain
-    backward and ``F.rms_norm``'s backward through autograd."""
+    backward and ``F.rms_norm``'s backward through autograd; the row names
+    its version (``bwd_kernel_path``)."""
     from repro_torch.kernels import rmsnorm_bwd
     from repro_torch.kernels.ref import rmsnorm_bwd_ref
+    from repro_torch.kernels.rmsnorm import bwd_kernel_path
     dt = torch.bfloat16
     x, w, dy = _randn(gen, T, H, dtype=dt), _randn(gen, H, dtype=dt), _randn(gen, T, H, dtype=dt)
     bound, by = _bound((3 * x.numel() + w.numel()) * x.element_size(), 10 * x.numel(),
@@ -1610,9 +1656,10 @@ def _rms_bwd_row(gen, T, H):
              plain_ms=time_device(lambda: rmsnorm_bwd_ref(x, w, dy)),
              library_ms=time_device(lambda: torch.autograd.grad(yl, (xl, wl), dy,
                                                                 retain_graph=True)),
-             bound_ms=bound, bound_by=by, shape=f"x{list(x.shape)} bf16")
-    log(f"[time] rmsnorm_bwd x[{T}, {H}]: {100 * bound / r['ms']:.1f}% of the bound; "
-        f"kernel / F.rms_norm backward = {r['ms'] / r['library_ms']:.3f}")
+             bound_ms=bound, bound_by=by, shape=f"x{list(x.shape)} bf16",
+             path=bwd_kernel_path(dt, H), H=H)
+    log(f"[time] rmsnorm_bwd ({r['path']}) x[{T}, {H}]: {100 * bound / r['ms']:.1f}% of the "
+        f"bound; kernel / F.rms_norm backward = {r['ms'] / r['library_ms']:.3f}")
     return r
 
 
@@ -1625,26 +1672,22 @@ def times_train_kernels(gen):
 
 def times_hymba_train_kernels(gen):
     """hymba-1.5b's backward kernels at its training shapes, bf16: the SSD
-    backward on the FMA kernel (50 heads, N 16; ``_ssd_bwd_row``, the
-    kernel line's ``ssd_scan_bwd_fma``); logged beside it, the windowed
-    flash backward and RMSNorm's at H 1600 and 3200."""
-    from repro_torch.kernels.ssd_scan import bwd_kernel_path
-    for r in [_flash_bwd_row(gen, FLASH_BWD_HYMBA)] + [_rms_bwd_row(gen, *c)
-                                                        for c in RMS_BWD_NEW[:2]]:
-        _log_row(r)
-    assert bwd_kernel_path(torch.bfloat16, *SSD_BWD_N16[3:]) == "fma"
-    row, _ = _ssd_bwd_row(gen, "ssd_scan_bwd_fma", SSD_BWD_N16)
-    log(f"[time] ssd_scan_bwd (fma) hymba: {100 * row['bound_ms'] / row['ms']:.1f}% of the bound")
-    return [row]
+    backward on the wgmma path at N 16 (50 heads; the kernel line's
+    ``ssd_scan_bwd_n16``) in turns with the FMA kernel on the same inputs
+    (its ``ssd_scan_bwd_fma``), which it must beat; RMSNorm's register
+    backward at H 1600 and 3200 (rows under the kernel line's
+    ``rmsnorm_bwd``); logged, the windowed flash backward."""
+    _log_row(_flash_bwd_row(gen, FLASH_BWD_HYMBA))
+    row, fma = times_ssd_bwd_kernel(gen, "ssd_scan_bwd_n16", SSD_BWD_N16)
+    return [row, fma] + [_rms_bwd_row(gen, *c) for c in RMS_BWD_NEW[:2]]
 
 
 def times_granite_train_kernels(gen):
-    """granite-moe's backward kernels at its training shapes, bf16 (flash at
-    GQA group 3, RMSNorm at H 1536), logged; the kernel line keeps yi-6b's
-    rows of these kernels."""
-    for r in (_flash_bwd_row(gen, FLASH_BWD_GRANITE), _rms_bwd_row(gen, *RMS_BWD_NEW[2])):
-        _log_row(r)
-    return []
+    """granite-moe's backward kernels at its training shapes, bf16: RMSNorm's
+    register backward at H 1536 (a row under the kernel line's
+    ``rmsnorm_bwd``); logged, flash at GQA group 3."""
+    _log_row(_flash_bwd_row(gen, FLASH_BWD_GRANITE))
+    return [_rms_bwd_row(gen, *RMS_BWD_NEW[2])]
 
 
 def _ssd_bwd_row(gen, name, case):
@@ -1667,25 +1710,32 @@ def _ssd_bwd_row(gen, name, case):
     return row, args
 
 
-def times_ssd_bwd_kernel(gen):
-    """(d) The SSD backward at mamba2's training shape on the wgmma path
-    (``_ssd_bwd_row``), and the FMA kernel on the same inputs
-    (``launch_bwd_fma``, under "paths"), which it must beat."""
-    from repro_torch.kernels.ssd_scan import launch_bwd_fma
-    row, args = _ssd_bwd_row(gen, "ssd_scan_bwd", SSD_BWD_MAIN)
-    ms, bound = row["ms"], row["bound_ms"]
-    fma_ms = row["fma_ms"] = time_device(lambda: launch_bwd_fma(*args))
-    log(f"[time] ssd_scan_bwd: wgmma {ms:.4f} ms ({100 * bound / ms:.1f}% of the bound), "
-        f"fma {fma_ms:.4f} ms ({100 * bound / fma_ms:.1f}%); fma / wgmma = {fma_ms / ms:.2f}")
+def times_ssd_bwd_kernel(gen, name="ssd_scan_bwd", case=SSD_BWD_MAIN):
+    """(d) The SSD backward at ``case`` (mamba2's training shape by default)
+    on the wgmma path (``_ssd_bwd_row``), in turns with the FMA kernel on the
+    same inputs (``launch_bwd_fma``: FMA, wgmma, wgmma, FMA), which it must
+    beat. Returns (the wgmma row under ``name``, with the FMA time as
+    "fma_ms" for its "paths"; the FMA kernel's row, ``ssd_scan_bwd_fma``)."""
+    from repro_torch.kernels import ssd_scan_bwd
+    from repro_torch.kernels.ssd_scan import bwd_kernel_path, launch_bwd_fma
+    assert bwd_kernel_path(torch.bfloat16, *case[3:]) == "wgmma"
+    row, args = _ssd_bwd_row(gen, name, case)
+    turns = [time_device(lambda: launch_bwd_fma(*args) if which == "fma" else ssd_scan_bwd(*args))
+             for which in ("fma", "wgmma", "wgmma", "fma")]
+    ms, fma_ms, bound = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, row["bound_ms"]
+    row["ms"], row["fma_ms"] = ms, fma_ms
+    log(f"[time] {name} {list(case)} in turns FMA, wgmma, wgmma, FMA: "
+        f"{', '.join(f'{t:.4f}' for t in turns)} ms; wgmma {100 * bound / ms:.1f}% of the bound, "
+        f"fma {100 * bound / fma_ms:.1f}%; wgmma / fma = {ms / fma_ms:.3f}")
     if not ms < fma_ms:
-        raise AssertionError(f"ssd_scan_bwd: the wgmma path ({ms:.4f} ms) is not faster than the "
-                             f"FMA kernel ({fma_ms:.4f} ms) at {SSD_BWD_MAIN}")
-    return row
+        raise AssertionError(f"{name}: the wgmma path ({ms:.4f} ms) is not faster than the "
+                             f"FMA kernel ({fma_ms:.4f} ms) at {case}")
+    return row, dict(row, name="ssd_scan_bwd_fma", ms=fma_ms)
 
 
 # each training slice's backward kernel times (section 6)
 TRAIN_KERNEL_TIMES = {"yi-6b": times_train_kernels,
-                      "mamba2-2.7b": lambda g: [times_ssd_bwd_kernel(g)],
+                      "mamba2-2.7b": lambda g: [times_ssd_bwd_kernel(g)[0]],
                       "hymba-1.5b": times_hymba_train_kernels,
                       "granite-moe-3b-a800m": times_granite_train_kernels}
 
@@ -1700,7 +1750,7 @@ def phase_train(total, mark=lambda name: None):
     rows = []
     for name in TRAIN_LAYERS:
         t0 = time.perf_counter()
-        train_grads_gate(name)
+        train_grads_gate(name, total)
         log(f"[train] (a) {name} done in {time.perf_counter() - t0:.1f} s")
         train_loop_and_restore(name, total, TRAIN_LOOP_LAYERS[name])
         train_step_descent_and_times(name, total)
@@ -1713,22 +1763,39 @@ def phase_train(total, mark=lambda name: None):
 
 def kernel_line(rows, errs, total):
     """The kernels line: one entry a kernel of the main path, the SSD scan's
-    FMA paths (hymba-1.5b's) apart from its wgmma ones (mamba2-2.7b's). The
-    wgmma SSD backward's entry also lists the FMA kernel on its inputs
-    under "paths"."""
-    out = []
+    FMA paths apart from its wgmma ones, and the wgmma SSD backward at N 16
+    (hymba-1.5b's) apart from N 128 (mamba2-2.7b's). Each wgmma SSD
+    backward entry lists the FMA kernel on its inputs under "paths"; the
+    RMSNorm backward's lists its register version at the RMS_BWD_NEW
+    widths, each with the bf16 launches of the model that trains there
+    (all on the register version, at that width and the model's others)."""
+    bf16 = torch.bfloat16
+    new_width = lambda r: r["name"] == "rmsnorm_bwd" and r["H"] != RMS_BWD_MAIN[1]
+    out, rms_new = [], [r for r in rows if new_width(r)]
     for r in rows:
+        if new_width(r):
+            continue
         src, replaces = SOURCES[r["name"]]
         entry = {"name": r["name"], "route": "cuda", "source": src, "replaces": replaces,
-                 "launches": total[r["name"]], "max_abs_err": errs[(r["name"], torch.bfloat16)],
+                 "launches": total[r["name"]], "max_abs_err": errs[(r["name"], bf16)],
                  "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        if r["name"] == "ssd_scan_bwd":
+        if r["name"] in ("ssd_scan_bwd", "ssd_scan_bwd_n16"):
+            fma_err = errs[("ssd_scan_bwd fma", bf16) if r["name"] == "ssd_scan_bwd"
+                           else ("ssd_scan_bwd_fma", bf16)]
             entry["paths"] = [
                 {"path": "wgmma", "source": src, "ms": r["ms"],
-                 "max_abs_err": errs[("ssd_scan_bwd", torch.bfloat16)]},
+                 "max_abs_err": entry["max_abs_err"]},
                 {"path": "fma", "source": SOURCES["ssd_scan_bwd_fma"][0], "ms": r["fma_ms"],
-                 "max_abs_err": errs[("ssd_scan_bwd fma", torch.bfloat16)]}]
+                 "max_abs_err": fma_err}]
+        if r["name"] == "rmsnorm_bwd":
+            entry["paths"] = [
+                {"path": n["path"], "shape": n["shape"], "ms": n["ms"], "plain_ms": n["plain_ms"],
+                 "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
+                 "library_ms": n["library_ms"], "max_abs_err": errs[("rmsnorm_bwd", bf16, n["H"])],
+                 "model": RMS_BWD_NEW_MODELS[n["H"]],
+                 "launches": total.by_model[RMS_BWD_NEW_MODELS[n["H"]], bf16]["rmsnorm_bwd"]}
+                for n in rms_new]
         out.append(entry)
     return out
 
@@ -1770,7 +1837,7 @@ def main() -> int:
     phase_done("flash and RMSNorm backward parity")
     errs.update(phase_ssd_bwd_parity())
     phase_done("SSD backward parity")
-    total = {}
+    total = Launches()
     # yi-6b: decode after a short prompt, and at the prefill's context in a
     # 2,048-token cache (decode attention reads pos + 1 slots)
     rows = run_model("yi-6b", 64, 32, total, times_attn_kernels, ((40, 1), (2048, 1984)))

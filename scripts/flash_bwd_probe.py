@@ -11,8 +11,9 @@ plain versions on a few shapes (``chip_smoke.py``'s gates), then times
 q [1,32,2048,128] for each number of GQA slices of the wgmma path
 (``flash_attention_bwd(..., slices=...)``) beside SDPA's backward and its
 device time by kernel (``torch.profiler``), the flash
-forward with and without the LSE, and the RMSNorm backward at H 2560, 4096
-and 5120 beside ``F.rms_norm``'s backward. ``--quick`` stops after the
+forward with and without the LSE, and the RMSNorm backward at every width
+of its register version (H 1536, 1600, 2560, 3200, 4096, 5120) beside
+``F.rms_norm``'s backward. ``--quick`` stops after the
 parity checks. Prints the card's name and power limit. Imports no JAX.
 """
 
@@ -47,7 +48,8 @@ def parity(gen):
                 _flash_bwd_case(f"flash_bwd {tag} hd={hd} B,S,nh,nkv=({B},{S},{nh},{nkv}) "
                                 f"window={window}", *_flash_inputs(gen, B, S, nh, nkv, hd, dtype),
                                 window)
-        for T, H in ((7, 4096), (2048, 2560), (2048, 4096), (2048, 5120), (300, 1000)):
+        for T, H in ((7, 4096), (2048, 2560), (2048, 4096), (2048, 5120), (300, 1000),
+                     (2048, 1536), (2048, 1600), (2048, 3200), (9, 1600), (1, 3200)):
             x, w, dy = (_randn(gen, T, H, dtype=dtype), _randn(gen, H, dtype=dtype),
                         _randn(gen, T, H, dtype=dtype))
             dx, dw = rmsnorm_bwd(x, w, dy)
@@ -81,7 +83,7 @@ def times(gen):
     for with_lse in (False, True, True, False):
         ms = time_device(lambda: flash_attention_fwd(q, k, v, lse=with_lse))
         log(f"[time] flash forward q[{B},{nh},{S},{hd}] lse={with_lse}: {ms:.4f} ms")
-    for H in (2560, 4096, 5120):
+    for H in (1536, 1600, 2560, 3200, 4096, 5120):
         T = 2048
         x, w, dy = _randn(gen, T, H, dtype=dt), _randn(gen, H, dtype=dt), _randn(gen, T, H, dtype=dt)
         bound, _ = _bound((3 * x.numel() + w.numel()) * x.element_size(), 10 * x.numel(),

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""The SSD scan's backward kernels on one NVIDIA card, at mamba2-2.7b's
-training shape.
+"""The SSD scan's backward kernels on one NVIDIA card, at mamba2-2.7b's and
+hymba-1.5b's training shapes.
 
-    python3 scripts/ssd_bwd_probe.py [--quick] [--sweep]
+    python3 scripts/ssd_bwd_probe.py [--quick] [--sweep] [--arch NAME ...]
 
 Builds the kernels, prints the backwards' registers, spills and shared
 memory (``-Xptxas -v`` and the runtime), holds both paths against the plain
 backward on ``chip_smoke.py``'s SSD backward cases and gates, then times
-(median of 5 x 20 launches, CUDA events) at x [1,80,2048,64], N 128 in the
-model's layout: the wgmma path (bf16) and the FMA kernel on the same
-inputs (bf16 and fp32), beside the bound, the plain backward and the
-forward, with each path's device time by launch (``torch.profiler``) and
-the wgmma path's scratch bytes. ``--sweep`` also times the wgmma path at
-each (chunks per segment, heads per group) around ``bwd_plan``'s choice, the
-data ``bwd_plan``'s cost model is fitted to. ``--quick`` stops after the
-parity checks. Prints the card's name and power limit. Imports no JAX.
+(median of 5 x 20 launches, CUDA events) in the model's layout at each
+``--arch``'s training shape (both by default): mamba2-2.7b's x
+[1,80,2048,64], N 128, and hymba-1.5b's x [1,50,2048,64], N 16. There it
+times the wgmma path (bf16) and the FMA kernel on the same inputs (bf16
+and fp32), beside the bound, the plain backward and the forward, with each
+path's device time by launch (``torch.profiler``) and the wgmma path's
+scratch bytes. ``--sweep`` also times the wgmma path at each (chunks per
+segment, heads per group) around ``bwd_plan``'s choice, the data
+``bwd_plan``'s cost model is fitted to. ``--quick`` stops after the parity
+checks. Prints the card's name and power limit. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -30,21 +32,25 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-from chip_smoke import (SSD_BWD_MAIN, _ssd_inputs, log, log_ssd_bwd_resources,  # noqa: E402
-                        log_ssd_bwd_wgmma_resources, phase_ssd_bwd_parity, ssd_bwd_bound,
-                        time_device)
+from chip_smoke import (SSD_BWD_MAIN, SSD_BWD_N16, _ssd_inputs, log,  # noqa: E402
+                        log_ssd_bwd_resources, log_ssd_bwd_wgmma_resources, phase_ssd_bwd_parity,
+                        ssd_bwd_bound, time_device)
 
-LAUNCHES = ("ssd_cb_kernel", "ssd_bwd_segment_ends", "ssd_bwd_fold", "ssd_bwd_chunk_kernel",
-            "ssd_bwd_sums", "ssd_bwd_states", "ssd_bwd_dstates", "ssd_bwd_chunk",
-            "ssd_bwd_sum_bc", "ssd_bwd_sum_da")
+LAUNCHES = ("ssd_cb_kernel", "ssd_cb16_kernel", "ssd_bwd_segment_ends", "ssd_bwd_fold",
+            "ssd_bwd_chunk_kernel", "ssd_bwd_sums", "ssd_bwd_states", "ssd_bwd_dstates",
+            "ssd_bwd_chunk", "ssd_bwd_sum_bc", "ssd_bwd_sum_da")
+SHAPES = {"mamba2-2.7b": SSD_BWD_MAIN, "hymba-1.5b": SSD_BWD_N16}
+# the sweep's (chunks per segment, heads per group) grid at each shape
+SWEEP = {"mamba2-2.7b": ((1, 2, 4, 8, 16, 32), (1, 2, 3, 4, 5, 8, 10, 16, 20)),
+         "hymba-1.5b": ((1, 2, 3, 4, 6, 8, 11, 16, 32), (1, 2, 3, 4, 5, 7, 10, 13, 17, 25, 50))}
 
 
-def times(gen, sweep):
+def times(gen, sweep, arch):
     from repro_torch.kernels import build, ssd_scan, ssd_scan_bwd
     from repro_torch.kernels.ref import ssd_scan_bwd_ref
     from repro_torch.kernels.ssd_scan import (_bwd_outputs, _launch_bwd_wgmma, bwd_plan,
                                               bwd_scratch_bytes, launch_bwd_fma)
-    B, nh, S, hp, N = SSD_BWD_MAIN
+    B, nh, S, hp, N = SHAPES[arch]
     for dtype in (torch.bfloat16, torch.float32):
         x, dt, A, Bm, Cm = _ssd_inputs(gen, B, nh, S, hp, N, dtype, True, True)
         dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
@@ -70,8 +76,9 @@ def times(gen, sweep):
             f"{(4 * B * nh * S * N * 2 + 2 * 4 * B * nh * -(-S // 64) * hp * N) / 1e6:.1f} MB")
         if sweep:
             out = _bwd_outputs(x, dt, Bm)
-            for seg in (1, 2, 4, 8, 16, 32):
-                for group in (1, 2, 3, 4, 5, 8, 10, 16, 20):
+            segs, groups = SWEEP[arch]
+            for seg in segs:
+                for group in groups:
                     fn = lambda: _launch_bwd_wgmma(x, dt, A, Bm, Cm, dy, None, None, out,
                                                    (seg, group))
                     ms = time_device(fn, n=10, reps=3)
@@ -105,6 +112,8 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true", help="stop after the parity checks")
     ap.add_argument("--sweep", action="store_true",
                     help="also time the wgmma path at each (segment length, head group)")
+    ap.add_argument("--arch", nargs="+", default=list(SHAPES), choices=list(SHAPES),
+                    help="the training shapes to time")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import build
@@ -123,7 +132,8 @@ def main() -> int:
     log_ssd_bwd_wgmma_resources()
     phase_ssd_bwd_parity()
     if not args.quick:
-        times(torch.Generator(device="cuda").manual_seed(5), args.sweep)
+        for arch in args.arch:
+            times(torch.Generator(device="cuda").manual_seed(5), args.sweep, arch)
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                        capture_output=True, text=True, check=True).stdout.strip())
     return 0

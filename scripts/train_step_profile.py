@@ -32,11 +32,13 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 # matched in order, lower case: the first key in a kernel's name names its group
-# (names come demangled or mangled: the backward's C.B^T is ssd_cb_kernel<N, true>)
+# (names come demangled or mangled: the backward's C.B^T is ssd_cb_kernel<N, true>,
+# ssd_cb16_kernel at N 16)
 GROUPS = (("ssd_cb_kernel<128, true>", "ssd bwd wgmma: C.B^T, B.C^T"),
           ("ssd_cb_kernel<64, true>", "ssd bwd wgmma: C.B^T, B.C^T"),
           ("ssd_cb_kernelili128elb1e", "ssd bwd wgmma: C.B^T, B.C^T"),
           ("ssd_cb_kernelili64elb1e", "ssd bwd wgmma: C.B^T, B.C^T"),
+          ("ssd_cb16_kernel", "ssd bwd wgmma: C.B^T, B.C^T"),
           ("ssd_bwd_segment_ends", "ssd bwd wgmma: segment ends"),
           ("ssd_bwd_fold", "ssd bwd wgmma: fold"),
           ("ssd_bwd_chunk_kernel", "ssd bwd wgmma: in-chunk gradients"),

@@ -13,18 +13,21 @@
 //
 // Two versions of the first launch, picked by kernels/rmsnorm.py
 // bwd_kernel_path, then one reduction:
-//  * rows (bf16, H = 256 * VPL for VPL 10, 16, 20; the forward's register
-//    widths): a row is spread over 128 threads (4 warps), each holding its
-//    H / 128 columns of x and dy in registers (8-byte vectors, a warp on
-//    256 contiguous bytes), so x, w and dy are read once. A CTA runs 4
-//    such row groups, one CTA an SM, each group striding over rows. Sums
-//    of x^2 and x*w*dy go through shuffles, then across the group's 4
-//    warps through a few floats of shared memory (double-buffered by row,
-//    one named barrier a row). A thread owns the same columns on every
-//    row, so its dw partial stays in fp32 registers across all its rows;
-//    w is staged once in shared memory. At the end the CTA sums its 4
-//    groups' partials in order into one row of partial[blocks, H]: about
-//    one partial row per SM.
+//  * rows (bf16 at the widths the models train at: H 1536, 1600, 2560,
+//    3200, 4096, 5120, kernels/rmsnorm.py BWD_ROW_GROUPS): a row is spread
+//    over 128 threads (4 warps), each holding its columns of x and dy in
+//    registers (8-byte vectors, a warp on 256 contiguous bytes; where H / 4
+//    is not a multiple of 128, the last vector of a thread is predicated
+//    off past the row), so x, w and dy are read once. A CTA runs G such
+//    row groups, one CTA an SM, each group striding over rows: G = 8 at
+//    1536 and 1600, where a row is small and more rows must be in flight
+//    to cover the memory latency; 4 elsewhere. Sums of x^2 and x*w*dy go
+//    through shuffles, then across the group's 4 warps through a few
+//    floats of shared memory (double-buffered by row, one named barrier a
+//    row). A thread owns the same columns on every row, so its dw partial
+//    stays in fp32 registers across all its rows; w is staged once in
+//    shared memory. At the end the CTA sums its G groups' partials in
+//    order into one row of partial[blocks, H]: about one partial row per SM.
 //  * loop (fp32, and bf16 at any other H): a block of W warps (W = 4, or 1
 //    for wide rows) takes a contiguous run of rows; each warp one row at a
 //    time, with 16-byte vectors, a lane every 32nd. Pass one sums x^2 and
@@ -40,7 +43,6 @@ namespace repro_torch {
 namespace {
 
 constexpr int kRowThreads = 128;   // threads a row, register version
-constexpr int kGroups = 4;         // rows in flight a CTA, register version
 constexpr int kReduceWarps = 8;
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {
@@ -53,20 +55,25 @@ __device__ __forceinline__ float4 bf16x4(uint2 u) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// H = 512 * V bf16 columns; thread `tid` of a row group holds the 4-column
-// vectors tid, tid + 128, ... of its row
-template <int V>
-__global__ void __launch_bounds__(kRowThreads * kGroups, 1)
+// H bf16 columns (a multiple of 4), G row groups a CTA; thread `tid` of a
+// row group holds the 4-column vectors tid, tid + 128, ... of its row, the
+// last of them only where it lies inside the row
+template <int H, int G>
+__global__ void __launch_bounds__(kRowThreads * G, 1)
 rmsnorm_bwd_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                         const __nv_bfloat16* __restrict__ dy, __nv_bfloat16* __restrict__ dx,
                         float* __restrict__ partial, int rows, float eps) {
-  constexpr int H = 512 * V;
-  extern __shared__ __align__(16) float sdw[];   // [kGroups][H]: the groups' dw at the end
-  __shared__ uint2 sw[H / 4];
-  __shared__ float2 red[2][kGroups][kRowThreads / 32];
+  static_assert(H % 4 == 0, "rows of whole 4-column vectors");
+  constexpr int kVecs = H / 4;
+  constexpr int V = (kVecs + kRowThreads - 1) / kRowThreads;   // vectors a thread
+  constexpr int kTail = kVecs - (V - 1) * kRowThreads;          // threads holding a V-th
+  extern __shared__ __align__(16) float sdw[];   // [G][H]: the groups' dw at the end
+  __shared__ uint2 sw[kVecs];
+  __shared__ float2 red[2][G][kRowThreads / 32];
   const int g = threadIdx.x / kRowThreads, tid = threadIdx.x % kRowThreads;
   const int warp = tid / 32, lane = tid % 32;
-  for (int i = threadIdx.x; i < H / 4; i += blockDim.x)
+  const auto live = [&](int k) { return k < V - 1 || kTail == kRowThreads || tid < kTail; };
+  for (int i = threadIdx.x; i < kVecs; i += blockDim.x)
     sw[i] = __ldg(reinterpret_cast<const uint2*>(w) + i);
   __syncthreads();
 
@@ -74,20 +81,23 @@ rmsnorm_bwd_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16
 #pragma unroll
   for (int i = 0; i < 4 * V; ++i) acc[i] = 0.f;
   int parity = 0;
-  for (int row = blockIdx.x * kGroups + g; row < rows; row += gridDim.x * kGroups) {
+  for (int row = blockIdx.x * G + g; row < rows; row += gridDim.x * G) {
     const uint2* xr = reinterpret_cast<const uint2*>(x + static_cast<size_t>(row) * H);
     const uint2* gr = reinterpret_cast<const uint2*>(dy + static_cast<size_t>(row) * H);
     uint2 xv[V], gv[V];
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      xv[k] = __ldg(xr + tid + kRowThreads * k);
-      gv[k] = __ldg(gr + tid + kRowThreads * k);
+      xv[k] = gv[k] = make_uint2(0u, 0u);   // a dead vector adds 0 to both sums
+      if (live(k)) {
+        xv[k] = __ldg(xr + tid + kRowThreads * k);
+        gv[k] = __ldg(gr + tid + kRowThreads * k);
+      }
     }
     float ss = 0.f, sxwg = 0.f;
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      const float4 xf = bf16x4(xv[k]), wf = bf16x4(sw[tid + kRowThreads * k]),
-                   gf = bf16x4(gv[k]);
+      const float4 xf = bf16x4(xv[k]), gf = bf16x4(gv[k]),
+                   wf = bf16x4(live(k) ? sw[tid + kRowThreads * k] : make_uint2(0u, 0u));
       ss = fmaf(xf.x, xf.x, ss);
       ss = fmaf(xf.y, xf.y, ss);
       ss = fmaf(xf.z, xf.z, ss);
@@ -116,6 +126,7 @@ rmsnorm_bwd_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16
     uint2* dr = reinterpret_cast<uint2*>(dx + static_cast<size_t>(row) * H);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
+      if (!live(k)) continue;
       const float4 xf = bf16x4(xv[k]), wf = bf16x4(sw[tid + kRowThreads * k]),
                    gf = bf16x4(gv[k]);
       const __nv_bfloat162 lo = __floats2bfloat162_rn(r * (wf.x * gf.x) - xf.x * r3c,
@@ -136,14 +147,15 @@ rmsnorm_bwd_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16
   float* mine = sdw + g * H;
 #pragma unroll
   for (int k = 0; k < V; ++k)
-    *reinterpret_cast<float4*>(mine + 4 * (tid + kRowThreads * k)) =
-        make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
+    if (live(k))
+      *reinterpret_cast<float4*>(mine + 4 * (tid + kRowThreads * k)) =
+          make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
   __syncthreads();
   float* out = partial + static_cast<size_t>(blockIdx.x) * H;
   for (int i = threadIdx.x; i < H; i += blockDim.x) {
     float s = sdw[i];
 #pragma unroll
-    for (int k = 1; k < kGroups; ++k) s += sdw[k * H + i];
+    for (int k = 1; k < G; ++k) s += sdw[k * H + i];
     out[i] = s;
   }
 }
@@ -253,25 +265,26 @@ rmsnorm_bwd_reduce_kernel(const float* __restrict__ partial, T* __restrict__ dw,
 }
 
 // dynamic shared memory of the register version: the groups' dw rows
-template <int V> constexpr int rows_smem() { return kGroups * 512 * V * 4; }
+template <int H, int G> constexpr int rows_smem() { return G * H * 4; }
 
-template <int V> cudaError_t rows_smem_limit() {
-  return cudaFuncSetAttribute(rmsnorm_bwd_rows_kernel<V>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, rows_smem<V>());
+template <int H, int G> cudaError_t rows_smem_limit() {
+  return cudaFuncSetAttribute(rmsnorm_bwd_rows_kernel<H, G>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, rows_smem<H, G>());
 }
 
-template <int V> int rows_info(int* out) {
-  const cudaError_t e = rows_smem_limit<V>();
+template <int H, int G> int rows_info(int* out) {
+  const cudaError_t e = rows_smem_limit<H, G>();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return kernel_info(rmsnorm_bwd_rows_kernel<V>, kRowThreads * kGroups, rows_smem<V>(), out);
+  return kernel_info(rmsnorm_bwd_rows_kernel<H, G>, kRowThreads * G, rows_smem<H, G>(), out);
 }
 
-template <int V>
+template <int H, int G>
 cudaError_t launch_rows(const void* x, const void* w, const void* dy, void* dx, float* partial,
-                        int rows, float eps, int blocks, cudaStream_t stream) {
-  const cudaError_t e = rows_smem_limit<V>();
+                        int rows, float eps, int blocks, int warps, cudaStream_t stream) {
+  if (warps != 4 * G) return cudaErrorInvalidValue;   // kernels/rmsnorm.py bwd_grid
+  const cudaError_t e = rows_smem_limit<H, G>();
   if (e != cudaSuccess) return e;
-  rmsnorm_bwd_rows_kernel<V><<<blocks, kRowThreads * kGroups, rows_smem<V>(), stream>>>(
+  rmsnorm_bwd_rows_kernel<H, G><<<blocks, kRowThreads * G, rows_smem<H, G>(), stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(dy), static_cast<__nv_bfloat16*>(dx), partial, rows, eps);
   return cudaGetLastError();
@@ -302,26 +315,29 @@ cudaError_t launch_reduce(const float* partial, void* dw, int blocks, int H, cud
 }  // namespace repro_torch
 
 // x, dy, dx: [rows, H] contiguous; w, dw: [H]; all of one dtype; partial:
-// fp32 scratch [blocks, H]. vpl > 0 picks the bf16 register version for
-// H = 256 * vpl (kernels/rmsnorm.py ROW_VPL lists the instantiations) on
-// `blocks` CTAs; vpl = 0 the loop version, `warps` (1 or 4) warps a block.
-// kernels/rmsnorm.py bwd_kernel_path and bwd_grid pick them. Returns the
-// cudaError_t of the launches (0 on success).
+// fp32 scratch [blocks, H]. rows != 0 picks the bf16 register version at
+// the widths of kernels/rmsnorm.py BWD_ROW_GROUPS, on `blocks` CTAs of
+// `warps` = 4 G warps (G row groups); rows = 0 the loop version, `warps`
+// (1 or 4) warps a block. kernels/rmsnorm.py bwd_kernel_path and bwd_grid
+// pick them. Returns the cudaError_t of the launches (0 on success).
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* w, const void* dy, void* dx,
                                   void* dw, void* partial, int rows, int H, float eps, int dtype,
-                                  int vpl, int blocks, int warps, void* stream) {
+                                  int row_version, int blocks, int warps, void* stream) {
   using namespace repro_torch;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || H <= 0 || H % 8 != 0 || blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   float* p = static_cast<float*>(partial);
   cudaError_t e;
-  if (vpl > 0) {
-    if (dtype != kBFloat16 || H != 256 * vpl) return static_cast<int>(cudaErrorInvalidValue);
-    switch (vpl) {
-      case 10: e = launch_rows<5>(x, w, dy, dx, p, rows, eps, blocks, s); break;
-      case 16: e = launch_rows<8>(x, w, dy, dx, p, rows, eps, blocks, s); break;
-      case 20: e = launch_rows<10>(x, w, dy, dx, p, rows, eps, blocks, s); break;
+  if (row_version) {
+    if (dtype != kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
+    switch (H) {
+      case 1536: e = launch_rows<1536, 8>(x, w, dy, dx, p, rows, eps, blocks, warps, s); break;
+      case 1600: e = launch_rows<1600, 8>(x, w, dy, dx, p, rows, eps, blocks, warps, s); break;
+      case 2560: e = launch_rows<2560, 4>(x, w, dy, dx, p, rows, eps, blocks, warps, s); break;
+      case 3200: e = launch_rows<3200, 4>(x, w, dy, dx, p, rows, eps, blocks, warps, s); break;
+      case 4096: e = launch_rows<4096, 4>(x, w, dy, dx, p, rows, eps, blocks, warps, s); break;
+      case 5120: e = launch_rows<5120, 4>(x, w, dy, dx, p, rows, eps, blocks, warps, s); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   } else if (warps != 1 && warps != 4) {
@@ -340,14 +356,17 @@ extern "C" int rmsnorm_bwd_launch(const void* x, const void* w, const void* dy, 
 }
 
 // Registers a thread, local-memory bytes a thread (spills), dynamic shared
-// memory bytes and CTAs an SM of the register version at H = 256 * vpl, in
-// four ints. Returns a cudaError_t.
-extern "C" int rmsnorm_bwd_rows_info(int vpl, int* out) {
+// memory bytes and CTAs an SM of the register version at width H, in four
+// ints. Returns a cudaError_t.
+extern "C" int rmsnorm_bwd_rows_info(int H, int* out) {
   using namespace repro_torch;
-  switch (vpl) {
-    case 10: return rows_info<5>(out);
-    case 16: return rows_info<8>(out);
-    case 20: return rows_info<10>(out);
+  switch (H) {
+    case 1536: return rows_info<1536, 8>(out);
+    case 1600: return rows_info<1600, 8>(out);
+    case 2560: return rows_info<2560, 4>(out);
+    case 3200: return rows_info<3200, 4>(out);
+    case 4096: return rows_info<4096, 4>(out);
+    case 5120: return rows_info<5120, 4>(out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

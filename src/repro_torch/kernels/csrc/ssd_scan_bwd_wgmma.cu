@@ -1,8 +1,8 @@
 // Mamba2 SSD (state-space duality) chunked scan, backward, bf16, for Hopper
-// (sm_90a): the wgmma + TMA kernels at hp 64 and N 64 or 128, the forward's
-// wgmma shapes (mamba2-2.7b trains at hp 64, N 128). fp32, and bf16 at
-// other (hp, N), go to the FMA kernels in ssd_scan_bwd.cu;
-// kernels/ssd_scan.py:bwd_kernel_path picks.
+// (sm_90a): the wgmma + TMA kernels at hp 64 and N 16, 64 or 128
+// (mamba2-2.7b trains at hp 64, N 128; hymba-1.5b's SSM at hp 64, N 16).
+// fp32, and bf16 at other (hp, N), go to the FMA kernels in
+// ssd_scan_bwd.cu; kernels/ssd_scan.py:bwd_kernel_path picks.
 //
 // Replaces: the backward of src/repro/kernels/ssd_scan.py, _ssd_kernel /
 // ssd_scan_pallas (forward-only on the TPU). The math is ssd_scan_bwd.cu's
@@ -21,13 +21,15 @@
 // Bound on the H100: bytes. At mamba2-2.7b training (B 1, nh 80, S 2048,
 // N 128) the function reads x, dy, dt, B, C and writes dx, ddt, dB, dC:
 // ~66 MB, ~20 us at 3.35 TB/s; its products are ~17.5 GFLOP, ~18 us on
-// the bf16 tensor cores (chip_smoke.py:ssd_bwd_bound).
+// the bf16 tensor cores (chip_smoke.py:ssd_bwd_bound). At hymba-1.5b's
+// (B 1, nh 50, S 2048, N 16) ~40 MB, ~12 us.
 //
 // Design: five launches on the caller's stream, no atomics, every sum in a
 // fixed order (two calls give the same bits).
-//  1. ssd_cb_kernel<N, true> (ssd_common.cuh, the forward's), grid (chunk,
-//     b): C.B^T and B.C^T of each chunk once for all heads, fp32 scratch in
-//     wgmma accumulator order (32 KB a chunk, in L2).
+//  1. ssd_cb_kernel<N, true> (ssd_common.cuh, the forward's; at N 16
+//     ssd_cb16_kernel), grid (chunk, b): C.B^T and B.C^T of each chunk once
+//     for all heads, fp32 scratch in wgmma accumulator order (32 KB a
+//     chunk, in L2).
 //  2. ssd_bwd_segment_ends, grid (2 (n_seg - 1), h, b): S is cut into
 //     segments of whole chunks (kernels/ssd_scan.py:bwd_plan). The first
 //     n_seg - 1 CTAs of a (h, b) walk a segment forward from a zero state,
@@ -69,12 +71,24 @@
 //  caller's strides (the model's [B,S,nh,hp] views and the column slices
 //  of the conv output need no copy) with rows at or past S zero-filled:
 //  those rows have dt = 0, are no-ops and are never stored.
+//  N 16 (hymba-1.5b): a row of a [64 tokens][16] B or C tile is 32 bytes,
+//  under the 128-byte swizzle span the TMA maps and descriptors use, so
+//  those tiles come in by plain 16-byte loads, a chunk ahead in registers,
+//  and are stored transposed: [16 state rows][64 token columns] in one
+//  swizzled 2 KB box. That box is the K-major B operand (K = tokens) of the
+//  state updates, T B and T^T C, and the MN-major A operand (K = N) of
+//  B dh^T and C.B^T; the h_c and dh images are stored [N][hp] likewise
+//  (K-major B of dy h_c and x dh, MN-major B of B dh^T). The products with
+//  N-wide outputs are m64n16k16. The state is [64,16] fp32, 8 registers a
+//  thread, so segments are cheap: bwd_plan has its own costs for N 16.
 #include "ssd_common.cuh"
 
 namespace repro_torch {
 namespace {
 
 struct BwdParams {
+  const __nv_bfloat16* Bm;  // [B,S,N] rows of unit stride; read by the N 16 kernels
+  const __nv_bfloat16* Cm;
   const float* dt;
   const float* A;
   const float* init;      // [B,nh,hp,N] or null (zeros)
@@ -92,8 +106,64 @@ struct BwdParams {
   void* dCm;              // [B,S,N] dense
   float* dinit;           // [B,nh,hp,N] or null
   long long dt_sb, dt_sh, dt_ss, dx_sb, dx_sh, dx_ss, ddt_sb, ddt_sh, ddt_ss;
+  long long b_sb, b_ss, c_sb, c_ss;
   int B, nh, S, nc, seg_chunks, n_seg, group, n_groups;
 };
+
+// bytes of an N-wide tile of B or C ([64 tokens][N]) and of one bf16 plane of
+// a [hp][N] state image: N / 64 boxes at N >= 64, one box at N 16
+template <int N> constexpr int kTileBytes = kQ * N * 2;
+
+// byte offset of (row, n) in an N-wide tile (row a token) or a state image
+// (row a head-dim index): rows of N at N >= 64, transposed at N 16
+template <int N> __device__ __forceinline__ uint32_t tile_offset(int row, int n) {
+  return N == 16 ? sw128_offset(n, row, kBox) : sw128_offset(row, n, kBox);
+}
+
+// elements (row, n) and (row, n + 1), n even, of such a tile
+template <int N>
+__device__ __forceinline__ float2 ld_pair(const unsigned char* tile, int row, int n) {
+  if constexpr (N == 16) {
+    return make_float2(
+        __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(tile + tile_offset<N>(row, n))),
+        __bfloat162float(
+            *reinterpret_cast<const __nv_bfloat16*>(tile + tile_offset<N>(row, n + 1))));
+  } else {
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(tile + tile_offset<N>(row, n)));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void st_pair(unsigned char* tile, int row, int n, uint32_t v) {
+  if constexpr (N == 16) {
+    *reinterpret_cast<uint16_t*>(tile + tile_offset<N>(row, n)) = static_cast<uint16_t>(v);
+    *reinterpret_cast<uint16_t*>(tile + tile_offset<N>(row, n + 1)) =
+        static_cast<uint16_t>(v >> 16);
+  } else {
+    *reinterpret_cast<uint32_t*>(tile + tile_offset<N>(row, n)) = v;
+  }
+}
+
+// N 16: the thread's half-row (8 states of token tid / 2) of chunk c's tile
+// of B or C at `base` (row stride ss), zeros at or past S
+__device__ __forceinline__ uint4 load_tile16(const __nv_bfloat16* base, long long ss, int c,
+                                             int S, int tid) {
+  const int tok = c * kQ + tid / 2;
+  if (tok >= S) return make_uint4(0u, 0u, 0u, 0u);
+  return __ldg(reinterpret_cast<const uint4*>(base + tok * ss + 8 * (tid % 2)));
+}
+
+// ... into the transposed box at `img` (generic address, 1024-byte aligned),
+// ordered before later wgmma reads of it
+__device__ __forceinline__ void store_tile16(unsigned char* img, uint4 v, int tid) {
+  const int j = tid / 2, n0 = 8 * (tid % 2);
+  const uint16_t* e = reinterpret_cast<const uint16_t*>(&v);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    *reinterpret_cast<uint16_t*>(img + sw128_offset(n0 + k, j, kBox)) = e[k];
+  fence_async_smem();
+}
 
 // The A operand (s o tile)^T, [64 rows p][16 tokens] per k step, as a bf16
 // pair: the swizzled [64 tokens][64] tile by ldmatrix.trans (lane: matrix
@@ -119,16 +189,45 @@ __device__ __forceinline__ void scaled_t_fragments(uint32_t (&hi)[4][4], uint32_
   }
 }
 
-// st += a^T M over the chunk's 64 tokens, a as a bf16 pair, M a [64 tokens]
-// [N] tile MN-major in N/64 boxes
+// acc += a M over the chunk's 64 tokens: a [64][64 tokens] bf16 A fragments,
+// M the N-wide tile of B or C (MN-major in N/64 boxes; at N 16 the
+// transposed box, K-major)
+template <int N>
+__device__ __forceinline__ void tile_product(float (&acc)[N / 2], const uint32_t (&a)[4][4],
+                                             uint32_t sM) {
+  if constexpr (N == 16) {
+    const uint64_t dm = sw128_desc(sM, 16, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n16(acc, a[kk], dm + 2 * kk, 1);
+  } else {
+    const uint64_t dm = sw128_desc(sM, kBox, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<N>(acc, a[kk], dm + ((kk * 16 * 128) >> 4));
+  }
+}
+
+// acc += tile P over the head dim: the [64 tokens][64] tile K-major at
+// descriptor da, P one bf16 plane [hp][N] of a state image (MN-major; at
+// N 16 stored [N][hp], K-major)
+template <int N>
+__device__ __forceinline__ void image_product(float (&acc)[N / 2], uint64_t da, uint32_t sP) {
+  if constexpr (N == 16) {
+    const uint64_t dp = sw128_desc(sP, 16, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss_n16(acc, da + 2 * kk, dp + 2 * kk, 1);
+  } else {
+    const uint64_t dp = sw128_desc(sP, kBox, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss_tb<N>(acc, da + 2 * kk, dp + ((kk * 16 * 128) >> 4));
+  }
+}
+
+// st += a^T M over the chunk's 64 tokens, a as a bf16 pair
 template <int N>
 __device__ __forceinline__ void state_update(float (&st)[N / 2], const uint32_t (&hi)[4][4],
                                              const uint32_t (&lo)[4][4], uint32_t sM) {
-  const uint64_t dm = sw128_desc(sM, kBox, 1024);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<N>(st, hi[kk], dm + ((kk * 16 * 128) >> 4));
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<N>(st, lo[kk], dm + ((kk * 16 * 128) >> 4));
+  tile_product<N>(st, hi, sM);
+  tile_product<N>(st, lo, sM);
 }
 
 // A fragments of a [64 x 64] accumulator tile (rows of the thread, columns
@@ -167,10 +266,44 @@ __device__ __forceinline__ void store_state(const float (&st)[N / 2], float* dst
           make_float2(st[4 * q + 2 * half], st[4 * q + 2 * half + 1]);
 }
 
+// ---- 1 at N 16: C.B^T and B.C^T per (b, chunk) ----
+// ssd_cb_kernel's output at N 16: the tiles by plain loads into the
+// transposed boxes, then one m64n64k16 each way with both operands MN-major
+constexpr int kCb16Smem = 2 * kTileBytes<16> + 1024;
+
+__global__ void __launch_bounds__(kThreads) ssd_cb16_kernel(const BwdParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));
+  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  store_tile16(gbase, load_tile16(p.Cm + b * p.c_sb, p.c_ss, c, p.S, tid), tid);
+  store_tile16(gbase + kTileBytes<16>, load_tile16(p.Bm + b * p.b_sb, p.b_ss, c, p.S, tid), tid);
+  __syncthreads();
+  const uint64_t dc = sw128_desc(base, kBox, 1024);
+  const uint64_t db = sw128_desc(base + kTileBytes<16>, kBox, 1024);
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    float d[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] = 0.f;
+    fence_regs(d);
+    wgmma_fence();
+    wgmma_ss_mn_n64(d, o ? db : dc, o ? dc : db, 0);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(d);
+    float4* out = reinterpret_cast<float4*>(p.cb) +
+                  (static_cast<size_t>(b * p.nc + c) * 2 + o) * 8 * kThreads + tid;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      out[q * kThreads] = make_float4(d[4 * q], d[4 * q + 1], d[4 * q + 2], d[4 * q + 3]);
+  }
+}
+
 // ---- 2. segment ends from zero, forward (x, B) or backward (dy, C) ----
 template <int N> struct EndsSmem {
   static constexpr int kNB = N / 64;
-  static constexpr int kStage = kBox + kNB * kBox;   // the x or dy tile, then B or C
+  static constexpr int kStage = kBox + kTileBytes<N>;   // the x or dy tile, then B or C
   static constexpr int kVec = 2 * kStage;            // dt, acs, w, e^acs
   static constexpr int kBar = kVec + 4 * kQ * 4;     // full[2]
   static constexpr int kBytes = kBar + 16 + 1024;
@@ -185,7 +318,8 @@ ssd_bwd_segment_ends(const __grid_constant__ CUtensorMap tx,
   using L = EndsSmem<N>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  float* vec = reinterpret_cast<float*>(smem_raw + (base - smem_addr(smem_raw)) + L::kVec);
+  unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));
+  float* vec = reinterpret_cast<float*>(gbase + L::kVec);
   const uint32_t full = base + L::kBar;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int n_ends = p.n_seg - 1;
@@ -198,14 +332,23 @@ ssd_bwd_segment_ends(const __grid_constant__ CUtensorMap tx,
   const float A = p.A[h];
   const float* dtg = p.dt + b * p.dt_sb + h * p.dt_sh;
   const float* scale = vec + (rev ? 3 * kQ : 2 * kQ);   // e^acs or w
+  // N 16: B or C by plain loads, a chunk ahead
+  const __nv_bfloat16* mat = rev ? p.Cm + b * p.c_sb : p.Bm + b * p.b_sb;
+  const long long mat_ss = rev ? p.c_ss : p.b_ss;
 
   auto issue = [&](int k) {   // the k-th chunk of the walk into slot k % 2
     const int c = rev ? c1 - 1 - k : c0 + k;
     const uint32_t slot = base + (k & 1) * L::kStage, bar = full + 8 * (k & 1);
-    mbar_expect_tx(bar, L::kStage);
-    tma_load(slot, ttile, bar, 0, c * kQ, h, b);
+    if constexpr (N == 16) {
+      mbar_expect_tx(bar, kBox);
+      tma_load(slot, ttile, bar, 0, c * kQ, h, b);
+    } else {
+      mbar_expect_tx(bar, L::kStage);
+      tma_load(slot, ttile, bar, 0, c * kQ, h, b);
 #pragma unroll
-    for (int i = 0; i < L::kNB; ++i) tma_load(slot + kBox + i * kBox, tmat, bar, 64 * i, c * kQ, b);
+      for (int i = 0; i < L::kNB; ++i)
+        tma_load(slot + kBox + i * kBox, tmat, bar, 64 * i, c * kQ, b);
+    }
   };
   if (tid == 0) {
     mbar_init(full, 1);
@@ -221,12 +364,19 @@ ssd_bwd_segment_ends(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) st[i] = 0.f;
   float log_decay = 0.f;
+  uint4 mat_next = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (N == 16) mat_next = load_tile16(mat, mat_ss, rev ? c1 - 1 : c0, p.S, tid);
+  float d0 = 0.f, d1 = 0.f;   // dt a chunk ahead
+  if (warp == 0) load_dt(dtg, p.dt_ss, (rev ? c1 - 1 : c0) * kQ, p.S, lane, d0, d1);
   for (int k = 0; k < n; ++k) {
     const int c = rev ? c1 - 1 - k : c0 + k;
+    if constexpr (N == 16) {   // slot k % 2 was last read two chunks ago
+      store_tile16(gbase + (k & 1) * L::kStage + kBox, mat_next, tid);
+      if (k + 1 < n) mat_next = load_tile16(mat, mat_ss, rev ? c - 1 : c + 1, p.S, tid);
+    }
     if (warp == 0) {
-      float d0, d1;
-      load_dt(dtg, p.dt_ss, c * kQ, p.S, lane, d0, d1);
       scan_chunk(d0, d1, A, lane, vec, vec + kQ, vec + 2 * kQ, vec + 3 * kQ);
+      if (k + 1 < n) load_dt(dtg, p.dt_ss, (rev ? c - 1 : c + 1) * kQ, p.S, lane, d0, d1);
     }
     __syncthreads();   // the chunk's vectors
     log_decay += vec[2 * kQ - 1];
@@ -293,15 +443,15 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_fold(const BwdParams p, int 
 // (slot 0) and dy and C (slot 1), which the forward walk uses as a ring of
 // x and B; one [hp][N] image in three bf16 planes (h_c as hi + lo, then dh
 // as hi + lo + lo2, which sum to dh exactly in fp32); V01 and the chunk's
-// vectors.
+// vectors. At N 16 the B and C slots and the image planes are one 2 KB box
+// each (transposed; their copies are the threads').
 template <int N> struct ChunkSmem {
-  static constexpr int kNB = N / 64;
   static constexpr int kX = 0;
   static constexpr int kB = kBox;
-  static constexpr int kDY = kB + kNB * kBox;
+  static constexpr int kDY = kB + kTileBytes<N>;
   static constexpr int kC = kDY + kBox;
-  static constexpr int kImg = kC + kNB * kBox;       // hi, lo, lo2
-  static constexpr int kV = kImg + 3 * kNB * kBox;
+  static constexpr int kImg = kC + kTileBytes<N>;    // hi, lo, lo2
+  static constexpr int kV = kImg + 3 * kTileBytes<N>;
   static constexpr int kVec = kV + kBox;             // 8 x [64] below, red [4][64], dot [4]
   static constexpr int kBar = kVec + (8 * kQ + 4 * kQ + 4) * 4;   // full[2]
   static constexpr int kBytes = kBar + 16 + 1024;
@@ -322,7 +472,7 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
                      const BwdParams p) {
   using L = ChunkSmem<N>;
   constexpr int kNB = N / 64;
-  constexpr int kPlane = kNB * kBox;
+  constexpr int kPlane = kTileBytes<N>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));
@@ -351,15 +501,18 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
   __syncthreads();
   uint32_t phase0 = 0, phase1 = 0;   // scalars: an indexed pair would live in local memory
   // slot s (0: sX and sB, 1: sDY and sC) <- chunk c's x and B, or with
-  // `dyc` its dy and C; completes on full[s]
+  // `dyc` its dy and C; completes on full[s]. At N 16 only x or dy: the
+  // threads store B and C (load_tile16 a chunk ahead, store_tile16)
   auto issue = [&](int s, bool dyc, int c, int h) {
     const uint32_t bar = full + 8 * s;
-    mbar_expect_tx(bar, (1 + kNB) * kBox);
+    mbar_expect_tx(bar, kBox + (N == 16 ? 0 : kPlane));
     tma_load(s ? sDY : sX, dyc ? &tdy : &tx, bar, 0, c * kQ, h, b);
 #pragma unroll
     for (int i = 0; i < kNB; ++i)
       tma_load((s ? sC : sB) + i * kBox, dyc ? &tc : &tb, bar, 64 * i, c * kQ, b);
   };
+  const __nv_bfloat16* bm = p.Bm + b * p.b_sb;
+  const __nv_bfloat16* cm = p.Cm + b * p.c_sb;
   auto wait_slot = [&](int s) {
     if (s) {
       mbar_wait_or_trap(full + 8, phase1);
@@ -376,17 +529,17 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
     for (int q = 0; q < N / 8; ++q)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const uint32_t off = sw128_offset(half ? r1w : r0w, 8 * q + 2 * t, kBox);
+        const int row = half ? r1w : r0w, col = 8 * q + 2 * t;
         const float a = st[4 * q + 2 * half], c = st[4 * q + 2 * half + 1];
         uint32_t hi, lo;
         split_bf16x2(a, c, hi, lo);
-        *reinterpret_cast<uint32_t*>(gbase + L::kImg + off) = hi;
-        *reinterpret_cast<uint32_t*>(gbase + L::kImg + kPlane + off) = lo;
+        st_pair<N>(gbase + L::kImg, row, col, hi);
+        st_pair<N>(gbase + L::kImg + kPlane, row, col, lo);
         if (three) {
           const float2 h2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
           const float2 l2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&lo));
-          *reinterpret_cast<uint32_t*>(gbase + L::kImg + 2 * kPlane + off) =
-              pack_bf16((a - h2.x) - l2.x, (c - h2.y) - l2.y);
+          st_pair<N>(gbase + L::kImg + 2 * kPlane, row, col,
+                     pack_bf16((a - h2.x) - l2.x, (c - h2.y) - l2.y));
         }
       }
     fence_async_smem();
@@ -397,13 +550,10 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
     for (int q = 0; q < N / 8; ++q)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const unsigned char* at =
-            gbase + L::kImg + sw128_offset(half ? r1w : r0w, 8 * q + 2 * t, kBox);
-        const float2 h2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
-        const float2 l2 =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at + kPlane));
-        const float2 m2 =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at + 2 * kPlane));
+        const int row = half ? r1w : r0w, col = 8 * q + 2 * t;
+        const float2 h2 = ld_pair<N>(gbase + L::kImg, row, col);
+        const float2 l2 = ld_pair<N>(gbase + L::kImg + kPlane, row, col);
+        const float2 m2 = ld_pair<N>(gbase + L::kImg + 2 * kPlane, row, col);
         st[4 * q + 2 * half] = (h2.x + l2.x) + m2.x;
         st[4 * q + 2 * half + 1] = (h2.y + l2.y) + m2.y;
       }
@@ -414,10 +564,8 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
     s0 = s1 = 0.f;
 #pragma unroll
     for (int q = 0; q < N / 8; ++q) {
-      const float2 m0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          gbase + sM + sw128_offset(r0w, 8 * q + 2 * t, kBox)));
-      const float2 m1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          gbase + sM + sw128_offset(r1w, 8 * q + 2 * t, kBox)));
+      const float2 m0 = ld_pair<N>(gbase + sM, r0w, 8 * q + 2 * t);
+      const float2 m1 = ld_pair<N>(gbase + sM, r1w, 8 * q + 2 * t);
       s0 = fmaf(acc[4 * q], m0.x, fmaf(acc[4 * q + 1], m0.y, s0));
       s1 = fmaf(acc[4 * q + 2], m1.x, fmaf(acc[4 * q + 3], m1.y, s1));
     }
@@ -481,10 +629,16 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
       }
       float d0 = 0.f, d1 = 0.f;
       if (warp == 0 && steps > 0) load_dt(dtg, p.dt_ss, c0 * kQ, p.S, lane, d0, d1);
+      uint4 b_next = make_uint4(0u, 0u, 0u, 0u);
+      if (N == 16 && steps > 0) b_next = load_tile16(bm, p.b_ss, c0, p.S, tid);
       for (int k = 0;; ++k) {
         const int c = c0 + k, s = k & 1;
         store_state<N>(st, stash + c * hn, warp, g, t);
         if (k == steps) break;
+        if constexpr (N == 16) {   // slot s was last read two chunks ago
+          store_tile16(gbase + (s ? L::kC : L::kB), b_next, tid);
+          if (k + 1 < steps) b_next = load_tile16(bm, p.b_ss, c + 1, p.S, tid);
+        }
         if (warp == 0) {
           scan_chunk(d0, d1, A, lane, vec + vDt, vec + vAcs, vec + vW, vec + vEa);
           if (k + 1 < steps) load_dt(dtg, p.dt_ss, (c + 1) * kQ, p.S, lane, d0, d1);
@@ -524,10 +678,20 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
       issue(0, false, c1 - 1, h);
       issue(1, true, c1 - 1, h);
     }
+    if constexpr (N == 16) {   // the forward walk is done with both slots
+      store_tile16(gbase + L::kB, load_tile16(bm, p.b_ss, c1 - 1, p.S, tid), tid);
+      store_tile16(gbase + L::kC, load_tile16(cm, p.c_ss, c1 - 1, p.S, tid), tid);
+    }
     float d0 = 0.f, d1 = 0.f;
     if (warp == 0) load_dt(dtg, p.dt_ss, (c1 - 1) * kQ, p.S, lane, d0, d1);
     for (int c = c1 - 1; c >= c0; --c) {
       const int r0 = c * kQ, nv = min(kQ, p.S - r0);
+      // N 16: the next chunk's B and C, stored once this chunk is done with them
+      uint4 b_next = make_uint4(0u, 0u, 0u, 0u), c_next = b_next;
+      if (N == 16 && c > c0) {
+        b_next = load_tile16(bm, p.b_ss, c - 1, p.S, tid);
+        c_next = load_tile16(cm, p.c_ss, c - 1, p.S, tid);
+      }
       float cb[32];   // C.B^T of the chunk, rows i, in flight during the start
       {
         const float4* src = reinterpret_cast<const float4*>(p.cb) +
@@ -647,14 +811,10 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
         for (int i = 0; i < N / 2; ++i) u[i] = 0.f;
         const uint64_t da = sw128_desc(sDY, 16, 1024);
-        const uint64_t dhi = sw128_desc(sImg, kBox, 1024),
-                       dlo = sw128_desc(sImg + kPlane, kBox, 1024);
         fence_regs(u);
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_ss_tb<N>(u, da + 2 * kk, dhi + ((kk * 16 * 128) >> 4));
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_ss_tb<N>(u, da + 2 * kk, dlo + ((kk * 16 * 128) >> 4));
+        image_product<N>(u, da, sImg);
+        image_product<N>(u, da, sImg + kPlane);
         wgmma_commit();
         load_state<N>(dpark, stash + c * hn, warp, g, t);
         wgmma_wait();
@@ -672,13 +832,10 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
           u[4 * q + 2] *= ea1;
           u[4 * q + 3] *= ea1;
         }
-        const uint64_t dbm = sw128_desc(sB, kBox, 1024);
         fence_regs(u);
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<N>(u, th[kk], dbm + ((kk * 16 * 128) >> 4));
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<N>(u, tl[kk], dbm + ((kk * 16 * 128) >> 4));
+        tile_product<N>(u, th, sB);
+        tile_product<N>(u, tl, sB);
         wgmma_commit();
         wgmma_wait();
         fence_regs(u);
@@ -758,14 +915,10 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
         for (int i = 0; i < N / 2; ++i) v[i] = 0.f;
         const uint64_t da = sw128_desc(sX, 16, 1024);
-        const uint64_t dhi = sw128_desc(sImg, kBox, 1024),
-                       dlo = sw128_desc(sImg + kPlane, kBox, 1024);
         fence_regs(v);
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_ss_tb<N>(v, da + 2 * kk, dhi + ((kk * 16 * 128) >> 4));
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_ss_tb<N>(v, da + 2 * kk, dlo + ((kk * 16 * 128) >> 4));
+        image_product<N>(v, da, sImg);
+        image_product<N>(v, da, sImg + kPlane);
         wgmma_commit();
         wgmma_wait();
         fence_regs(v);
@@ -783,13 +936,10 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
           v[4 * q + 2] *= w1;
           v[4 * q + 3] *= w1;
         }
-        const uint64_t dcm = sw128_desc(sC, kBox, 1024);
         fence_regs(v);
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<N>(v, uh[kk], dcm + ((kk * 16 * 128) >> 4));
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<N>(v, ul[kk], dcm + ((kk * 16 * 128) >> 4));
+        tile_product<N>(v, uh, sC);
+        tile_product<N>(v, ul, sC);
         wgmma_commit();
         wgmma_wait();
         fence_regs(v);
@@ -804,9 +954,6 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
         for (int i = 0; i < 32; ++i) x1[i] = x2[i] = 0.f;
         const uint64_t ddy = sw128_desc(sDY, kBox, 1024);
-        const uint64_t da = sw128_desc(sB, 16, 1024);
-        const uint64_t dhi = sw128_desc(sImg, 16, 1024);
-        const uint64_t dlo = sw128_desc(sImg + kPlane, 16, 1024);
         fence_regs(x1);
         fence_regs(x2);
         wgmma_fence();
@@ -814,15 +961,24 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
         for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64(x1, sh[kk], ddy + ((kk * 16 * 128) >> 4), 1);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64(x1, sl[kk], ddy + ((kk * 16 * 128) >> 4), 1);
+        if constexpr (N == 16) {   // B [j][n] and dh^T [n][p], both MN-major, K = 16
+          const uint64_t da = sw128_desc(sB, kBox, 1024);
+          wgmma_ss_mn_n64(x2, da, sw128_desc(sImg, kBox, 1024), 1);
+          wgmma_ss_mn_n64(x2, da, sw128_desc(sImg + kPlane, kBox, 1024), 1);
+        } else {
+          const uint64_t da = sw128_desc(sB, 16, 1024);
+          const uint64_t dhi = sw128_desc(sImg, 16, 1024);
+          const uint64_t dlo = sw128_desc(sImg + kPlane, 16, 1024);
 #pragma unroll
-        for (int kk = 0; kk < N / 16; ++kk) {
-          const uint32_t step = ((kk / 4) * kBox + (kk % 4) * 32) >> 4;
-          wgmma_ss_n64(x2, da + step, dhi + step, 1);
-        }
+          for (int kk = 0; kk < N / 16; ++kk) {
+            const uint32_t step = ((kk / 4) * kBox + (kk % 4) * 32) >> 4;
+            wgmma_ss_n64(x2, da + step, dhi + step, 1);
+          }
 #pragma unroll
-        for (int kk = 0; kk < N / 16; ++kk) {
-          const uint32_t step = ((kk / 4) * kBox + (kk % 4) * 32) >> 4;
-          wgmma_ss_n64(x2, da + step, dlo + step, 1);
+          for (int kk = 0; kk < N / 16; ++kk) {
+            const uint32_t step = ((kk / 4) * kBox + (kk % 4) * 32) >> 4;
+            wgmma_ss_n64(x2, da + step, dlo + step, 1);
+          }
         }
         wgmma_commit();
         wgmma_wait();
@@ -847,6 +1003,7 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
       }
       __syncthreads();   // every thread is done with x and B
       if (tid == 0 && c > c0) issue(0, false, c - 1, h);
+      if (N == 16 && c > c0) store_tile16(gbase + L::kB, b_next, tid);
 
       // (6) dh <- e^{acs_last} dh + (e^acs o dy)^T C, dh exact from its image
       {
@@ -867,6 +1024,7 @@ ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tx,
       }
       __syncthreads();   // q, bv, the column and straddle sums, <dh, h_c>; dy, C free
       if (tid == 0 && c > c0) issue(1, true, c - 1, h);
+      if (N == 16 && c > c0) store_tile16(gbase + L::kC, c_next, tid);
 
       // (7) d a_m, ddt and the chunk's dA term: one warp, two tokens a lane
       if (warp == 0) {
@@ -922,6 +1080,7 @@ __global__ void __launch_bounds__(256) ssd_bwd_sums(const BwdParams p, int N) {
     if (h >= p.nh) return;
     float s = 0.f;
     for (int b = 0; b < p.B; ++b)
+#pragma unroll 8   // loads in flight; the adds keep chunk order
       for (int c = 0; c < p.nc; ++c) s += p.dAp[(static_cast<size_t>(b) * p.nh + h) * p.nc + c];
     p.dA[h] = s;
     return;
@@ -934,6 +1093,7 @@ __global__ void __launch_bounds__(256) ssd_bwd_sums(const BwdParams p, int N) {
   const size_t plane = static_cast<size_t>(p.B) * rows * N;
   const float* src = p.part + static_cast<size_t>(blockIdx.y) * p.n_groups * plane + e;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8   // loads in flight; the adds keep group order
   for (int k = 0; k < p.n_groups; ++k) {
     const float4 v = *reinterpret_cast<const float4*>(src + k * plane);
     acc.x += v.x;
@@ -952,9 +1112,10 @@ __global__ void __launch_bounds__(256) ssd_bwd_sums(const BwdParams p, int N) {
 }
 
 template <int N> int set_smem_limits() {
-  cudaError_t e = cudaFuncSetAttribute(ssd_cb_kernel<N, true>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       cb_smem_bytes<N>());
+  cudaError_t e = cudaSuccess;
+  if constexpr (N != 16)
+    e = cudaFuncSetAttribute(ssd_cb_kernel<N, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             cb_smem_bytes<N>());
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(ssd_bwd_segment_ends<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              EndsSmem<N>::kBytes);
@@ -969,8 +1130,12 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tdy, const CUtensorMap& tb,
            const CUtensorMap& tc, const BwdParams& p, cudaStream_t stream) {
   int err = set_smem_limits<N>();
   if (err != 0) return err;
-  ssd_cb_kernel<N, true><<<dim3(p.nc, p.B), kThreads, cb_smem_bytes<N>(), stream>>>(tb, tc, p.cb,
-                                                                                   p.nc);
+  if constexpr (N == 16) {
+    ssd_cb16_kernel<<<dim3(p.nc, p.B), kThreads, kCb16Smem, stream>>>(p);
+  } else {
+    ssd_cb_kernel<N, true><<<dim3(p.nc, p.B), kThreads, cb_smem_bytes<N>(), stream>>>(tb, tc,
+                                                                                     p.cb, p.nc);
+  }
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   if (p.n_seg > 1) {
@@ -995,7 +1160,10 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tdy, const CUtensorMap& tb,
 
 template <int N> int info(int* out) {
   int e = set_smem_limits<N>();
-  if (!e) e = kernel_info(ssd_cb_kernel<N, true>, kThreads, cb_smem_bytes<N>(), out);
+  if (!e) {
+    if constexpr (N == 16) e = kernel_info(ssd_cb16_kernel, kThreads, kCb16Smem, out);
+    else e = kernel_info(ssd_cb_kernel<N, true>, kThreads, cb_smem_bytes<N>(), out);
+  }
   if (!e) e = kernel_info(ssd_bwd_segment_ends<N>, kThreads, EndsSmem<N>::kBytes, out + 4);
   if (!e) e = kernel_info(ssd_bwd_fold, kThreads, 0, out + 8);
   if (!e) e = kernel_info(ssd_bwd_chunk_kernel<N>, kThreads, ChunkSmem<N>::kBytes, out + 12);
@@ -1006,7 +1174,7 @@ template <int N> int info(int* out) {
 }  // namespace
 }  // namespace repro_torch
 
-// bf16 only, hp 64, N 64 or 128. x, dy, dx: [B, nh, S, 64]; dt, ddt:
+// bf16 only, hp 64, N 16, 64 or 128. x, dy, dx: [B, nh, S, 64]; dt, ddt:
 // [B, nh, S] fp32; A, dA: [nh] fp32 (A contiguous); Bm, Cm: [B, S, N];
 // dBm, dCm: [B, S, N] dense; init, dfinal, dinit: [B, nh, 64, N] fp32
 // contiguous, each may be null (zeros; dinit not written). `strides`
@@ -1027,9 +1195,10 @@ extern "C" int ssd_scan_bwd_wgmma_launch(
     float* dinit, const long long* strides, int B, int nh, int S, int N, int seg_chunks, int group,
     void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || nh <= 0 || S <= 0 || seg_chunks <= 0 || group <= 0 || (N != 64 && N != 128))
+  if (B <= 0 || nh <= 0 || S <= 0 || seg_chunks <= 0 || group <= 0 ||
+      (N != 16 && N != 64 && N != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tx, tdy, tb, tc;
+  CUtensorMap tx, tdy, tb{}, tc{};   // tb, tc: N >= 64 only
   const long long xs[3] = {strides[0], strides[1], strides[2]};
   const long long ys[3] = {strides[10], strides[11], strides[12]};
   int err = make_head_map(&tx, x, kHP, S, nh, B, xs, kQ);
@@ -1041,10 +1210,12 @@ extern "C" int ssd_scan_bwd_wgmma_launch(
   const cuuint64_t cbytes[2] = {static_cast<cuuint64_t>(strides[9]) * 2,
                                 static_cast<cuuint64_t>(strides[8]) * 2};
   const cuuint32_t bcbox[3] = {64, kQ, 1};
-  if (err == 0) err = make_bf16_map(&tb, Bm, 3, bcdims, bbytes, bcbox);
-  if (err == 0) err = make_bf16_map(&tc, Cm, 3, bcdims, cbytes, bcbox);
+  if (err == 0 && N != 16) err = make_bf16_map(&tb, Bm, 3, bcdims, bbytes, bcbox);
+  if (err == 0 && N != 16) err = make_bf16_map(&tc, Cm, 3, bcdims, cbytes, bcbox);
   if (err != 0) return err;
   BwdParams p;
+  p.Bm = static_cast<const __nv_bfloat16*>(Bm); p.Cm = static_cast<const __nv_bfloat16*>(Cm);
+  p.b_sb = strides[6]; p.b_ss = strides[7]; p.c_sb = strides[8]; p.c_ss = strides[9];
   p.dt = dt; p.A = A; p.init = init; p.dfinal = dfinal; p.cb = cb; p.ends = ends; p.ld = ld;
   p.stash = stash; p.part = part; p.dAp = dAp; p.dx = dx; p.ddt = ddt; p.dA = dA; p.dBm = dBm;
   p.dCm = dCm; p.dinit = dinit;
@@ -1057,10 +1228,11 @@ extern "C" int ssd_scan_bwd_wgmma_launch(
   p.group = group;
   p.n_groups = (nh + group - 1) / group;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N == 16) return launch<16>(tx, tdy, tb, tc, p, s);
   return N == 128 ? launch<128>(tx, tdy, tb, tc, p, s) : launch<64>(tx, tdy, tb, tc, p, s);
 }
 
-// For N (64 or 128), per kernel (C.B^T, segment ends, fold, in-chunk,
+// For N (16, 64 or 128), per kernel (C.B^T, segment ends, fold, in-chunk,
 // sums) in turn, four ints: registers a thread, local-memory bytes a
 // thread (spills), dynamic shared memory bytes, CTAs that fit on one SM.
 // Returns a cudaError_t.
@@ -1068,5 +1240,6 @@ extern "C" int ssd_scan_bwd_wgmma_info(int N, int* out) {
   using namespace repro_torch;
   if (N == 128) return info<128>(out);
   if (N == 64) return info<64>(out);
+  if (N == 16) return info<16>(out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

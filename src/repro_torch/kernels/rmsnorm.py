@@ -9,12 +9,13 @@ bf16 row in registers and reads it once, for H = 256 * v with v in
 Gradients: ``rmsnorm`` is a ``torch.autograd.Function`` that saves x and w.
 Its backward is ``rmsnorm_bwd``: ``csrc/rmsnorm_bwd.cu`` for CUDA tensors,
 the plain ``ref.rmsnorm_bwd_ref`` for CPU tensors. ``bwd_kernel_path``
-picks its version by the forward's rule: ``"rows"`` spreads a bf16 row of
-a ``ROW_VPL`` width over 128 threads that hold it in registers (x and dy
-read once, the dw partial in registers across rows, one partial row per
-CTA, one CTA an SM); ``"loop"`` takes a warp a row and fp32 partial sums
-per block. A second launch sums the partial rows in a fixed order and
-casts.
+picks its version by a width list of its own, ``BWD_ROW_GROUPS`` (every
+width the models train at; the forward keeps its loop version at 1536,
+1600 and 3200, where it is near its bound): ``"rows"`` spreads a bf16 row
+over 128 threads that hold it in registers (x and dy read once, the dw
+partial in registers across rows, one partial row per CTA, one CTA an
+SM); ``"loop"`` takes a warp a row and fp32 partial sums per block. A
+second launch sums the partial rows in a fixed order and casts.
 """
 
 from __future__ import annotations
@@ -33,8 +34,10 @@ ROW_VPL = (10, 16, 20)
 # the loop backward's dw slices (one fp32 row of H per warp) must fit shared memory
 BWD_SMEM = 96 * 1024
 BWD_MAX_H = 2 * BWD_SMEM // 4
-# rows in flight in one CTA of the register backward (csrc/rmsnorm_bwd.cu kGroups)
-BWD_ROW_GROUPS = 4
+# the register backward's widths (csrc/rmsnorm_bwd.cu rmsnorm_bwd_launch), each
+# with its rows in flight in one CTA: 8 where a row is small (granite-moe's
+# and hymba-1.5b's d_model), 4 elsewhere
+BWD_ROW_GROUPS = {1536: 8, 1600: 8, 2560: 4, 3200: 4, 4096: 4, 5120: 4}
 
 
 def kernel_path(dtype: torch.dtype, H: int) -> str:
@@ -88,23 +91,26 @@ def _forward(x, w, eps):
 
 
 def bwd_kernel_path(dtype: torch.dtype, H: int) -> str:
-    """The backward's version: ``"rows"`` where the forward holds the row in
-    registers (bf16, H = 256 * v for v in ROW_VPL), else ``"loop"``, which
-    takes H up to ``BWD_MAX_H``."""
-    path = kernel_path(dtype, H)
-    if path == "loop" and H > BWD_MAX_H:
+    """The backward's version: ``"rows"`` for bf16 at a ``BWD_ROW_GROUPS``
+    width, else ``"loop"``, which takes H up to ``BWD_MAX_H``. Raises on
+    what the forward's ``kernel_path`` refuses."""
+    kernel_path(dtype, H)
+    if dtype == torch.bfloat16 and H in BWD_ROW_GROUPS:
+        return "rows"
+    if H > BWD_MAX_H:
         raise ValueError(f"rmsnorm backward takes H up to {BWD_MAX_H}, got {H}")
-    return path
+    return "loop"
 
 
 def bwd_grid(path: str, T: int, H: int, sms: int):
     """(blocks, warps a block) of the backward's first launch; ``blocks`` is
     also the number of fp32 dw partial rows. rows: one CTA an SM of
-    ``BWD_ROW_GROUPS`` row groups of 4 warps, at most one group a row.
+    ``BWD_ROW_GROUPS[H]`` row groups of 4 warps, at most one group a row.
     loop: 4 warps a block where their four fp32 dw slices fit ``BWD_SMEM``,
     else 1; two blocks an SM, at most one warp a row."""
     if path == "rows":
-        return max(1, min(sms, -(-T // BWD_ROW_GROUPS))), 4 * BWD_ROW_GROUPS
+        groups = BWD_ROW_GROUPS[H]
+        return max(1, min(sms, -(-T // groups))), 4 * groups
     warps = 4 if 4 * 4 * H <= BWD_SMEM else 1
     return max(1, min(2 * sms, -(-T // warps))), warps
 
@@ -134,8 +140,8 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-5):
     with torch.cuda.device(x.device):
         err = lib.rmsnorm_bwd_launch(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                                      dw.data_ptr(), partial.data_ptr(), T, H, float(eps),
-                                     build.dtype_code(x), H // 256 if path == "rows" else 0,
-                                     blocks, warps, build.stream_of(x))
+                                     build.dtype_code(x), int(path == "rows"), blocks, warps,
+                                     build.stream_of(x))
     build.check(err, f"rmsnorm_bwd ({path})")
     rmsnorm_bwd.launches += 1
     return dx, dw

@@ -14,9 +14,10 @@ There is no fallback between them: a launch that fails raises.
 ``ssd_scan`` is differentiable in every input (``SSDScan``): its backward
 is ``ssd_scan_bwd``, the plain ``ref.ssd_scan_bwd_ref`` on CPU tensors and
 on CUDA tensors the kernel ``bwd_kernel_path`` names (one launch counted):
-* ``"wgmma"``, ``csrc/ssd_scan_bwd_wgmma.cu``: bf16 at hp 64 and N 64 or
-  128, the forward's wgmma shapes. Five launches: C.B^T and B.C^T once per
-  (b, chunk), each segment's end state and end gradient from zero, their
+* ``"wgmma"``, ``csrc/ssd_scan_bwd_wgmma.cu``: bf16 at hp 64 and N 16, 64
+  or 128 (the forward's wgmma shapes, and hymba-1.5b's N 16, whose forward
+  stays on the FMA kernel). Five launches: C.B^T and B.C^T once per (b,
+  chunk), each segment's end state and end gradient from zero, their
   fold, the in-chunk gradients per (segment, head group, b) on wgmma with
   dB/dC summed over the group's heads in order, and the fixed-order sums
   over groups; ``bwd_plan`` picks the segment length and the group.
@@ -42,11 +43,12 @@ from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 __all__ = ["ssd_scan", "ssd_scan_bwd", "SSDScan", "check_args", "check_bwd_args", "kernel_path",
            "bwd_kernel_path", "segment_chunks", "bwd_plan", "launch_fma", "launch_bwd_fma",
-           "HEAD_DIMS", "STATE_DIMS", "WGMMA_STATE_DIMS", "KERNEL_CHUNK"]
+           "HEAD_DIMS", "STATE_DIMS", "WGMMA_STATE_DIMS", "BWD_WGMMA_STATE_DIMS", "KERNEL_CHUNK"]
 
 HEAD_DIMS = (16, 32, 64)           # hp some kernel is instantiated for
 STATE_DIMS = (16, 32, 64, 128)     # ... and N
 WGMMA_STATE_DIMS = (64, 128)       # N of the bf16 wgmma path (hp 64)
+BWD_WGMMA_STATE_DIMS = (16, 64, 128)   # ... of the backward's
 KERNEL_CHUNK = 64                  # tokens per chunk in the CUDA kernels
 
 
@@ -124,15 +126,15 @@ def check_args(x, dt, A, Bm, Cm, initial_state=None, return_state=False) -> str:
 
 def bwd_kernel_path(dtype: torch.dtype, hp: int, N: int) -> str:
     """The backward kernel that serves (dtype, hp, N): ``"wgmma"``
-    (``csrc/ssd_scan_bwd_wgmma.cu``) for bf16 at hp 64 and N 64 or 128, as
-    the forward's ``kernel_path``; ``"fma"`` (``csrc/ssd_scan_bwd.cu``, fp32
-    FMAs) for fp32 and every other bf16 (hp, N) in HEAD_DIMS x STATE_DIMS;
-    raises elsewhere."""
+    (``csrc/ssd_scan_bwd_wgmma.cu``) for bf16 at hp 64 and N in
+    BWD_WGMMA_STATE_DIMS (the forward's wgmma shapes and N 16); ``"fma"``
+    (``csrc/ssd_scan_bwd.cu``, fp32 FMAs) for fp32 and every other bf16
+    (hp, N) in HEAD_DIMS x STATE_DIMS; raises elsewhere."""
     if hp not in HEAD_DIMS or N not in STATE_DIMS:
         raise ValueError(f"SSD backward kernel is instantiated for hp in {HEAD_DIMS} and N in "
                          f"{STATE_DIMS}, got hp {hp}, N {N}")
     if dtype == torch.bfloat16:
-        return "wgmma" if hp == 64 and N in WGMMA_STATE_DIMS else "fma"
+        return "wgmma" if hp == 64 and N in BWD_WGMMA_STATE_DIMS else "fma"
     if dtype == torch.float32:
         return "fma"
     raise TypeError(f"SSD backward kernel takes float32 or bfloat16, got {dtype}")
@@ -179,30 +181,37 @@ def segment_chunks(B: int, nh: int, S: int, sms: int) -> int:
 @functools.lru_cache(maxsize=None)
 def bwd_plan(B: int, nh: int, S: int, sms: int, N: int = 128) -> tuple[int, int]:
     """(chunks per segment, heads per group) of the wgmma backward, from a
-    cost model in microseconds (``BWD_COST``): its in-chunk kernel runs B *
-    n_seg * n_groups CTAs, two to an SM, each over group x seg_chunks
-    (chunk, head) items plus a forward step for each chunk of its segment
-    but the last; each segment boundary moves four [hp, N] fp32 states a
-    head (the segment-ends kernel writes two, the fold reads and writes
-    them, the in-chunk kernel reads them), and each group's dB/dC partial
-    is written and read once. Those bytes are charged at 1 TB/s, which
-    trades some kernel time for scratch: at mamba2-2.7b's training shape
-    (B 1, nh 80, S 2048, N 128, 132 SMs) the sweep in PERF.md read (4, 3)
-    at 0.512 ms with 123 MB of scratch and per-head partials (4, 1) at 0.433
-    ms with 289 MB. Takes the least cost; on a tie the larger group, then
-    the fewer segments. Cached: the wrapper asks on every call."""
+    cost model in microseconds (``BWD_COST[N]``): its in-chunk kernel runs B
+    * n_seg * n_groups CTAs, ``ctas`` to an SM, each over group x
+    seg_chunks (chunk, head) items plus a forward step for each chunk of
+    its segment but the last; the segment-ends kernel walks 2 (n_seg - 1)
+    nh B segments, ``ends_ctas`` to an SM, at ``ends_step_us`` a chunk;
+    each segment boundary moves four [hp, N] fp32 states a head (the
+    segment-ends kernel writes two, the fold reads and writes them, the
+    in-chunk kernel reads them), and each group's dB/dC partial is written
+    and read once. Those bytes are charged at 1 TB/s, which trades some
+    kernel time for scratch: at mamba2-2.7b's training shape (B 1, nh 80,
+    S 2048, N 128, 132 SMs) the sweep in PERF.md read (4, 3) at 0.512 ms
+    with 123 MB of scratch and per-head partials (4, 1) at 0.433 ms with
+    289 MB; at hymba-1.5b's (B 1, nh 50, S 2048, N 16) it picks (4, 2),
+    0.1143 ms in its sweep against the best plan's 0.1129 (8, 1). Takes the
+    least cost; on a tie the larger group, then the fewer segments. Cached:
+    the wrapper asks on every call."""
     nc = -(-S // KERNEL_CHUNK)
-    item, step, rate = BWD_COST["item_us"], BWD_COST["step_us"], BWD_COST["bytes_per_us"]
+    cost_us = BWD_COST[N]
+    item, step, rate = cost_us["item_us"], cost_us["step_us"], cost_us["bytes_per_us"]
     state = 4 * 64 * N
     best, best_key = None, None
     for seg in sorted({-(-nc // n) for n in range(1, nc + 1)}):
         n_seg = -(-nc // seg)
-        ends = 8 * state * (n_seg - 1) * nh * B / rate
+        ends = (8 * state * (n_seg - 1) * nh * B / rate
+                + -(-2 * (n_seg - 1) * nh * B // (cost_us["ends_ctas"] * sms)) * seg
+                * cost_us["ends_step_us"])
         for group in range(1, nh + 1):
             n_groups = -(-nh // group)
             if n_groups * group - nh >= group:
                 continue
-            waves = -(-B * n_seg * n_groups // (2 * sms))
+            waves = -(-B * n_seg * n_groups // (cost_us["ctas"] * sms))
             partials = 2 * n_groups * 2 * B * nc * KERNEL_CHUNK * N * 4 / rate
             cost = waves * group * (seg * item + (seg - 1) * step) + ends + partials
             key = (round(cost, 6), -group, n_seg)
@@ -211,10 +220,17 @@ def bwd_plan(B: int, nh: int, S: int, sms: int, N: int = 128) -> tuple[int, int]
     return best
 
 
-# bwd_plan's cost model, fitted to the sweep (PERF.md): one in-chunk (chunk,
-# head) item and one forward state step in a CTA, and the rate at which the
-# plan's scratch bytes are charged
-BWD_COST = {"item_us": 24.0, "step_us": 5.0, "bytes_per_us": 1.0e6}
+# bwd_plan's cost model per N, each fitted to a sweep (PERF.md): one
+# in-chunk (chunk, head) item and one forward state step in a CTA, the
+# in-chunk CTAs an SM, the rate at which the plan's scratch bytes are
+# charged, and a chunk of the segment-ends kernel with its CTAs an SM. At
+# N 64 and 128 the segment-ends time is folded into the item (the fit to
+# mamba2-2.7b's sweep); at N 16 an item is short and that kernel is not.
+_COST_WIDE = {"item_us": 24.0, "step_us": 5.0, "ctas": 2, "bytes_per_us": 1.0e6,
+              "ends_step_us": 0.0, "ends_ctas": 1}
+BWD_COST = {128: _COST_WIDE, 64: _COST_WIDE,
+            16: {"item_us": 10.0, "step_us": 2.0, "ctas": 2, "bytes_per_us": 1.0e6,
+                 "ends_step_us": 2.0, "ends_ctas": 6}}
 
 
 def _strides(x, dt, Bm, Cm, y):

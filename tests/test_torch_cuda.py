@@ -624,11 +624,15 @@ def test_flash_autograd_on_the_card_launches_the_backward(card, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,H", [(1, 2560), (5, 2560), (2048, 2560), (3, 4096), (2048, 4096),
-                                 (1, 5120), (600, 5120), (2048, 5120)])
+                                 (1, 5120), (600, 5120), (2048, 5120), (1, 1600), (7, 1600),
+                                 (2048, 1600), (300, 3200), (2048, 3200), (9, 1536),
+                                 (2048, 1536)])
 def test_rmsnorm_bwd_register_version(card, T, H):
-    """The register backward (bf16 at the ROW_VPL widths), against the plain
-    backward, the same bits twice, and routed as ``bwd_kernel_path`` says;
-    fp32 at the same widths takes the loop version."""
+    """The register backward (bf16 at the BWD_ROW_GROUPS widths: 1536,
+    1600 and 3200 with a predicated last vector, 8 row groups a CTA at the
+    first two), against the plain backward, the same bits twice, and routed
+    as ``bwd_kernel_path`` says; fp32 at the same widths takes the loop
+    version."""
     assert rmsnorm_bwd_path(torch.bfloat16, H) == "rows"
     assert rmsnorm_bwd_path(torch.float32, H) == "loop"
     rng = np.random.default_rng(T * 7 + H)
@@ -703,7 +707,7 @@ def test_ssd_scan_bwd_matches_plain(card, B, nh, S, hp, N, dtype, long_memory):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hp,N", [(64, 128), (32, 16)])
+@pytest.mark.parametrize("hp,N", [(64, 128), (32, 16), (64, 16)])
 def test_ssd_scan_bwd_model_layout_and_state(card, dtype, hp, N):
     """x, Bm, Cm column slices of one buffer, dt and dy [B,nh,S] / [B,nh,S,hp]
     views of [B,S,.] tensors, an initial state and a final-state gradient:
@@ -729,10 +733,12 @@ def test_ssd_scan_bwd_model_layout_and_state(card, dtype, hp, N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,nh,S,N", [(2, 3, 1, 128), (1, 5, 130, 64), (2, 7, 700, 128),
-                                      (1, 80, 2048, 128)])
+                                      (1, 80, 2048, 128), (2, 3, 1, 16), (1, 5, 130, 16),
+                                      (2, 7, 700, 16), (1, 50, 2048, 16)])
 @pytest.mark.parametrize("long_memory", [False, True])
 def test_ssd_bwd_wgmma_path_and_plans(card, B, nh, S, N, long_memory):
-    """bf16 at hp 64 routes to ``csrc/ssd_scan_bwd_wgmma.cu``. Its outputs
+    """bf16 at hp 64 routes to ``csrc/ssd_scan_bwd_wgmma.cu``, at N 16 too
+    (hymba-1.5b: B and C tiles by plain loads, transposed). Its outputs
     pass the gate against the plain backward at ``bwd_plan``'s plan and at
     other (segment length, head group) plans, each of which repeats its own
     bits; and the FMA kernel on the same inputs passes it too."""

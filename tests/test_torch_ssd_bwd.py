@@ -224,8 +224,10 @@ def _ssd_bwd_args(hp=64, N=128, dtype=torch.bfloat16, B=2, nh=3, S=40):
 def test_ssd_bwd_kernel_takes_every_forward_shape(dtype, hp, N):
     """A backward kernel serves every (dtype, hp, N) the forward kernels
     take, with the state options on every path: the wgmma one where the
-    forward runs its wgmma kernel, the FMA one elsewhere."""
-    path = ssd_module.kernel_path(dtype, hp, N)
+    forward runs its wgmma kernel and at bf16 hp 64 N 16 (hymba-1.5b, whose
+    forward runs the FMA kernel), the FMA one elsewhere."""
+    fwd = ssd_module.kernel_path(dtype, hp, N)
+    path = "wgmma" if (dtype, hp, N) == (torch.bfloat16, 64, 16) else fwd
     assert ssd_module.bwd_kernel_path(dtype, hp, N) == path
     args = _ssd_bwd_args(hp, N, dtype)
     state = torch.zeros(2, 3, hp, N)
@@ -367,6 +369,19 @@ TRAIN_SHAPE = (1, 80, 2048, 132)
 BWD_PLAN_TRAIN = (4, 3)
 
 
+# hymba-1.5b's (its SSM: 50 heads, N 16) and the plan its sweep fitted (PERF.md)
+HYMBA_SHAPE = (1, 50, 2048, 132)
+BWD_PLAN_HYMBA = (4, 2)
+
+
+def _fma_scratch_bytes(B, nh, S, N, hp=64):
+    """fp32 scratch of the FMA backward (``launch_bwd_fma``): the entering
+    states and their gradients per chunk, the per-head dB/dC and per-chunk
+    dA partials."""
+    nc = -(-S // 64)
+    return 4 * (2 * B * nh * nc * hp * N + 2 * B * nh * S * N + B * nh * nc)
+
+
 def test_bwd_plan_at_the_training_shape():
     """The plan fitted to the training shape (PERF.md): its segments and
     head groups, and the scratch it takes, under half the FMA path's."""
@@ -376,10 +391,19 @@ def test_bwd_plan_at_the_training_shape():
     assert ssd_module.bwd_scratch_bytes(B, nh, S, 128, seg, group) < 336e6 / 2
 
 
+def test_bwd_plan_at_hymba_shape():
+    """N 16 has its own costs (``BWD_COST[16]``), fitted to hymba-1.5b's
+    sweep (PERF.md): the plan there, and its scratch, under the FMA path's."""
+    seg, group = ssd_module.bwd_plan(*HYMBA_SHAPE, 16)
+    assert (seg, group) == BWD_PLAN_HYMBA
+    B, nh, S, _ = HYMBA_SHAPE
+    assert ssd_module.bwd_scratch_bytes(B, nh, S, 16, seg, group) < _fma_scratch_bytes(B, nh, S, 16)
+
+
 @pytest.mark.parametrize("B,nh,S,sms", [(1, 80, 2048, 132), (2, 80, 2000, 132), (2, 3, 1, 132),
                                         (1, 5, 130, 132), (2, 3, 2000, 132), (1, 24, 2048, 132),
                                         (4, 80, 4096, 132), (1, 80, 2048, 16), (1, 1, 64, 1)])
-@pytest.mark.parametrize("N", [64, 128])
+@pytest.mark.parametrize("N", [16, 64, 128])
 def test_bwd_plan_choices(B, nh, S, sms, N):
     """Every plan is one the kernel takes: whole chunks a segment, at most
     the sequence; a group of at most nh heads with no empty group; the

@@ -22,7 +22,8 @@ from repro_torch.kernels.rmsnorm import bwd_grid as rmsnorm_bwd_grid  # noqa: E4
 from repro_torch.kernels.rmsnorm import bwd_kernel_path as rmsnorm_bwd_path  # noqa: E402
 from repro_torch.kernels.rmsnorm import check_args as rmsnorm_check  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel_path as rmsnorm_path  # noqa: E402
-from repro_torch.kernels.ssd_scan import (HEAD_DIMS, STATE_DIMS, WGMMA_STATE_DIMS,  # noqa: E402
+from repro_torch.kernels.ssd_scan import (BWD_WGMMA_STATE_DIMS, HEAD_DIMS, STATE_DIMS,  # noqa: E402
+                                          WGMMA_STATE_DIMS,
                                           segment_chunks)
 from repro_torch.kernels.ssd_scan import bwd_kernel_path as ssd_bwd_path  # noqa: E402
 from repro_torch.kernels.ssd_scan import check_args as ssd_check  # noqa: E402
@@ -177,12 +178,15 @@ def test_ssd_dispatch_by_dtype_and_shape(dtype, hp, N, path):
 @pytest.mark.parametrize("N", STATE_DIMS)
 def test_ssd_bwd_dispatch_by_dtype_and_shape(dtype, hp, N):
     """The backward's routing for every (dtype, hp, N) a kernel is
-    instantiated for: bf16 at hp 64 and N 64/128 takes the wgmma backward
-    (csrc/ssd_scan_bwd_wgmma.cu), as its forward takes the wgmma scan;
-    fp32 and every other bf16 shape the FMA backward (csrc/ssd_scan_bwd.cu).
-    check_bwd_args names the same path, the model's views included."""
-    path = "wgmma" if dtype == BF16 and hp == 64 and N in WGMMA_STATE_DIMS else "fma"
-    assert ssd_bwd_path(dtype, hp, N) == path == ssd_path(dtype, hp, N)
+    instantiated for: bf16 at hp 64 and N 16/64/128 takes the wgmma
+    backward (csrc/ssd_scan_bwd_wgmma.cu), as its forward takes the wgmma
+    scan at N 64/128; at N 16 (hymba-1.5b) the forward keeps the FMA scan;
+    fp32 and every other bf16 shape take the FMA backward
+    (csrc/ssd_scan_bwd.cu). check_bwd_args names the same path, the model's
+    views included."""
+    path = "wgmma" if dtype == BF16 and hp == 64 and N in (16, 64, 128) else "fma"
+    assert ssd_bwd_path(dtype, hp, N) == path
+    assert ssd_path(dtype, hp, N) == ("fma" if (dtype, hp, N) == (BF16, 64, 16) else path)
     for views in (False, True):
         x, dt, A, Bm, Cm = _ssd(hp=hp, N=N, dtype=dtype, views=views)
         dy = torch.zeros_like(x)
@@ -265,11 +269,16 @@ def test_ssd_segment_chunks(B, nh, S, sms, want):
 
 
 def test_ssd_wgmma_state_dims_are_the_instantiated_ones():
-    """WGMMA_STATE_DIMS lists exactly the N that ssd_scan_wgmma_launch takes."""
+    """WGMMA_STATE_DIMS lists exactly the N that ssd_scan_wgmma_launch takes,
+    BWD_WGMMA_STATE_DIMS those of ssd_scan_bwd_wgmma_launch."""
     src = (CSRC / "ssd_scan.cu").read_text()
     assert "N == 128 ? launch<128>(tx, tb, tc, p, s) : launch<64>(tx, tb, tc, p, s)" in src
     assert "(N != 64 && N != 128)" in src
     assert WGMMA_STATE_DIMS == (64, 128)
+    bwd = (CSRC / "ssd_scan_bwd_wgmma.cu").read_text()
+    assert "(N != 16 && N != 64 && N != 128)" in bwd
+    assert "if (N == 16) return launch<16>(tx, tdy, tb, tc, p, s);" in bwd
+    assert BWD_WGMMA_STATE_DIMS == (16, 64, 128)
 
 
 # ---------------------------------------------------------------- backward routing
@@ -327,12 +336,18 @@ def test_flash_lse_rows_match_the_kernels_constant():
     assert "ld % 128 != 0" in src and LSE_ROWS == 128
 
 
-@pytest.mark.parametrize("dtype,H,path", [
-    (BF16, 2560, "rows"), (BF16, 4096, "rows"), (BF16, 5120, "rows"), (BF16, 1600, "loop"),
-    (BF16, 3072, "loop"), (BF16, 12288, "loop"), (F32, 4096, "loop"), (F32, 8, "loop")])
-def test_rmsnorm_bwd_dispatch_by_dtype_and_width(dtype, H, path):
-    """The backward holds a row in registers where the forward does."""
-    assert rmsnorm_bwd_path(dtype, H) == path == rmsnorm_path(dtype, H)
+@pytest.mark.parametrize("dtype,H,path,fwd", [
+    (BF16, 2560, "rows", "rows"), (BF16, 4096, "rows", "rows"), (BF16, 5120, "rows", "rows"),
+    (BF16, 1536, "rows", "loop"), (BF16, 1600, "rows", "loop"), (BF16, 3200, "rows", "loop"),
+    (BF16, 3072, "loop", "loop"), (BF16, 12288, "loop", "loop"), (F32, 4096, "loop", "loop"),
+    (F32, 1536, "loop", "loop"), (F32, 1600, "loop", "loop"), (F32, 3200, "loop", "loop"),
+    (F32, 8, "loop", "loop")])
+def test_rmsnorm_bwd_dispatch_by_dtype_and_width(dtype, H, path, fwd):
+    """The backward holds a bf16 row in registers at its own widths, every
+    width the models train at; the forward keeps its loop version at 1536,
+    1600 and 3200, and fp32 takes the loop version both ways."""
+    assert rmsnorm_bwd_path(dtype, H) == path
+    assert rmsnorm_path(dtype, H) == fwd
 
 
 def test_rmsnorm_bwd_rejects_rows_wider_than_its_shared_memory():
@@ -347,6 +362,10 @@ def test_rmsnorm_bwd_rejects_rows_wider_than_its_shared_memory():
     ("rows", 2048, 4096, 132, (132, 16)),    # yi-6b training: one partial row an SM
     ("rows", 7, 4096, 132, (2, 16)),         # a group of 4 warps a row, at most
     ("rows", 1, 2560, 132, (1, 16)),
+    ("rows", 2048, 1600, 132, (132, 32)),    # hymba-1.5b: 8 row groups a CTA
+    ("rows", 2048, 1536, 132, (132, 32)),    # granite-moe
+    ("rows", 9, 1536, 132, (2, 32)),
+    ("rows", 2048, 3200, 132, (132, 16)),    # hymba-1.5b's ssm_norm: 4 row groups
     ("loop", 300, 1000, 132, (75, 4)),       # 4 warps a block where 4 slices fit
     ("loop", 4096, 12288, 132, (264, 1)),    # wide rows: one warp a block, 2 blocks an SM
     ("loop", 2048, 4096, 132, (264, 4))])
@@ -355,9 +374,14 @@ def test_rmsnorm_bwd_grid(path, T, H, sms, want):
 
 
 def test_rmsnorm_bwd_register_widths_are_the_instantiated_ones():
-    """The register backward instantiates the forward's ROW_VPL widths, with
-    BWD_ROW_GROUPS row groups a CTA."""
+    """The register backward instantiates exactly the BWD_ROW_GROUPS widths,
+    each with its row groups a CTA, in the launch and in the resource query;
+    its widths hold the forward's ROW_VPL widths and the three it keeps on
+    the loop version."""
     src = (CSRC / "rmsnorm_bwd.cu").read_text()
-    cases = [int(v) for v in re.findall(r"case (\d+): e = launch_rows<(?:\d+)>", src)]
-    assert tuple(cases) == ROW_VPL
-    assert f"constexpr int kGroups = {BWD_ROW_GROUPS};" in src
+    launched = re.findall(r"case (\d+): e = launch_rows<(\d+), (\d+)>", src)
+    queried = re.findall(r"case (\d+): return rows_info<(\d+), (\d+)>", src)
+    for cases in (launched, queried):
+        assert all(h == h2 for h, h2, _ in cases)
+        assert {int(h): int(g) for h, _, g in cases} == BWD_ROW_GROUPS
+    assert set(BWD_ROW_GROUPS) == {256 * v for v in ROW_VPL} | {1536, 1600, 3200}
