@@ -17,8 +17,9 @@ Phases, each of which fails the run by raising:
      check (hymba past its 1024-slot KV ring, granite-moe drop-free),
      greedy generation and a few serve steps;
   4. after each model's path, time its kernels beside their bound, their
-     plain version and one PyTorch library call where there is one, and
-     time prefill and decode;
+     plain version and one PyTorch library call where there is one (the
+     SSD forward's wgmma path, at mamba2's N 128 and hymba's N 16, beside
+     its FMA kernel, which it must beat), and time prefill and decode;
   5. hold the backward kernels (flash attention, RMSNorm on both its
      versions, the SSD scan on both its paths: wgmma for bf16 at hp 64 /
      N 16, 64, 128, and the FMA kernel, which also runs each of those
@@ -69,8 +70,9 @@ TOL_F32 = dict(rtol=3e-4, atol=3e-4)                           # tests/test_kern
 # pointwise limit. A 3% error on late kv tiles reads 3e-2 and 3.8; a
 # dropped tile 1.0 and 130. The SSD FMA kernel keeps everything in fp32 and
 # rounds y once (about 2^-9 of each); the SSD wgmma kernel rounds x o w to
-# bf16 and P and h to bf16 pairs (hi + lo), and reads about 0.6 pointwise
-# at mamba2's prefill shape; with h and P rounded once it read 4 to 7.
+# bf16 (at N 16 to a pair too) and P and h to bf16 pairs (hi + lo), and
+# reads about 0.6 pointwise at mamba2's prefill shape; with h and P rounded
+# once it read 4 to 7.
 BF16_LIMITS = {"rel_l2": 1e-2, "row_rel_l2": 1e-2, "pointwise": 1.0}
 # the forward kernels' row log-sum-exp (log2 units) against the plain
 # forward's: max |err| / (1 + |ref|). fp32 sums exp2f in fp32; bf16 (the
@@ -93,11 +95,14 @@ RMS_MAIN = [(4000, 4096), (64, 4096), (4, 4096), (2, 4096), (1, 4096)]
 # B, nh, S, hp, N and the plain version's chunk (tests/test_kernels.py:40-44)
 SSD_CASES = [(1, 2, 256, 64, 16, 128), (2, 3, 300, 32, 64, 64), (1, 4, 64, 16, 128, 32)]
 SSD_MAIN = (2, 80, 2000, 64, 128, 256)   # mamba2-2.7b prefill
-SSD_HYMBA = (2, 50, 2000, 64, 16, 256)   # hymba-1.5b prefill: its SSM's 50 heads, the FMA kernel
+SSD_HYMBA = (2, 50, 2000, 64, 16, 256)   # hymba-1.5b prefill: its SSM's 50 heads, N 16
 # the bf16 wgmma path (hp 64, N 64/128): B, nh, S, hp, N around its 64-token
 # chunks and up to mamba2's prefill length, and the test grid's wgmma case
 SSD_WGMMA_CASES = ([(2, 3, S, 64, N) for S in (1, 63, 65, 500, 2000) for N in (64, 128)]
                    + [(1, 5, 130, 64, 128)])
+# the wgmma path at N 16 (hymba-1.5b's state), forward and backward, around
+# its 64-token chunks
+SSD_WGMMA_N16_CASES = [(2, 3, S, 64, 16) for S in (1, 63, 65, 500, 2000)] + [(1, 5, 130, 64, 16)]
 SSD_STATE_REL_L2 = 1e-2   # final state (fp32) of the wgmma path against the plain version
 # mamba2-2.7b: prefill B*S, teacher-forced S, decode B, final norm B, teacher-forced decode
 RMS_MAIN_SSM = [(4000, 2560), (4000, 5120), (300, 2560), (300, 5120), (4, 2560), (4, 5120),
@@ -108,9 +113,6 @@ RMS_MAIN_SSM = [(4000, 2560), (4000, 5120), (300, 2560), (300, 5120), (4, 2560),
 RMS_MAIN_NEW = [(4000, 1600), (4000, 3200), (4000, 1536), (4, 1600), (4, 3200), (4, 1536),
                 (2, 1600), (2, 1536), (1100, 1600), (1100, 3200), (64, 1536), (1, 1600),
                 (1, 3200), (1, 1536)]
-# the SSD backward's wgmma path at N 16 (hymba-1.5b's state), around its
-# 64-token chunks; its forward runs the FMA kernel
-SSD_BWD_N16_CASES = [(2, 3, S, 64, 16) for S in (1, 63, 65, 500, 2000)] + [(1, 5, 130, 64, 16)]
 # backward cases, B, S, nh, nkv, window (GQA groups 1, 2, 8; S 1, 127, 200,
 # 2048; causal, one window), each at hd 32, 64 and 128; the training shape
 FLASH_BWD_CASES = [(1, 1, 2, 2, 0), (2, 127, 4, 2, 0), (1, 200, 8, 1, 0), (1, 200, 4, 4, 37),
@@ -155,15 +157,18 @@ SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu"
                            "src/repro/kernels/rmsnorm.py:24"),
            "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan.py:65"),
+           # the wgmma SSD forward at N 16 (hymba-1.5b), counted apart
+           "ssd_scan_n16": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan.py:65"),
            "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd_wgmma.cu",
                             "src/repro/kernels/ssd_scan.py:65"),
            # the wgmma SSD backward at N 16 (hymba-1.5b), counted apart
            "ssd_scan_bwd_n16": ("src/repro_torch/kernels/csrc/ssd_scan_bwd_wgmma.cu",
                                 "src/repro/kernels/ssd_scan.py:65"),
-           # the SSD scan's FMA paths (fp32, and bf16 off the wgmma shapes:
-           # hymba-1.5b's forward at N 16), counted apart from the wgmma ones;
-           # the FMA backward runs in the fp32 gradient gates of mamba2-2.7b
-           # and hymba-1.5b (counted there) and is timed beside the wgmma path
+           # the SSD scan's FMA paths (fp32, and bf16 off the wgmma shapes),
+           # counted apart from the wgmma ones: on the main path they run in
+           # the fp32 gradient gates of mamba2-2.7b and hymba-1.5b (counted
+           # there), and each is timed beside the wgmma path
            "ssd_scan_fma": ("src/repro_torch/kernels/csrc/ssd_scan_fma.cu",
                             "src/repro/kernels/ssd_scan.py:65"),
            "ssd_scan_bwd_fma": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
@@ -200,22 +205,26 @@ def phase_build():
 
 def log_ssd_wgmma_resources():
     """Registers, spills (local memory), dynamic shared memory and CTAs an
-    SM of the three wgmma SSD kernels, from the runtime; fails on a spill,
-    or if two scan CTAs do not fit on an SM."""
+    SM of the three wgmma SSD kernels at N 16, 64 and 128, from the
+    runtime; fails on a spill, or if fewer scan CTAs fit on an SM than
+    ``segment_chunks`` assumes (``SCAN_COST``)."""
     import ctypes
     from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import SCAN_COST, WGMMA_STATE_DIMS
     lib = build.library()
-    for N in (64, 128):
+    for N in WGMMA_STATE_DIMS:
         info = (ctypes.c_int * 12)()
         build.check(lib.ssd_scan_wgmma_info(N, info), "ssd_scan_wgmma_info")
-        for k, name in enumerate(("ssd_cb", "ssd_segment_states", "ssd_chunk_scan")):
+        for k, name in enumerate(("ssd_cb16" if N == 16 else "ssd_cb", "ssd_segment_states",
+                                  "ssd_chunk_scan")):
             regs, local, smem, ctas = info[4 * k:4 * k + 4]
             log(f"[build] {name}<N={N}>: {regs} registers, {local} bytes local (spills), "
                 f"{smem} bytes dynamic shared memory, {ctas} CTAs an SM")
             if local:
                 raise AssertionError(f"{name}<N={N}> spills {local} bytes a thread")
-        if info[11] < 2:
-            raise AssertionError(f"ssd_chunk_scan<N={N}>: {info[11]} CTA an SM, want 2")
+        if info[11] < SCAN_COST[N]["ctas"]:
+            raise AssertionError(f"ssd_chunk_scan<N={N}>: {info[11]} CTAs an SM, "
+                                 f"segment_chunks assumes {SCAN_COST[N]['ctas']}")
 
 
 def log_ssd_bwd_resources():
@@ -385,13 +394,16 @@ def _ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory=False, views=False):
     return x, (dt.transpose(1, 2) if views else dt), A, Bm, Cm
 
 
-def _ssd_case(name, chunk, x, dt, A, Bm, Cm, initial_state=None):
-    """The kernel's y (and with ``initial_state`` its final state) against
-    the plain version in fp32 on the same inputs."""
+def _ssd_case(name, chunk, x, dt, A, Bm, Cm, initial_state=None, return_state=False, fma=False):
+    """The kernel's y (and with ``initial_state`` or ``return_state`` its
+    final state) against the plain version in fp32 on the same inputs: the
+    ``kernel_path`` kernel through ``ssd_scan``, or with ``fma`` the FMA
+    kernel whatever the path (``launch_fma``, not counted)."""
     from repro_torch.kernels import ssd_scan
     from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import launch_fma
     args = (x.float(), dt, A, Bm.float(), Cm.float())
-    if initial_state is not None:
+    if initial_state is not None or return_state:
         out, h = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state,
                           return_state=True)
         torch.cuda.synchronize()
@@ -402,7 +414,7 @@ def _ssd_case(name, chunk, x, dt, A, Bm, Cm, initial_state=None):
             raise AssertionError(f"{name}: final state rel_l2={rel:.3e} > {SSD_STATE_REL_L2:g}")
         log(f"[parity] {name} final state rel_l2={rel:.3e} (limit {SSD_STATE_REL_L2:g}) ok")
         return _compare_bf16(name, out, ref)
-    out = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    out = launch_fma(x, dt, A, Bm, Cm) if fma else ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
     ref = ssd_scan_ref(*args, chunk=chunk)
     if x.dtype != torch.float32:
@@ -475,15 +487,19 @@ def phase_parity():
                                 *_ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory, views))
                 if views and not long_memory:
                     errs[("ssd_scan", dtype)] = err
-        # hymba-1.5b's SSM on the FMA kernel: 50 heads of hp 64, N 16, in the
-        # model's layout (x, B, C column slices of one [B,S,3232] buffer)
+        # hymba-1.5b's SSM: 50 heads of hp 64, N 16, in the model's layout (x,
+        # B, C column slices of one [B,S,3232] buffer); fp32 on the FMA
+        # kernel, bf16 on the wgmma path and again on the FMA kernel
         B, nh, S, hp, N, chunk = SSD_HYMBA
         for long_memory in (False, True):
-            err = _ssd_case(f"ssd fma {tag} hymba B,nh,S,hp,N=({B},{nh},{S},{hp},{N}) [B,S,.] "
-                            f"views{' long-memory' if long_memory else ''}", chunk,
-                            *_ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory, True))
-            if not long_memory:
-                errs[("ssd_scan_fma", dtype)] = err
+            inputs = _ssd_inputs(gen, B, nh, S, hp, N, dtype, long_memory, True)
+            paths = ("wgmma", "fma") if dtype == torch.bfloat16 else ("fma",)
+            for path in paths:
+                err = _ssd_case(f"ssd {path} {tag} hymba B,nh,S,hp,N=({B},{nh},{S},{hp},{N}) "
+                                f"[B,S,.] views{' long-memory' if long_memory else ''}", chunk,
+                                *inputs, fma=path == "fma")
+                if not long_memory:
+                    errs[("ssd_scan_n16" if path == "wgmma" else "ssd_scan_fma", dtype)] = err
     # the bf16 wgmma path: its own cases, then the state options at the main
     # shape in the model's layout (the recurrence starts from a given state)
     from repro_torch.kernels.ssd_scan import kernel_path as ssd_path
@@ -498,6 +514,21 @@ def phase_parity():
     _ssd_case("ssd wgmma bf16 main [B,S,.] views long-memory, initial_state and return_state",
               chunk, *_ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, True, True),
               initial_state=h0)
+    # the wgmma path at N 16: its cases, then the final state at hymba's
+    # prefill shape in the model's layout, from zeros and from a given state
+    for B, nh, S, hp, N in SSD_WGMMA_N16_CASES:
+        assert ssd_path(torch.bfloat16, hp, N) == "wgmma"
+        for long_memory in (False, True):
+            _ssd_case(f"ssd wgmma bf16 B,nh,S,hp,N=({B},{nh},{S},{hp},{N})"
+                      f"{' long-memory' if long_memory else ''}", 256,
+                      *_ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, long_memory))
+    B, nh, S, hp, N, chunk = SSD_HYMBA
+    h0 = torch.randn(B, nh, hp, N, generator=gen, device="cuda")
+    for state in (None, h0):
+        _ssd_case(f"ssd wgmma bf16 hymba [B,S,.] views long-memory, "
+                  f"{'initial_state and ' if state is not None else ''}return_state", chunk,
+                  *_ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, True, True),
+                  initial_state=state, return_state=True)
     return errs
 
 
@@ -630,8 +661,8 @@ def _forward_launches(arch):
 def _ssd_names(arch, dtype=torch.bfloat16):
     """The kernel line's names for ``arch``'s SSD launches at ``dtype``:
     ``ssd_scan_fma`` / ``ssd_scan_bwd_fma`` where a pass takes the FMA
-    kernel, ``ssd_scan_bwd_n16`` where the backward takes the wgmma path at
-    N 16; the wrappers' own names otherwise."""
+    kernel, ``ssd_scan_n16`` / ``ssd_scan_bwd_n16`` where it takes the
+    wgmma path at N 16; the wrappers' own names otherwise."""
     from repro_torch.kernels.ssd_scan import bwd_kernel_path, kernel_path
     if arch.block not in ("ssm", "hymba"):
         return {}
@@ -639,6 +670,8 @@ def _ssd_names(arch, dtype=torch.bfloat16):
     names = {}
     if kernel_path(dtype, hp, N) == "fma":
         names["ssd_scan"] = "ssd_scan_fma"
+    elif N == 16:
+        names["ssd_scan"] = "ssd_scan_n16"
     if bwd_kernel_path(dtype, hp, N) == "fma":
         names["ssd_scan_bwd"] = "ssd_scan_bwd_fma"
     elif N == 16:
@@ -903,29 +936,19 @@ def ssd_fwd_bound(x, dt, A, Bm, Cm, Q):
 
 def times_hymba_kernels(gen):
     """hymba-1.5b's kernels at its prefill shapes, bf16: the windowed flash
-    (window 1024, GQA group 5) in the model's views; the SSD scan on the FMA
-    kernel (50 heads, N 16; blocked by 64-token chunks) in the model's
-    layout, beside its plain version (no library call computes it); RMSNorm
-    at H 1600 (norm1, norm2) and 3200 (ssm_norm). Returns the SSD row
-    (the kernel line's ``ssd_scan_fma``); logs the others and returns them
-    under "shapes"."""
-    from repro_torch.kernels import ssd_scan
-    from repro_torch.kernels.ref import ssd_scan_ref
-    from repro_torch.kernels.ssd_scan import KERNEL_CHUNK, kernel_path
+    (window 1024, GQA group 5) in the model's views; the SSD scan (50
+    heads, N 16) on the wgmma path in turns with the FMA kernel
+    (``times_ssd_fwd_kernel``) at its prefill shape and, logged, its
+    training shape; RMSNorm at H 1600 (norm1, norm2) and 3200 (ssm_norm).
+    Returns the SSD rows (the kernel line's ``ssd_scan_n16`` and
+    ``ssd_scan_fma``); logs the others."""
     shapes = [_flash_row(gen, True, FLASH_HYMBA, HYMBA_WINDOW)]
     shapes += [_rms_row(gen, T, H) for T, H in RMS_MAIN_NEW[:2]]
-    B, nh, S, hp, N, Q = SSD_HYMBA
-    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, views=True)
-    assert kernel_path(x.dtype, hp, N) == "fma"
-    bound, by = ssd_fwd_bound(x, dt, A, Bm, Cm, KERNEL_CHUNK)
-    row = dict(name="ssd_scan_fma", ms=time_device(lambda: ssd_scan(x, dt, A, Bm, Cm)),
-               plain_ms=time_device(lambda: ssd_scan_ref(x, dt, A, Bm, Cm), n=3, reps=3),
-               library_ms=None, bound_ms=bound, bound_by=by,
-               shape=f"x{list(x.shape)} B/C{list(Bm.shape)} bf16, dt fp32, views")
-    log(f"[time] ssd_scan (fma) hymba: {100 * bound / row['ms']:.1f}% of the bound")
-    for r in shapes:
+    rows = list(times_ssd_fwd_kernel(gen, "ssd_scan_n16", SSD_HYMBA[:5]))
+    train = times_ssd_fwd_kernel(gen, "ssd_scan_n16", SSD_BWD_N16)
+    for r in shapes + list(train):
         _log_row(r)
-    return [row]
+    return rows
 
 
 def times_granite_kernels(gen):
@@ -938,36 +961,48 @@ def times_granite_kernels(gen):
     return []
 
 
-def times_ssm_kernels(gen):
-    """The SSD kernel at mamba2-2.7b's prefill shape, in the model's layout:
-    bf16 x, B, C as column slices of the conv output, fp32 dt. No single
-    PyTorch call computes the scan, so there is no library time. The wgmma
-    path is timed in turns with the FMA kernel that served this shape
-    before it (FMA, wgmma, wgmma, FMA); the row keeps the mean of the two
-    wgmma times. Also logs RMSNorm at mamba2's two prefill shapes (norm1
-    and the gated ssm_norm), for the prefill breakdown; the kernel line
-    keeps yi-6b's RMSNorm row."""
+def times_ssd_fwd_kernel(gen, name, case):
+    """The SSD forward at ``case`` (B, nh, S, hp, N) on the wgmma path, in
+    the model's layout (bf16 x, B, C column slices of the conv output, fp32
+    dt), in turns with the FMA kernel on the same inputs (``launch_fma``:
+    FMA, wgmma, wgmma, FMA), which it must beat; beside its bound and its
+    plain version. No single PyTorch call computes the scan, so there is no
+    library time. Returns (the wgmma row under ``name``, the mean of its two
+    turns, with the FMA time as "fma_ms"; the FMA kernel's row,
+    ``ssd_scan_fma``)."""
     from repro_torch.kernels import ssd_scan
     from repro_torch.kernels.ref import ssd_scan_ref
-    from repro_torch.kernels.ssd_scan import launch_fma
+    from repro_torch.kernels.ssd_scan import KERNEL_CHUNK, kernel_path, launch_fma
+    B, nh, S, hp, N = case
+    assert kernel_path(torch.bfloat16, hp, N) == "wgmma"
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, views=True)
+    bound, by = ssd_fwd_bound(x, dt, A, Bm, Cm, KERNEL_CHUNK)
+    turns = [time_device(lambda: launch_fma(x, dt, A, Bm, Cm) if which == "fma"
+                         else ssd_scan(x, dt, A, Bm, Cm))
+             for which in ("fma", "wgmma", "wgmma", "fma")]
+    ms, fma_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    log(f"[time] {name} {list(case)} in turns FMA, wgmma, wgmma, FMA: "
+        f"{', '.join(f'{t:.4f}' for t in turns)} ms; wgmma {100 * bound / ms:.1f}% of the bound, "
+        f"fma {100 * bound / fma_ms:.1f}%; wgmma / fma = {ms / fma_ms:.3f}")
+    if not ms < fma_ms:
+        raise AssertionError(f"{name}: the wgmma path ({ms:.4f} ms) is not faster than the "
+                             f"FMA kernel ({fma_ms:.4f} ms) at {case}")
+    row = dict(name=name, ms=ms, fma_ms=fma_ms,
+               plain_ms=time_device(lambda: ssd_scan_ref(x, dt, A, Bm, Cm), n=3, reps=3),
+               library_ms=None, bound_ms=bound, bound_by=by,
+               shape=f"x{list(x.shape)} B/C{list(Bm.shape)} bf16, dt fp32, views")
+    return row, dict(row, name="ssd_scan_fma", ms=fma_ms)
+
+
+def times_ssm_kernels(gen):
+    """The SSD kernel at mamba2-2.7b's prefill shape on the wgmma path, in
+    turns with the FMA kernel that served this shape before it
+    (``times_ssd_fwd_kernel``; the kernel line's ``ssd_scan``). Also logs
+    RMSNorm at mamba2's two prefill shapes (norm1 and the gated ssm_norm),
+    for the prefill breakdown; the kernel line keeps yi-6b's RMSNorm row."""
     for T, H in RMS_MAIN_SSM[:2]:
         _log_row(_rms_row(gen, T, H))
-    B, nh, S, hp, N, Q = SSD_MAIN
-    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, views=True)
-    bound, by = ssd_fwd_bound(x, dt, A, Bm, Cm, Q)
-    turns = []
-    for which in ("fma", "wgmma", "wgmma", "fma"):
-        fn = (lambda: launch_fma(x, dt, A, Bm, Cm)) if which == "fma" else \
-            (lambda: ssd_scan(x, dt, A, Bm, Cm))
-        turns.append(time_device(fn))
-    log(f"[time] ssd_scan in turns FMA, wgmma, wgmma, FMA: "
-        f"{', '.join(f'{t:.4f}' for t in turns)} ms; wgmma {100 * bound / turns[1]:.1f}% and "
-        f"{100 * bound / turns[2]:.1f}% of the bound; FMA / wgmma = "
-        f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}")
-    return [dict(name="ssd_scan", ms=(turns[1] + turns[2]) / 2,
-                 plain_ms=time_device(lambda: ssd_scan_ref(x, dt, A, Bm, Cm), n=3, reps=3),
-                 library_ms=None, bound_ms=bound, bound_by=by,
-                 shape=f"x{list(x.shape)} B/C{list(Bm.shape)} bf16, dt fp32, views")]
+    return [times_ssd_fwd_kernel(gen, "ssd_scan", SSD_MAIN[:5])[0]]
 
 
 def times_end_to_end(name, model, prefill, serve, gen, decode_spans):
@@ -1144,7 +1179,7 @@ def ssd_bwd_bound(x, dt, A, Bm, Cm, dtype):
 
 def phase_ssd_bwd_parity():
     """The SSD backward against its plain backward, fp32 and bf16:
-    SSD_CASES, SSD_WGMMA_CASES and SSD_BWD_N16_CASES (S 1 to 2000 around
+    SSD_CASES, SSD_WGMMA_CASES and SSD_WGMMA_N16_CASES (S 1 to 2000 around
     the 64-token chunks), each with the tests' draw and the long-memory
     one; mamba2's training shape and hymba's (50 heads, hp 64, N 16) in the
     model's layout (x, Bm, Cm column slices of one buffer, dt a [B,nh,S]
@@ -1172,7 +1207,7 @@ def phase_ssd_bwd_parity():
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         for B, nh, S, hp, N, chunk in SSD_CASES + [c + (256,) for c in SSD_WGMMA_CASES
-                                                   + SSD_BWD_N16_CASES]:
+                                                   + SSD_WGMMA_N16_CASES]:
             for long_memory in (False, True):
                 case(f"{tag} B,nh,S,hp,N=({B},{nh},{S},{hp},{N})"
                      f"{' long-memory' if long_memory else ''}", dtype, B, nh, S, hp, N, chunk,
@@ -1763,9 +1798,10 @@ def phase_train(total, mark=lambda name: None):
 
 def kernel_line(rows, errs, total):
     """The kernels line: one entry a kernel of the main path, the SSD scan's
-    FMA paths apart from its wgmma ones, and the wgmma SSD backward at N 16
-    (hymba-1.5b's) apart from N 128 (mamba2-2.7b's). Each wgmma SSD
-    backward entry lists the FMA kernel on its inputs under "paths"; the
+    FMA paths apart from its wgmma ones, and the wgmma SSD forward and
+    backward at N 16 (hymba-1.5b's) apart from N 128 (mamba2-2.7b's). The
+    wgmma SSD entries at N 16 and the backward's at N 128 list the FMA
+    kernel on their inputs under "paths"; the
     RMSNorm backward's lists its register version at the RMS_BWD_NEW
     widths, each with the bf16 launches of the model that trains there
     (all on the register version, at that width and the model's others)."""
@@ -1780,13 +1816,14 @@ def kernel_line(rows, errs, total):
                  "launches": total[r["name"]], "max_abs_err": errs[(r["name"], bf16)],
                  "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        if r["name"] in ("ssd_scan_bwd", "ssd_scan_bwd_n16"):
+        if r["name"] in ("ssd_scan_n16", "ssd_scan_bwd", "ssd_scan_bwd_n16"):
+            fma = "ssd_scan_fma" if r["name"] == "ssd_scan_n16" else "ssd_scan_bwd_fma"
             fma_err = errs[("ssd_scan_bwd fma", bf16) if r["name"] == "ssd_scan_bwd"
-                           else ("ssd_scan_bwd_fma", bf16)]
+                           else (fma, bf16)]
             entry["paths"] = [
                 {"path": "wgmma", "source": src, "ms": r["ms"],
                  "max_abs_err": entry["max_abs_err"]},
-                {"path": "fma", "source": SOURCES["ssd_scan_bwd_fma"][0], "ms": r["fma_ms"],
+                {"path": "fma", "source": SOURCES[fma][0], "ms": r["fma_ms"],
                  "max_abs_err": fma_err}]
         if r["name"] == "rmsnorm_bwd":
             entry["paths"] = [

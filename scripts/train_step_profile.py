@@ -33,12 +33,13 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 # matched in order, lower case: the first key in a kernel's name names its group
 # (names come demangled or mangled: the backward's C.B^T is ssd_cb_kernel<N, true>,
-# ssd_cb16_kernel at N 16)
+# ssd_cb16_kernel<true> at N 16; the forward's the same with false)
 GROUPS = (("ssd_cb_kernel<128, true>", "ssd bwd wgmma: C.B^T, B.C^T"),
           ("ssd_cb_kernel<64, true>", "ssd bwd wgmma: C.B^T, B.C^T"),
           ("ssd_cb_kernelili128elb1e", "ssd bwd wgmma: C.B^T, B.C^T"),
           ("ssd_cb_kernelili64elb1e", "ssd bwd wgmma: C.B^T, B.C^T"),
-          ("ssd_cb16_kernel", "ssd bwd wgmma: C.B^T, B.C^T"),
+          ("ssd_cb16_kernel<true>", "ssd bwd wgmma: C.B^T, B.C^T"),
+          ("ssd_cb16_kernelilb1e", "ssd bwd wgmma: C.B^T, B.C^T"),
           ("ssd_bwd_segment_ends", "ssd bwd wgmma: segment ends"),
           ("ssd_bwd_fold", "ssd bwd wgmma: fold"),
           ("ssd_bwd_chunk_kernel", "ssd bwd wgmma: in-chunk gradients"),
@@ -47,6 +48,10 @@ GROUPS = (("ssd_cb_kernel<128, true>", "ssd bwd wgmma: C.B^T, B.C^T"),
           ("ssd_bwd_dstates", "ssd bwd fma: (b) state gradients"),
           ("ssd_bwd_chunk", "ssd bwd fma: (c) in-chunk gradients"),
           ("ssd_bwd_sum", "ssd bwd fma: (d) partials' sums"),
+          ("ssd_cb", "ssd forward wgmma: C.B^T"),
+          ("ssd_segment_states", "ssd forward wgmma: segment states"),
+          ("ssd_chunk_scan", "ssd forward wgmma: scan"),
+          ("ssd_scan_kernel", "ssd forward fma"),
           ("ssd_", "ssd forward"),
           ("flash_bwd_delta", "flash bwd: D = rowsum(dO o)"), ("flash_bwd_dkdv", "flash bwd: dK dV"),
           ("flash_bwd_dq", "flash bwd: dQ"), ("flash_bwd_sum", "flash bwd: dK dV partials' sum"),

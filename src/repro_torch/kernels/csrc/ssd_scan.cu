@@ -1,7 +1,8 @@
 // Mamba2 SSD (state-space duality) chunked scan, forward, bf16, for Hopper
-// (sm_90a): the wgmma + TMA kernels at hp 64 and N 64 or 128 (mamba2-2.7b:
-// hp 64, N 128). fp32, and bf16 at other (hp, N), go to the FMA kernel in
-// ssd_scan_fma.cu; kernels/ssd_scan.py:kernel_path picks.
+// (sm_90a): the wgmma + TMA kernels at hp 64 and N 16, 64 or 128
+// (mamba2-2.7b: hp 64, N 128; hymba-1.5b: hp 64, N 16). fp32, and bf16 at
+// other (hp, N), go to the FMA kernel in ssd_scan_fma.cu;
+// kernels/ssd_scan.py:kernel_path picks.
 //
 // Replaces: src/repro/kernels/ssd_scan.py, _ssd_kernel / ssd_scan_pallas.
 // Per (batch b, head h), with a = dt * A and h_t the [hp, N] state:
@@ -13,11 +14,12 @@
 // Bound on the H100: bytes. At mamba2-2.7b prefill (B 2, nh 80, S 2000)
 // the scan must read x (41 MB), B/C (2 MB), dt (1.3 MB) and write y
 // (41 MB): 85 MB, 0.025 ms at 3.35 TB/s; its products, with C.B^T shared
-// across heads, are ~21 GFLOP, 0.022 ms on the bf16 tensor cores.
+// across heads, are ~21 GFLOP, 0.022 ms on the bf16 tensor cores. At
+// hymba-1.5b prefill (B 2, nh 50, S 2000, N 16) 52 MB, 0.016 ms.
 //
 // Design: three launches on the caller's stream.
-//  1. ssd_cb_kernel (ssd_common.cuh, shared with the backward), grid
-//     (chunk, b): C.B^T of each 64-token chunk, once
+//  1. ssd_cb_kernel (ssd_common.cuh, shared with the backward; at N 16
+//     ssd_cb16_kernel), grid (chunk, b): C.B^T of each 64-token chunk, once
 //     for all heads (wgmma m64n64, K = N, fp32 sums), into fp32 scratch
 //     [B, nc, 64 x 64] kept in the order of the wgmma accumulator (float4
 //     q of thread tid at q*128 + tid), so the scan reads it back coalesced
@@ -27,8 +29,10 @@
 //     runs its segment's state update from a zero state, h <- e^{a_last} h
 //     + (x o w)^T B (wgmma m64nN, K = 64 tokens, the fp32 [hp, N] state in
 //     registers; A = x o w loaded transposed with ldmatrix.trans, scaled by
-//     w_j in fp32 and rounded to bf16; B = the B tile, MN-major), and
-//     writes the end state and the segment's total log-decay to scratch.
+//     w_j in fp32 and rounded to bf16 (at N 16 a bf16 pair, kXwPair); B =
+//     the B tile, MN-major, at N 16
+//     the transposed box, K-major), and writes the end state and the
+//     segment's total log-decay to scratch.
 //  3. ssd_chunk_scan_kernel, grid (segment, h, b): folds the end states of
 //     the earlier segments into the caller's initial state (or zeros), then
 //     walks its chunks: y = e^{acs} (C h^T) + P x, then the state update as
@@ -42,42 +46,68 @@
 //     when it is asked for.
 //  The wrapper picks the segment length (kernels/ssd_scan.py:
 //  segment_chunks): at mamba2-2.7b prefill 3 segments of 11 chunks, 480
-//  scan CTAs. Each CTA is one warpgroup. x and B tiles come by TMA into a
-//  2-slot mbarrier ring: one thread issues chunk c+2's copies as soon as
-//  chunk c is done with its slot, so the copy of chunk c+1 runs during
-//  chunk c. The C tile has one slot, refilled with chunk c+1's as soon as
-//  C h^T of chunk c is done. The tensor maps take the caller's strides (the
-//  model's [B,S,nh,hp] x and the column slices of the conv output need no
-//  copy) and zero-fill rows at or past S; those rows have dt = 0, so they
-//  are no-ops, and are never stored. dt ([B,nh,S] view of [B,S,nh], stride
-//  nh along S) is read with plain loads one chunk ahead, the C.B^T tile at
-//  the start of its chunk (a chunk ahead it costs registers: spills).
+//  scan CTAs, two an SM. Each CTA is one warpgroup. x and B tiles come by
+//  TMA into a 2-slot mbarrier ring: one thread issues chunk c+2's copies
+//  as soon as chunk c is done with its slot, so the copy of chunk c+1 runs
+//  during chunk c. The C tile has one slot, refilled with chunk c+1's as
+//  soon as C h^T of chunk c is done. The tensor maps take the caller's
+//  strides (the model's [B,S,nh,hp] x and the column slices of the conv
+//  output need no copy) and zero-fill rows at or past S; those rows have
+//  dt = 0, so they are no-ops, and are never stored. dt ([B,nh,S] view of
+//  [B,S,nh], stride nh along S) is read with plain loads one chunk ahead,
+//  the C.B^T tile at the start of its chunk (a chunk ahead it costs
+//  registers: spills).
 //  The cumulative sums, exponentials, the state and every sum stay fp32;
-//  only product operands (x o w; P and h as hi + lo pairs) are bf16.
+//  only product operands (x o w, a hi + lo pair at N 16; P and h as hi +
+//  lo pairs) are bf16.
 //  Shared memory: the scan 98 KB (N 128), so two CTAs share an SM.
+//  N 16 (hymba-1.5b): the 32-byte rows of B and C do not fit the 128-byte
+//  swizzle of the TMA maps and descriptors, so both come in by the
+//  threads' 16-byte loads during the chunk before the one that reads them
+//  (in the scan past the scores) and are stored transposed, [16][64
+//  tokens], into one 2 KB slot each once the earlier chunk is done with it
+//  (ssd_common.cuh, the backward's tile path); x keeps its TMA ring. The
+//  state update is m64n16k16 with that box as the K-major B operand; C h^T
+//  is m64n64k16 with the C box as the MN-major A operand (K = N) and the h
+//  pair stored [N][hp] as the MN-major B. The state is 8 registers a
+//  thread and the scan 26 KB of shared memory, but the rest of the chunk's
+//  registers (206 in all) keep it at two CTAs an SM: held to the 168 of
+//  three, it spills. segment_chunks has costs of its own for N 16 (more,
+//  shorter segments: 7 chunks each at hymba-1.5b's shapes).
 #include "ssd_common.cuh"
 
 namespace repro_torch {
 namespace {
 
 // Shared memory from a 1024-byte aligned base (the 128-byte swizzle repeats
-// every 8 rows of 128 bytes). Both kernels: a 2-slot ring of x [64 tokens]
-// [64] and the B tile [64 tokens][N] (N/64 boxes). The scan adds one slot
-// for the C tile, refilled as soon as C h^T of its chunk is done, and h
-// entering the chunk as a bf16 pair hi + lo ([hp][N] each, K-major).
+// every 8 rows of 128 bytes). Both kernels: a 2-slot TMA ring of x [64
+// tokens][64] and, at N >= 64, the B tile [64 tokens][N] (N/64 boxes). At
+// N 16 the threads store B (and C) transposed into one slot each
+// (ssd_common.cuh), between the chunk that last read it and the next. The
+// scan adds one slot for the C tile, at N >= 64 refilled by TMA as soon as
+// C h^T of its chunk is done, and h entering the chunk as a bf16 pair hi +
+// lo ([hp][N] each, K-major; [N][hp] at N 16).
 template <int N, bool kScan> struct Smem {
-  static constexpr int kNB = N / 64;
+  static constexpr int kTile = kTileBytes<N>;               // B, C or a plane of h
+  static constexpr bool kOwnBC = N == 16;                   // B, C by the threads' loads
   static constexpr int kX = 0;
   static constexpr int kB = kX + kBox;
-  static constexpr int kStage = kB + kNB * kBox;            // = TMA bytes of x and B
-  static constexpr int kC = 2 * kStage;
-  static constexpr int kH = kC + (kScan ? kNB * kBox : 0);  // h hi, then h lo
-  static constexpr int kVec = kH + (kScan ? 2 * kNB * kBox : 0);   // dt, acs, w, exp(acs)
+  static constexpr int kStage = kB + (kOwnBC ? 0 : kTile);  // = TMA bytes of a ring slot
+  static constexpr int kB16 = 2 * kStage;                   // N 16: the B slot
+  static constexpr int kC = kB16 + (kOwnBC ? kTile : 0);
+  static constexpr int kH = kC + (kScan ? kTile : 0);       // h hi, then h lo
+  static constexpr int kVec = kH + (kScan ? 2 * kTile : 0);   // dt, acs, w, exp(acs)
   static constexpr int kBar = kVec + 4 * kQ * 4;            // full[2], full_c
   static constexpr int kBytes = kBar + 24 + 1024;           // + alignment slack
+  // the B tile of the chunk in ring slot s
+  static __device__ __forceinline__ uint32_t b_tile(uint32_t base, int s) {
+    return kOwnBC ? base + kB16 : base + s * kStage + kB;
+  }
 };
 
 struct Params {
+  const __nv_bfloat16* Bm;  // [B,S,N] rows of unit stride; read by the N 16 kernels
+  const __nv_bfloat16* Cm;
   const float* dt;
   const float* A;
   void* y;
@@ -86,7 +116,7 @@ struct Params {
   float* seg_decay;   // [B, nh, n_seg - 1] total log-decay of each segment
   const float* init;  // [B, nh, hp, N] or null
   float* final_state; // [B, nh, hp, N] or null
-  long long dt_sb, dt_sh, dt_ss, y_sb, y_sh, y_ss;
+  long long dt_sb, dt_sh, dt_ss, y_sb, y_sh, y_ss, b_sb, b_ss, c_sb, c_ss;
   int B, nh, S, nc, seg_chunks, n_seg;
 };
 
@@ -110,22 +140,30 @@ __device__ __forceinline__ void xw_fragments(uint32_t (&xa)[4][4], uint32_t sX, 
   }
 }
 
-// st += (x o w)^T B over the chunk's 64 tokens; B tile MN-major in N/64 boxes
+// x o w, the state update's A operand: at N 64/128 rounded once to bf16
+// (xw_fragments), at N 16 a bf16 pair hi + lo (ssd_common.cuh's
+// scaled_t_fragments), as P and h are. Rounded once at N 16, one of
+// hymba-1.5b's bf16 A_log gradients landed 1.55x as far from fp32 as the
+// plain versions' (PERF.md), past chip_smoke.py's 1.5x gate
+template <int N> constexpr bool kXwPair = N == 16;
+
+// st += (x o w)^T B over the chunk's 64 tokens; B tile MN-major in N/64
+// boxes, at N 16 the transposed box (K-major, K = tokens)
 template <int N>
 __device__ __forceinline__ void state_update(float (&st)[N / 2], const uint32_t (&xa)[4][4],
                                              uint32_t sB) {
-  const uint64_t db = sw128_desc(sB, kBox, 1024);
+  if constexpr (N == 16) {
+    const uint64_t db = sw128_desc(sB, 16, 1024);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if constexpr (N == 128) {
-      wgmma_rs_n128(st, xa[kk], db + ((kk * 16 * 128) >> 4), 1);
-    } else {
-      wgmma_rs_n64(st, xa[kk], db + ((kk * 16 * 128) >> 4), 1);
-    }
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n16(st, xa[kk], db + 2 * kk, 1);
+  } else {
+    const uint64_t db = sw128_desc(sB, kBox, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<N>(st, xa[kk], db + ((kk * 16 * 128) >> 4));
   }
 }
 
-// Copies of chunk c's x and B into ring slot s.
+// Copies of chunk c's x and (N >= 64) B into ring slot s.
 template <int N>
 __device__ __forceinline__ void issue_chunk(uint32_t base, uint32_t full, int c, int s,
                                             const CUtensorMap* tx, const CUtensorMap* tb, int h,
@@ -135,7 +173,7 @@ __device__ __forceinline__ void issue_chunk(uint32_t base, uint32_t full, int c,
   mbar_expect_tx(bar, L::kStage);
   tma_load(slot + L::kX, tx, bar, 0, c * kQ, h, b);
 #pragma unroll
-  for (int i = 0; i < L::kNB; ++i) tma_load(slot + L::kB + i * kBox, tb, bar, 64 * i, c * kQ, b);
+  for (int i = 0; i < N / 64; ++i) tma_load(slot + L::kB + i * kBox, tb, bar, 64 * i, c * kQ, b);
 }
 
 __device__ __forceinline__ void init_barriers(uint32_t full) {
@@ -148,7 +186,8 @@ __device__ __forceinline__ void init_barriers(uint32_t full) {
   __syncthreads();
 }
 
-// ---- 1. C.B^T per (b, chunk): ssd_cb_kernel<N, false> (ssd_common.cuh) ----
+// ---- 1. C.B^T per (b, chunk): ssd_cb_kernel<N, false>, at N 16
+// ssd_cb16_kernel<false> (ssd_common.cuh) ----
 
 // ---- 2. end state of each segment but the last, from a zero state ----
 template <int N>
@@ -169,6 +208,7 @@ ssd_segment_states_kernel(const __grid_constant__ CUtensorMap tx,
   const int c0 = seg * p.seg_chunks, c1 = min(p.nc, c0 + p.seg_chunks);
   const float A = p.A[h];
   const float* dtg = p.dt + b * p.dt_sb + h * p.dt_sh;
+  const __nv_bfloat16* bm = p.Bm + b * p.b_sb;
 
   init_barriers(full);
   if (tid == 0) {
@@ -180,10 +220,16 @@ ssd_segment_states_kernel(const __grid_constant__ CUtensorMap tx,
   for (int i = 0; i < N / 2; ++i) st[i] = 0.f;
   float d0 = 0.f, d1 = 0.f, log_decay = 0.f;
   if (warp == 0) load_dt(dtg, p.dt_ss, c0 * kQ, p.S, lane, d0, d1);
+  uint4 b_next = make_uint4(0u, 0u, 0u, 0u);   // N 16: B a chunk ahead
+  if constexpr (N == 16) b_next = load_tile16(bm, p.b_ss, c0, p.S, tid);
 
   for (int c = c0; c < c1; ++c) {
     const int s = (c - c0) & 1;
     const uint32_t parity = ((c - c0) >> 1) & 1;
+    if constexpr (N == 16) {   // the previous chunk is done with the B slot
+      store_tile16(gbase + L::kB16, b_next, tid);
+      if (c + 1 < c1) b_next = load_tile16(bm, p.b_ss, c + 1, p.S, tid);
+    }
     if (warp == 0) {
       scan_chunk(d0, d1, A, lane, sDt, sAcs, sW, sEa);
       if (c + 1 < c1) load_dt(dtg, p.dt_ss, (c + 1) * kQ, p.S, lane, d0, d1);
@@ -193,17 +239,23 @@ ssd_segment_states_kernel(const __grid_constant__ CUtensorMap tx,
     const float decay = sEa[kQ - 1];
     mbar_wait_or_trap(full + 8 * s, parity);
     __syncwarp();
-    uint32_t xa[4][4];
-    xw_fragments(xa, base + s * L::kStage + L::kX, sW, warp, lane);
+    uint32_t xa[4][4], xl[4][4];   // x o w (and at N 16 its lo half)
+    if constexpr (kXwPair<N>) {
+      scaled_t_fragments(xa, xl, base + s * L::kStage + L::kX, sW, warp, lane);
+    } else {
+      xw_fragments(xa, base + s * L::kStage + L::kX, sW, warp, lane);
+    }
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) st[i] *= decay;
     fence_regs(st);
     wgmma_fence();
-    state_update<N>(st, xa, base + s * L::kStage + L::kB);
+    state_update<N>(st, xa, L::b_tile(base, s));
+    if constexpr (kXwPair<N>) state_update<N>(st, xl, L::b_tile(base, s));
     wgmma_commit();
     wgmma_wait();
     fence_regs(st);
     fence_regs(xa);
+    if constexpr (kXwPair<N>) fence_regs(xl);
     __syncthreads();   // every thread is done with the slot and the vectors
     if (tid == 0 && c + 2 < c1) issue_chunk<N>(base, full, c + 2, s, &tx, &tb, h, b);
   }
@@ -219,13 +271,12 @@ ssd_segment_states_kernel(const __grid_constant__ CUtensorMap tx,
 // ---- 3. the scan, per (segment, h, b) ----
 // Per chunk: C h^T (h as a bf16 pair hi + lo, so its rounding is ~2^-16)
 // while the scores are formed; P x (P as a bf16 pair, likewise); y stored;
-// then the state update with x o w rounded once to bf16.
+// then the state update with x o w rounded once to bf16 (a pair at N 16).
 template <int N>
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_chunk_scan_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
                       const __grid_constant__ CUtensorMap tc, const Params p) {
   using L = Smem<N, true>;
-  constexpr int kNB = N / 64;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));
@@ -233,7 +284,7 @@ ssd_chunk_scan_kernel(const __grid_constant__ CUtensorMap tx, const __grid_const
   float* sAcs = sDt + kQ;
   float* sW = sAcs + kQ;
   float* sEa = sW + kQ;
-  const uint32_t sC = base + L::kC, sH = base + L::kH, sHlo = sH + kNB * kBox;
+  const uint32_t sC = base + L::kC, sH = base + L::kH, sHlo = sH + L::kTile;
   const uint32_t full = base + L::kBar, full_c = full + 16;
   const int seg = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
@@ -242,18 +293,26 @@ ssd_chunk_scan_kernel(const __grid_constant__ CUtensorMap tx, const __grid_const
   const float* dtg = p.dt + b * p.dt_sb + h * p.dt_sh;
   const float4* cbg = reinterpret_cast<const float4*>(p.cb) + tid;
   const int bh = b * p.nh + h;
+  const __nv_bfloat16* bm = p.Bm + b * p.b_sb;
+  const __nv_bfloat16* cm = p.Cm + b * p.c_sb;
 
-  // the C tile of chunk c into its slot
+  // the C tile of chunk c into its slot (N >= 64)
   auto issue_c = [&](int c) {
-    mbar_expect_tx(full_c, kNB * kBox);
+    mbar_expect_tx(full_c, L::kTile);
 #pragma unroll
-    for (int i = 0; i < kNB; ++i) tma_load(sC + i * kBox, &tc, full_c, 64 * i, c * kQ, b);
+    for (int i = 0; i < N / 64; ++i) tma_load(sC + i * kBox, &tc, full_c, 64 * i, c * kQ, b);
   };
   init_barriers(full);
   if (tid == 0) {
     issue_chunk<N>(base, full, c0, 0, &tx, &tb, h, b);
-    issue_c(c0);
+    if constexpr (N != 16) issue_c(c0);
     if (c0 + 1 < c1) issue_chunk<N>(base, full, c0 + 1, 1, &tx, &tb, h, b);
+  }
+  // N 16: chunk c0's B and C into their slots (published by the loop's
+  // first barrier); later chunks' are loaded once the scores are formed
+  if constexpr (N == 16) {
+    store_tile16(gbase + L::kB16, load_tile16(bm, p.b_ss, c0, p.S, tid), tid);
+    store_tile16(gbase + L::kC, load_tile16(cm, p.c_ss, c0, p.S, tid), tid);
   }
 
   // The state entering the segment, in the accumulator layout: st[4q + r]
@@ -286,18 +345,18 @@ ssd_chunk_scan_kernel(const __grid_constant__ CUtensorMap tx, const __grid_const
       st[4 * q + 3] = fmaf(dec, st[4 * q + 3], v.w);
     }
   }
-  // h as hi = bf16(h) and lo = bf16(h - hi) into sH, K-major [hp rows][N],
-  // the B operands of C h^T
+  // h as hi = bf16(h) and lo = bf16(h - hi) into sH, the B operands of
+  // C h^T: K-major [hp rows][N], at N 16 MN-major [N rows][hp]
   auto store_h = [&]() {
 #pragma unroll
     for (int q = 0; q < N / 8; ++q)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const uint32_t off = sw128_offset(16 * warp + g + 8 * half, 8 * q + 2 * t, kBox);
+        const int row = 16 * warp + g + 8 * half, col = 8 * q + 2 * t;
         uint32_t hi, lo;
         split_bf16x2(st[4 * q + 2 * half], st[4 * q + 2 * half + 1], hi, lo);
-        *reinterpret_cast<uint32_t*>(gbase + L::kH + off) = hi;
-        *reinterpret_cast<uint32_t*>(gbase + L::kH + kNB * kBox + off) = lo;
+        st_pair<N>(gbase + L::kH, row, col, hi);
+        st_pair<N>(gbase + L::kH + L::kTile, row, col, lo);
       }
     fence_async_smem();   // visible to the next wgmma after the next barrier
   };
@@ -329,15 +388,24 @@ ssd_chunk_scan_kernel(const __grid_constant__ CUtensorMap tx, const __grid_const
       scan_chunk(d0, d1, A, lane, sDt, sAcs, sW, sEa);
       if (c + 1 < c1) load_dt(dtg, p.dt_ss, (c + 1) * kQ, p.S, lane, d0, d1);
     }
-    __syncthreads();   // the chunk's vectors; sH of the state entering it
-    mbar_wait_or_trap(full_c, (c - c0) & 1);
-    __syncwarp();
+    __syncthreads();   // the chunk's vectors; sH of the state entering it; N 16: B, C
+    if constexpr (N != 16) {
+      mbar_wait_or_trap(full_c, (c - c0) & 1);
+      __syncwarp();
+    }
 
     // y = C h^T over N, while the scores are formed
     float y[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) y[i] = 0.f;
-    {
+    if constexpr (N == 16) {   // C^T [n][i] and h^T [n][p], both MN-major, K = 16
+      const uint64_t dc = sw128_desc(sC, kBox, 1024);
+      fence_regs(y);
+      wgmma_fence();
+      wgmma_ss_mn_n64(y, dc, sw128_desc(sH, kBox, 1024), 0);
+      wgmma_ss_mn_n64(y, dc, sw128_desc(sHlo, kBox, 1024), 1);
+      wgmma_commit();
+    } else {
       const uint64_t dc = sw128_desc(sC, 16, 1024);
       const uint64_t dh = sw128_desc(sH, 16, 1024), dl = sw128_desc(sHlo, 16, 1024);
       fence_regs(y);
@@ -379,11 +447,20 @@ ssd_chunk_scan_kernel(const __grid_constant__ CUtensorMap tx, const __grid_const
         split_bf16x2(v[2], v[3], pa[jb / 2][2 * (jb % 2) + 1], pl[jb / 2][2 * (jb % 2) + 1]);
       }
     }
+    // N 16: chunk c+1's B and C, in flight until the chunk's last barrier
+    // (loaded here, past the scores, where registers are free)
+    uint4 b_next = make_uint4(0u, 0u, 0u, 0u), c_next = b_next;
+    if (N == 16 && c + 1 < c1) {
+      b_next = load_tile16(bm, p.b_ss, c + 1, p.S, tid);
+      c_next = load_tile16(cm, p.c_ss, c + 1, p.S, tid);
+    }
     const float ea0 = sEa[i0], ea1 = sEa[i1];
     wgmma_wait();
     fence_regs(y);
-    __syncthreads();   // every warp is done with the C tile: chunk c+1's may come in
-    if (tid == 0 && c + 1 < c1) issue_c(c + 1);
+    if constexpr (N != 16) {   // (N 16 refills the C slot after the chunk's last barrier)
+      __syncthreads();   // every warp is done with the C tile: chunk c+1's may come in
+      if (tid == 0 && c + 1 < c1) issue_c(c + 1);
+    }
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       y[4 * q] *= ea0;
@@ -407,8 +484,12 @@ ssd_chunk_scan_kernel(const __grid_constant__ CUtensorMap tx, const __grid_const
       wgmma_commit();
     }
     // meanwhile: the A operand of the state update, and the decay of the state
-    uint32_t xa[4][4];
-    xw_fragments(xa, slot + L::kX, sW, warp, lane);
+    uint32_t xa[4][4], xl[4][4];
+    if constexpr (kXwPair<N>) {
+      scaled_t_fragments(xa, xl, slot + L::kX, sW, warp, lane);
+    } else {
+      xw_fragments(xa, slot + L::kX, sW, warp, lane);
+    }
     const float decay = sEa[kQ - 1];
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) st[i] *= decay;
@@ -420,7 +501,8 @@ ssd_chunk_scan_kernel(const __grid_constant__ CUtensorMap tx, const __grid_const
     // h <- decay h + (x o w)^T B, while y is stored (rows at or past S are not)
     fence_regs(st);
     wgmma_fence();
-    state_update<N>(st, xa, slot + L::kB);
+    state_update<N>(st, xa, L::b_tile(base, s));
+    if constexpr (kXwPair<N>) state_update<N>(st, xl, L::b_tile(base, s));
     wgmma_commit();
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -435,9 +517,16 @@ ssd_chunk_scan_kernel(const __grid_constant__ CUtensorMap tx, const __grid_const
     wgmma_wait();
     fence_regs(st);
     fence_regs(xa);
+    if constexpr (kXwPair<N>) fence_regs(xl);
     __syncthreads();   // every thread is done with the slot, sH and the vectors
     if (tid == 0 && c + 2 < c1) issue_chunk<N>(base, full, c + 2, s, &tx, &tb, h, b);
-    if (c + 1 < c1) store_h();
+    if (c + 1 < c1) {
+      store_h();
+      if constexpr (N == 16) {   // and the B and C slots
+        store_tile16(gbase + L::kB16, b_next, tid);
+        store_tile16(gbase + L::kC, c_next, tid);
+      }
+    }
   }
 
   if (p.final_state != nullptr && seg == p.n_seg - 1) {
@@ -453,9 +542,10 @@ ssd_chunk_scan_kernel(const __grid_constant__ CUtensorMap tx, const __grid_const
 }
 
 template <int N> int set_smem_limits() {
-  cudaError_t e = cudaFuncSetAttribute(ssd_cb_kernel<N, false>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       cb_smem_bytes<N>());
+  cudaError_t e = cudaSuccess;
+  if constexpr (N != 16)
+    e = cudaFuncSetAttribute(ssd_cb_kernel<N, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             cb_smem_bytes<N>());
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(ssd_segment_states_kernel<N>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<N, false>::kBytes);
@@ -470,8 +560,13 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tb, const CUtensorMap& tc, 
            cudaStream_t stream) {
   int err = set_smem_limits<N>();
   if (err != 0) return err;
-  ssd_cb_kernel<N, false><<<dim3(p.nc, p.B), kThreads, cb_smem_bytes<N>(), stream>>>(tb, tc, p.cb,
-                                                                                    p.nc);
+  if constexpr (N == 16) {
+    ssd_cb16_kernel<false><<<dim3(p.nc, p.B), kThreads, kCb16Smem, stream>>>(
+        p.Bm, p.b_sb, p.b_ss, p.Cm, p.c_sb, p.c_ss, p.cb, p.S, p.nc);
+  } else {
+    ssd_cb_kernel<N, false><<<dim3(p.nc, p.B), kThreads, cb_smem_bytes<N>(), stream>>>(tb, tc,
+                                                                                      p.cb, p.nc);
+  }
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   if (p.n_seg > 1) {
@@ -485,15 +580,26 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tb, const CUtensorMap& tc, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int N> int info(int* out) {
+  int e = set_smem_limits<N>();
+  if (!e) {
+    if constexpr (N == 16) e = kernel_info(ssd_cb16_kernel<false>, kThreads, kCb16Smem, out);
+    else e = kernel_info(ssd_cb_kernel<N, false>, kThreads, cb_smem_bytes<N>(), out);
+  }
+  if (!e) e = kernel_info(ssd_segment_states_kernel<N>, kThreads, Smem<N, false>::kBytes, out + 4);
+  if (!e) e = kernel_info(ssd_chunk_scan_kernel<N>, kThreads, Smem<N, true>::kBytes, out + 8);
+  return e;
+}
+
 }  // namespace
 }  // namespace repro_torch
 
-// bf16 only, hp 64, N 64 or 128. x, y: [B, nh, S, 64]; dt: [B, nh, S] fp32;
-// A: [nh] fp32 contiguous; Bm, Cm: [B, S, N]. `strides` holds 13 element
-// strides: x (batch, head, seq), dt (batch, head, seq), Bm (batch, seq),
-// Cm (batch, seq), y (batch, head, seq); x, Bm, Cm and y have a unit last
-// stride, and x, Bm, Cm strides that are multiples of 8 and 16-byte aligned
-// bases. Scratch from the caller: cb [B, nc*64*64] fp32, states
+// bf16 only, hp 64, N 16, 64 or 128. x, y: [B, nh, S, 64]; dt: [B, nh, S]
+// fp32; A: [nh] fp32 contiguous; Bm, Cm: [B, S, N]. `strides` holds 13
+// element strides: x (batch, head, seq), dt (batch, head, seq), Bm (batch,
+// seq), Cm (batch, seq), y (batch, head, seq); x, Bm, Cm and y have a unit
+// last stride, and x, Bm, Cm strides that are multiples of 8 and 16-byte
+// aligned bases. Scratch from the caller: cb [B, nc*64*64] fp32, states
 // [B, nh, n_seg-1, 64*N] fp32 and seg_decay [B, nh, n_seg-1] fp32, with
 // nc = ceil(S / 64) and n_seg = ceil(nc / seg_chunks). init and
 // final_state ([B, nh, 64, N] fp32, contiguous) may be null. Returns the
@@ -505,7 +611,7 @@ extern "C" int ssd_scan_wgmma_launch(const void* x, const float* dt, const float
                                      const long long* strides, int B, int nh, int S, int N,
                                      int seg_chunks, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || nh <= 0 || S <= 0 || seg_chunks <= 0 || (N != 64 && N != 128))
+  if (B <= 0 || nh <= 0 || S <= 0 || seg_chunks <= 0 || (N != 16 && N != 64 && N != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t xdims[4] = {static_cast<cuuint64_t>(kHP), static_cast<cuuint64_t>(S),
                                static_cast<cuuint64_t>(nh), static_cast<cuuint64_t>(B)};
@@ -520,12 +626,14 @@ extern "C" int ssd_scan_wgmma_launch(const void* x, const float* dt, const float
   const cuuint64_t cbytes[2] = {static_cast<cuuint64_t>(strides[9]) * 2,
                                 static_cast<cuuint64_t>(strides[8]) * 2};
   const cuuint32_t bcbox[3] = {64, kQ, 1};
-  CUtensorMap tx, tb, tc;
+  CUtensorMap tx, tb{}, tc{};   // tb, tc: N >= 64 only
   int err = make_bf16_map(&tx, x, 4, xdims, xbytes, xbox);
-  if (err == 0) err = make_bf16_map(&tb, Bm, 3, bcdims, bbytes, bcbox);
-  if (err == 0) err = make_bf16_map(&tc, Cm, 3, bcdims, cbytes, bcbox);
+  if (err == 0 && N != 16) err = make_bf16_map(&tb, Bm, 3, bcdims, bbytes, bcbox);
+  if (err == 0 && N != 16) err = make_bf16_map(&tc, Cm, 3, bcdims, cbytes, bcbox);
   if (err != 0) return err;
   Params p;
+  p.Bm = static_cast<const __nv_bfloat16*>(Bm);
+  p.Cm = static_cast<const __nv_bfloat16*>(Cm);
   p.dt = dt;
   p.A = A;
   p.y = y;
@@ -535,6 +643,7 @@ extern "C" int ssd_scan_wgmma_launch(const void* x, const float* dt, const float
   p.init = init;
   p.final_state = final_state;
   p.dt_sb = strides[3]; p.dt_sh = strides[4]; p.dt_ss = strides[5];
+  p.b_sb = strides[6]; p.b_ss = strides[7]; p.c_sb = strides[8]; p.c_ss = strides[9];
   p.y_sb = strides[10]; p.y_sh = strides[11]; p.y_ss = strides[12];
   p.B = B;
   p.nh = nh;
@@ -543,29 +652,18 @@ extern "C" int ssd_scan_wgmma_launch(const void* x, const float* dt, const float
   p.seg_chunks = seg_chunks;
   p.n_seg = (p.nc + seg_chunks - 1) / seg_chunks;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N == 16) return launch<16>(tx, tb, tc, p, s);
   return N == 128 ? launch<128>(tx, tb, tc, p, s) : launch<64>(tx, tb, tc, p, s);
 }
 
-// For N (64 or 128), per kernel (C.B^T, segment states, scan) in turn, four
-// ints: registers a thread, local-memory bytes a thread (spills), dynamic
-// shared memory bytes, CTAs that fit on one SM. Returns a cudaError_t.
+// For N (16, 64 or 128), per kernel (C.B^T, segment states, scan) in turn,
+// four ints: registers a thread, local-memory bytes a thread (spills),
+// dynamic shared memory bytes, CTAs that fit on one SM. Returns a
+// cudaError_t.
 extern "C" int ssd_scan_wgmma_info(int N, int* out) {
   using namespace repro_torch;
-  if (N != 64 && N != 128) return static_cast<int>(cudaErrorInvalidValue);
-  int err = N == 128 ? set_smem_limits<128>() : set_smem_limits<64>();
-  if (err != 0) return err;
-  if (N == 128) {
-    err = kernel_info(ssd_cb_kernel<128, false>, kThreads, cb_smem_bytes<128>(), out);
-    if (err == 0) err = kernel_info(ssd_segment_states_kernel<128>, kThreads,
-                                    Smem<128, false>::kBytes, out + 4);
-    if (err == 0) err = kernel_info(ssd_chunk_scan_kernel<128>, kThreads,
-                                    Smem<128, true>::kBytes, out + 8);
-  } else {
-    err = kernel_info(ssd_cb_kernel<64, false>, kThreads, cb_smem_bytes<64>(), out);
-    if (err == 0) err = kernel_info(ssd_segment_states_kernel<64>, kThreads,
-                                    Smem<64, false>::kBytes, out + 4);
-    if (err == 0) err = kernel_info(ssd_chunk_scan_kernel<64>, kThreads,
-                                    Smem<64, true>::kBytes, out + 8);
-  }
-  return err;
+  if (N == 128) return info<128>(out);
+  if (N == 64) return info<64>(out);
+  if (N == 16) return info<16>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -26,10 +26,10 @@
 //
 // Design: five launches on the caller's stream, no atomics, every sum in a
 // fixed order (two calls give the same bits).
-//  1. ssd_cb_kernel<N, true> (ssd_common.cuh, the forward's; at N 16
-//     ssd_cb16_kernel), grid (chunk, b): C.B^T and B.C^T of each chunk once
-//     for all heads, fp32 scratch in wgmma accumulator order (32 KB a
-//     chunk, in L2).
+//  1. ssd_cb_kernel<N, true> (ssd_common.cuh, shared with the forward;
+//     at N 16 ssd_cb16_kernel<true>, likewise), grid (chunk, b): C.B^T
+//     and B.C^T of each chunk once for all heads, fp32 scratch in wgmma
+//     accumulator order (32 KB a chunk, in L2).
 //  2. ssd_bwd_segment_ends, grid (2 (n_seg - 1), h, b): S is cut into
 //     segments of whole chunks (kernels/ssd_scan.py:bwd_plan). The first
 //     n_seg - 1 CTAs of a (h, b) walk a segment forward from a zero state,
@@ -110,85 +110,6 @@ struct BwdParams {
   int B, nh, S, nc, seg_chunks, n_seg, group, n_groups;
 };
 
-// bytes of an N-wide tile of B or C ([64 tokens][N]) and of one bf16 plane of
-// a [hp][N] state image: N / 64 boxes at N >= 64, one box at N 16
-template <int N> constexpr int kTileBytes = kQ * N * 2;
-
-// byte offset of (row, n) in an N-wide tile (row a token) or a state image
-// (row a head-dim index): rows of N at N >= 64, transposed at N 16
-template <int N> __device__ __forceinline__ uint32_t tile_offset(int row, int n) {
-  return N == 16 ? sw128_offset(n, row, kBox) : sw128_offset(row, n, kBox);
-}
-
-// elements (row, n) and (row, n + 1), n even, of such a tile
-template <int N>
-__device__ __forceinline__ float2 ld_pair(const unsigned char* tile, int row, int n) {
-  if constexpr (N == 16) {
-    return make_float2(
-        __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(tile + tile_offset<N>(row, n))),
-        __bfloat162float(
-            *reinterpret_cast<const __nv_bfloat16*>(tile + tile_offset<N>(row, n + 1))));
-  } else {
-    return __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(tile + tile_offset<N>(row, n)));
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void st_pair(unsigned char* tile, int row, int n, uint32_t v) {
-  if constexpr (N == 16) {
-    *reinterpret_cast<uint16_t*>(tile + tile_offset<N>(row, n)) = static_cast<uint16_t>(v);
-    *reinterpret_cast<uint16_t*>(tile + tile_offset<N>(row, n + 1)) =
-        static_cast<uint16_t>(v >> 16);
-  } else {
-    *reinterpret_cast<uint32_t*>(tile + tile_offset<N>(row, n)) = v;
-  }
-}
-
-// N 16: the thread's half-row (8 states of token tid / 2) of chunk c's tile
-// of B or C at `base` (row stride ss), zeros at or past S
-__device__ __forceinline__ uint4 load_tile16(const __nv_bfloat16* base, long long ss, int c,
-                                             int S, int tid) {
-  const int tok = c * kQ + tid / 2;
-  if (tok >= S) return make_uint4(0u, 0u, 0u, 0u);
-  return __ldg(reinterpret_cast<const uint4*>(base + tok * ss + 8 * (tid % 2)));
-}
-
-// ... into the transposed box at `img` (generic address, 1024-byte aligned),
-// ordered before later wgmma reads of it
-__device__ __forceinline__ void store_tile16(unsigned char* img, uint4 v, int tid) {
-  const int j = tid / 2, n0 = 8 * (tid % 2);
-  const uint16_t* e = reinterpret_cast<const uint16_t*>(&v);
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    *reinterpret_cast<uint16_t*>(img + sw128_offset(n0 + k, j, kBox)) = e[k];
-  fence_async_smem();
-}
-
-// The A operand (s o tile)^T, [64 rows p][16 tokens] per k step, as a bf16
-// pair: the swizzled [64 tokens][64] tile by ldmatrix.trans (lane: matrix
-// lane/8, its row lane%8), each element scaled by its token's s in fp32.
-__device__ __forceinline__ void scaled_t_fragments(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
-                                                   uint32_t sTile, const float* s, int warp,
-                                                   int lane) {
-  const int m = lane / 8, rr = lane % 8, t = lane % 4;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int j = 16 * kk + 8 * (m / 2) + rr;
-    const int chunk16 = 2 * warp + (m % 2);
-    uint32_t r[4];
-    ldmatrix_x4_trans(r, sTile + j * 128 + ((chunk16 ^ rr) * 16));
-    const float2 s01 = *reinterpret_cast<const float2*>(s + 16 * kk + 2 * t);
-    const float2 s23 = *reinterpret_cast<const float2*>(s + 16 * kk + 8 + 2 * t);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r[k]));
-      const float2 sc = k < 2 ? s01 : s23;
-      split_bf16x2(f.x * sc.x, f.y * sc.y, hi[kk][k], lo[kk][k]);
-    }
-  }
-}
-
 // acc += a M over the chunk's 64 tokens: a [64][64 tokens] bf16 A fragments,
 // M the N-wide tile of B or C (MN-major in N/64 boxes; at N 16 the
 // transposed box, K-major)
@@ -264,40 +185,6 @@ __device__ __forceinline__ void store_state(const float (&st)[N / 2], float* dst
     for (int half = 0; half < 2; ++half)
       *reinterpret_cast<float2*>(dst + (16 * warp + g + 8 * half) * N + 8 * q + 2 * t) =
           make_float2(st[4 * q + 2 * half], st[4 * q + 2 * half + 1]);
-}
-
-// ---- 1 at N 16: C.B^T and B.C^T per (b, chunk) ----
-// ssd_cb_kernel's output at N 16: the tiles by plain loads into the
-// transposed boxes, then one m64n64k16 each way with both operands MN-major
-constexpr int kCb16Smem = 2 * kTileBytes<16> + 1024;
-
-__global__ void __launch_bounds__(kThreads) ssd_cb16_kernel(const BwdParams p) {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));
-  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  store_tile16(gbase, load_tile16(p.Cm + b * p.c_sb, p.c_ss, c, p.S, tid), tid);
-  store_tile16(gbase + kTileBytes<16>, load_tile16(p.Bm + b * p.b_sb, p.b_ss, c, p.S, tid), tid);
-  __syncthreads();
-  const uint64_t dc = sw128_desc(base, kBox, 1024);
-  const uint64_t db = sw128_desc(base + kTileBytes<16>, kBox, 1024);
-#pragma unroll
-  for (int o = 0; o < 2; ++o) {
-    float d[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) d[i] = 0.f;
-    fence_regs(d);
-    wgmma_fence();
-    wgmma_ss_mn_n64(d, o ? db : dc, o ? dc : db, 0);
-    wgmma_commit();
-    wgmma_wait();
-    fence_regs(d);
-    float4* out = reinterpret_cast<float4*>(p.cb) +
-                  (static_cast<size_t>(b * p.nc + c) * 2 + o) * 8 * kThreads + tid;
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-      out[q * kThreads] = make_float4(d[4 * q], d[4 * q + 1], d[4 * q + 2], d[4 * q + 3]);
-  }
 }
 
 // ---- 2. segment ends from zero, forward (x, B) or backward (dy, C) ----
@@ -1131,7 +1018,8 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tdy, const CUtensorMap& tb,
   int err = set_smem_limits<N>();
   if (err != 0) return err;
   if constexpr (N == 16) {
-    ssd_cb16_kernel<<<dim3(p.nc, p.B), kThreads, kCb16Smem, stream>>>(p);
+    ssd_cb16_kernel<true><<<dim3(p.nc, p.B), kThreads, kCb16Smem, stream>>>(
+        p.Bm, p.b_sb, p.b_ss, p.Cm, p.c_sb, p.c_ss, p.cb, p.S, p.nc);
   } else {
     ssd_cb_kernel<N, true><<<dim3(p.nc, p.B), kThreads, cb_smem_bytes<N>(), stream>>>(tb, tc,
                                                                                      p.cb, p.nc);
@@ -1161,7 +1049,7 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tdy, const CUtensorMap& tb,
 template <int N> int info(int* out) {
   int e = set_smem_limits<N>();
   if (!e) {
-    if constexpr (N == 16) e = kernel_info(ssd_cb16_kernel, kThreads, kCb16Smem, out);
+    if constexpr (N == 16) e = kernel_info(ssd_cb16_kernel<true>, kThreads, kCb16Smem, out);
     else e = kernel_info(ssd_cb_kernel<N, true>, kThreads, cb_smem_bytes<N>(), out);
   }
   if (!e) e = kernel_info(ssd_bwd_segment_ends<N>, kThreads, EndsSmem<N>::kBytes, out + 4);

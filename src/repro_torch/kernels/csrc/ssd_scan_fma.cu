@@ -1,7 +1,8 @@
 // Mamba2 SSD (state-space duality) chunked scan, forward, for Hopper (sm_90a):
 // the fp32-FMA kernel. It serves fp32 at every (hp, N) it is instantiated
-// for, and bf16 where the wgmma kernel (ssd_scan.cu) does not: hp other
-// than 64 or N other than 64 and 128 (kernels/ssd_scan.py:kernel_path).
+// for, and bf16 where the wgmma kernel (ssd_scan.cu) does not: hp 16 or 32,
+// or N 32 (kernels/ssd_scan.py:kernel_path). No model's bf16 path runs it;
+// the fp32 gradient checks do, and timing code calls it (launch_fma).
 // fp32 stays here because its gate (relative L2 1e-4 against the plain
 // version) is out of reach of TF32 or bf16 tensor-core products.
 //

@@ -2,22 +2,23 @@
 ``ref.ssd_scan_ref`` for CPU tensors (ported from ``repro.kernels.ops``).
 
 Two CUDA paths serve it, picked by (dtype, hp, N) in ``kernel_path``:
-* ``"wgmma"``, ``csrc/ssd_scan.cu``: bf16 at hp 64 and N 64 or 128
-  (mamba2-2.7b). Three launches: C.B^T once per (b, chunk) for all heads,
-  the end state of each segment of the sequence from a zero state, then
-  the scan over (segment, h, b) with wgmma products and TMA copies. It also
+* ``"wgmma"``, ``csrc/ssd_scan.cu``: bf16 at hp 64 and N 16, 64 or 128
+  (hymba-1.5b at N 16, mamba2-2.7b at 128). Three launches: C.B^T once per
+  (b, chunk) for all heads, the end state of each segment of the sequence
+  from a zero state, then the scan over (segment, h, b) with wgmma products
+  and TMA copies (``segment_chunks`` picks the segment length). It also
   takes an ``initial_state`` and returns the final state on request.
-* ``"fma"``, ``csrc/ssd_scan_fma.cu``: fp32 at every instantiated (hp, N)
-  and bf16 elsewhere (hymba-1.5b's N 16): one CTA per (b, h), fp32 FMAs.
+* ``"fma"``, ``csrc/ssd_scan_fma.cu``: fp32 at every instantiated (hp, N),
+  and bf16 at hp 16 or 32 and at hp 64 with N 32: one CTA per (b, h), fp32
+  FMAs. ``launch_fma`` runs it whatever the path (timing and parity).
 There is no fallback between them: a launch that fails raises.
 
 ``ssd_scan`` is differentiable in every input (``SSDScan``): its backward
 is ``ssd_scan_bwd``, the plain ``ref.ssd_scan_bwd_ref`` on CPU tensors and
 on CUDA tensors the kernel ``bwd_kernel_path`` names (one launch counted):
 * ``"wgmma"``, ``csrc/ssd_scan_bwd_wgmma.cu``: bf16 at hp 64 and N 16, 64
-  or 128 (the forward's wgmma shapes, and hymba-1.5b's N 16, whose forward
-  stays on the FMA kernel). Five launches: C.B^T and B.C^T once per (b,
-  chunk), each segment's end state and end gradient from zero, their
+  or 128 (the forward's wgmma shapes). Five launches: C.B^T and B.C^T once
+  per (b, chunk), each segment's end state and end gradient from zero, their
   fold, the in-chunk gradients per (segment, head group, b) on wgmma with
   dB/dC summed over the group's heads in order, and the fixed-order sums
   over groups; ``bwd_plan`` picks the segment length and the group.
@@ -43,11 +44,12 @@ from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 __all__ = ["ssd_scan", "ssd_scan_bwd", "SSDScan", "check_args", "check_bwd_args", "kernel_path",
            "bwd_kernel_path", "segment_chunks", "bwd_plan", "launch_fma", "launch_bwd_fma",
-           "HEAD_DIMS", "STATE_DIMS", "WGMMA_STATE_DIMS", "BWD_WGMMA_STATE_DIMS", "KERNEL_CHUNK"]
+           "HEAD_DIMS", "STATE_DIMS", "WGMMA_STATE_DIMS", "BWD_WGMMA_STATE_DIMS", "KERNEL_CHUNK",
+           "SCAN_COST"]
 
 HEAD_DIMS = (16, 32, 64)           # hp some kernel is instantiated for
 STATE_DIMS = (16, 32, 64, 128)     # ... and N
-WGMMA_STATE_DIMS = (64, 128)       # N of the bf16 wgmma path (hp 64)
+WGMMA_STATE_DIMS = (16, 64, 128)   # N of the bf16 wgmma path (hp 64)
 BWD_WGMMA_STATE_DIMS = (16, 64, 128)   # ... of the backward's
 KERNEL_CHUNK = 64                  # tokens per chunk in the CUDA kernels
 
@@ -127,7 +129,7 @@ def check_args(x, dt, A, Bm, Cm, initial_state=None, return_state=False) -> str:
 def bwd_kernel_path(dtype: torch.dtype, hp: int, N: int) -> str:
     """The backward kernel that serves (dtype, hp, N): ``"wgmma"``
     (``csrc/ssd_scan_bwd_wgmma.cu``) for bf16 at hp 64 and N in
-    BWD_WGMMA_STATE_DIMS (the forward's wgmma shapes and N 16); ``"fma"``
+    BWD_WGMMA_STATE_DIMS (the forward's wgmma shapes); ``"fma"``
     (``csrc/ssd_scan_bwd.cu``, fp32 FMAs) for fp32 and every other bf16
     (hp, N) in HEAD_DIMS x STATE_DIMS; raises elsewhere."""
     if hp not in HEAD_DIMS or N not in STATE_DIMS:
@@ -158,24 +160,37 @@ def check_bwd_args(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None) -> st
     return path
 
 
-def segment_chunks(B: int, nh: int, S: int, sms: int) -> int:
-    """Chunks per segment of the wgmma path. The scan runs B*nh*n_seg CTAs,
-    two to an SM, each over ceil(nc / n_seg) chunks, so its time goes as
-    waves x chunks per segment; each segment past the first adds about two
+def segment_chunks(B: int, nh: int, S: int, sms: int, N: int = 128) -> int:
+    """Chunks per segment of the wgmma path at state width N. The scan runs
+    B*nh*n_seg CTAs, ``SCAN_COST[N]["ctas"]`` to an SM, each over
+    ceil(nc / n_seg) chunks, so its time goes as waves x chunks per
+    segment; each segment past the first adds ``SCAN_COST[N]["segment"]``
     chunks' worth (its CTAs in the segment-state kernel, and a pass over
     its end state in every later segment). Takes the n_seg with the least
-    such cost, the fewest segments on a tie. Fitted to a sweep at
-    mamba2-2.7b prefill (B 2, nh 80, S 2000, 132 SMs; PERF.md): 3
-    segments of 11 chunks, 480 CTAs."""
+    such cost, the fewest segments on a tie. N 64/128 is fitted to a sweep
+    at mamba2-2.7b prefill (B 2, nh 80, S 2000, 132 SMs; PERF.md): 3
+    segments of 11 chunks, 480 CTAs; N 16 to sweeps at hymba-1.5b's prefill
+    (B 2, nh 50, S 2000) and training (B 1, nh 50, S 2048) shapes."""
     nc = -(-S // KERNEL_CHUNK)
+    ctas, extra = SCAN_COST[N]["ctas"], SCAN_COST[N]["segment"]
     best, best_cost = nc, None
     for n in range(1, nc + 1):
         seg = -(-nc // n)
         n_seg = -(-nc // seg)
-        cost = -(-B * nh * n_seg // (2 * sms)) * seg + 2 * (n_seg - 1)
+        cost = -(-B * nh * n_seg // (ctas * sms)) * seg + extra * (n_seg - 1)
         if best_cost is None or cost < best_cost:
             best, best_cost = seg, cost
     return best
+
+
+# segment_chunks' cost model per N: the scan's CTAs an SM (its
+# __launch_bounds__; chip_smoke.py checks the runtime fits as many) and the
+# chunks' worth each segment past the first costs, fitted to the sweeps in
+# PERF.md. At N 16 a segment costs less: its end state is 8 registers a
+# thread to write and to fold, and its CTAs in the segment-state kernel
+# share an SM seven at a time.
+_SCAN_WIDE = {"ctas": 2, "segment": 2}
+SCAN_COST = {128: _SCAN_WIDE, 64: _SCAN_WIDE, 16: {"ctas": 2, "segment": 0.5}}
 
 
 @functools.lru_cache(maxsize=None)
@@ -259,7 +274,7 @@ def _launch_wgmma(x, dt, A, Bm, Cm, initial_state, return_state):
     B, nh, S, hp = x.shape
     N = Bm.shape[-1]
     y = torch.empty_like(x)
-    seg = segment_chunks(B, nh, S, build.sm_count(x.device.index or 0))
+    seg = segment_chunks(B, nh, S, build.sm_count(x.device.index or 0), N)
     nc = -(-S // KERNEL_CHUNK)
     n_seg = -(-nc // seg)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -459,7 +474,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     (negative); Bm/Cm: [B,S,N] -> y [B,nh,S,hp] in x's dtype, and with
     ``return_state`` also the final state [B,nh,hp,N] fp32. The recurrence
     starts from ``initial_state`` (fp32 [B,nh,hp,N]) or zeros. On CUDA
-    tensors both options need the wgmma path; elsewhere they raise.
+    tensors both options need the wgmma path (bf16, hp 64, N in
+    ``WGMMA_STATE_DIMS``); on the FMA path they raise.
     Differentiable in x, dt, A, Bm, Cm and the initial state
     (``SSDScan``).
 

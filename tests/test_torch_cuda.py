@@ -280,12 +280,12 @@ def test_ssd_scan_rejects_what_the_kernel_does_not_take(card):
         ssd_scan(x, dt, A, Bm.transpose(1, 2).contiguous().transpose(1, 2), Cm)
 
 
-# The bf16 wgmma path (hp 64, N 64/128) against fp32 of the same bf16
+# The bf16 wgmma path (hp 64, N 16/64/128) against fp32 of the same bf16
 # inputs, at _bf16_gate's limits (chip_smoke.py's BF16_LIMITS): S around its
-# 64-token chunks and mamba2-2.7b's prefill, both N, both draws of dt and A
+# 64-token chunks and the prefill length, every N, both draws of dt and A
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 500, 2000])
-@pytest.mark.parametrize("N", [64, 128])
+@pytest.mark.parametrize("N", [16, 64, 128])
 @pytest.mark.parametrize("long_memory", [False, True])
 def test_ssd_wgmma_bf16_against_fp32(card, S, N, long_memory):
     assert ssd_path(torch.bfloat16, 64, N) == "wgmma"
@@ -298,14 +298,15 @@ def test_ssd_wgmma_bf16_against_fp32(card, S, N, long_memory):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,nh,S,hp,N", [c for c in SSD_GRID if c[3] == 64 and c[4] in (64, 128)]
-                         + [(2, 80, 2000, 64, 128)])
+@pytest.mark.parametrize("B,nh,S,hp,N", [c for c in SSD_GRID if c[3] == 64 and c[4] != 32]
+                         + [(2, 80, 2000, 64, 128), (2, 50, 2000, 64, 16)])
 @pytest.mark.parametrize("long_memory", [False, True])
 @pytest.mark.parametrize("views", [False, True])
 def test_ssd_wgmma_grid_and_model_views(card, B, nh, S, hp, N, long_memory, views):
-    """The SSD grid's wgmma cases and mamba2-2.7b's prefill shape, dense
-    and in the model's layout (x, Bm, Cm column slices of the conv output,
-    dt a [B,nh,S] view of [B,S,nh]), at _bf16_gate's limits."""
+    """The SSD grid's wgmma cases and mamba2-2.7b's and hymba-1.5b's
+    prefill shapes, dense and in the model's layout (x, Bm, Cm column
+    slices of the conv output, dt a [B,nh,S] view of [B,S,nh]), at
+    _bf16_gate's limits."""
     rng = np.random.default_rng(B + nh + S + N)
     x, dt, A, Bm, Cm = _ssd_inputs(rng, B, nh, S, hp, N, "bfloat16", card, long_memory)
     if views:
@@ -323,6 +324,20 @@ def test_ssd_wgmma_grid_and_model_views(card, B, nh, S, hp, N, long_memory, view
 @pytest.mark.parametrize("S", [1, 65, 300, 2000])
 @pytest.mark.parametrize("N", [64, 128])
 def test_ssd_wgmma_initial_and_final_state(card, S, N):
+    _wgmma_state_case(card, S, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 65, 130, 300, 2000])
+def test_ssd_wgmma_n16_initial_and_final_state(card, S):
+    """The state options at hymba-1.5b's N 16 on the wgmma path, as at N
+    64/128: y at _bf16_gate's limits, the final state within relative L2
+    1e-2, and a split sequence carried across equal to one call."""
+    assert ssd_path(torch.bfloat16, 64, 16) == "wgmma"
+    _wgmma_state_case(card, S, 16)
+
+
+def _wgmma_state_case(card, S, N):
     """initial_state and return_state on the wgmma path: y at _bf16_gate's
     limits, the fp32 final state within relative L2 1e-2 of the plain
     version's (x o w is rounded once to bf16 in the state update), and two
@@ -352,7 +367,7 @@ def test_ssd_kernel_path_routing(card):
     state options raise on the FMA path."""
     rng = np.random.default_rng(2)
     for dtype, hp, N, path in (("bfloat16", 64, 128, "wgmma"), ("bfloat16", 64, 64, "wgmma"),
-                               ("bfloat16", 64, 16, "fma"), ("float32", 64, 128, "fma")):
+                               ("bfloat16", 64, 16, "wgmma"), ("float32", 64, 128, "fma")):
         assert ssd_path(DTYPES[dtype], hp, N) == path
         x, dt, A, Bm, Cm = _ssd_inputs(rng, 1, 2, 130, hp, N, dtype, card)
         before = ssd_scan.launches

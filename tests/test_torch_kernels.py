@@ -290,8 +290,10 @@ def _rel_l2(a, b):
 
 
 # B, nh, S, hp, N, chunk: a padded tail over several chunks, S shorter
-# than one chunk, and mamba2's hp 64 / N 128 at a narrow head count
-SSD_STATE_GRID = [(2, 3, 300, 32, 64, 64), (1, 2, 100, 16, 32, 256), (1, 2, 130, 64, 128, 64)]
+# than one chunk, and mamba2's hp 64 / N 128 and hymba-1.5b's hp 64 / N 16
+# at a narrow head count with a padded tail
+SSD_STATE_GRID = [(2, 3, 300, 32, 64, 64), (1, 2, 100, 16, 32, 256), (1, 2, 130, 64, 128, 64),
+                  (1, 2, 130, 64, 16, 64)]
 
 
 @pytest.mark.parametrize("B,nh,S,hp,N,chunk", SSD_STATE_GRID)

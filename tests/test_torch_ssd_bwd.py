@@ -224,10 +224,9 @@ def _ssd_bwd_args(hp=64, N=128, dtype=torch.bfloat16, B=2, nh=3, S=40):
 def test_ssd_bwd_kernel_takes_every_forward_shape(dtype, hp, N):
     """A backward kernel serves every (dtype, hp, N) the forward kernels
     take, with the state options on every path: the wgmma one where the
-    forward runs its wgmma kernel and at bf16 hp 64 N 16 (hymba-1.5b, whose
-    forward runs the FMA kernel), the FMA one elsewhere."""
-    fwd = ssd_module.kernel_path(dtype, hp, N)
-    path = "wgmma" if (dtype, hp, N) == (torch.bfloat16, 64, 16) else fwd
+    forward runs its wgmma kernel (bf16 hp 64 N 16 too, hymba-1.5b's), the
+    FMA one elsewhere."""
+    path = ssd_module.kernel_path(dtype, hp, N)
     assert ssd_module.bwd_kernel_path(dtype, hp, N) == path
     args = _ssd_bwd_args(hp, N, dtype)
     state = torch.zeros(2, 3, hp, N)

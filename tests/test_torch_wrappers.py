@@ -22,8 +22,8 @@ from repro_torch.kernels.rmsnorm import bwd_grid as rmsnorm_bwd_grid  # noqa: E4
 from repro_torch.kernels.rmsnorm import bwd_kernel_path as rmsnorm_bwd_path  # noqa: E402
 from repro_torch.kernels.rmsnorm import check_args as rmsnorm_check  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel_path as rmsnorm_path  # noqa: E402
-from repro_torch.kernels.ssd_scan import (BWD_WGMMA_STATE_DIMS, HEAD_DIMS, STATE_DIMS,  # noqa: E402
-                                          WGMMA_STATE_DIMS,
+from repro_torch.kernels.ssd_scan import (BWD_WGMMA_STATE_DIMS, HEAD_DIMS,  # noqa: E402
+                                          SCAN_COST, STATE_DIMS, WGMMA_STATE_DIMS,
                                           segment_chunks)
 from repro_torch.kernels.ssd_scan import bwd_kernel_path as ssd_bwd_path  # noqa: E402
 from repro_torch.kernels.ssd_scan import check_args as ssd_check  # noqa: E402
@@ -162,12 +162,12 @@ def _ssd(B=2, nh=4, S=130, hp=64, N=128, dtype=BF16, views=False):
 
 
 @pytest.mark.parametrize("dtype,hp,N,path", [
-    (BF16, 64, 128, "wgmma"), (BF16, 64, 64, "wgmma"), (BF16, 64, 16, "fma"), (BF16, 64, 32, "fma"),
+    (BF16, 64, 128, "wgmma"), (BF16, 64, 64, "wgmma"), (BF16, 64, 16, "wgmma"), (BF16, 64, 32, "fma"),
     (BF16, 32, 128, "fma"), (BF16, 16, 64, "fma"), (F32, 64, 128, "fma"), (F32, 64, 64, "fma"),
     (F32, 32, 16, "fma")])
 def test_ssd_dispatch_by_dtype_and_shape(dtype, hp, N, path):
-    """bf16 at hp 64 and N 64/128 (mamba2-2.7b) takes the wgmma kernel;
-    fp32 and every other bf16 shape (hymba-1.5b's N 16) the FMA kernel."""
+    """bf16 at hp 64 and N 16/64/128 (hymba-1.5b, mamba2-2.7b) takes the
+    wgmma kernel; fp32 and every other bf16 shape the FMA kernel."""
     assert ssd_path(dtype, hp, N) == path
     assert ssd_check(*_ssd(hp=hp, N=N, dtype=dtype)) == path
     assert (path == "wgmma") == (dtype == BF16 and hp == 64 and N in WGMMA_STATE_DIMS)
@@ -180,13 +180,12 @@ def test_ssd_bwd_dispatch_by_dtype_and_shape(dtype, hp, N):
     """The backward's routing for every (dtype, hp, N) a kernel is
     instantiated for: bf16 at hp 64 and N 16/64/128 takes the wgmma
     backward (csrc/ssd_scan_bwd_wgmma.cu), as its forward takes the wgmma
-    scan at N 64/128; at N 16 (hymba-1.5b) the forward keeps the FMA scan;
-    fp32 and every other bf16 shape take the FMA backward
-    (csrc/ssd_scan_bwd.cu). check_bwd_args names the same path, the model's
-    views included."""
+    scan; fp32 and every other bf16 shape take the FMA backward
+    (csrc/ssd_scan_bwd.cu), as its forward takes the FMA scan.
+    check_bwd_args names the same path, the model's views included."""
     path = "wgmma" if dtype == BF16 and hp == 64 and N in (16, 64, 128) else "fma"
     assert ssd_bwd_path(dtype, hp, N) == path
-    assert ssd_path(dtype, hp, N) == ("fma" if (dtype, hp, N) == (BF16, 64, 16) else path)
+    assert ssd_path(dtype, hp, N) == path
     for views in (False, True):
         x, dt, A, Bm, Cm = _ssd(hp=hp, N=N, dtype=dtype, views=views)
         dy = torch.zeros_like(x)
@@ -240,41 +239,56 @@ def test_ssd_rejects_unaligned_views():
 
 
 def test_ssd_state_options_need_the_wgmma_path():
-    """initial_state / return_state are served by the wgmma path only; on
-    the FMA path they raise, as does an initial state of the wrong shape
-    or type."""
-    for dtype, N in ((F32, 128), (BF16, 16)):
+    """initial_state / return_state are served by the wgmma path only
+    (hymba-1.5b's N 16 among its shapes, in the model's views too); on the
+    FMA path they raise, as does an initial state of the wrong shape or
+    type."""
+    for dtype, N in ((F32, 128), (F32, 16), (BF16, 32)):
         x, dt, A, Bm, Cm = _ssd(N=N, dtype=dtype)
         with pytest.raises(ValueError, match="wgmma path only"):
             ssd_check(x, dt, A, Bm, Cm, torch.zeros(2, 4, 64, N))
         with pytest.raises(ValueError, match="wgmma path only"):
             ssd_check(x, dt, A, Bm, Cm, None, True)
+    for N in WGMMA_STATE_DIMS:
+        for views in (False, True):
+            x, dt, A, Bm, Cm = _ssd(N=N, views=views)
+            assert ssd_check(x, dt, A, Bm, Cm, torch.zeros(2, 4, 64, N), True) == "wgmma"
+            assert ssd_check(x, dt, A, Bm, Cm, None, True) == "wgmma"
     x, dt, A, Bm, Cm = _ssd()
-    assert ssd_check(x, dt, A, Bm, Cm, torch.zeros(2, 4, 64, 128), True) == "wgmma"
     with pytest.raises(ValueError, match="initial_state"):
         ssd_check(x, dt, A, Bm, Cm, torch.zeros(2, 4, 128, 64))
     with pytest.raises(ValueError, match="initial_state"):
         ssd_check(x, dt, A, Bm, Cm, torch.zeros(2, 4, 64, 128, dtype=BF16))
 
 
-@pytest.mark.parametrize("B,nh,S,sms,want", [
-    (2, 80, 2000, 132, 11),    # mamba2-2.7b prefill: 3 segments, 480 CTAs in 2 waves
-    (1, 80, 2000, 132, 11),    # 3 segments, 240 CTAs in one wave
-    (2, 80, 64, 132, 1),       # one chunk: one segment
-    (1, 2, 2000, 132, 8),      # few heads: 4 segments
-    (8, 80, 2000, 132, 16),    # many heads: 2 segments
-    (2, 80, 640, 132, 10)])    # 10 chunks: one wave of 160 CTAs, no split
-def test_ssd_segment_chunks(B, nh, S, sms, want):
-    assert segment_chunks(B, nh, S, sms) == want
+@pytest.mark.parametrize("B,nh,S,sms,N,want", [
+    (2, 80, 2000, 132, 128, 11),   # mamba2-2.7b prefill: 3 segments, 480 CTAs in 2 waves
+    (1, 80, 2000, 132, 128, 11),   # 3 segments, 240 CTAs in one wave
+    (2, 80, 64, 132, 128, 1),      # one chunk: one segment
+    (1, 2, 2000, 132, 128, 8),     # few heads: 4 segments
+    (8, 80, 2000, 132, 128, 16),   # many heads: 2 segments
+    (2, 80, 640, 132, 128, 10),    # 10 chunks: one wave of 160 CTAs, no split
+    (2, 80, 2000, 132, 64, 11),    # N 64 shares N 128's costs
+    (2, 50, 2000, 132, 16, 7),     # hymba-1.5b prefill (SCAN_COST[16]): 5 segments, 500 CTAs
+    (1, 50, 2048, 132, 16, 7)])    # hymba-1.5b training: 5 segments, 250 CTAs
+def test_ssd_segment_chunks(B, nh, S, sms, N, want):
+    assert segment_chunks(B, nh, S, sms, N) == want
+    if N == 128:                   # mamba2-2.7b's plans: N 128 is the default
+        assert segment_chunks(B, nh, S, sms) == want
 
 
 def test_ssd_wgmma_state_dims_are_the_instantiated_ones():
     """WGMMA_STATE_DIMS lists exactly the N that ssd_scan_wgmma_launch takes,
-    BWD_WGMMA_STATE_DIMS those of ssd_scan_bwd_wgmma_launch."""
+    BWD_WGMMA_STATE_DIMS those of ssd_scan_bwd_wgmma_launch; SCAN_COST has
+    a cost model for each, whose CTAs an SM are the scan's launch bounds."""
     src = (CSRC / "ssd_scan.cu").read_text()
     assert "N == 128 ? launch<128>(tx, tb, tc, p, s) : launch<64>(tx, tb, tc, p, s)" in src
-    assert "(N != 64 && N != 128)" in src
-    assert WGMMA_STATE_DIMS == (64, 128)
+    assert "if (N == 16) return launch<16>(tx, tb, tc, p, s);" in src
+    assert "(N != 16 && N != 64 && N != 128)" in src
+    assert WGMMA_STATE_DIMS == (16, 64, 128)
+    assert "__launch_bounds__(kThreads, 2)\nssd_chunk_scan_kernel(" in src
+    assert sorted(SCAN_COST) == sorted(WGMMA_STATE_DIMS)
+    assert all(c["ctas"] == 2 for c in SCAN_COST.values())
     bwd = (CSRC / "ssd_scan_bwd_wgmma.cu").read_text()
     assert "(N != 16 && N != 64 && N != 128)" in bwd
     assert "if (N == 16) return launch<16>(tx, tdy, tb, tc, p, s);" in bwd
