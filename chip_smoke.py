@@ -15,7 +15,12 @@ Phases, each of which fails the run by raising:
      launches counted, the bf16 model's logits through the kernels against
      its logits through the plain versions, a teacher-forced forward/decode
      check (hymba past its 1024-slot KV ring, granite-moe drop-free),
-     greedy generation and a few serve steps;
+     greedy generation and a few serve steps; then the embeds-input archs:
+     hubert-xlarge at all 48 layers (an encoder: non-causal flash at head
+     dim 80, logits at every position of B=2 S=2000 embeddings, no
+     decode) and llava-next-34b at full width (all 60 layers where the
+     card holds its 67.9 GB of bf16 weights: prefill B=2 S=2000 and decode
+     B=4 from embeddings), their logits gates at 4 layers;
   4. after each model's path, time its kernels beside their bound, their
      plain version and one PyTorch library call where there is one (the
      SSD forward's wgmma path, at mamba2's N 128 and hymba's N 16, beside
@@ -26,7 +31,8 @@ Phases, each of which fails the run by raising:
      cases) against their plain backwards (``kernels/ref.py``), each call
      repeated for the same bits;
   6. train full-width yi-6b cut to 16 of its 32 layers, then mamba2-2.7b
-     at all 64, hymba-1.5b and granite-moe-3b-a800m at all 32 (fp32
+     at all 64, hymba-1.5b and granite-moe-3b-a800m at all 32,
+     hubert-xlarge at all 48 (from embeddings and frame labels; fp32
      masters and Adam moments, bf16 compute, microbatch 1 x 2048 tokens,
      G = 2) through the port's entry points: gradients through the kernels
      against the plain versions (bf16 against fp32, fp32 at 2 layers
@@ -88,6 +94,11 @@ FLASH_CASES = [(1, 128, 4, 4, 64), (2, 200, 4, 2, 64), (1, 384, 8, 1, 32), (2, 2
 FLASH_MAIN = (2, 2000, 32, 4, 128)       # yi-6b prefill: B, S, nh, nkv, hd
 FLASH_HYMBA = (2, 2000, 25, 5, 64)       # hymba-1.5b prefill (window 1024)
 FLASH_GRANITE = (2, 2000, 24, 8, 64)     # granite-moe-3b-a800m prefill (GQA group 3)
+FLASH_HUBERT = (2, 2000, 16, 16, 80)     # hubert-xlarge prefill: non-causal, hd 80, no GQA
+FLASH_LLAVA = (2, 2000, 56, 8, 128)      # llava-next-34b prefill (GQA group 7)
+# non-causal cases beside hubert's: a tail of 2 rows past the 128-row tiles
+# at hd 80, and hd 128 (B, S, nh, nkv, hd)
+FLASH_NONCAUSAL_CASES = [(2, 130, 4, 4, 80), (2, 200, 8, 2, 128)]
 HYMBA_WINDOW = 1024
 RMS_CASES = [(64, 256), (100, 512), (256, 1024)]
 # prefill B*S, teacher-forced S, decode B, prefill's final norm (B), teacher-forced decode
@@ -113,6 +124,10 @@ RMS_MAIN_SSM = [(4000, 2560), (4000, 5120), (300, 2560), (300, 5120), (4, 2560),
 RMS_MAIN_NEW = [(4000, 1600), (4000, 3200), (4000, 1536), (4, 1600), (4, 3200), (4, 1536),
                 (2, 1600), (2, 1536), (1100, 1600), (1100, 3200), (64, 1536), (1, 1600),
                 (1, 3200), (1, 1536)]
+# hubert-xlarge (H 1280, logits at every position) and llava-next-34b (H
+# 7168), both on the loop version: prefill B*S, llava's decode B and final
+# norm B, its teacher-forced S
+RMS_MAIN_EMBEDS = [(4000, 1280), (4000, 7168), (4, 7168), (2, 7168), (64, 7168), (1, 7168)]
 # backward cases, B, S, nh, nkv, window (GQA groups 1, 2, 8; S 1, 127, 200,
 # 2048; causal, one window), each at hd 32, 64 and 128; the training shape
 FLASH_BWD_CASES = [(1, 1, 2, 2, 0), (2, 127, 4, 2, 0), (1, 200, 8, 1, 0), (1, 200, 4, 4, 37),
@@ -120,28 +135,33 @@ FLASH_BWD_CASES = [(1, 1, 2, 2, 0), (2, 127, 4, 2, 0), (1, 200, 8, 1, 0), (1, 20
 FLASH_BWD_MAIN = (1, 2048, 32, 4, 0, 128)      # yi-6b training: B, S, nh, nkv, window, hd
 FLASH_BWD_HYMBA = (1, 2048, 25, 5, 1024, 64)   # hymba-1.5b's attention (GQA group 5)
 FLASH_BWD_GRANITE = (1, 2048, 24, 8, 0, 64)    # granite-moe-3b-a800m's attention (group 3)
+FLASH_BWD_HUBERT = (1, 2048, 16, 16, 0, 80)    # hubert-xlarge's attention: non-causal, hd 80
 RMS_BWD_CASES = [(1, 256), (7, 4096), (300, 1000), (4096, 256), (4096, 4096), (33, 12288),
                  (2048, 2560), (5, 2560), (2048, 5120), (1, 5120), (1, 1600), (9, 1536),
                  (300, 3200)]
 RMS_BWD_MAIN = (2048, 4096)                    # yi-6b training, one microbatch
 # hymba-1.5b (norm1, norm2 at 1600, ssm_norm at 3200) and granite-moe (1536)
 # training, one microbatch; the register version (the forward's loop)
-RMS_BWD_NEW = [(2048, 1600), (2048, 3200), (2048, 1536)]
-# the model that trains at each RMS_BWD_NEW width
-RMS_BWD_NEW_MODELS = {1600: "hymba-1.5b", 3200: "hymba-1.5b", 1536: "granite-moe-3b-a800m"}
+RMS_BWD_NEW = [(2048, 1600), (2048, 3200), (2048, 1536), (2048, 1280)]
+# the model that trains at each RMS_BWD_NEW width (hubert's 1280 on the
+# loop version)
+RMS_BWD_NEW_MODELS = {1600: "hymba-1.5b", 3200: "hymba-1.5b", 1536: "granite-moe-3b-a800m",
+                      1280: "hubert-xlarge"}
 # the SSD backward, beside SSD_CASES and SSD_WGMMA_CASES: mamba2-2.7b's
 # training shape (B, nh, S, hp, N) and hymba-1.5b's (its SSM: d_inner
 # 2 x 1600 = 3200, so 50 heads of hp 64, N 16; the wgmma path at N 16)
 SSD_BWD_MAIN = (1, 80, 2048, 64, 128)
 SSD_BWD_N16 = (1, 50, 2048, 64, 16)
 # layers each model trains at: yi-6b cut to fit one card, the others whole (PERF.md)
-TRAIN_LAYERS = {"yi-6b": 16, "mamba2-2.7b": 64, "hymba-1.5b": 32, "granite-moe-3b-a800m": 32}
+TRAIN_LAYERS = {"yi-6b": 16, "mamba2-2.7b": 64, "hymba-1.5b": 32, "granite-moe-3b-a800m": 32,
+                "hubert-xlarge": 48}
 # layers of each model's train_loop and checkpoint round trip, cut to keep
 # the run near 600 s: the checkpoint's save, check and restore run at ~0.4
 # GB/s (PERF.md). yi-6b at 4 (16 GB), mamba2 at 8 (4.4 GB), the new two at
 # 2, which holds every leaf kind of their trees (hymba's attention, SSM and
-# MLP, granite's [E,H,F] experts)
-TRAIN_LOOP_LAYERS = {"yi-6b": 4, "mamba2-2.7b": 8, "hymba-1.5b": 2, "granite-moe-3b-a800m": 2}
+# MLP, granite's [E,H,F] experts), hubert at 2 (a tree without embed)
+TRAIN_LOOP_LAYERS = {"yi-6b": 4, "mamba2-2.7b": 8, "hymba-1.5b": 2, "granite-moe-3b-a800m": 2,
+                     "hubert-xlarge": 2}
 # drop-free capacity factor for MoE checks that compare two routings of the
 # same tokens (tests/test_models.py:58-62)
 DROP_FREE = 8.0
@@ -151,6 +171,12 @@ SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu"
                                "src/repro/kernels/flash_attention.py:87"),
            "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
                                    "src/repro/kernels/flash_attention.py:87"),
+           # the wgmma flash at head dim 80 (hubert-xlarge, non-causal), both
+           # ways, counted apart
+           "flash_attention_hd80": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                    "src/repro/kernels/flash_attention.py:87"),
+           "flash_attention_bwd_hd80": ("src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
+                                        "src/repro/kernels/flash_attention.py:87"),
            "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                        "src/repro/kernels/rmsnorm.py:24"),
            "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
@@ -358,12 +384,12 @@ def _compare_rms_bf16(name, out, ref):
     return err.max().item()
 
 
-def _flash_case(name, q, k, v, window=0):
+def _flash_case(name, q, k, v, window=0, causal=True):
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
-    out = flash_attention(q, k, v, causal=True, window=window)
+    out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=True, window=window)
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
     if q.dtype == torch.float32:
         return _compare_f32(name, out, ref)
     return _compare_bf16(name, out, ref)
@@ -463,7 +489,25 @@ def phase_parity():
         q, k, v = _flash_inputs(gen, 2, 200, 4, 2, 128, dtype)
         q = torch.cat([q.new_zeros(16 // q.element_size()), q.flatten()])[16 // q.element_size():]
         _flash_case(f"flash {tag} q 16 bytes into a buffer", q.view(2, 4, 200, 128), k, v)
-        for T, H in RMS_CASES + RMS_MAIN + RMS_MAIN_SSM + RMS_MAIN_NEW:
+        # non-causal (hubert-xlarge): its prefill shape at hd 80 as tensors
+        # and in the model's views, its training shape's forward, a tail of 2
+        # rows, and hd 128; llava-next-34b's causal prefill (group 7)
+        _flash_case(f"flash {tag} non-causal hubert {FLASH_HUBERT}",
+                    *_flash_inputs(gen, *FLASH_HUBERT, dtype), causal=False)
+        for case in (FLASH_HUBERT, FLASH_BWD_HUBERT[:4] + FLASH_BWD_HUBERT[5:]):
+            q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                       for t in _flash_inputs(gen, *case, dtype))
+            err = _flash_case(f"flash {tag} non-causal hubert {case} [B,S,nh,hd] views", q, k, v,
+                              causal=False)
+            if case == FLASH_HUBERT:
+                errs[("flash_attention_hd80", dtype)] = err
+        for case in FLASH_NONCAUSAL_CASES:
+            _flash_case(f"flash {tag} non-causal {case}", *_flash_inputs(gen, *case, dtype),
+                        causal=False)
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in _flash_inputs(gen, *FLASH_LLAVA, dtype))
+        _flash_case(f"flash {tag} llava {FLASH_LLAVA} [B,S,nh,hd] views", q, k, v)
+        for T, H in RMS_CASES + RMS_MAIN + RMS_MAIN_SSM + RMS_MAIN_NEW + RMS_MAIN_EMBEDS:
             x, w = _randn(gen, T, H, dtype=dtype), _randn(gen, H, dtype=dtype)
             out = rmsnorm(x, w)
             torch.cuda.synchronize()
@@ -554,8 +598,9 @@ class Launches(dict):
 
     def add(self, counts, arch, dtype=torch.bfloat16):
         """Add one run's ``counts`` of ``arch`` at compute ``dtype``: the SSD
-        launches under the name of the path they took (``_ssd_names``)."""
-        names = _ssd_names(arch, dtype)
+        and flash launches under the name of the path they took
+        (``_kernel_names``)."""
+        names = _kernel_names(arch, dtype)
         mine = self.by_model.setdefault((arch.name, dtype), {})
         for k, n in counts.items():
             k = names.get(k, k)
@@ -585,24 +630,46 @@ def _gap(a, b):
     return ((a - b).norm() / b.norm()).item(), (a.argmax(-1) == b.argmax(-1)).float().mean().item()
 
 
+def _forward(model, x, **kw):
+    """The model's forward over tokens [B,S] or, for an embeds-input arch,
+    embeddings [B,S,H]."""
+    return model(embeds=x, **kw) if model.arch.embeds_input else model(x, **kw)
+
+
+def _decode(model, cache, x, pos):
+    """One decode step from tokens [B] or, for an embeds-input arch,
+    embeddings [B,H]."""
+    if model.arch.embeds_input:
+        return model.decode_step(cache, None, pos, embeds=x)
+    return model.decode_step(cache, x, pos)
+
+
+def _prompt(arch, gen, B, S):
+    """Random tokens [B,S] of ``arch``'s vocabulary or, for an embeds-input
+    arch, fp32 embeddings [B,S,H] ~ N(0, 1) (``train/data.py``'s draw)."""
+    if arch.embeds_input:
+        return torch.randn(B, S, arch.d_model, generator=gen, device="cuda")
+    return torch.randint(0, arch.vocab, (B, S), generator=gen, device="cuda")
+
+
 def check_model_bf16(model, tokens, want):
-    """The bf16 model's logits at every position of ``tokens``, through the
-    kernels (launching ``want``) and through their plain versions, each
-    against the same weights in fp32 through the plain versions. The
-    kernels must land no further from fp32 than bf16 rounding puts the
-    plain versions: relative L2 within 1.5x the plain gap, argmax agreement
-    within 0.05 of it."""
+    """The bf16 model's logits at every position of ``tokens`` (or
+    embeddings), through the kernels (launching ``want``) and through their
+    plain versions, each against the same weights in fp32 through the
+    plain versions. The kernels must land no further from fp32 than bf16
+    rounding puts the plain versions: relative L2 within 1.5x the plain
+    gap, argmax agreement within 0.05 of it."""
     import dataclasses
     from repro_torch.models.lm import LM
     model32 = LM(model.arch, dataclasses.replace(model.cfg, compute_dtype=torch.float32),
                  device=model.device)
     model32.load_state_dict(model.state_dict())
     with torch.inference_mode():
-        kern, counts = _counts_since_reset(lambda: model(tokens, logits_positions="all"))
+        kern, counts = _counts_since_reset(lambda: _forward(model, tokens, logits_positions="all"))
         with plain_versions():
             plain, plain_counts = _counts_since_reset(
-                lambda: model(tokens, logits_positions="all"))
-            exact = model32(tokens, logits_positions="all")
+                lambda: _forward(model, tokens, logits_positions="all"))
+            exact = _forward(model32, tokens, logits_positions="all")
     del model32
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -624,11 +691,12 @@ def check_model_bf16(model, tokens, want):
 
 
 def _teacher_forced(model, tokens):
-    """Logits [S,V] of one forward over ``tokens`` [1,S] and of S decode steps."""
+    """Logits [S,V] of one forward over ``tokens`` [1,S] (or embeddings
+    [1,S,H]) and of S decode steps."""
     with torch.inference_mode():
-        full = model(tokens, logits_positions="all")[0]
+        full = _forward(model, tokens, logits_positions="all")[0]
         cache = model.init_cache(1, tokens.shape[1])
-        dec = torch.stack([model.decode_step(cache, tokens[:, t], t)[0]
+        dec = torch.stack([_decode(model, cache, tokens[:, t], t)[0]
                            for t in range(tokens.shape[1])])
     return full, dec
 
@@ -658,16 +726,21 @@ def _forward_launches(arch):
                      ssd_scan=L if ssm else 0)
 
 
-def _ssd_names(arch, dtype=torch.bfloat16):
-    """The kernel line's names for ``arch``'s SSD launches at ``dtype``:
-    ``ssd_scan_fma`` / ``ssd_scan_bwd_fma`` where a pass takes the FMA
-    kernel, ``ssd_scan_n16`` / ``ssd_scan_bwd_n16`` where it takes the
+def _kernel_names(arch, dtype=torch.bfloat16):
+    """The kernel line's names for ``arch``'s launches at ``dtype``:
+    ``flash_attention_hd80`` / ``flash_attention_bwd_hd80`` where bf16
+    attention runs the wgmma kernels at head dim 80 (hubert-xlarge); for
+    the SSD ``ssd_scan_fma`` / ``ssd_scan_bwd_fma`` where a pass takes the
+    FMA kernel, ``ssd_scan_n16`` / ``ssd_scan_bwd_n16`` where it takes the
     wgmma path at N 16; the wrappers' own names otherwise."""
     from repro_torch.kernels.ssd_scan import bwd_kernel_path, kernel_path
-    if arch.block not in ("ssm", "hymba"):
-        return {}
-    hp, N = arch.ssm_headdim, arch.ssm_state
     names = {}
+    if arch.has_attention and arch.head_dim == 80 and dtype == torch.bfloat16:
+        names = {"flash_attention": "flash_attention_hd80",
+                 "flash_attention_bwd": "flash_attention_bwd_hd80"}
+    if arch.block not in ("ssm", "hymba"):
+        return names
+    hp, N = arch.ssm_headdim, arch.ssm_state
     if kernel_path(dtype, hp, N) == "fma":
         names["ssd_scan"] = "ssd_scan_fma"
     elif N == 16:
@@ -677,6 +750,22 @@ def _ssd_names(arch, dtype=torch.bfloat16):
     elif N == 16:
         names["ssd_scan_bwd"] = "ssd_scan_bwd_n16"
     return names
+
+
+@torch.no_grad()
+def _as_first_layers_of(model, L):
+    """Rescale the per-layer weights of a model cut to fewer layers whose
+    init std depends on the depth (``lm._dense`` takes fan-in from the
+    layer axis, (1/L)^0.5; the output projections divide by (2L)^0.5: every
+    leaf of 2 or more dims but the router and the conv taps) to what an
+    ``L``-layer init draws, so the cut holds layers of the served model's
+    distribution. Returns the model."""
+    f = (model.arch.num_layers / L) ** 0.5
+    for blk in model.blocks:
+        for name, p in blk.named_parameters():
+            if p.dim() >= 2 and name.rsplit(".", 1)[-1] not in ("router", "conv_w"):
+                p.mul_(f)
+    return model
 
 
 def _teacher_forced_gate(name, arch, tf_len, tf_layers, tf_tokens, model, tf_cfg, bf16_tokens):
@@ -690,7 +779,9 @@ def _teacher_forced_gate(name, arch, tf_len, tf_layers, tf_tokens, model, tf_cfg
     bf16 logits check gates bf16. With ``tf_layers`` < L the gate runs on
     the first ``tf_layers`` layers of the same weights; with
     ``tf_cfg["full_depth"]`` false every check runs there (hymba: 1100
-    decode steps at 32 layers cost too much). ``tf_cfg["run"]``: RunCfg
+    decode steps at 32 layers cost too much), and with ``tf_cfg["depth"]``
+    its weights are drawn at the scales of that many layers
+    (``_as_first_layers_of``; llava: 4 of 60). ``tf_cfg["run"]``: RunCfg
     fields of the checks (an MoE arch's drop-free capacity factor). With
     ``tf_cfg["bf16_layers"]`` the bf16 logits check (``check_model_bf16``)
     also runs, gated, on the first that many layers of the same weights:
@@ -702,22 +793,26 @@ def _teacher_forced_gate(name, arch, tf_len, tf_layers, tf_tokens, model, tf_cfg
     L = arch.num_layers
     run = tf_cfg.get("run", {})
     full_depth = tf_cfg.get("full_depth", True)
-    seeded = lambda: torch.Generator(device="cuda").manual_seed(0)
+    depth = tf_cfg.get("depth")
+
+    def seeded_init(arch, dtype):
+        model = init_params(arch, torch.Generator(device="cuda").manual_seed(0),
+                            RunCfg(compute_dtype=dtype, **run), device="cuda")
+        return _as_first_layers_of(model, depth) if depth else model
+
     if not full_depth:
         arch = dataclasses.replace(arch, num_layers=tf_layers)
     if run or not full_depth:
-        model = init_params(arch, seeded(), RunCfg(compute_dtype=torch.bfloat16, **run),
-                            device="cuda")
-    depth = f"{arch.num_layers} layers"
+        model = seeded_init(arch, torch.bfloat16)
+    layers = f"{arch.num_layers} layers" + (f" at {depth} layers' scales" if depth else "")
     full, dec = _teacher_forced(model, tf_tokens)
-    log(f"[slice] (c) {name} teacher-forced S={tf_len} bf16, {depth} (reported): "
+    log(f"[slice] (c) {name} teacher-forced S={tf_len} bf16, {layers} (reported): "
         f"{_tf_summary(full, dec)}")
     del model
-    model32 = init_params(arch, seeded(), RunCfg(compute_dtype=torch.float32, **run),
-                          device="cuda")
+    model32 = seeded_init(arch, torch.float32)
     (full, dec), counts = _counts_since_reset(lambda: _teacher_forced(model32, tf_tokens))
     gated = tf_layers == arch.num_layers
-    log(f"[slice] (c) {name} teacher-forced S={tf_len} fp32, {depth} "
+    log(f"[slice] (c) {name} teacher-forced S={tf_len} fp32, {layers} "
         f"({'gated' if gated else 'reported'}): {_tf_summary(full, dec)}; launches {counts}")
     if not gated:
         # Even fp32 rounding grows through mamba2's 64 layers under the
@@ -725,7 +820,7 @@ def _teacher_forced_gate(name, arch, tf_len, tf_layers, tf_tokens, model, tf_cfg
         # forwards that differ only in fp32 summation order show it. The
         # gate runs on the first tf_layers layers of the same weights.
         with torch.inference_mode(), plain_versions():
-            plain = model32(tf_tokens, logits_positions="all")[0]
+            plain = _forward(model32, tf_tokens, logits_positions="all")[0]
         log(f"[slice] (c) {name} fp32 forward, plain versions vs kernels, {L} layers "
             f"(reported): {_tf_summary(full, plain)}")
         model32.blocks = model32.blocks[:tf_layers]
@@ -739,8 +834,10 @@ def _teacher_forced_gate(name, arch, tf_len, tf_layers, tf_tokens, model, tf_cfg
     torch.testing.assert_close(dec, full, rtol=2e-2, atol=2e-2)
     if tf_cfg.get("bf16_layers"):
         cut = dataclasses.replace(arch, num_layers=tf_cfg["bf16_layers"])
-        model = init_params(cut, seeded(), RunCfg(compute_dtype=torch.bfloat16), device="cuda")
-        check_model_bf16(model, bf16_tokens, _forward_launches(cut))
+        model = init_params(cut, torch.Generator(device="cuda").manual_seed(0),
+                            RunCfg(compute_dtype=torch.bfloat16), device="cuda")
+        check_model_bf16(_as_first_layers_of(model, depth) if depth else model, bf16_tokens,
+                         _forward_launches(cut))
         del model
         torch.cuda.empty_cache()
     agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
@@ -860,11 +957,18 @@ def _causal_pairs(S, window=0):
     return sum(min(i + 1, window) if window else i + 1 for i in range(S))
 
 
-def _flash_row(gen, views, case=FLASH_MAIN, window=0):
+def _pairs(S, causal=True, window=0):
+    """(query, key) pairs the attention of S tokens computes: all S^2
+    without the causal mask (no arch runs a window without it)."""
+    return _causal_pairs(S, window) if causal else S * S
+
+
+def _flash_row(gen, views, case=FLASH_MAIN, window=0, causal=True, name="flash_attention"):
     """Flash at ``case`` (B, S, nh, nkv, hd; yi-6b's prefill shape by
-    default), bf16, beside SDPA on the same tensors (``is_causal``, or a
-    boolean band mask for a window; ``enable_gqa``): [B,nh,S,hd] tensors, or
-    the model's [B,S,nh,hd] tensors seen through transposed views."""
+    default), bf16, beside SDPA on the same tensors (``is_causal=causal``,
+    or a boolean band mask for a window; ``enable_gqa``): [B,nh,S,hd]
+    tensors, or the model's [B,S,nh,hd] tensors seen through transposed
+    views."""
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import attention_mask, flash_attention_ref
     dt = torch.bfloat16
@@ -873,21 +977,23 @@ def _flash_row(gen, views, case=FLASH_MAIN, window=0):
     if views:
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    flops = 4 * B * nh * hd * _causal_pairs(S, window)      # the pairs this input needs
+    flops = 4 * B * nh * hd * _pairs(S, causal, window)     # the pairs this input needs
     bound, by = _bound(nbytes, flops, dt)
     if window:
         mask = attention_mask(S, True, window, q.device)
         library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
     else:
-        library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-    row = dict(name="flash_attention",
-               ms=time_device(lambda: flash_attention(q, k, v, window=window)),
-               plain_ms=time_device(lambda: flash_attention_ref(q, k, v, window=window), n=3,
-                                    reps=3),
+        library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                         enable_gqa=True)
+    mode = f"window={window}" if causal else "non-causal"
+    row = dict(name=name,
+               ms=time_device(lambda: flash_attention(q, k, v, causal=causal, window=window)),
+               plain_ms=time_device(lambda: flash_attention_ref(q, k, v, causal=causal,
+                                                                window=window), n=3, reps=3),
                library_ms=time_device(library), bound_ms=bound, bound_by=by,
-               shape=f"q{list(q.shape)} kv{list(k.shape)} bf16 window={window}"
+               shape=f"q{list(q.shape)} kv{list(k.shape)} bf16 {mode}"
                      f"{' [B,S,nh,hd] views' if views else ''}")
-    log(f"[time] flash_attention {list(case)} window={window}{' views' if views else ''}: "
+    log(f"[time] flash_attention {list(case)} {mode}{' views' if views else ''}: "
         f"{flops / row['ms'] / 1e9:.1f} TFLOP/s, {100 * bound / row['ms']:.1f}% of the bound; SDPA "
         f"{flops / row['library_ms'] / 1e9:.1f} TFLOP/s; kernel / SDPA = "
         f"{row['ms'] / row['library_ms']:.3f}")
@@ -961,6 +1067,28 @@ def times_granite_kernels(gen):
     return []
 
 
+def times_hubert_kernels(gen):
+    """hubert-xlarge's kernels at its prefill shapes, bf16: the non-causal
+    flash at head dim 80 in the model's views (the kernel line's
+    ``flash_attention_hd80``; SDPA with ``is_causal=False`` the yardstick),
+    and RMSNorm's loop version at [4000, 1280] (a shape under the kernel
+    line's ``rmsnorm``); also logs the flash at its training shape."""
+    rows = [_flash_row(gen, True, FLASH_HUBERT, causal=False, name="flash_attention_hd80"),
+            dict(_rms_row(gen, *RMS_MAIN_EMBEDS[0]), model="hubert-xlarge")]
+    _log_row(_flash_row(gen, True, FLASH_BWD_HUBERT[:4] + FLASH_BWD_HUBERT[5:], causal=False,
+                        name="flash_attention_hd80"))
+    return rows
+
+
+def times_llava_kernels(gen):
+    """llava-next-34b's kernels at its prefill shapes, bf16: the causal
+    flash at hd 128, GQA group 7, in the model's views, and RMSNorm's loop
+    version at [4000, 7168]; shapes under the kernel line's
+    ``flash_attention`` and ``rmsnorm``."""
+    return [dict(_flash_row(gen, True, FLASH_LLAVA), model="llava-next-34b"),
+            dict(_rms_row(gen, *RMS_MAIN_EMBEDS[1]), model="llava-next-34b")]
+
+
 def times_ssd_fwd_kernel(gen, name, case):
     """The SSD forward at ``case`` (B, nh, S, hp, N) on the wgmma path, in
     the model's layout (bf16 x, B, C column slices of the conv output, fp32
@@ -1006,32 +1134,40 @@ def times_ssm_kernels(gen):
 
 
 def times_end_to_end(name, model, prefill, serve, gen, decode_spans):
-    """Prefill B=2 S=2000, median of 3, and decode ms/token for B=4 over 32
-    steps at each (cache span, first position) of ``decode_spans`` (host
-    clock around synchronised work); peak memory over both."""
-    tokens = torch.randint(0, model.arch.vocab, (2, 2000), generator=gen, device="cuda")
+    """Prefill B=2 S=2000 (tokens, or embeddings for an embeds-input arch),
+    median of 3, and decode ms/token for B=4 over 32 steps at each (cache
+    span, first position) of ``decode_spans`` (host clock around
+    synchronised work; an embeds-input arch decodes from fresh random
+    embeddings, its greedy tokens not fed back); peak memory over both."""
+    a = model.arch
+    key = "embeds" if a.embeds_input else "tokens"
+    tokens = _prompt(a, gen, 2, 2000)
     torch.cuda.reset_peak_memory_stats()
     pre = []
     for _ in range(3):
         t0 = time.perf_counter()
-        prefill({"tokens": tokens})
+        prefill({key: tokens})
         torch.cuda.synchronize()
         pre.append((time.perf_counter() - t0) * 1e3)
     dec = []
     for span, first in decode_spans:
         cache = model.init_cache(4, span)
-        tok = tokens[:2].reshape(-1)[:4]
+        steps = _prompt(a, gen, 4, 33)
+        tok = steps[:, 0] if a.embeds_input else tokens[:2].reshape(-1)[:4]
         serve(cache, tok, first - 1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for pos in range(first, first + 32):
+            if a.embeds_input:
+                tok = steps[:, pos - first + 1]
             tok, _, _ = serve(cache, tok, pos)
         torch.cuda.synchronize()
         dec.append(f"pos {first + 1}-{first + 32} {(time.perf_counter() - t0) * 1e3 / 32:.3f}")
         del cache
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[time] {name} prefill B=2 S=2000: median {statistics.median(pre):.2f} ms of {pre}; "
-        f"decode B=4 ms/token at {', '.join(dec)}; peak memory {peak:.2f} GiB")
+        f"decode B=4 ms/token at {', '.join(dec) or 'none (an encoder)'}; peak memory "
+        f"{peak:.2f} GiB")
 
 
 # --------------------------------------------------------------------------
@@ -1096,25 +1232,25 @@ def _lse_gate(name, lse, ref):
     log(f"[bwd] {name} lse max |err|/(1+|ref|)={got:.3e} (limit {limit:g}) ok")
 
 
-def _flash_bwd_case(name, q, k, v, window, do=None):
+def _flash_bwd_case(name, q, k, v, window, do=None, causal=True):
     """The forward kernel's LSE and the backward kernels against the plain
     forward and backward on the same inputs (the plain backward given the
     plain forward's LSE), and a second backward call equal bit for bit."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_fwd_ref
-    o, lse = flash_attention_fwd(q, k, v, causal=True, window=window)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
     gen = torch.Generator(device="cuda").manual_seed(q.shape[2])
     if do is None:
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-    got = flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=window)
-    again = flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=window)
-    _, lse_ref = flash_attention_fwd_ref(q.float(), k.float(), v.float(), causal=True,
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    _, lse_ref = flash_attention_fwd_ref(q.float(), k.float(), v.float(), causal=causal,
                                          window=window)
     _lse_gate(name, lse, lse_ref)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{name}: two backward calls differ")
     want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), do.float(),
-                                   lse_ref, causal=True, window=window)
+                                   lse_ref, causal=causal, window=window)
     errs = []
     for i, (part, g, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
         zero = want[2].abs().max().item() if q.shape[2] == 1 and i < 2 else None
@@ -1238,10 +1374,12 @@ def phase_bwd_parity():
     """Each backward kernel against its plain backward (``kernels/ref.py``)
     on the same inputs, the forward kernels' LSE against the plain
     forward's, and each backward twice for the same bits: flash at hd
-    32/64/128 (bf16 hd 64/128 on the wgmma path, the rest on the mma
+    32/64/80/128 (bf16 hd 64/80/128 on the wgmma path, the rest on the mma
     path), GQA groups 1, 2 and 8, S 1, 127, 200 and 2048, causal and one
     window, the model's strided views, the training shape, hymba-1.5b's
-    (group 5, window 1024) and granite-moe's (group 3); RMSNorm at H 256,
+    (group 5, window 1024) and granite-moe's (group 3); non-causal at
+    hubert-xlarge's training shape (hd 80, fp32 and bf16), a tail at hd 80
+    and hd 128; RMSNorm at H 256, 1280,
     1000, 1536, 1600, 2560, 3200, 4096, 5120 and 12288 (the register
     version at 1536/1600/2560/3200/4096/5120 in bf16) and T 1-4096."""
     from repro_torch.kernels import rmsnorm_bwd
@@ -1250,7 +1388,7 @@ def phase_bwd_parity():
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
-        for hd in (32, 64, 128):
+        for hd in (32, 64, 80, 128):
             for B, S, nh, nkv, window in FLASH_BWD_CASES:
                 _flash_bwd_case(f"flash_bwd {tag} hd={hd} B,S,nh,nkv=({B},{S},{nh},{nkv}) "
                                 f"window={window}", *_flash_inputs(gen, B, S, nh, nkv, hd, dtype),
@@ -1265,6 +1403,18 @@ def phase_bwd_parity():
                 do = _randn(gen, B, S, nh, hd, dtype=dtype).transpose(1, 2)
                 _flash_bwd_case(f"flash_bwd {tag} {case[:4]} hd={hd} window={window} "
                                 f"[B,S,nh,hd] views", q, k, v, window, do)
+        # hubert-xlarge's training shape, non-causal, in the model's layout;
+        # a tail of 2 rows at hd 80, and hd 128
+        B, S, nh, nkv, window, hd = FLASH_BWD_HUBERT
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in _flash_inputs(gen, B, S, nh, nkv, hd, dtype))
+        do = _randn(gen, B, S, nh, hd, dtype=dtype).transpose(1, 2)
+        errs[("flash_attention_bwd_hd80", dtype)] = _flash_bwd_case(
+            f"flash_bwd {tag} non-causal hubert {FLASH_BWD_HUBERT[:4]} hd={hd} [B,S,nh,hd] views",
+            q, k, v, window, do, causal=False)
+        for B, S, nh, nkv, hd in FLASH_NONCAUSAL_CASES:
+            _flash_bwd_case(f"flash_bwd {tag} non-causal hd={hd} B,S,nh,nkv=({B},{S},{nh},{nkv})",
+                            *_flash_inputs(gen, B, S, nh, nkv, hd, dtype), 0, causal=False)
         B, S, nh, nkv, window, hd = FLASH_BWD_MAIN
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
                    for t in _flash_inputs(gen, B, S, nh, nkv, hd, dtype))
@@ -1637,37 +1787,42 @@ def train_step_descent_and_times(name, total):
         f"{TRAIN_G * TRAIN_S / med * 1e3:.1f} tokens/s; peak memory {peak:.2f} GiB")
 
 
-def _flash_bwd_row(gen, case):
+def _flash_bwd_row(gen, case, causal=True, name="flash_attention_bwd"):
     """The flash backward at ``case`` (B, S, nh, nkv, window, hd), bf16,
     beside its bound, its plain backward and SDPA's backward through
-    autograd (``enable_gqa``; a boolean band mask for a window)."""
+    autograd (``enable_gqa``, ``is_causal=causal``; a boolean band mask for
+    a window)."""
     from repro_torch.kernels import flash_attention_bwd
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.ref import attention_mask, flash_attention_bwd_ref
     dt = torch.bfloat16
     B, S, nh, nkv, window, hd = case
     q, k, v = _flash_inputs(gen, B, S, nh, nkv, hd, dt)
-    o, lse = flash_attention_fwd(q, k, v, window=window)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
     do = _randn(gen, B, nh, S, hd, dtype=dt)
     # read q, k, v, o, dO, write dq, dk, dv; five products over the pairs
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
-    flops = 5 * 2 * B * nh * hd * _causal_pairs(S, window)
+    flops = 5 * 2 * B * nh * hd * _pairs(S, causal, window)
     bound, by = _bound(nbytes, flops, dt)
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     if window:
         lo = F.scaled_dot_product_attention(ql, kl, vl, enable_gqa=True,
                                             attn_mask=attention_mask(S, True, window, q.device))
     else:
-        lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
-    r = dict(name="flash_attention_bwd",
-             ms=time_device(lambda: flash_attention_bwd(q, k, v, o, do, lse, window=window)),
+        lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
+    r = dict(name=name,
+             ms=time_device(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                                        window=window)),
              plain_ms=time_device(lambda: flash_attention_bwd_ref(q, k, v, o, do, lse,
-                                                                  window=window), n=3, reps=3),
+                                                                  causal=causal, window=window),
+                                  n=3, reps=3),
              library_ms=time_device(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
                                                                 retain_graph=True)),
              bound_ms=bound, bound_by=by,
-             shape=f"q{list(q.shape)} kv{list(k.shape)} bf16 causal window={window}")
-    log(f"[time] flash_attention_bwd {list(case)}: {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+             shape=f"q{list(q.shape)} kv{list(k.shape)} bf16 "
+                   f"{f'causal window={window}' if causal else 'non-causal'}")
+    log(f"[time] flash_attention_bwd {list(case)}{'' if causal else ' non-causal'}: "
+        f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, "
         f"{100 * bound / r['ms']:.1f}% of the bound; SDPA backward "
         f"{flops / r['library_ms'] / 1e9:.1f} TFLOP/s; kernel / SDPA = "
         f"{r['ms'] / r['library_ms']:.3f}")
@@ -1715,6 +1870,15 @@ def times_hymba_train_kernels(gen):
     _log_row(_flash_bwd_row(gen, FLASH_BWD_HYMBA))
     row, fma = times_ssd_bwd_kernel(gen, "ssd_scan_bwd_n16", SSD_BWD_N16)
     return [row, fma] + [_rms_bwd_row(gen, *c) for c in RMS_BWD_NEW[:2]]
+
+
+def times_hubert_train_kernels(gen):
+    """hubert-xlarge's backward kernels at its training shapes, bf16: the
+    non-causal flash backward at head dim 80 (the kernel line's
+    ``flash_attention_bwd_hd80``) and RMSNorm's loop backward at H 1280 (a
+    row under ``rmsnorm_bwd``'s paths)."""
+    return [_flash_bwd_row(gen, FLASH_BWD_HUBERT, causal=False, name="flash_attention_bwd_hd80"),
+            _rms_bwd_row(gen, *RMS_BWD_NEW[3])]
 
 
 def times_granite_train_kernels(gen):
@@ -1772,12 +1936,13 @@ def times_ssd_bwd_kernel(gen, name="ssd_scan_bwd", case=SSD_BWD_MAIN):
 TRAIN_KERNEL_TIMES = {"yi-6b": times_train_kernels,
                       "mamba2-2.7b": lambda g: [times_ssd_bwd_kernel(g)[0]],
                       "hymba-1.5b": times_hymba_train_kernels,
-                      "granite-moe-3b-a800m": times_granite_train_kernels}
+                      "granite-moe-3b-a800m": times_granite_train_kernels,
+                      "hubert-xlarge": times_hubert_train_kernels}
 
 
 def phase_train(total, mark=lambda name: None):
     """Section 6, each model of TRAIN_LAYERS in turn (yi-6b, mamba2-2.7b,
-    hymba-1.5b, granite-moe-3b-a800m): (a) gradients, (b) train_loop and
+    hymba-1.5b, granite-moe-3b-a800m, hubert-xlarge): (a) gradients, (b) train_loop and
     restore, (c) descent on one batch, one step's launches and the step's
     time; then its backward kernels' times (TRAIN_KERNEL_TIMES). ``mark``
     is called with each model's name when it is done."""
@@ -1802,14 +1967,25 @@ def kernel_line(rows, errs, total):
     backward at N 16 (hymba-1.5b's) apart from N 128 (mamba2-2.7b's). The
     wgmma SSD entries at N 16 and the backward's at N 128 list the FMA
     kernel on their inputs under "paths"; the
-    RMSNorm backward's lists its register version at the RMS_BWD_NEW
-    widths, each with the bf16 launches of the model that trains there
-    (all on the register version, at that width and the model's others)."""
+    RMSNorm backward's lists its versions at the RMS_BWD_NEW widths (the
+    register version, hubert's 1280 the loop version), each with the bf16
+    launches of the model that trains there (at that width and the model's
+    others); flash's and RMSNorm's forward entries list the embeds-input
+    archs' prefill shapes under "shapes" with that model's launches. The
+    wgmma flash at head dim 80 (hubert-xlarge) has entries of its own."""
     bf16 = torch.bfloat16
     new_width = lambda r: r["name"] == "rmsnorm_bwd" and r["H"] != RMS_BWD_MAIN[1]
     out, rms_new = [], [r for r in rows if new_width(r)]
+    shapes = {}           # other models' shapes of a kernel, by the kernel's name
     for r in rows:
-        if new_width(r):
+        if "model" in r:
+            shapes.setdefault(r["name"], []).append(
+                {"model": r["model"], "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r["library_ms"],
+                 "launches": total.by_model[r["model"], bf16][r["name"]]})
+    for r in rows:
+        if new_width(r) or "model" in r:
             continue
         src, replaces = SOURCES[r["name"]]
         entry = {"name": r["name"], "route": "cuda", "source": src, "replaces": replaces,
@@ -1833,6 +2009,8 @@ def kernel_line(rows, errs, total):
                  "model": RMS_BWD_NEW_MODELS[n["H"]],
                  "launches": total.by_model[RMS_BWD_NEW_MODELS[n["H"]], bf16]["rmsnorm_bwd"]}
                 for n in rms_new]
+        if r["name"] in shapes:
+            entry["shapes"] = shapes[r["name"]]
         out.append(entry)
     return out
 
@@ -1848,6 +2026,120 @@ def run_model(name, tf_len, tf_layers, total, time_kernels, decode_spans, tf_cfg
     times_end_to_end(name, model, prefill, serve, gen, decode_spans)
     del model, prefill, serve
     torch.cuda.empty_cache()
+    return rows
+
+
+def _layers_that_fit(arch, cfg, reserve=6 * 2**30):
+    """``arch.num_layers``, or the most layers whose weights in
+    ``cfg.compute_dtype`` leave ``reserve`` bytes of the card free
+    (``torch.cuda.mem_get_info``) for activations and the decode cache."""
+    import dataclasses
+    from repro_torch.models.lm import LM, param_count
+    free, _ = torch.cuda.mem_get_info()
+    per = lambda L: param_count(LM(dataclasses.replace(arch, num_layers=L), cfg, device="meta"))
+    size = torch.finfo(cfg.compute_dtype).bits // 8
+    head, layer = per(0), per(1) - per(0)
+    fit = int((free - reserve) / size - head) // layer
+    log(f"[slice] {arch.name}: {per(arch.num_layers) * size / 1e9:.2f} GB of weights at "
+        f"{arch.num_layers} layers, {free / 2**30:.2f} GiB free on the card: room for {fit} "
+        f"layers beside {reserve / 2**30:.0f} GiB")
+    return min(arch.num_layers, fit)
+
+
+def phase_embeds_slice(name, total, time_kernels, decode_spans, gate_layers=4, tf_len=64):
+    """Serve full-width ``name``, an embeds-input arch, through the port's
+    entry points (random bf16 weights from seed 0; as many layers as the
+    card holds, all for both archs here): prefill B=2 S=2000 from fp32
+    embeddings with its launches counted (logits at every position for an
+    encoder, the last for a causal arch), and for a causal arch 4 serve
+    steps from embeddings B=4, counted; its kernels' and end-to-end times.
+    Then, with the model freed, the gates at ``gate_layers`` layers of the
+    same seed, drawn at the full depth's scales (``_as_first_layers_of``:
+    drawn as a 4-layer model, llava's wq would have std 0.5 where the
+    served model's has 0.129, and its fp32 teacher-forced check read 1.73x
+    the 2e-2 tolerance): the bf16 logits through the kernels against the
+    plain versions (``check_model_bf16``) at the prefill's shape, and for a
+    causal arch the teacher-forced forward/decode check from ``tf_len``
+    embeddings (``_teacher_forced_gate``, fp32 gated). Returns the kernel
+    rows."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import RunCfg, init_params, param_count
+    from repro_torch.serving.serve import make_prefill_step, make_serve_step
+
+    cfg = RunCfg(compute_dtype=torch.bfloat16)
+    arch = get_config(name)
+    layers = _layers_that_fit(arch, cfg)
+    if layers < 1:
+        raise AssertionError(f"{name}: not one layer fits beside the head")
+    arch = dataclasses.replace(arch, num_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(arch, gen, cfg, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[slice] {name} full width: {arch.num_layers} of {get_config(name).num_layers} layers, "
+        f"d {arch.d_model}, {param_count(model) / 1e9:.3f} B params bf16, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    V = arch.vocab
+
+    # (a), (b) prefill from embeddings with its launches counted
+    prefill = make_prefill_step(model)
+    embeds = _prompt(arch, gen, 2, 2000)
+    logits, counts = _counts_since_reset(lambda: prefill({"embeds": embeds}))
+    want_shape = (2, 1 if arch.causal else 2000, V)
+    if logits.shape != want_shape or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite {want_shape}")
+    want = _forward_launches(arch)
+    if counts != want:
+        raise AssertionError(f"prefill launched {counts}, expected {want}")
+    log(f"[slice] (a,b) {name} prefill B=2 S=2000 from embeddings: logits "
+        f"{tuple(logits.shape)} finite; launches {counts}")
+    total.add(counts, arch)
+    del logits
+
+    # (e) serve steps from embeddings (causal archs; an encoder has no decode)
+    serve = make_serve_step(model)
+    if arch.causal:
+        cache = model.init_cache(4, 8)
+        steps = _prompt(arch, gen, 4, 4)
+
+        def serve_steps():
+            for pos in range(4):
+                tok, lg, _ = serve(cache, steps[:, pos], pos)
+            return tok, lg
+
+        (tok, lg), counts = _counts_since_reset(serve_steps)
+        total.add(counts, arch)
+        if lg.shape != (4, V) or not torch.isfinite(lg).all() or tok.shape != (4,):
+            raise AssertionError("serve_step output malformed")
+        if counts != _launches(rmsnorm=4 * _norms(arch)):
+            raise AssertionError(f"4 serve steps launched {counts}")
+        log(f"[slice] (e) {name} 4 serve steps B=4 from embeddings: logits {tuple(lg.shape)} "
+            f"finite; launches {counts}")
+        del cache
+
+    tgen = torch.Generator(device="cuda").manual_seed(11)
+    rows = time_kernels(tgen)
+    for r in rows:
+        _log_row(r)
+    times_end_to_end(name, model, prefill, serve, tgen, decode_spans)
+    del model, prefill, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the gates at gate_layers layers of the same seed
+    cut = dataclasses.replace(arch, num_layers=gate_layers)
+    if arch.causal:
+        tf = _prompt(cut, torch.Generator(device="cuda").manual_seed(1), 1, tf_len)
+        _teacher_forced_gate(name, cut, tf_len, gate_layers, tf, None,
+                             {"full_depth": False, "bf16_layers": gate_layers,
+                              "depth": arch.num_layers}, embeds)
+    else:
+        model = init_params(cut, torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+        check_model_bf16(_as_first_layers_of(model, arch.num_layers), embeds,
+                         _forward_launches(cut))
+        del model
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1897,6 +2189,12 @@ def main() -> int:
                       ((40, 1), (2048, 1984)),
                       tf_cfg={"run": {"capacity_factor": DROP_FREE}, "bf16_layers": 4})
     phase_done("granite-moe-3b-a800m serving")
+    # the embeds-input archs: hubert-xlarge, an encoder (no decode), and
+    # llava-next-34b, decoded from embeddings at positions 2-33
+    rows += phase_embeds_slice("hubert-xlarge", total, times_hubert_kernels, ())
+    phase_done("hubert-xlarge serving")
+    rows += phase_embeds_slice("llava-next-34b", total, times_llava_kernels, ((40, 1),))
+    phase_done("llava-next-34b serving")
     rows += phase_train(total, phase_done)
     for name in [*SOURCES]:
         if not total.get(name):

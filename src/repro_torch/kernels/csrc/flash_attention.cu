@@ -1,6 +1,7 @@
-// Causal GQA flash attention (forward) with an optional sliding window, for
-// Hopper (sm_90a): the bf16 kernel at head_dim 64 and 128, built on wgmma
-// and TMA. fp32 (every head_dim) and bf16 at head_dim 32 go to the
+// GQA flash attention (forward), causal or not, with an optional sliding
+// window, for Hopper (sm_90a): the bf16 kernel at head_dim 64, 80 and 128,
+// built on wgmma and TMA. fp32 (every head_dim) and bf16 at head_dim 32 go
+// to the
 // mma.sync / FMA kernel in flash_attention_mma.cu; kernels/flash_attention.py
 // picks by (dtype, head_dim).
 //
@@ -14,7 +15,9 @@
 // flops (two products over the causal pairs), which at 989 TFLOP/s (bf16
 // tensor cores) is the least time. At yi-6b prefill (B 2, nh 32, S 2000,
 // hd 128) that is 65.6 GFLOP, 0.066 ms; the bytes (q, k, v read once, o
-// written once: 37 MB) take 0.011 ms at 3.35 TB/s.
+// written once: 37 MB) take 0.011 ms at 3.35 TB/s. Without the causal mask
+// every (query, key) pair counts, 4*B*nh*hd*S^2: at hubert-xlarge's prefill
+// (B 2, nh 16, S 2000, hd 80) 40.96 GFLOP, 0.0414 ms.
 //
 // Design (after FlashAttention-3's shape, without its ping-pong and
 // intra-warpgroup overlap: both measured slower here, PERF.md):
@@ -35,6 +38,16 @@
 //    zero-fills rows at or past S: the tensors are never padded. A bf16 row
 //    of hd 128 is 256 bytes, wider than the 128-byte swizzle span, so a
 //    tile is loaded as hd/64 boxes of [128 rows][64 columns].
+//  * hd 80 (hubert-xlarge): a row is 160 bytes, so a tile is two such
+//    boxes, the second holding columns 64-79; the maps declare the head
+//    dim as 80 with the caller's strides, and TMA zero-fills columns 80-127
+//    of the second box, in shared memory only. q k^T runs over the 80
+//    columns (five k16 slabs, the fifth at the second box's start); p v
+//    runs at the padded width, N 128, whose columns past 80 sum zeros and
+//    are never stored: 1.3x the products of hd 80 (q k^T 80 + p v 128
+//    against 80 + 80), for one code path with hd 128's layout, registers
+//    and descriptors. (A 16-column box with a 32-byte swizzle and an n80
+//    p v would do no extra work; later work.)
 //  * Products: S = q k^T is a wgmma with both operands in shared memory,
 //    K-major, 128-byte swizzled. o += p v takes p from registers (the score
 //    accumulators rounded to bf16 become the A fragments without leaving
@@ -70,8 +83,12 @@ static_assert(kBQ == 128 && kBK == 128, "boxes are 128 rows");
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
 // repeats every 8 rows of 128 bytes): q, the k ring, the v ring, barriers.
+// A head dim that is not a multiple of 64 takes whole boxes (hd 80: two),
+// the columns past hd zero-filled by TMA.
 template <int HD> struct Smem {
-  static constexpr int kBoxes = HD / kBoxCols;
+  static_assert(HD % 16 == 0 && HD <= 128, "head dims of whole k16 slabs, at most two boxes");
+  static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;
+  static constexpr int kCols = kBoxes * kBoxCols;    // the padded width p v runs at
   static constexpr int kTile = kBoxes * kBoxBytes;   // one q, k or v tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kTile;
@@ -165,6 +182,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Params p) {
   using L = Smem<HD>;
+  constexpr int HDP = L::kCols;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
@@ -230,14 +248,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     const int row_in = wg * 64 + warp * 16 + lane / 4;   // the thread's rows: q0 + row_in (+ 8)
     const int col0 = 2 * (lane % 4);                      // column of s[0] in a tile
 
-    float o[HD / 2];
+    float o[HDP / 2];   // columns past HD (hd 80) sum zeros and are never stored
     float s[kBK / 2];
 #pragma unroll
     for (int i = 0; i < kBK / 2; ++i) s[i] = 0.f;
     uint32_t pa[kBK / 16][4];   // p, as p v's A fragments
 
     const uint64_t dq = sw128_desc(sQ + wg * 64 * 128, 16, 1024);
-    // S = q k^T over hd, 16 columns of hd per wgmma
+    // S = q k^T over hd, 16 columns of hd per wgmma (hd 80: the fifth slab
+    // is the second box's first 32 bytes)
     auto issue_qk = [&](int stage) {
       const uint64_t dk = sw128_desc(sK + stage * L::kTile, 16, 1024);
 #pragma unroll
@@ -247,11 +266,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       }
       wgmma_commit();
     };
-    // o += p v, 16 kv rows per wgmma
+    // o += p v, 16 kv rows per wgmma, at the padded width
     auto issue_pv = [&](int stage) {
       const uint64_t dv = sw128_desc(sV + stage * L::kTile, kBoxBytes, 1024);
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<HD>(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
+      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<HDP>(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
       wgmma_commit();
     };
     auto wait_full = [&](uint32_t bar, uint32_t parity) {
@@ -284,7 +303,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     Item it{};
     for (int r = 0; item_of(p, r, it); ++r) {
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
       Softmax sm;
       wait_full(q_full, r & 1);
       const int n_tiles = it.kt_end - it.kt_begin;
@@ -368,7 +387,7 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
 }  // namespace
 }  // namespace repro_torch
 
-// bf16 only, hd 64 or 128. q, o: [B, nh, S, hd] and k, v: [B, nkv, S, hd]
+// bf16 only, hd 64, 80 or 128 (any other returns cudaErrorInvalidValue). q, o: [B, nh, S, hd] and k, v: [B, nkv, S, hd]
 // as element strides (batch, head, seq) in `strides` (q, k, v, o in turn,
 // 12 values, each a multiple of 8); hd contiguous; q, k, v 16-byte aligned.
 // lse: fp32 [B, nh, lse_ld] (lse_ld >= S) for each row's log-sum-exp, or
@@ -379,8 +398,7 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
                                             int nkv, int S, int hd, int causal, int window,
                                             int lse_ld, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || (hd != 64 && hd != 128) ||
-      (lse != nullptr && lse_ld < S))
+  if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || (lse != nullptr && lse_ld < S))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   int err = make_head_map(&tq, q, hd, S, nh, B, strides, 128);
@@ -404,5 +422,10 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
   p.n_items = p.n_qtiles * nh * B;
   p.scale_log2 = kLog2e / sqrtf(static_cast<float>(hd));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return hd == 128 ? launch<128>(tq, tk, tv, p, s) : launch<64>(tq, tk, tv, p, s);
+  switch (hd) {
+    case 64: return launch<64>(tq, tk, tv, p, s);
+    case 80: return launch<80>(tq, tk, tv, p, s);
+    case 128: return launch<128>(tq, tk, tv, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,9 +1,9 @@
-// Causal / windowed GQA flash attention, backward, for Hopper (sm_90a): the
-// mma.sync / FMA kernels, for fp32 at head_dim 32, 64 and 128 and bf16 at
-// head_dim 32 (bf16 at head_dim 64 and 128 goes to the wgmma + TMA kernels
-// of flash_attention_bwd_wgmma.cu), and the D = rowsum(dO * O) launch that
-// both paths run first; kernels/flash_attention.py picks by
-// (dtype, head_dim).
+// GQA flash attention, causal, windowed or neither, backward, for Hopper
+// (sm_90a): the mma.sync / FMA kernels, for fp32 at head_dim 32, 64, 80 and
+// 128 and bf16 at head_dim 32 (bf16 at head_dim 64, 80 and 128 goes to the
+// wgmma + TMA kernels of flash_attention_bwd_wgmma.cu), and the
+// D = rowsum(dO * O) launch that both paths run first;
+// kernels/flash_attention.py picks by (dtype, head_dim).
 //
 // The TPU kernel (src/repro/kernels/flash_attention.py, flash_attention /
 // _flash_kernel) is forward only; this is the gradient of the port's
@@ -23,7 +23,9 @@
 //  * LSE (log2 units) is the forward kernels' (flash_attention.cu,
 //    flash_attention_mma.cu write it when a gradient is wanted); `delta`
 //    writes D, a group of lanes per (b, h, row) with one 16-byte vector of
-//    o and dO each; both fp32 [B, nh, ld], rows past S of D zero. Then two
+//    o and dO each (a power of two of lanes: at hd 80 the lanes past the
+//    row's 10 or 20 vectors add 0); both fp32 [B, nh, ld], rows past S of D
+//    zero. Then two
 //    launches.
 //    `dkdv`: per (kv tile, kv head, b), a loop over the group's query
 //    heads and their live q tiles, with dK and dV in registers, so the GQA
@@ -267,15 +269,16 @@ __device__ __forceinline__ void q_tiles(const BwdParams& p, int k0, int& begin, 
   end = p.window > 0 ? min(n, (k0 + kTile - 1 + p.window - 1) / kTile + 1) : n;
 }
 
-// ---- D = rowsum(dO * O): a group of `width` lanes per row, a 16-byte
-// vector of o and of dO each; rows in [S, ld) get 0 -------------------------
+// ---- D = rowsum(dO * O): a group of `width` lanes per row (a power of
+// two), the first `chunks` of them a 16-byte vector of o and of dO each;
+// rows in [S, ld) get 0 ----------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const T* o, const T* dO, float* delta,
                                                               long long o_sb, long long o_sh,
                                                               long long o_ss, long long d_sb,
                                                               long long d_sh, long long d_ss,
                                                               int nh, int S, int ld, int width,
-                                                              long long rows) {
+                                                              int chunks, long long rows) {
   constexpr int kVec = 16 / sizeof(T);
   const long long t = blockIdx.x * 256ll + threadIdx.x;
   const long long r = t / width;
@@ -284,8 +287,9 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const T* o, const 
     const int row = static_cast<int>(r % ld);
     const long long bh = r / ld;
     const int h = static_cast<int>(bh % nh), b = static_cast<int>(bh / nh);
-    const int c = static_cast<int>(t % width) * kVec;
-    if (row < S) {
+    const int lane = static_cast<int>(t % width);
+    const int c = lane * kVec;
+    if (row < S && lane < chunks) {
       const uint4 ou = *reinterpret_cast<const uint4*>(o + b * o_sb + h * o_sh + row * o_ss + c);
       const uint4 du = *reinterpret_cast<const uint4*>(dO + b * d_sb + h * d_sh + row * d_ss + c);
       const T* oe = reinterpret_cast<const T*>(&ou);
@@ -457,6 +461,7 @@ int launch_f32(const BwdParams& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch<float, 32>(p, B, stream);
     case 64: return launch<float, 64>(p, B, stream);
+    case 80: return launch<float, 80>(p, B, stream);
     case 128: return launch<float, 128>(p, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -505,17 +510,20 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
 
 // D = rowsum(dO * O) for both backward paths: o, dO [B, nh, S, hd] as
 // element strides (batch, head, seq) in `strides` (o, dO: 6 values), hd
-// contiguous, rows 16-byte aligned; delta: fp32 [B, nh, ld], written in full
-// (0 past S). Returns the cudaError_t of the launch (0 on success).
+// contiguous, rows 16-byte aligned, hd a whole number of 16-byte vectors
+// (at most 32); delta: fp32 [B, nh, ld], written in full (0 past S).
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_bwd_delta_launch(const void* o, const void* dO, void* delta,
                                                 const long long* strides, int B, int nh, int S,
                                                 int hd, int ld, int dtype, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || S <= 0 || ld < S) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != kFloat32 && dtype != kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
-  const int width = hd * (dtype == kFloat32 ? 4 : 2) / 16;   // lanes a row
-  if (width < 1 || width > 32 || (width & (width - 1)) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = hd * (dtype == kFloat32 ? 4 : 2);
+  const int chunks = bytes / 16;   // 16-byte vectors a row
+  if (hd <= 0 || bytes % 16 != 0 || chunks > 32) return static_cast<int>(cudaErrorInvalidValue);
+  int width = 1;                   // lanes a row: the power of two that covers the vectors
+  while (width < chunks) width *= 2;
   const long long rows = static_cast<long long>(B) * nh * ld;
   const unsigned blocks = static_cast<unsigned>((rows * width + 255) / 256);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -524,10 +532,10 @@ extern "C" int flash_attention_bwd_delta_launch(const void* o, const void* dO, v
   if (dtype == kFloat32)
     flash_bwd_delta_kernel<float><<<blocks, 256, 0, s>>>(
         static_cast<const float*>(o), static_cast<const float*>(dO), d, st[0], st[1], st[2],
-        st[3], st[4], st[5], nh, S, ld, width, rows);
+        st[3], st[4], st[5], nh, S, ld, width, chunks, rows);
   else
     flash_bwd_delta_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
         static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dO), d, st[0],
-        st[1], st[2], st[3], st[4], st[5], nh, S, ld, width, rows);
+        st[1], st[2], st[3], st[4], st[5], nh, S, ld, width, chunks, rows);
   return static_cast<int>(cudaGetLastError());
 }

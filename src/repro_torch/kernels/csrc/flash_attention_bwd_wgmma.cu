@@ -1,5 +1,6 @@
-// Causal / windowed GQA flash attention, backward, for Hopper (sm_90a): the
-// bf16 kernels at head_dim 64 and 128, built on wgmma and TMA. fp32 and bf16
+// GQA flash attention, causal, windowed or neither, backward, for Hopper
+// (sm_90a): the bf16 kernels at head_dim 64, 80 and 128, built on wgmma
+// and TMA. fp32 and bf16
 // at head_dim 32 go to the mma.sync / FMA kernels of flash_attention_bwd.cu;
 // kernels/flash_attention.py picks by (dtype, head_dim).
 //
@@ -14,7 +15,7 @@
 // launch in flash_attention_bwd.cu; both fp32 [B, nh, ld].
 //
 // Bound on the H100: operations, five products of 2*B*nh*hd*S(S+1)/2 flops
-// each over the causal pairs (S = q k^T and dP = dO V^T are each computed
+// each over the causal pairs (2*B*nh*hd*S^2 without the causal mask) (S = q k^T and dP = dO V^T are each computed
 // twice, once per kernel below: seven products in all), bf16 on the tensor
 // cores at 989 TFLOP/s.
 //
@@ -45,6 +46,12 @@
 //    or past S. Tiles are hd/64 boxes of [rows][64 columns], 128-byte
 //    swizzle. LSE and D rows come by bulk copies (their rows are padded to
 //    `ld`, a multiple of 128).
+//  * hd 80 (hubert-xlarge), as the forward: two boxes, columns 80-127
+//    zero-filled by TMA in shared memory (the maps declare hd 80 over the
+//    caller's strides). The products over hd (S^T, dP^T, S, dP) run over
+//    its five k16 slabs; those with hd as N (dV, dK, dQ) at the padded
+//    width 128, whose columns past 80 sum zeros and are never stored.
+//    Non-causal items walk every q (dK/dV) or kv (dQ) tile.
 //  * setmaxnreg gives the producer's registers to the consumers: 32 and
 //    232 a thread from the 168 of the launch (the producer's item loops
 //    spill at 24; what it frees at 32, 136 x 128, covers 64 more for
@@ -75,7 +82,9 @@ constexpr int kDqKvRows = 64;
 // Shared memory of the dK/dV kernel, from a 1024-byte aligned base: K, V
 // (one tile each), the ring's Q and dO tiles, its LSE and D rows, barriers.
 template <int HD> struct DkdvSmem {
-  static constexpr int kBoxes = HD / kBoxCols;
+  static_assert(HD % 16 == 0 && HD <= 128, "head dims of whole k16 slabs, at most two boxes");
+  static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;   // hd 80: two, zero-filled past 80
+  static constexpr int kCols = kBoxes * kBoxCols;   // the padded width of the N = hd products
   static constexpr int kKvBox = kKvRows * 128;   // [128 rows][64 columns] bf16
   static constexpr int kQBox = kQRows * 128;     // [64 rows][64 columns]
   static constexpr int kKvTile = kBoxes * kKvBox;
@@ -93,7 +102,9 @@ template <int HD> struct DkdvSmem {
 // Shared memory of the dQ kernel: Q, dO (one tile each), the ring's K and V
 // tiles, barriers.
 template <int HD> struct DqSmem {
-  static constexpr int kBoxes = HD / kBoxCols;
+  static_assert(HD % 16 == 0 && HD <= 128, "head dims of whole k16 slabs, at most two boxes");
+  static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;
+  static constexpr int kCols = kBoxes * kBoxCols;
   static constexpr int kQBox = kDqRows * 128;
   static constexpr int kKvBox = kDqKvRows * 128;
   static constexpr int kQTile = kBoxes * kQBox;
@@ -181,6 +192,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_const
                       const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                       const Params p) {
   using L = DkdvSmem<HD>;
+  constexpr int HDP = L::kCols;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   unsigned char* const gbase = smem_raw + (base - smem_addr(smem_raw));
@@ -250,7 +262,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_const
     const int col0 = 2 * (lane % 4);                      // q column of st[0] in a tile
     const float sc = p.scale_log2;
 
-    float dk[HD / 2], dv[HD / 2];
+    float dk[HDP / 2], dv[HDP / 2];   // columns past HD sum zeros, never stored
     float st[32], dpt[32];   // S^T and dP^T of one q tile, then P^T and dS^T
 #pragma unroll
     for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
@@ -268,7 +280,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_const
     KvItem it{};
     for (int r = 0; kv_item_of(p, r, it); ++r) {
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+      for (int i = 0; i < HDP / 2; ++i) dk[i] = dv[i] = 0.f;
       wait_full(kv_full, r & 1);
       const int n_tiles = (it.h1 - it.h0) * (it.qt_end - it.qt_begin);
       for (int i = 0; i < n_tiles; ++i) {
@@ -326,9 +338,9 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_const
         fence_regs(dk);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dv, pa[kk], ddo_m + ((kk * 16 * 128) >> 4));
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<HDP>(dv, pa[kk], ddo_m + ((kk * 16 * 128) >> 4));
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dk, da[kk], dq_m + ((kk * 16 * 128) >> 4));
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<HDP>(dk, da[kk], dq_m + ((kk * 16 * 128) >> 4));
         wgmma_commit();
         wgmma_wait();
         fence_regs(dv);
@@ -438,6 +450,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                     const Params p) {
   using L = DqSmem<HD>;
+  constexpr int HDP = L::kCols;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kQ, sDO = base + L::kDO, sK = base + L::kK, sV = base + L::kV;
@@ -498,7 +511,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     const int col0 = 2 * (lane % 4);                      // kv column of s[0] in a tile
     const float sc = p.scale_log2;
 
-    float dq[HD / 2];
+    float dq[HDP / 2];   // columns past HD sum zeros, never stored
     float s[32], dp[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
@@ -516,7 +529,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     QItem it{};
     for (int r = 0; q_item_of(p, r, it); ++r) {
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+      for (int i = 0; i < HDP / 2; ++i) dq[i] = 0.f;
       float lse[2], dd[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -575,7 +588,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         fence_regs(dq);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dq, da[kk], dk_m + ((kk * 16 * 128) >> 4));
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<HDP>(dq, da[kk], dk_m + ((kk * 16 * 128) >> 4));
         wgmma_commit();
         wgmma_wait();
         fence_regs(dq);
@@ -661,7 +674,7 @@ template <int HD> int info(int* out) {
 }  // namespace
 }  // namespace repro_torch
 
-// bf16 only, hd 64 or 128. q, dO, dq: [B, nh, S, hd] and k, v, dk, dv:
+// bf16 only, hd 64, 80 or 128 (any other returns cudaErrorInvalidValue). q, dO, dq: [B, nh, S, hd] and k, v, dk, dv:
 // [B, nkv, S, hd] as element strides (batch, head, seq) in `strides` (q, k,
 // v, dO, dq, dk, dv in turn, 21 values, each a multiple of 8); hd
 // contiguous; every base 16-byte aligned. lse (log2 units) and delta: fp32
@@ -676,7 +689,7 @@ extern "C" int flash_attention_bwd_wgmma_launch(const void* q, const void* k, co
                                                 int S, int hd, int causal, int window, int ld,
                                                 int slices, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || (hd != 64 && hd != 128) || window < 0 ||
+  if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || window < 0 ||
       ld % 128 != 0 || ld < S || slices <= 0 || (nh / nkv) % slices != 0 ||
       (slices > 1 && parts == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -719,16 +732,24 @@ extern "C" int flash_attention_bwd_wgmma_launch(const void* q, const void* k, co
   p.scale = 1.f / sqrtf(static_cast<float>(hd));
   p.scale_log2 = kLog2e * p.scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return hd == 128 ? launch<128>(m, p, s) : launch<64>(m, p, s);
+  switch (hd) {
+    case 64: return launch<64>(m, p, s);
+    case 80: return launch<80>(m, p, s);
+    case 128: return launch<128>(m, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// For hd (64 or 128), per kernel (dK/dV, dQ, the partials' sum) in turn,
+// For hd (64, 80 or 128; any other returns cudaErrorInvalidValue), per kernel (dK/dV, dQ, the partials' sum) in turn,
 // four ints: registers a thread, local-memory bytes a thread (spills),
 // dynamic shared memory bytes, CTAs that fit on one SM. Returns a
 // cudaError_t.
 extern "C" int flash_attention_bwd_wgmma_info(int hd, int* out) {
   using namespace repro_torch;
-  if (hd == 128) return info<128>(out);
-  if (hd == 64) return info<64>(out);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 64: return info<64>(out);
+    case 80: return info<80>(out);
+    case 128: return info<128>(out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,8 +1,8 @@
-// Causal GQA flash attention (forward) with an optional sliding window:
-// the mma.sync / FMA kernel, for fp32 at head_dim 32, 64 and 128 and for
-// bf16 at head_dim 32. bf16 at head_dim 64 and 128 goes to the wgmma + TMA
-// kernel in flash_attention.cu; kernels/flash_attention.py picks by
-// (dtype, head_dim).
+// GQA flash attention (forward), causal or not, with an optional sliding
+// window: the mma.sync / FMA kernel, for fp32 at head_dim 32, 64, 80 and
+// 128 and for bf16 at head_dim 32. bf16 at head_dim 64, 80 and 128 goes to
+// the wgmma + TMA kernel in flash_attention.cu; kernels/flash_attention.py
+// picks by (dtype, head_dim).
 //
 // Replaces: src/repro/kernels/flash_attention.py, _flash_kernel /
 // flash_attention. o = softmax(mask(q k^T * hd^-0.5)) v per head, with the
@@ -357,6 +357,7 @@ int launch_f32(const FlashParams& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch<float, 32>(p, B, stream);
     case 64: return launch<float, 64>(p, B, stream);
+    case 80: return launch<float, 80>(p, B, stream);
     case 128: return launch<float, 128>(p, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,6 +1,8 @@
-"""Decoder LM of the port: ``repro.models.lm`` for token inputs, with the
-attention, SSM and hybrid blocks (``block`` "attn", "ssm", "hymba") and the
-MLP or MoE sublayer.
+"""The LM of the port, ``repro.models.lm``: the attention, SSM and hybrid
+blocks (``block`` "attn", "ssm", "hymba") and the MLP or MoE sublayer, over
+token inputs or, for the stub-frontend archs (``embeds_input``: the
+encoder hubert-xlarge, the VLM backbone llava-next-34b), precomputed
+embeddings [B,S,H], with no ``embed`` table.
 
 The reference keeps layer-stacked leaves ([L, ...]) scanned by
 ``lax.scan``; here each layer is a ``Block`` in an ``nn.ModuleList`` and
@@ -30,7 +32,7 @@ does not.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,10 +71,6 @@ class RunCfg:
 def _check_supported(arch: ArchConfig) -> None:
     if arch.block not in ("attn", "ssm", "hymba"):
         raise NotImplementedError(f"{arch.name}: block={arch.block!r} is unknown")
-    if arch.embeds_input:
-        raise NotImplementedError(
-            f"{arch.name}: embeds-input archs are not ported yet "
-            "(ROADMAP.md, queue 1: encoder and embeds-input archs)")
 
 
 def _empty(device, dtype, *shape) -> nn.Parameter:
@@ -250,7 +248,7 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """Token-input decoder: embed, ``num_layers`` blocks, final norm, head."""
+    """Embed (token archs only), ``num_layers`` blocks, final norm, head."""
 
     def __init__(self, arch: ArchConfig, cfg: RunCfg = RunCfg(), device=None):
         super().__init__()
@@ -258,7 +256,8 @@ class LM(nn.Module):
         device = resolve_device(device)
         self.arch, self.cfg = arch, cfg
         dt, H, V = cfg.compute_dtype, arch.d_model, arch.vocab
-        self.embed = _empty(device, dt, V, H)
+        if not arch.embeds_input:       # the reference makes no embed leaf for the others
+            self.embed = _empty(device, dt, V, H)
         self.blocks = nn.ModuleList(Block(arch, cfg, device) for _ in range(arch.num_layers))
         self.final_norm = _empty(device, dt, H)
         self.lm_head = _empty(device, dt, H, V)
@@ -267,14 +266,28 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.lm_head.device
 
-    def forward(self, tokens: torch.Tensor, logits_positions: str = "all",
-                with_aux: bool = False):
-        """tokens [B,S] -> fp32 logits [B,S,V] (fp64 for an fp64 model), or
-        [B,1,V] with ``logits_positions="last"`` (prefill: no [B,S,V]
-        buffer). With ``with_aux``, (logits, aux): aux is {} without
-        experts, else {"moe_drop", "moe_load_max"}, each the mean over the
-        layers (the reference's ``lax.scan`` then ``jnp.mean``)."""
-        x = self.embed[tokens]
+    def _input(self, tokens, embeds) -> torch.Tensor:
+        """The first activation: embeds cast to the compute dtype for an
+        embeds-input arch (the reference's ``forward`` and ``decode_step``),
+        else the embed rows of tokens; raises when the arch's input is
+        missing."""
+        if self.arch.embeds_input:
+            if embeds is None:
+                raise ValueError(f"{self.arch.name} takes precomputed embeddings (embeds=)")
+            return embeds.to(self.cfg.compute_dtype)
+        if tokens is None:
+            raise ValueError(f"{self.arch.name} takes tokens")
+        return self.embed[tokens]
+
+    def forward(self, tokens: Optional[torch.Tensor] = None, logits_positions: str = "all",
+                with_aux: bool = False, embeds: Optional[torch.Tensor] = None):
+        """tokens [B,S] (token archs) or embeds [B,S,H] (embeds-input archs)
+        -> fp32 logits [B,S,V] (fp64 for an fp64 model), or [B,1,V] with
+        ``logits_positions="last"`` (prefill: no [B,S,V] buffer). With
+        ``with_aux``, (logits, aux): aux is {} without experts, else
+        {"moe_drop", "moe_load_max"}, each the mean over the layers (the
+        reference's ``lax.scan`` then ``jnp.mean``)."""
+        x = self._input(tokens, embeds)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         remat = self.cfg.remat and torch.is_grad_enabled()
@@ -310,12 +323,13 @@ class LM(nn.Module):
                              torch.float32)
         return cache
 
-    def decode_step(self, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                    pos: int) -> torch.Tensor:
-        """One autoregressive step at position ``pos``: tokens [B] -> fp32
-        logits [B,V]. ``cache`` is updated in place: the KV slots of
-        ``pos`` and/or the conv windows and SSM states (``lm._decode_ssm``)."""
-        x = self.embed[tokens][:, None]
+    def decode_step(self, cache: Dict[str, torch.Tensor], tokens: Optional[torch.Tensor],
+                    pos: int, embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One autoregressive step at position ``pos``: tokens [B] (or, for
+        an embeds-input arch, embeds [B,H]) -> fp32 logits [B,V]. ``cache``
+        is updated in place: the KV slots of ``pos`` and/or the conv
+        windows and SSM states (``lm._decode_ssm``)."""
+        x = self._input(tokens, embeds)[:, None]
         for i, blk in enumerate(self.blocks):
             x = blk.decode(x, {name: c[i] for name, c in cache.items()}, pos)
         logits = rmsnorm(x, self.final_norm) @ self.lm_head
@@ -323,12 +337,13 @@ class LM(nn.Module):
 
 
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
-    """``repro.models.lm.loss_fn``: next-token cross entropy in the
-    logsumexp form on fp32 logits. batch: ``tokens`` and ``labels`` [B,S],
-    optional ``loss_mask`` [B,S] (the mean over its ones, at least one).
-    Returns (loss, {"loss": loss, **aux}): MoE archs add the forward's
+    """``repro.models.lm.loss_fn``: next-token (or frame-label) cross
+    entropy in the logsumexp form on fp32 logits. batch: ``tokens`` [B,S]
+    or ``embeds`` [B,S,H] (embeds-input archs), ``labels`` [B,S], optional
+    ``loss_mask`` [B,S] (the mean over its ones, at least one). Returns
+    (loss, {"loss": loss, **aux}): MoE archs add the forward's
     ``moe_drop`` and ``moe_load_max``."""
-    logits, aux = model(batch["tokens"], with_aux=True)
+    logits, aux = model(batch.get("tokens"), with_aux=True, embeds=batch.get("embeds"))
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
@@ -405,7 +420,8 @@ def init_params(arch: ArchConfig, generator: torch.Generator, cfg: RunCfg = RunC
                     p.copy_(_dense(generator, p.shape, scale, cfg, dev))
     model.final_norm.fill_(1.0)
     model.lm_head.copy_(_dense(generator, model.lm_head.shape, 0.02, cfg, dev))
-    model.embed.copy_(_dense(generator, model.embed.shape, 0.02, cfg, dev))
+    if not arch.embeds_input:
+        model.embed.copy_(_dense(generator, model.embed.shape, 0.02, cfg, dev))
     return model
 
 

@@ -14,26 +14,33 @@ __all__ = ["make_serve_step", "make_prefill_step", "greedy_generate"]
 
 def make_serve_step(model: LM):
     """One greedy decode step: (cache, tokens [B], pos) ->
-    (next_tokens [B] int32, logits [B,V], cache)."""
+    (next_tokens [B] int32, logits [B,V], cache). For an embeds-input arch
+    the input is embeds [B,H] in place of tokens (the reference's
+    ``serve_step``)."""
 
     @torch.inference_mode()
     def serve_step(cache, tokens, pos: int):
-        tokens = torch.as_tensor(tokens, device=model.device)
-        logits = model.decode_step(cache, tokens, pos)
+        x = torch.as_tensor(tokens, device=model.device)
+        if model.arch.embeds_input:
+            logits = model.decode_step(cache, None, pos, embeds=x)
+        else:
+            logits = model.decode_step(cache, x, pos)
         return logits.argmax(dim=-1).to(torch.int32), logits, cache
 
     return serve_step
 
 
 def make_prefill_step(model: LM):
-    """Batched prefill: (batch with ``tokens`` [B,S]) -> logits, only the
-    last position's ([B,1,V]) for causal archs."""
+    """Batched prefill: (batch with ``tokens`` [B,S], or ``embeds`` [B,S,H]
+    for an embeds-input arch) -> logits, only the last position's
+    ([B,1,V]) for causal archs, every position's ([B,S,V]) for encoders."""
     positions = "last" if model.arch.causal else "all"
+    key = "embeds" if model.arch.embeds_input else "tokens"
 
     @torch.inference_mode()
     def prefill(batch):
-        tokens = torch.as_tensor(batch["tokens"], device=model.device)
-        return model(tokens, logits_positions=positions)
+        x = torch.as_tensor(batch[key], device=model.device)
+        return model(logits_positions=positions, **{key: x})
 
     return prefill
 
@@ -41,7 +48,8 @@ def make_prefill_step(model: LM):
 @torch.inference_mode()
 def greedy_generate(model: LM, prompt_tokens, max_new: int) -> torch.Tensor:
     """Prefill the prompt token by token through the decode step, then
-    decode ``max_new`` tokens greedily. Returns [B, max_new] int32."""
+    decode ``max_new`` tokens greedily. Returns [B, max_new] int32. Token
+    archs only, as the reference's."""
     if max_new < 1:
         raise ValueError(f"max_new must be >= 1, got {max_new}")
     prompt = torch.as_tensor(prompt_tokens, device=model.device)

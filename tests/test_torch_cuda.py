@@ -109,11 +109,11 @@ def _bf16_gate(out, ref):
 
 
 # the wgmma kernel's grid: S around its 128-row tiles and yi-6b's prefill,
-# both head dims, GQA groups of yi-6b (8) and hymba-1.5b (5), windows
+# its head dims, GQA groups of yi-6b (8) and hymba-1.5b (5), windows
 # narrower than a tile, around it, and hymba's 1024
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 63, 127, 128, 129, 2000])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128])
 @pytest.mark.parametrize("group", [1, 4, 5, 8])
 @pytest.mark.parametrize("window", [0, 3, 96, 1024])
 def test_flash_wgmma_bf16_against_fp32(card, S, hd, group, window):
@@ -130,7 +130,7 @@ def test_flash_wgmma_bf16_against_fp32(card, S, hd, group, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128])
 @pytest.mark.parametrize("layout", ["model views", "offset base"])
 def test_flash_wgmma_strided_inputs(card, hd, layout):
     """The model's [B,S,nh,hd] tensors seen as [B,nh,S,hd] (the TMA maps
@@ -149,6 +149,85 @@ def test_flash_wgmma_strided_inputs(card, hd, layout):
     out = flash_attention(q, k, v, causal=True, window=0)
     assert out.stride() == q.stride()
     _bf16_gate(out, flash_attention_ref(q.float(), k.float(), v.float(), causal=True))
+
+
+# non-causal attention (hubert-xlarge: hd 80, 16 heads, no GQA), every kv
+# tile live, the only mask the tail past S: S around the 128-row tiles and
+# hubert's prefill length, [B,nh,S,hd] tensors and the model's views
+NONCAUSAL_CASES = [(2, S, 4, 4, 80) for S in (1, 63, 130, 2000)] + [
+    (2, 200, 8, 2, 64), (2, 200, 8, 2, 128), (1, 300, 4, 4, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,nh,nkv,hd", NONCAUSAL_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("views", [False, True])
+def test_flash_noncausal_forward_and_backward(card, B, S, nh, nkv, hd, dtype, views):
+    """Forward (and its LSE) and backward with ``causal=False`` on the
+    ``kernel_path`` / ``bwd_kernel_path`` kernels, against the plain
+    versions: the forward by ``_tol`` (fp32) or ``_bf16_gate``, the
+    backward by ``_bwd_gate``."""
+    rng = np.random.default_rng(S + hd + nkv)
+    shape = (lambda h: (B, S, h, hd)) if views else (lambda h: (B, h, S, hd))
+    t = (lambda x: x.transpose(1, 2)) if views else (lambda x: x)
+    q, do = (t(_randn(rng, shape(nh), dtype, card)) for _ in range(2))
+    k, v = (t(_randn(rng, shape(nkv), dtype, card)) for _ in range(2))
+    kernels.reset_launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, causal=False)
+    got = kernels.flash_attention_bwd(q, k, v, o, do, lse, causal=False)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == 1
+    o_ref, lse_ref = ref.flash_attention_fwd_ref(q.float(), k.float(), v.float(), causal=False)
+    if dtype == "float32":
+        _close(o, o_ref, dtype)
+    else:
+        _bf16_gate(o, o_ref)
+    assert ((lse - lse_ref).abs() / (1 + lse_ref.abs())).max().item() <= LSE_LIMITS[dtype]
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), do.float(),
+                                       lse_ref, causal=False)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == DTYPES[dtype] and g.stride() == (q if i == 0 else k).stride()
+        if S == 1 and i < 2:
+            _bwd_gate(g, want[2].abs().max().item(), dtype, single_key=True)
+        else:
+            _bwd_gate(g, w, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_c_entry_points_refuse_head_dims_they_do_not_take(card):
+    """Each flash entry point of the library, called past the wrapper's
+    checks with a head dim it has no case for (96; bf16 48 for the mma
+    kernels, which take bf16 only at 32), returns an error that
+    ``build.check`` raises, and launches nothing."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import _strides, lse_stride
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    B, nh, S = 1, 2, 64
+    for hd, dtype, code in ((96, torch.bfloat16, 1), (48, torch.bfloat16, 1),
+                            (96, torch.float32, 0)):
+        q, k, v, o, do, dq, dk, dv = (torch.zeros(B, nh, S, hd, device=card, dtype=dtype)
+                                      for _ in range(8))
+        lse, delta = (torch.zeros(B, nh, lse_stride(S), device=card) for _ in range(2))
+        fwd = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+               _strides(q, k, v, o), B, nh, nh, S, hd, 0, 0, lse_stride(S))
+        bwd = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+               dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr())
+        strides = _strides(q, k, v, do, dq, dk, dv)
+        calls = [lambda: lib.flash_attention_mma_launch(*fwd, code, stream),
+                 lambda: lib.flash_attention_bwd_launch(*bwd, strides, B, nh, nh, S, hd, 0, 0,
+                                                        lse_stride(S), code, stream)]
+        if dtype == torch.bfloat16:
+            calls += [lambda: lib.flash_attention_wgmma_launch(*fwd, stream),
+                      lambda: lib.flash_attention_bwd_wgmma_launch(
+                          *bwd, None, strides, B, nh, nh, S, hd, 0, 0, lse_stride(S), 1, stream),
+                      lambda: lib.flash_attention_bwd_wgmma_info(hd, (ctypes.c_int * 12)())]
+        for call in calls:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                build.check(call(), f"hd {hd}")
+        torch.cuda.synchronize()
+        assert not o.any() and not dq.any()
 
 
 @pytest.mark.cuda
@@ -485,6 +564,30 @@ def test_tiny_hybrid_and_moe_prefill_on_the_card_matches_the_cpu(card, name):
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hubert-xlarge", "llava-next-34b"])
+def test_tiny_embeds_prefill_on_the_card_matches_the_cpu(card, name):
+    """The same for the embeds-input archs over 100 positions of random
+    embeddings: hubert (non-causal, logits at every position) and llava
+    (causal, the last position's); a flash and two RMSNorms per layer."""
+    arch = scale_arch(get_config(name), "tiny")
+    cfg = RunCfg(compute_dtype=torch.float32)
+    cpu = init_params(arch, torch.Generator().manual_seed(0), cfg, device="cpu")
+    gpu = init_params(arch, torch.Generator(device=card).manual_seed(0), cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    embeds = np.random.default_rng(1).standard_normal((2, 100, arch.d_model)).astype(np.float32)
+    kernels.reset_launch_counts()
+    out = make_prefill_step(gpu)({"embeds": embeds})
+    torch.cuda.synchronize()
+    L = arch.num_layers
+    assert kernels.launch_counts() == {"flash_attention": L, "flash_attention_bwd": 0,
+                                       "rmsnorm": 2 * L + 1, "rmsnorm_bwd": 0, "ssd_scan": 0,
+                                       "ssd_scan_bwd": 0}
+    ref = make_prefill_step(cpu)({"embeds": embeds})
+    assert out.shape == ref.shape == (2, 100 if not arch.causal else 1, arch.vocab)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
+
+
 # ---------------------------------------------------------------- backward kernels
 
 def _bwd_gate(out, ref, dtype, single_key=False):
@@ -519,7 +622,7 @@ def _bwd_gate(out, ref, dtype, single_key=False):
     assert (E.abs() / limit).max().item() <= 1.0
 
 
-# chip_smoke.py's backward cases: hd 32/64/128, GQA groups 1, 2, 8, S 1,
+# chip_smoke.py's backward cases: hd 32/64/80/128, GQA groups 1, 2, 8, S 1,
 # 127, 200 and 2048, causal, one window; B, S, nh, nkv, window
 FLASH_BWD_CASES = [(1, 1, 2, 2, 0), (2, 127, 4, 2, 0), (1, 200, 8, 1, 0), (1, 200, 4, 4, 37),
                    (1, 2048, 8, 1, 0), (1, 2048, 32, 4, 0)]
@@ -532,7 +635,7 @@ LSE_LIMITS = {"float32": 1e-5, "bfloat16": 2 ** -10}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,nh,nkv,window", FLASH_BWD_CASES)
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_matches_plain(card, B, S, nh, nkv, window, hd, dtype):
     """The backward path of ``bwd_kernel_path`` (wgmma for bf16 hd 64/128),
@@ -580,8 +683,9 @@ def test_flash_wgmma_bwd_hymba_shape(card, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,nh,nkv,window", FLASH_BWD_CASES + [FLASH_BWD_HYMBA])
-@pytest.mark.parametrize("hd,dtype", [(32, "float32"), (128, "float32"), (32, "bfloat16"),
-                                      (64, "bfloat16"), (128, "bfloat16")])
+@pytest.mark.parametrize("hd,dtype", [(32, "float32"), (80, "float32"), (128, "float32"),
+                                      (32, "bfloat16"), (64, "bfloat16"), (80, "bfloat16"),
+                                      (128, "bfloat16")])
 def test_flash_forward_lse_matches_plain(card, B, S, nh, nkv, window, hd, dtype):
     """The LSE that each forward kernel writes for the backward (log2 units)
     against the plain forward's; o is the same with and without it."""
@@ -802,7 +906,8 @@ def test_ssd_autograd_on_the_card_launches_the_backward(card, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["yi-6b", "mamba2-2.7b", "hymba-1.5b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("name", ["yi-6b", "mamba2-2.7b", "hymba-1.5b", "granite-moe-3b-a800m",
+                                  "hubert-xlarge"])
 @pytest.mark.parametrize("scale,layers", [("tiny", None), ("full", 2)])
 def test_train_step_kernels_match_plain(card, name, scale, layers):
     """The gradients of one fp32 train step (G = 2) on the card through the
@@ -867,7 +972,8 @@ def _plain_versions():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,scale,layers", [
     pytest.param(n, s, l, id=f"{s}-{l}-{n}") for s, l, names in (
-        ("tiny", None, ("yi-6b", "mamba2-2.7b", "hymba-1.5b", "granite-moe-3b-a800m")),
+        ("tiny", None, ("yi-6b", "mamba2-2.7b", "hymba-1.5b", "granite-moe-3b-a800m",
+                        "hubert-xlarge")),
         ("full", 2, ("yi-6b", "mamba2-2.7b"))) for n in names])
 def test_train_grads_as_close_to_fp64_as_plain(card, name, scale, layers):
     """Under the reference's own init, where fp32 rounding alone moves the

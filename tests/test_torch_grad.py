@@ -40,7 +40,8 @@ def one_torch_thread():
 TOL = dict(rtol=1e-5, atol=1e-5)
 # B, S, nh, nkv, hd: GQA groups 1 and 2, S a multiple of nothing used here
 FLASH_CASES = [(2, 13, 2, 2, 8), (1, 37, 4, 2, 16), (2, 29, 6, 3, 8)]
-MASKS = [(True, 0), (True, 5), (False, 7)]      # causal, causal + window, window alone
+# causal, causal + window, window alone, neither (hubert-xlarge's encoder)
+MASKS = [(True, 0), (True, 5), (False, 7), (False, 0)]
 
 
 def _draw(rng, *shape):

@@ -80,6 +80,43 @@ def test_flash_attention_matches_pallas_and_ref(B, S, nh, nkv, hd, dtype, window
     np.testing.assert_allclose(_np(out), _np(jref), **_tol(dtype))
 
 
+# non-causal attention (hubert-xlarge's encoder): its head_dim 80 with S
+# past the 128-row tiles, and the grid's head dims
+NONCAUSAL_GRID = [
+    (2, 200, 4, 4, 80),     # hubert's hd, a tail of 72 rows
+    (1, 130, 2, 2, 80),     # a tail of 2 rows
+    (2, 256, 6, 3, 128),
+    (1, 128, 4, 2, 64),
+]
+
+
+@pytest.mark.parametrize("B,S,nh,nkv,hd", NONCAUSAL_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_noncausal_matches_pallas_and_ref(B, S, nh, nkv, hd, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(9, B, S, nh, nkv, hd, dtype)
+    pallas = jax_flash(jq, jk, jv, causal=False, interpret=True)
+    jref = jax_flash_ref(jq, jk, jv, causal=False)
+    out = flash_attention(tq, tk, tv, causal=False)                  # CPU: plain version
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(jref), **_tol(dtype))
+
+
+def test_flash_attention_noncausal_backward_at_hd80_matches_jax():
+    """The plain backward of non-causal attention at hubert's head_dim 80
+    and a tail S (fed the plain forward's LSE, as the kernels are fed the
+    forward kernel's) against ``jax.vjp`` of the reference, fp32 at the
+    grid's 3e-4."""
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_fwd_ref
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(4, 1, 130, 4, 4, 80, "float32")
+    do = np.random.default_rng(6).standard_normal(tq.shape, dtype=np.float32)
+    o, lse = flash_attention_fwd_ref(tq, tk, tv, causal=False)
+    got = flash_attention_bwd_ref(tq, tk, tv, o, torch.from_numpy(do), lse, causal=False)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash_ref(a, b, c, causal=False), jq, jk, jv)
+    for g, w in zip(got, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(_np(g), _np(w), **_tol("float32"))
+
+
 def test_flash_attention_model_layout_views():
     """[B,nh,S,hd] views of [B,S,nh,hd] tensors (the model's layout) give
     what contiguous tensors give."""

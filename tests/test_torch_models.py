@@ -18,6 +18,14 @@ decode differs from bf16 forward in the reference itself for mamba2 (its
 decode keeps conv_b, A_log and dt_bias in fp32, its forward rounds them),
 so the port's decode-vs-forward distance may exceed the reference's own by
 that half of the noise.
+
+MoE archs (dbrx-132b) run drop-free (capacity factor 8, as
+tests/test_models.py:58-62): a decode step of B tokens has its own
+capacity, so at the default one its drops differ from the forward's in
+the reference too. In bf16 their routing flips near-ties in both
+packages (ROADMAP §3), so, as tests/test_torch_hybrid_moe.py holds
+granite-moe, the port's bf16 logits must sit no further from the
+reference's fp32 ones than 1.25x the reference's own bf16 do.
 """
 
 import dataclasses
@@ -37,17 +45,21 @@ from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.launch.train import scale_arch  # noqa: E402
 from repro_torch.models.lm import LM, RunCfg, init_params, param_count  # noqa: E402
 
-ARCHS = ["yi-6b", "granite-3-8b", "minitron-4b", "mamba2-2.7b"]
+ARCHS = ["yi-6b", "granite-3-8b", "minitron-4b", "mamba2-2.7b", "dbrx-132b", "nemotron-4-340b"]
 B, S = 2, 12
+DROP_FREE = 8.0         # tests/test_models.py:60
 
 
 def _archs(name):
     return jax_scale_arch(jax_get_config(name), "tiny"), scale_arch(get_config(name), "tiny")
 
 
-def _cfgs(dtype):
-    return (jlm.RunCfg(q_chunk=0, remat=False, compute_dtype=getattr(jnp, dtype)),
-            RunCfg(compute_dtype=getattr(torch, dtype)))
+def _cfgs(dtype, name="yi-6b"):
+    """Both packages' run configs; MoE archs drop-free."""
+    cf = DROP_FREE if _archs(name)[1].n_experts else 1.25
+    return (jlm.RunCfg(q_chunk=0, remat=False, compute_dtype=getattr(jnp, dtype),
+                       capacity_factor=cf),
+            RunCfg(compute_dtype=getattr(torch, dtype), capacity_factor=cf))
 
 
 def _tokens(arch, seed=0, shape=(B, S)):
@@ -79,10 +91,10 @@ def jax_runs():
         toks = _tokens(jarch)
         logits = {}
         for dtype in ("float32", "bfloat16"):
-            jcfg, _ = _cfgs(dtype)
+            jcfg, _ = _cfgs(dtype, name)
             logits[dtype] = np.asarray(jlm.forward(jarch, params, tokens=jnp.asarray(toks),
                                                    cfg=jcfg)[0])
-        jcfg, _ = _cfgs("bfloat16")
+        jcfg, _ = _cfgs("bfloat16", name)
         logits["decode_gap"] = _rel(_jax_decode(jarch, params, toks, jcfg), logits["bfloat16"])
         out[name] = (jax.tree.map(np.asarray, params), toks, logits)
     return out
@@ -90,7 +102,7 @@ def jax_runs():
 
 def _port(name, tree, dtype):
     _, arch = _archs(name)
-    return params_from_numpy(tree, arch, _cfgs(dtype)[1], device="cpu")
+    return params_from_numpy(tree, arch, _cfgs(dtype, name)[1], device="cpu")
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -103,6 +115,9 @@ def test_forward_matches_jax(jax_runs, name, dtype):
     assert logits.shape == ref[dtype].shape and logits.dtype == np.float32
     if dtype == "float32":
         np.testing.assert_allclose(logits, ref["float32"], rtol=1e-4, atol=1e-4)
+    elif model.arch.n_experts:
+        noise = _rel(ref["bfloat16"], ref["float32"])
+        assert _rel(logits, ref["float32"]) <= 1.25 * noise, (_rel(logits, ref["float32"]), noise)
     else:
         noise = _rel(ref["bfloat16"], ref["float32"])
         assert _rel(logits, ref["bfloat16"]) <= 0.5 * noise, (_rel(logits, ref["bfloat16"]), noise)
@@ -138,6 +153,9 @@ def test_decode_matches_teacher_forced_forward(jax_runs, name, dtype):
     if dtype == "float32":
         np.testing.assert_allclose(dec, full, rtol=2e-2, atol=2e-2)
         np.testing.assert_allclose(dec, full, rtol=1e-4, atol=1e-4)
+    elif model.arch.n_experts:       # routing flips: the forward's rule, on the decode
+        noise = _rel(ref["bfloat16"], ref["float32"])
+        assert _rel(dec, ref["float32"]) <= 1.25 * noise, (_rel(dec, ref["float32"]), noise)
     else:
         noise = _rel(ref["bfloat16"], ref["float32"])
         limit = ref["decode_gap"] + 0.5 * noise
@@ -201,7 +219,10 @@ def test_ssm_fp32_leaves_stay_fp32_in_a_bf16_model(jax_runs):
         assert p.dtype == (torch.float32 if fp32 else torch.bfloat16), name
 
 
-@pytest.mark.parametrize("name", ["hubert-xlarge", "llava-next-34b"])    # embeds-input archs
-def test_unported_archs_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(scale_arch(get_config(name), "tiny"), device="cpu")
+def test_unported_archs_raise():
+    """Every arch of the zoo is ported (the embeds-input ones since their
+    slice, tests/test_torch_embeds.py); a block the port does not know
+    still raises."""
+    arch = dataclasses.replace(scale_arch(get_config("yi-6b"), "tiny"), block="rwkv")
+    with pytest.raises(NotImplementedError, match="unknown"):
+        LM(arch, device="cpu")

@@ -19,7 +19,7 @@ from repro_torch.launch.train import scale_arch  # noqa: E402
 from repro_torch.models.lm import RunCfg  # noqa: E402
 from repro_torch.serving import greedy_generate, make_prefill_step, make_serve_step  # noqa: E402
 
-ARCHS = ["yi-6b", "granite-3-8b", "minitron-4b", "mamba2-2.7b"]
+ARCHS = ["yi-6b", "granite-3-8b", "minitron-4b", "mamba2-2.7b", "dbrx-132b", "nemotron-4-340b"]
 JCFG = jlm.RunCfg(q_chunk=0, remat=False, compute_dtype=jnp.float32)
 TCFG = RunCfg(compute_dtype=torch.float32)
 

@@ -40,14 +40,14 @@ def _qkv(B=2, S=40, nh=8, nkv=2, hd=128, dtype=BF16):
 
 
 @pytest.mark.parametrize("dtype,hd,path", [
-    (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "mma"),
-    (F32, 32, "mma"), (F32, 64, "mma"), (F32, 128, "mma")])
+    (BF16, 64, "wgmma"), (BF16, 80, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "mma"),
+    (F32, 32, "mma"), (F32, 64, "mma"), (F32, 80, "mma"), (F32, 128, "mma")])
 def test_flash_dispatch_by_dtype_and_head_dim(dtype, hd, path):
     assert flash_path(dtype, hd) == path
     assert flash_check(*_qkv(hd=hd, dtype=dtype), 0) == path
 
 
-@pytest.mark.parametrize("hd", [16, 80, 96, 192, 256])
+@pytest.mark.parametrize("hd", [16, 48, 96, 192, 256])
 def test_flash_rejects_head_dims_no_kernel_has(hd):
     with pytest.raises(ValueError, match="head_dim"):
         flash_path(BF16, hd)
@@ -63,7 +63,7 @@ def test_flash_rejects_other_dtypes():
         flash_check(q, k.float(), v, 0)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128])
 def test_flash_takes_the_models_strided_views(hd):
     """layers.attention passes [B,S,nh,hd] tensors as [B,nh,S,hd] views."""
     B, S, nh, nkv = 2, 40, 8, 2
@@ -298,29 +298,35 @@ def test_ssd_wgmma_state_dims_are_the_instantiated_ones():
 # ---------------------------------------------------------------- backward routing
 
 @pytest.mark.parametrize("dtype,hd,path", [
-    (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "mma"),
-    (F32, 32, "mma"), (F32, 64, "mma"), (F32, 128, "mma")])
+    (BF16, 64, "wgmma"), (BF16, 80, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "mma"),
+    (F32, 32, "mma"), (F32, 64, "mma"), (F32, 80, "mma"), (F32, 128, "mma")])
 def test_flash_bwd_dispatch_by_dtype_and_head_dim(dtype, hd, path):
-    """bf16 at hd 64/128 (yi-6b, hymba-1.5b) takes the wgmma + TMA backward;
+    """bf16 at hd 64/80/128 (yi-6b, hymba-1.5b, hubert-xlarge) takes the wgmma + TMA backward;
     fp32 and bf16 hd 32 the mma.sync / FMA one; ``check_bwd_args`` says so."""
     assert flash_bwd_path(dtype, hd) == path
     q, k, v = _qkv(hd=hd, dtype=dtype)
     assert flash_bwd_check(q, k, v, torch.zeros_like(q), torch.zeros_like(q), 0) == path
 
 
-@pytest.mark.parametrize("hd", [16, 80, 192])
+@pytest.mark.parametrize("hd", [16, 96, 192])
 def test_flash_bwd_rejects_head_dims_no_kernel_has(hd):
     with pytest.raises(ValueError, match="head_dim"):
         flash_bwd_path(BF16, hd)
 
 
 def test_flash_bwd_head_dims_are_the_instantiated_ones():
-    """The wgmma backward takes exactly WGMMA_HEAD_DIMS; the mma backward
-    instantiates bf16 only at hd 32."""
-    src = (CSRC / "flash_attention_bwd_wgmma.cu").read_text()
-    assert "hd == 128 ? launch<128>(m, p, s) : launch<64>(m, p, s)" in src
-    assert "(hd != 64 && hd != 128)" in src
-    assert WGMMA_HEAD_DIMS == (64, 128)
+    """The wgmma backward takes exactly WGMMA_HEAD_DIMS, each a case of an
+    exhaustive switch (any other head dim returns an error); the mma
+    backward instantiates bf16 only at hd 32."""
+    assert WGMMA_HEAD_DIMS == (64, 80, 128)
+    for name, fn in (("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_launch"),
+                     ("flash_attention", "flash_attention_wgmma_launch")):
+        src = (CSRC / f"{name}.cu").read_text()
+        entry = src[src.index(f'extern "C" int {fn}('):]
+        switch = entry[entry.index("switch (hd)"):entry.index("default: return")]
+        cases = re.findall(r"case (\d+): return launch<(\d+)>", switch)
+        assert [int(a) for a, _ in cases] == list(WGMMA_HEAD_DIMS), name
+        assert all(a == b for a, b in cases), name
     mma = (CSRC / "flash_attention_bwd.cu").read_text()
     assert "dtype == kBFloat16 && hd == 32" in mma
     assert "flash_bwd_stats" not in mma + src

@@ -1,5 +1,6 @@
-"""Shared by tests/test_torch_train_{yi,mamba2,hymba,granite_moe}.py
-(pytest does not collect this module): the port's training path against
+"""Shared by tests/test_torch_train_{yi,mamba2,hymba,granite_moe}.py and
+tests/test_torch_embeds.py (hubert-xlarge; pytest does not collect this
+module): the port's training path against
 ``repro.train`` / ``repro.models.lm`` on the CPU. Each test file imports
 the tests it runs and gives them their arch: a module fixture ``setup``
 (``build_setup(name)``) and a fixture ``name``. The tests that are not
@@ -97,7 +98,8 @@ DT = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.
       "float64": (None, torch.float64)}
 # a per-layer leaf of each arch whose optimizer state the checkpoint tests read
 LEAF = {"yi-6b": ("attn", "wq"), "mamba2-2.7b": ("ssm", "in_proj"),
-        "hymba-1.5b": ("ssm", "in_proj"), "granite-moe-3b-a800m": ("moe", "wg")}
+        "hymba-1.5b": ("ssm", "in_proj"), "granite-moe-3b-a800m": ("moe", "wg"),
+        "hubert-xlarge": ("mlp", "wi")}
 DROP_FREE = 8.0         # tests/test_models.py:60
 
 
@@ -346,7 +348,7 @@ def test_global_norm_matches_jax():
 # granite-moe's too: under the reference's init its clipped gradient puts
 # 15.5% of the elements under 100 eps, past the 15% this test allows.
 STEP_INIT = {"yi-6b": "reference", "mamba2-2.7b": "fan-in-H", "hymba-1.5b": "fan-in-H",
-             "granite-moe-3b-a800m": "fan-in-H"}
+             "granite-moe-3b-a800m": "fan-in-H", "hubert-xlarge": "fan-in-H"}
 
 
 def test_train_step_g2_matches_jax(setup):
@@ -566,7 +568,7 @@ def test_port_round_trips_bf16_moments(setup, tmp_path):
     mgr = ckpt.CheckpointManager(tmp_path, every_steps=1)
     assert mgr.maybe_save(1, lambda: train_state_to_numpy(state), block=True)
     _, trees, _ = ckpt.restore_latest(tmp_path)
-    assert trees["opt_state"]["v"]["embed"].dtype == torch.bfloat16
+    assert trees["opt_state"]["v"]["lm_head"].dtype == torch.bfloat16   # every arch has it
     fresh = init_train_state(arch, cfg, torch.Generator().manual_seed(9), "cpu")
     train_state_from_numpy(fresh, trees)
     for tree in ("m", "v"):
