@@ -42,7 +42,12 @@ Phases, each of which fails the run by raising:
      loss must fall, the first with its launches counted exactly, then the
      train step's time, tokens/s and peak memory and the backward kernels'
      times (the SSD backward's wgmma path, at mamba2's N 128 and hymba's
-     N 16, beside its FMA kernel, which it must beat).
+     N 16, beside its FMA kernel, which it must beat);
+  7. the FSDP x TP train step over NCCL on a one-card (1, 1) mesh: yi-6b at
+     16 layers (3 steps) and hymba-1.5b at 4 (one), each from the training
+     phase's seed and batch; the first sharded step's launches, loss and
+     fp32 masters must equal the single-device step's (bit for bit), then
+     its time and peak memory beside the training phase's step.
 The last line is one JSON object with ``"ok": true`` and the device. It
 needs a CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -1785,6 +1790,7 @@ def train_step_descent_and_times(name, total):
         f"bf16 compute, fp32 masters and moments, remat off: median {med:.2f} ms of "
         f"{[round(x, 2) for x in ms[2:]]} (warm-up {ms[0]:.2f}, {ms[1]:.2f}); "
         f"{TRAIN_G * TRAIN_S / med * 1e3:.1f} tokens/s; peak memory {peak:.2f} GiB")
+    return med, peak
 
 
 def _flash_bwd_row(gen, case, causal=True, name="flash_attention_bwd"):
@@ -1945,20 +1951,139 @@ def phase_train(total, mark=lambda name: None):
     hymba-1.5b, granite-moe-3b-a800m, hubert-xlarge): (a) gradients, (b) train_loop and
     restore, (c) descent on one batch, one step's launches and the step's
     time; then its backward kernels' times (TRAIN_KERNEL_TIMES). ``mark``
-    is called with each model's name when it is done."""
+    is called with each model's name when it is done. Returns (the kernel
+    rows, {name: (c)'s median step ms and peak GiB})."""
     gen = torch.Generator(device="cuda").manual_seed(23)
-    rows = []
+    rows, steps = [], {}
     for name in TRAIN_LAYERS:
         t0 = time.perf_counter()
         train_grads_gate(name, total)
         log(f"[train] (a) {name} done in {time.perf_counter() - t0:.1f} s")
         train_loop_and_restore(name, total, TRAIN_LOOP_LAYERS[name])
-        train_step_descent_and_times(name, total)
+        steps[name] = train_step_descent_and_times(name, total)
         rows += TRAIN_KERNEL_TIMES[name](gen)
         mark(f"{name} training")
     for r in rows:
         _log_row(r)
-    return rows
+    return rows, steps
+
+
+# --------------------------------------------------------------------------
+# 7. the sharded train step over NCCL on a (1, 1) mesh
+# --------------------------------------------------------------------------
+
+def _masters_on_host(state):
+    """{name: a CPU copy of each master} (the whole tensor on a (1, 1) mesh)."""
+    from repro_torch.parallel.comm import local
+    return {n: local(p).detach().to("cpu", copy=True) for n, p in state.params.items()}
+
+
+def sharded_step_gate(name, layers, steps, total, mesh, single=None, remat=False):
+    """``name`` at full width cut to ``layers``, from the training phase's
+    seed and fixed batch, remat off or on (``remat``: each Block recomputed
+    in the backward, its collectives issued again there): one single-device
+    step (its loss, launches, masters and peak memory), then ``steps``
+    FSDP x TP steps on ``mesh`` through ``init_train_state(mesh=)`` /
+    ``make_train_step(mesh=)``. Gates on the first sharded step: launches
+    equal the single-device step's, kernel by kernel (added to ``total``);
+    the loss equal bit for bit; every master equal bit for bit. Then the
+    sharded steps after the first timed (host clock around synchronised
+    steps) and the peak memory, logged beside the single-device step's
+    peak and ``single`` (the training phase's (median ms, peak GiB) at
+    this config)."""
+    from repro_torch.parallel.comm import local
+    from repro_torch.train.step import init_train_state, make_train_step
+    arch, cfg = _train_arch(name, layers), _train_cfg(remat=remat)
+    batch = _train_data(arch).batch_at(0)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)
+    state = init_train_state(arch, cfg, gen(), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    (state, metrics), want = _counts_since_reset(lambda: make_train_step(arch, cfg)(state, batch))
+    single_peak = torch.cuda.max_memory_allocated() / 2**30
+    loss, masters = float(metrics["loss"]), _masters_on_host(state)
+    del state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_train_state(arch, cfg, gen(), "cuda", mesh=mesh)
+    step = make_train_step(arch, cfg, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            (state, got), counts = _counts_since_reset(lambda: step(state, batch))
+        else:
+            state, got = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i:
+            continue
+        total.add(counts, arch)
+        if counts != want:
+            raise AssertionError(f"{name}: the sharded step launched {counts}, the single-device "
+                                 f"step {want}")
+        if float(got["loss"]) != loss:
+            raise AssertionError(f"{name}: sharded loss {float(got['loss'])!r}, single-device "
+                                 f"{loss!r}")
+        off = {}
+        for n, p in state.params.items():
+            ref = masters[n].to("cuda")
+            d = (local(p) - ref).float().norm() / ref.float().norm().clamp_min(1e-30)
+            if not torch.equal(local(p), ref):
+                off[n] = d.item()
+        if off:
+            worst = max(off, key=off.get)
+            raise AssertionError(f"{name}: {len(off)} of {len(masters)} masters differ from the "
+                                 f"single-device step's (worst {worst}: relative L2 "
+                                 f"{off[worst]:.3e})")
+        log(f"[sharded] {name} {layers} layers on the (1, 1) mesh, remat {'on' if remat else 'off'}, "
+            f"step 1: launches {counts} "
+            f"(equal to the single-device step's), loss {loss!r} and all {len(masters)} "
+            f"masters equal to the single-device step's bit for bit")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, masters
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed = (f"median after the first {statistics.median(ms[1:]):.2f} ms; " if len(ms) > 1
+             else "")
+    beside = (f"; single-device step {single[0]:.2f} ms, peak {single[1]:.2f} GiB "
+              f"(training phase, same config)" if single else "")
+    log(f"[time] sharded train step {name} {layers} layers, remat {'on' if remat else 'off'}, "
+        f"(1, 1) mesh over NCCL, G={TRAIN_G} x 1 x {TRAIN_S} tokens: "
+        f"{[round(x, 2) for x in ms]} ms (the first with its launches counted); {timed}peak "
+        f"memory {peak:.2f} GiB, the single-device step's {single_peak:.2f} GiB (one step, "
+        f"same call){beside}")
+
+
+def phase_sharded(total, single_steps):
+    """Section 7: a one-rank NCCL process group (a FileStore in a temporary
+    directory), the (1, 1) ("data", "model") mesh of ``launch.mesh.make_mesh``,
+    then ``sharded_step_gate`` for yi-6b at TRAIN_LAYERS' 16 layers (3
+    steps, timed beside the training phase's step; then one step with
+    remat on, the peak memory beside the single-device step's) and
+    hymba-1.5b at 4 layers (one step with remat off and one with it on:
+    the SSD scan, the windowed flash and the fused mixers on the sharded
+    path). The process group is destroyed at the end."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        sharded_step_gate("yi-6b", TRAIN_LAYERS["yi-6b"], 3, total, mesh,
+                          single_steps.get("yi-6b"))
+        sharded_step_gate("yi-6b", TRAIN_LAYERS["yi-6b"], 1, total, mesh, remat=True)
+        sharded_step_gate("hymba-1.5b", 4, 1, total, mesh)
+        sharded_step_gate("hymba-1.5b", 4, 1, total, mesh, remat=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def kernel_line(rows, errs, total):
@@ -2195,7 +2320,10 @@ def main() -> int:
     phase_done("hubert-xlarge serving")
     rows += phase_embeds_slice("llava-next-34b", total, times_llava_kernels, ((40, 1),))
     phase_done("llava-next-34b serving")
-    rows += phase_train(total, phase_done)
+    train_rows, single_steps = phase_train(total, phase_done)
+    rows += train_rows
+    phase_sharded(total, single_steps)
+    phase_done("sharded training")
     for name in [*SOURCES]:
         if not total.get(name):
             raise AssertionError(f"kernel {name} was never launched on the main path")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one train step goes, on one NVIDIA card.
 
-    python3 scripts/train_step_profile.py [--arch NAME]
+    python3 scripts/train_step_profile.py [--arch NAME] [--mesh]
 
 Builds chip_smoke.py's training slice of ``--arch`` from chip_smoke.py's
 own config (``TRAIN_LAYERS``: full-width yi-6b cut to 16 layers, the
@@ -12,8 +12,11 @@ steps under ``torch.profiler``. Prints the host-clock step time, the
 device time by kernel (grouped: the port's kernels, each ``flash_bwd_*``
 and ``ssd_bwd_*`` launch of either SSD backward path, GEMMs, elementwise,
 other), the share of the
-step the device was idle, and the card's name and power limit. Imports no
-JAX.
+step the device was idle, and the card's name and power limit. With
+``--mesh`` the step is the FSDP x TP step on a one-card (1, 1) mesh over
+NCCL (a one-rank process group), as ``chip_smoke.py``'s phase 7 runs it;
+the NCCL kernels are a group of their own, and the host time of the
+collectives' calls is printed. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -62,7 +65,8 @@ GROUPS = (("ssd_cb_kernel<128, true>", "ssd bwd wgmma: C.B^T, B.C^T"),
           ("nvjet", "GEMMs (cuBLAS)"), ("elementwise", "elementwise"),
           ("vectorized", "elementwise"), ("reduce", "reductions"),
           ("tensor_kernel_scan", "cumsum (MoE slots)"), ("index", "gather/scatter"),
-          ("scatter", "gather/scatter"), ("sort", "gather/scatter"))
+          ("scatter", "gather/scatter"), ("sort", "gather/scatter"),
+          ("nccl", "NCCL collectives"))
 STEPS = 2
 
 
@@ -74,6 +78,20 @@ def group(name: str) -> str:
     return "other"
 
 
+def _one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh over a one-rank NCCL group."""
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    store = dist.FileStore(os.path.join(tempfile.mkdtemp(prefix="profile_pg_"), "store"), 1)
+    dist.init_process_group("nccl", rank=0, world_size=1, store=store,
+                            device_id=torch.device("cuda", 0))
+    return make_mesh((1, 1), ("data", "model"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("train_step_profile: no CUDA card available", file=sys.stderr)
@@ -83,11 +101,15 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="yi-6b", choices=sorted(TRAIN_LAYERS))
+    ap.add_argument("--mesh", action="store_true",
+                    help="the sharded step on a (1, 1) mesh over NCCL")
     args = ap.parse_args()
     arch, cfg = _train_arch(args.arch), _train_cfg()
     data = _train_data(arch)
-    state = init_train_state(arch, cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    step = make_train_step(arch, cfg)
+    mesh = _one_rank_mesh() if args.mesh else None
+    state = init_train_state(arch, cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                             mesh=mesh)
+    step = make_train_step(arch, cfg, mesh)
     state, _ = step(state, data.batch_at(0))
     torch.cuda.synchronize()
     batches = [data.batch_at(1 + i) for i in range(STEPS)]
@@ -104,7 +126,9 @@ def main() -> int:
         by_group[group(e.name)] = by_group.get(group(e.name), 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     busy_ms = sum(by_group.values()) / 1e3 / STEPS
-    print(f"[profile] {args.arch} {arch.num_layers} layers, G={TRAIN_G} x 1 x {TRAIN_S} tokens, bf16, "
+    where = ", sharded on a (1, 1) mesh over NCCL" if mesh is not None else ""
+    print(f"[profile] {args.arch} {arch.num_layers} layers{where}, G={TRAIN_G} x 1 x {TRAIN_S} "
+          f"tokens, bf16, "
           f"remat off: {wall_ms:.2f} ms a step (host clock, under the profiler); device busy "
           f"{busy_ms:.2f} ms a step, idle share {100 * (1 - busy_ms / wall_ms):.1f}%")
     for label, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
@@ -112,6 +136,17 @@ def main() -> int:
               f"({100 * us / 1e3 / STEPS / wall_ms:.1f}%)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[profile]   {us / 1e3 / STEPS:9.3f} ms  {name[:110]}")
+    if mesh is not None:
+        host = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith(("c10d::", "nccl:"))]
+        us = {}
+        for e in host:
+            us[e.name] = us.get(e.name, [0.0, 0])
+            us[e.name][0] += e.time_range.elapsed_us()
+            us[e.name][1] += 1
+        for name, (t, n) in sorted(us.items(), key=lambda kv: -kv[1][0])[:8]:
+            print(f"[profile] host {name}: {n // STEPS} calls, {t / 1e3 / STEPS:.2f} ms a step")
+        torch.distributed.destroy_process_group()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)

@@ -10,7 +10,8 @@ Arrays cross as numpy: this module imports no JAX.
 The train state crosses the same way (``train_state_to_numpy`` /
 ``train_state_from_numpy``): the masters as the reference's ``params``
 tree and the optimizer state as its ``{"m": tree, "v": tree, "step"}``,
-which is what the two packages' checkpoints hold.
+which is what the two packages' checkpoints hold. A sharded state
+(DTensor leaves) crosses whole: every rank of its mesh takes part.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import torch
 
 from .configs.base import ArchConfig
 from .models.lm import LM, RunCfg
+from .parallel.comm import is_dtensor, local
+from .parallel.sharding import MeshPlacements
 from .train.checkpoint import leaf_tensor, to_numpy_tree
 from .train.step import sync_model
 
@@ -103,7 +106,9 @@ def _tree_from_named(named: Dict[str, torch.Tensor]) -> Dict:
 def _named_from_tree(tree: Dict, named: Dict[str, torch.Tensor], what: str) -> None:
     """Copy the reference's tree into the tensors of ``named`` in place.
     Leaves may be numpy arrays, bf16 leaves as the reference's restore
-    hands them back (raw |V2) or as the port's (CPU bf16 tensors)."""
+    hands them back (raw |V2) or as the port's (CPU bf16 tensors), or
+    DTensors (``restore_checkpoint`` with placements). A DTensor in
+    ``named`` takes its shards."""
     for name, t in named.items():
         path, layer = tree_path(name)
         leaf = tree
@@ -117,7 +122,10 @@ def _named_from_tree(tree: Dict, named: Dict[str, torch.Tensor], what: str) -> N
         if tuple(a.shape) != tuple(t.shape):
             raise ValueError(f"{what} {'/'.join(path)}: tree has {tuple(a.shape)}, state wants "
                              f"{tuple(t.shape)}")
-        t.copy_(a)
+        if is_dtensor(t):               # this rank's shard of a whole or a placed leaf
+            a = a.redistribute(t.device_mesh, t.placements) if is_dtensor(a) else \
+                MeshPlacements(t.device_mesh, tuple(t.placements)).distribute(a)
+        local(t).copy_(local(a))
 
 
 def train_state_to_numpy(state) -> Dict:

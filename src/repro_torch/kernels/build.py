@@ -26,8 +26,9 @@ import time
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 
-__all__ = ["library", "build", "check", "dtype_code", "stream_of", "sm_count"]
+__all__ = ["library", "build", "check", "dtype_code", "stream_of", "sm_count", "refuse_dtensor"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -151,3 +152,12 @@ def stream_of(t: torch.Tensor) -> int:
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of card ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def refuse_dtensor(op: str, *tensors) -> None:
+    """Raise if any argument is a ``DTensor``: a kernel reads ``data_ptr()``
+    and shapes, which on a DTensor are its local shard's and its global
+    tensor's. A model on a mesh hands the kernels local tensors."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{op} takes plain tensors, got a DTensor: pass its local shard "
+                        f"(.to_local())")

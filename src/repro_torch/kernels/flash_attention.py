@@ -96,6 +96,7 @@ def check_args(q, k, v, window) -> str:
     """Raise on what the kernels do not take; return ``kernel_path``.
     Looks at shapes, dtypes, strides and addresses only, so it runs on any
     device."""
+    build.refuse_dtensor("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention takes q [B,nh,S,hd], k/v [B,nkv,S,hd], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -132,6 +133,7 @@ def strides_ok(t) -> bool:
 def check_bwd_args(q, k, v, o, do, window) -> str:
     """``check_args`` for the backward, plus o and do: q's shape and dtype,
     the same layout rules. Returns ``bwd_kernel_path``."""
+    build.refuse_dtensor("flash_attention_bwd", o, do)
     check_args(q, k, v, window)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype:
@@ -156,6 +158,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0, lse: b
     [B,nh,S], log2 units of the scaled scores), which the backward reads.
     On CUDA tensors the LSE is a [B,nh,S] view of a buffer whose rows are
     ``lse_stride(S)`` apart."""
+    build.refuse_dtensor("flash_attention", q, k, v)
     if q.device.type == "cpu":
         if lse:
             return flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
@@ -203,6 +206,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int
     dQ, the fixed-order sum of the partials; mma: dK/dV looping over the
     group, dQ). ``slices`` overrides ``bwd_slices`` (a divisor of the GQA
     group; wgmma path only)."""
+    build.refuse_dtensor("flash_attention_bwd", q, k, v, o, do, lse)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
     if q.device.type != "cuda":

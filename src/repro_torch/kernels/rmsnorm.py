@@ -55,6 +55,7 @@ def check_args(x, w) -> str:
     """Raise on what the kernel does not take; return ``kernel_path``.
     Looks at shapes, dtypes, strides and addresses only, so it runs on any
     device."""
+    build.refuse_dtensor("rmsnorm", x, w)
     if x.dim() != 2 or w.shape != (x.shape[1],):
         raise ValueError(f"rmsnorm takes x [T,H] and w [H], got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
@@ -71,6 +72,7 @@ def check_args(x, w) -> str:
 
 
 def _forward(x, w, eps):
+    build.refuse_dtensor("rmsnorm", x, w)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
     if x.device.type != "cuda":
@@ -119,6 +121,7 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-5):
     """(x [T,H], w [H], dy [T,H]) -> (dx in x's type, dw in w's type).
     CUDA tensors: two kernels (``bwd_kernel_path``'s, then the sum of the
     dw partials), one launch counted."""
+    build.refuse_dtensor("rmsnorm_bwd", x, w, dy)
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(x, w, dy, eps)
     if x.device.type != "cuda":

@@ -74,6 +74,7 @@ def _rows_ok(t) -> bool:
 
 
 def _check_rows(name, t):
+    build.refuse_dtensor("ssd_scan", t)
     if not _rows_ok(t):
         raise ValueError(f"{name} needs a unit last stride and 16-byte aligned rows, got "
                          f"strides {t.stride()} at address {t.data_ptr():#x}")
@@ -298,6 +299,7 @@ def _launch_wgmma(x, dt, A, Bm, Cm, initial_state, return_state):
 def _forward(x, dt, A, Bm, Cm, chunk, initial_state, return_state):
     """The forward on either device: the plain version for CPU tensors, the
     ``kernel_path`` kernel (one launch counted) for CUDA tensors."""
+    build.refuse_dtensor("ssd_scan", x, dt, A, Bm, Cm, initial_state)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state,
                             return_state=return_state)
@@ -423,6 +425,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, chun
     CPU tensors: ``ref.ssd_scan_bwd_ref`` (``chunk`` is its chunk length).
     CUDA tensors: the ``bwd_kernel_path`` kernel, ``csrc/ssd_scan_bwd_wgmma.cu``
     (five launches) or ``csrc/ssd_scan_bwd.cu`` (four), one launch counted."""
+    build.refuse_dtensor("ssd_scan_bwd", x, dt, A, Bm, Cm, dy, initial_state, d_final)
     if x.device.type == "cpu":
         return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, initial_state, d_final, chunk=chunk)
     if x.device.type != "cuda":

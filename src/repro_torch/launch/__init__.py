@@ -1,2 +1,2 @@
-"""Launch helpers of the port (only ``scale_arch`` so far; the training
-loop joins with the training slice)."""
+"""Launch helpers of the port: ``train`` (``scale_arch``, the train loop,
+``main``) and ``mesh`` (device meshes)."""

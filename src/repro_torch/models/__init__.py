@@ -1,4 +1,5 @@
-"""Model zoo of the port (dense decoder path so far)."""
+"""Model zoo of the port: every block of the reference's zoo, on one
+device or on a mesh (``RunCfg.mesh``)."""
 
 from .lm import LM, Block, RunCfg, init_params, param_count
 

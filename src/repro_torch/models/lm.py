@@ -31,8 +31,9 @@ does not.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +42,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
+from ..parallel.comm import MeshComm, local
+from ..parallel.sharding import MeshPlacements, ShardingPlanner, mesh_device
 from .layers import (attention, decode_attention, mlp, moe, rmsnorm, rope, softplus, ssd_scan,
                      ssm_decode_step)
 
@@ -49,28 +52,39 @@ __all__ = ["RunCfg", "LM", "Block", "init_params", "loss_fn", "param_count"]
 
 @dataclass(frozen=True)
 class RunCfg:
-    """Mirrors ``repro.models.lm.RunCfg`` with torch dtypes. The mesh fields
-    arrive with distribution; ``q_chunk`` has no counterpart (the flash
-    kernel is tiled), nor ``ssd_chunk``: no caller changes its 256, the
-    plain SSD version's default chunk (the SSD kernel blocks by its own);
-    ``scan_layers`` has none (the layers are a loop), nor ``expert_axis``
-    (expert parallelism comes with distribution). ``capacity_factor`` sets
-    the MoE layer's slots an expert (``layers.moe``). ``param_dtype`` is
-    the type of training's master weights. ``remat`` recomputes each ``Block`` in the backward
+    """Mirrors ``repro.models.lm.RunCfg`` with torch dtypes. ``q_chunk`` has
+    no counterpart (the flash kernel is tiled), nor ``ssd_chunk``: no
+    caller changes its 256, the plain SSD version's default chunk (the SSD
+    kernel blocks by its own); ``scan_layers`` has none (the layers are a
+    loop), nor ``batch_axes`` (the mesh sets it), nor ``expert_axis`` (it
+    comes with the expert-parallel ``moe_ep``). ``capacity_factor`` sets
+    the MoE layer's slots an expert (``layers.moe``). ``param_dtype`` is the type of training's master
+    weights. ``remat`` recomputes each ``Block`` in the backward
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
     layer body); it acts only where autograd records. Logits are always
     fp32 (the reference's default ``logits_fp32=True``, which no caller
-    changes)."""
+    changes).
+
+    Distribution: ``mesh`` is a ``DeviceMesh`` with axes ("data", "model")
+    or ("pod", "data", "model") (None: one device), the batch sharded over
+    all but "model" (``MeshComm.batch_axes``); ``seq_shard`` keeps the
+    residual stream sharded over "model" on the sequence between blocks."""
 
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     remat: bool = True
     capacity_factor: float = 1.25
+    mesh: Any = None
+    seq_shard: bool = False
 
 
-def _check_supported(arch: ArchConfig) -> None:
+def _check_supported(arch: ArchConfig, cfg: "RunCfg") -> None:
     if arch.block not in ("attn", "ssm", "hymba"):
         raise NotImplementedError(f"{arch.name}: block={arch.block!r} is unknown")
+    if cfg.mesh is not None and arch.n_experts:
+        raise NotImplementedError(
+            f"{arch.name}: an MoE layer on a mesh runs the expert-parallel layers.moe_ep "
+            f"(repro/models/lm.py:213-222), which is not ported yet (ROADMAP §1)")
 
 
 def _empty(device, dtype, *shape) -> nn.Parameter:
@@ -81,11 +95,25 @@ class Block(nn.Module):
     """One pre-norm layer: attention (``block="attn"``), the Mamba2 mixer
     (``block="ssm"``) or both in parallel on one normed input, their mean
     added (``block="hymba"``, ``lm._block``); then the MLP or, for MoE
-    archs, the MoE layer (``lm._run_ffn``), where the arch has one."""
+    archs, the MoE layer (``lm._run_ffn``), where the arch has one.
+
+    On a mesh (``plan_mesh``) the weights are DTensors, each gathered for
+    the layer by ``MeshComm.weight``, and the residual [B_local, S or
+    S/model, H] holds this rank's rows. Attention is tensor parallel over
+    whole heads where the q heads divide the "model" axis and each rank's q
+    heads have their kv heads: wq, wk, wv column-parallel, wo row-parallel;
+    where the kv heads do not divide the axis, wk and wv are gathered and a
+    rank takes its q heads' kv head (Megatron replicates KV heads so). The
+    MLP is tensor parallel where d_ff divides the axis. Every other
+    sublayer, the SSM mixer always (in_proj's columns interleave z, x, B, C
+    and dt), gathers its weights over "model" too and every model rank
+    computes it whole."""
 
     def __init__(self, arch: ArchConfig, cfg: "RunCfg", device):
         super().__init__()
         self.arch, self.capacity_factor = arch, cfg.capacity_factor
+        self.comm: Optional[MeshComm] = None
+        self.attn_tp = self.kv_tp = self.mlp_tp = False
         dtype = cfg.compute_dtype
         H, nh, nkv, hd, F = arch.d_model, arch.n_heads, arch.n_kv, arch.head_dim, arch.d_ff
         e = lambda *shape: _empty(device, dtype, *shape)
@@ -113,36 +141,98 @@ class Block(nn.Module):
                     mlp_p["wg"] = e(H, F)
                 self.mlp = nn.ParameterDict(mlp_p)
 
-    def _qkv(self, h: torch.Tensor, positions: torch.Tensor):
-        a = self.arch
+    def plan_mesh(self, comm: MeshComm) -> None:
+        """Take ``comm`` and pick the tensor-parallel sublayers from the
+        weights' placements (the weights are DTensors already)."""
+        a, M = self.arch, comm.size
+        self.comm = comm
+        if a.has_attention:
+            p = self.attn
+            per_rank, group = a.n_heads // M, a.n_heads // a.n_kv
+            tp = a.n_heads % M == 0 and comm.tp_shard(p["wq"], 1) and comm.tp_shard(p["wo"], 0)
+            self.kv_tp = tp and a.n_kv % M == 0 and comm.tp_shard(p["wk"], 1)
+            # without kv shards, each rank's q heads must share one kv head
+            self.attn_tp = tp and (self.kv_tp or group % per_rank == 0)
+        if hasattr(self, "mlp"):
+            self.mlp_tp = all(comm.tp_shard(w, 0 if n == "wo" else 1)
+                              for n, w in self.mlp.items())
+
+    def _w(self, p: torch.Tensor, partial: bool = False) -> torch.Tensor:
+        """Weight ``p`` whole, as a layer every model rank computes whole uses
+        it: itself on one device, else gathered (``MeshComm.weight``)."""
+        return p if self.comm is None else self.comm.weight(p, None, partial)
+
+    def _attn_weights(self, seq: bool):
+        """(wq, wk, wv, wo, q heads, kv heads) this rank computes with."""
+        a, p, c = self.arch, self.attn, self.comm
+        if c is None or not self.attn_tp:
+            return (*(self._w(p[n], seq) for n in ("wq", "wk", "wv", "wo")),
+                    a.n_heads, a.n_kv)
+        nh = a.n_heads // c.size
+        if self.kv_tp:
+            wk, wv, nkv = c.weight(p["wk"], 1), c.weight(p["wv"], 1), a.n_kv // c.size
+        else:                            # this rank's q heads share kv head kv0
+            hd, kv0 = a.head_dim, (c.rank * nh) // (a.n_heads // a.n_kv)
+            cols = slice(kv0 * hd, (kv0 + 1) * hd)
+            wk, wv, nkv = self._w(p["wk"], True)[:, cols], self._w(p["wv"], True)[:, cols], 1
+        return c.weight(p["wq"], 1), wk, wv, c.weight(p["wo"], 0), nh, nkv
+
+    def _qkv(self, h: torch.Tensor, positions: torch.Tensor, wq, wk, wv, nh: int, nkv: int):
+        hd = self.arch.head_dim
         B, S, _ = h.shape
-        q = (h @ self.attn["wq"]).reshape(B, S, a.n_heads, a.head_dim)
-        k = (h @ self.attn["wk"]).reshape(B, S, a.n_kv, a.head_dim)
-        v = (h @ self.attn["wv"]).reshape(B, S, a.n_kv, a.head_dim)
+        q = (h @ wq).reshape(B, S, nh, hd)
+        k = (h @ wk).reshape(B, S, nkv, hd)
+        v = (h @ wv).reshape(B, S, nkv, hd)
         return rope(q, positions), rope(k, positions), v
 
-    def _ffn(self, x: torch.Tensor):
+    def _enter(self, h: torch.Tensor, tp: bool, seq: bool) -> torch.Tensor:
+        """A sublayer's whole input rows (``MeshComm.tp_in`` / ``rep_in``)."""
+        c = self.comm
+        if c is None:
+            return h
+        return c.tp_in(h, seq) if tp else c.rep_in(h, seq)
+
+    def _leave(self, y: torch.Tensor, tp: bool, seq: bool) -> torch.Tensor:
+        """A sublayer's output in the residual's layout (``tp_out`` / ``rep_out``)."""
+        c = self.comm
+        if c is None:
+            return y
+        return c.tp_out(y, seq) if tp else c.rep_out(y, seq)
+
+    def _ffn(self, x: torch.Tensor, seq: bool = False):
         """``lm._run_ffn``: x plus the MLP or MoE of its pre-norm -> (x,
         aux). aux is {} without experts, else the layer's
         {"moe_drop", "moe_load_max"} (fp32 scalars)."""
-        a = self.arch
+        a, c = self.arch, self.comm
         if not hasattr(self, "norm2"):
             return x, {}
-        h = rmsnorm(x, self.norm2)
+        h = rmsnorm(x, self._w(self.norm2, seq))
         if not a.n_experts:
-            return x + mlp(h, self.mlp, a.mlp), {}
+            if c is not None and self.mlp_tp:
+                w = {n: c.weight(p, 0 if n == "wo" else 1) for n, p in self.mlp.items()}
+            else:
+                w = {n: self._w(p, seq) for n, p in self.mlp.items()}
+            y = mlp(self._enter(h, self.mlp_tp, seq), w, a.mlp)
+            return x + self._leave(y, self.mlp_tp, seq), {}
         B, S, H = x.shape
         out, aux = moe(h.reshape(B * S, H), self.moe, a.top_k, self.capacity_factor,
                        gated=a.mlp == "gated_silu")
         return x + out.reshape(B, S, H), {"moe_drop": aux["drop_fraction"],
                                           "moe_load_max": aux["load"].max().to(torch.float32)}
 
-    def _attn(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def _attn(self, h: torch.Tensor, positions: torch.Tensor, seq: bool = False) -> torch.Tensor:
         """``lm._run_attn``: h [B,S,H] -> [B,S,H] through the flash kernel."""
+        y = self._attn_rows(self._enter(h, self.attn_tp, seq), positions, seq)
+        return self._leave(y, self.attn_tp, seq)
+
+    def _attn_rows(self, h: torch.Tensor, positions: torch.Tensor, seq: bool) -> torch.Tensor:
+        """Attention of whole rows h [B,S,H]: the output, or on a tensor
+        parallel mesh this rank's heads' partial sum of it."""
+        wq, wk, wv, wo, nh, nkv = self._attn_weights(seq)
         B, S, _ = h.shape
-        q, k, v = self._qkv(h, positions)
+        q, k, v = self._qkv(h, positions, wq, wk, wv, nh, nkv)
         o = attention(q, k, v, causal=self.arch.causal, window=self.arch.window)
-        return o.reshape(B, S, -1) @ self.attn["wo"]
+        return o.reshape(B, S, -1) @ wo
 
     def _attn_decode(self, h: torch.Tensor, cache: Dict[str, torch.Tensor],
                      pos: int) -> torch.Tensor:
@@ -150,23 +240,24 @@ class Block(nn.Module):
         into slot ``pos`` of the layer's cache, ``pos % span`` for window
         archs (a ring of ``span`` slots), and attends over the
         ``min(pos + 1, span)`` slots written."""
+        a, p = self.arch, self.attn
         B = h.shape[0]
         posb = torch.full((B, 1), pos, device=h.device)
-        q, k, v = self._qkv(h, posb)
+        q, k, v = self._qkv(h, posb, p["wq"], p["wk"], p["wv"], a.n_heads, a.n_kv)
         k_cache, v_cache = cache["k"], cache["v"]
         span = k_cache.shape[1]
         slot = pos % span if self.arch.window else pos
         k_cache[:, slot] = k[:, 0]
         v_cache[:, slot] = v[:, 0]
         o = decode_attention(q, k_cache, v_cache, min(pos + 1, span))
-        return o.reshape(B, 1, -1) @ self.attn["wo"]
+        return o.reshape(B, 1, -1) @ p["wo"]
 
     def _split(self, proj: torch.Tensor):
         """in_proj's output -> z [.,di], xbc [.,conv_dim], dt's input [.,nh]."""
         a = self.arch
         return proj.split([a.d_inner, a.d_inner + 2 * a.ssm_state, a.ssm_n_heads], dim=-1)
 
-    def _ssm(self, h: torch.Tensor) -> torch.Tensor:
+    def _ssm(self, h: torch.Tensor, seq: bool = False) -> torch.Tensor:
         """``lm._run_ssm`` (prefill): h [B,S,H] -> [B,S,H]. The causal
         depthwise conv is the reference's K shifted multiply-adds in the
         activation type (not ``F.conv1d``: that keeps its rounding, and
@@ -177,7 +268,13 @@ class Block(nn.Module):
         roundings the port's bf16 gradients of A_log and dt_bias sat 1.9x
         further from fp32 than the reference's own bf16 (tiny mamba2,
         tests/test_torch_train.py). The MLP's ``silu`` keeps its two."""
-        a, p = self.arch, self.ssm
+        return self._leave(self._ssm_rows(self._enter(h, False, seq), seq), False, seq)
+
+    def _ssm_rows(self, h: torch.Tensor, partial: bool) -> torch.Tensor:
+        """The mixer of whole rows h [B,S,H], computed whole; ``partial``:
+        the weights' gradients on this rank are a part of theirs."""
+        a = self.arch
+        p = {n: self._w(w, partial) for n, w in self.ssm.items()}
         B, S, _ = h.shape
         di, N, nh, hp, K = a.d_inner, a.ssm_state, a.ssm_n_heads, a.ssm_headdim, a.conv_width
         cdt = h.dtype
@@ -218,16 +315,27 @@ class Block(nn.Module):
         return y @ p["out_proj"]
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        """x [B,S,H] -> (x [B,S,H], aux: {} or the MoE layer's stats)."""
-        h = rmsnorm(x, self.norm1)
+        """x [B,S,H] -> (x [B,S,H], aux: {} or the MoE layer's stats). On a
+        mesh x may be a sequence shard [B,S/model,H]; ``positions`` is
+        [B,S] either way."""
+        seq = x.shape[1] != positions.shape[1]
+        h = rmsnorm(x, self._w(self.norm1, seq))
         block = self.arch.block
         if block == "attn":
-            x = x + self._attn(h, positions)
+            x = x + self._attn(h, positions, seq)
         elif block == "ssm":
-            x = x + self._ssm(h)
+            x = x + self._ssm(h, seq)
+        elif self.comm is not None and self.attn_tp:
+            # hymba with parallel heads: one way in and out for both mixers,
+            # the mixer's share 1/model a rank (exact for a power of two), so
+            # the gradients add up in the order they do on one device
+            c = self.comm
+            h = c.tp_in(h, seq)
+            y = self._attn_rows(h, positions, seq) + self._ssm_rows(h, True) / c.size
+            x = x + c.tp_out(0.5 * y, seq)
         else:                               # hymba: parallel attn + mamba heads, mean
-            x = x + 0.5 * (self._attn(h, positions) + self._ssm(h))
-        return self._ffn(x)
+            x = x + 0.5 * (self._attn(h, positions, seq) + self._ssm(h, seq))
+        return self._ffn(x, seq)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
         """One token: x [B,1,H]; ``cache`` holds this layer's slices of the
@@ -248,36 +356,80 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """Embed (token archs only), ``num_layers`` blocks, final norm, head."""
+    """Embed (token archs only), ``num_layers`` blocks, final norm, head.
+
+    With ``cfg.mesh`` the model lives on that mesh: every weight is a
+    DTensor at ``ShardingPlanner``'s placements, each rank allocating its
+    shard only (uninitialised, as on one device; ``init_params`` and
+    ``train.step.init_train_state`` fill them from full weights). The
+    forward then takes this rank's batch rows and returns their logits,
+    the same on every rank of the "model" axis. Decode on a mesh is not
+    ported yet (ROADMAP §1)."""
 
     def __init__(self, arch: ArchConfig, cfg: RunCfg = RunCfg(), device=None):
         super().__init__()
-        _check_supported(arch)
-        device = resolve_device(device)
-        self.arch, self.cfg = arch, cfg
+        _check_supported(arch, cfg)
+        device = resolve_device(device) if cfg.mesh is None else mesh_device(cfg.mesh)
+        self.arch, self.cfg, self._device = arch, cfg, device
+        build = device if cfg.mesh is None else torch.device("meta")
         dt, H, V = cfg.compute_dtype, arch.d_model, arch.vocab
         if not arch.embeds_input:       # the reference makes no embed leaf for the others
-            self.embed = _empty(device, dt, V, H)
-        self.blocks = nn.ModuleList(Block(arch, cfg, device) for _ in range(arch.num_layers))
-        self.final_norm = _empty(device, dt, H)
-        self.lm_head = _empty(device, dt, H, V)
+            self.embed = _empty(build, dt, V, H)
+        self.blocks = nn.ModuleList(Block(arch, cfg, build) for _ in range(arch.num_layers))
+        self.final_norm = _empty(build, dt, H)
+        self.lm_head = _empty(build, dt, H, V)
+        self.comm: Optional[MeshComm] = None
+        if cfg.mesh is not None:
+            self._distribute(cfg.mesh)
+
+    def _distribute(self, mesh) -> None:
+        """Replace every (meta) weight by an empty DTensor at the planner's
+        placements, then plan the blocks' tensor parallelism."""
+        planner = ShardingPlanner(mesh, self.arch)
+        for name, pl in planner.params(self).items():
+            *path, leaf = name.split(".")
+            owner = self.get_submodule(".".join(path))
+            old = owner[leaf] if isinstance(owner, nn.ParameterDict) else getattr(owner, leaf)
+            w = nn.Parameter(MeshPlacements(mesh, pl).empty(old.shape, old.dtype, self._device))
+            if isinstance(owner, nn.ParameterDict):
+                owner[leaf] = w
+            else:
+                setattr(owner, leaf, w)
+        self.comm = MeshComm(mesh, self.cfg.seq_shard)
+        for blk in self.blocks:
+            blk.plan_mesh(self.comm)
 
     @property
     def device(self) -> torch.device:
-        return self.lm_head.device
+        return self._device
 
-    def _input(self, tokens, embeds) -> torch.Tensor:
+    def _input(self, tokens, embeds, seq: bool = False) -> torch.Tensor:
         """The first activation: embeds cast to the compute dtype for an
         embeds-input arch (the reference's ``forward`` and ``decode_step``),
         else the embed rows of tokens; raises when the arch's input is
-        missing."""
+        missing. ``seq``: on a mesh, the rows will be cut to this rank's
+        sequence shard (the embed's gradient is then partial)."""
         if self.arch.embeds_input:
             if embeds is None:
                 raise ValueError(f"{self.arch.name} takes precomputed embeddings (embeds=)")
             return embeds.to(self.cfg.compute_dtype)
         if tokens is None:
             raise ValueError(f"{self.arch.name} takes tokens")
-        return self.embed[tokens]
+        embed = self.embed if self.comm is None else self.comm.weight(self.embed, None, seq)
+        return embed[tokens]
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and head of whole rows -> logits in the compute dtype.
+        On a mesh the head is column-parallel over the vocab where V divides
+        "model" (the reference's vocab-sharded logits, ``lm.py:308``), and
+        the logits are gathered over "model" before the loss."""
+        c = self.comm
+        if c is None:
+            return rmsnorm(x, self.final_norm) @ self.lm_head
+        h = rmsnorm(x, c.weight(self.final_norm))
+        if c.tp_shard(self.lm_head, 1):
+            return c.vocab_full(c.tp_in(h, False) @ c.weight(self.lm_head, 1))
+        return h @ c.weight(self.lm_head)
 
     def forward(self, tokens: Optional[torch.Tensor] = None, logits_positions: str = "all",
                 with_aux: bool = False, embeds: Optional[torch.Tensor] = None):
@@ -286,23 +438,38 @@ class LM(nn.Module):
         ``logits_positions="last"`` (prefill: no [B,S,V] buffer). With
         ``with_aux``, (logits, aux): aux is {} without experts, else
         {"moe_drop", "moe_load_max"}, each the mean over the layers (the
-        reference's ``lax.scan`` then ``jnp.mean``)."""
-        x = self._input(tokens, embeds)
+        reference's ``lax.scan`` then ``jnp.mean``). On a mesh, inputs and
+        logits are this rank's batch rows; with ``seq_shard`` the residual
+        between blocks is this rank's sequence shard."""
+        c = self.comm
+        raw = embeds if self.arch.embeds_input else tokens
+        seq = c is not None and raw is not None and c.seq_sharded(raw.shape[1])
+        x = self._input(tokens, embeds, seq)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
+        if seq:
+            x = c.seq_local(x)
         remat = self.cfg.remat and torch.is_grad_enabled()
         per_layer = []
         for blk in self.blocks:
             x, aux = (checkpoint(blk, x, positions, use_reentrant=False) if remat
                       else blk(x, positions))
             per_layer.append(aux)
+        if seq:
+            x = c.seq_full(x)
         if logits_positions == "last":
             x = x[:, -1:]
-        logits = rmsnorm(x, self.final_norm) @ self.lm_head
+        logits = self._logits(x)
         logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
         if not with_aux:
             return logits
         return logits, {k: torch.stack([a[k] for a in per_layer]).mean() for k in per_layer[0]}
+
+    def _one_device(self, what: str) -> None:
+        if self.comm is not None:
+            raise NotImplementedError(
+                f"{what} on a mesh is sharded decode (context-parallel KV over 'model', "
+                f"cache_pspecs), not ported yet (ROADMAP §1)")
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         """Attention archs: KV cache k, v [L,B,span,nkv,hd] in the compute
@@ -310,6 +477,7 @@ class LM(nn.Module):
         and hybrid archs: the conv window [L,B,K-1,conv_dim] in the compute
         dtype and the state [L,B,nh,hp,N] in fp32, whatever ``max_len``
         (hybrid archs keep both sets)."""
+        self._one_device("init_cache")
         a, L, dt = self.arch, self.arch.num_layers, self.cfg.compute_dtype
         z = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=self.device)
         cache = {}
@@ -329,6 +497,7 @@ class LM(nn.Module):
         an embeds-input arch, embeds [B,H]) -> fp32 logits [B,V]. ``cache``
         is updated in place: the KV slots of ``pos`` and/or the conv
         windows and SSM states (``lm._decode_ssm``)."""
+        self._one_device("decode_step")
         x = self._input(tokens, embeds)[:, None]
         for i, blk in enumerate(self.blocks):
             x = blk.decode(x, {name: c[i] for name, c in cache.items()}, pos)
@@ -342,19 +511,29 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Di
     or ``embeds`` [B,S,H] (embeds-input archs), ``labels`` [B,S], optional
     ``loss_mask`` [B,S] (the mean over its ones, at least one). Returns
     (loss, {"loss": loss, **aux}): MoE archs add the forward's
-    ``moe_drop`` and ``moe_load_max``."""
+    ``moe_drop`` and ``moe_load_max``.
+
+    On a mesh the batch is this rank's rows and the first value is this
+    rank's share of the loss, the one to differentiate: the local mean over
+    the number of batch ranks, or the local masked sum over the global mask
+    count (so a batch replicated over the batch axes, where B does not
+    divide them, counts once). metrics["loss"] is the shares' sum over the
+    batch axes, the loss."""
     logits, aux = model(batch.get("tokens"), with_aux=True, embeds=batch.get("embeds"))
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
     nll = lse - ll
     mask = batch.get("loss_mask")
+    c = model.comm
     if mask is None:
-        loss = nll.mean()
+        loss = nll.mean() if c is None else nll.mean() / c.batch_ranks()
     else:
         mask = mask.to(nll.dtype)
-        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return loss, {"loss": loss, **aux}
+        count = mask.sum() if c is None else c.sum_over_batch(mask.sum())
+        loss = (nll * mask).sum() / torch.clamp(count, min=1.0)
+    total = loss if c is None else c.sum_over_batch(loss)
+    return loss, {"loss": total, **aux}
 
 
 def _dense(gen: torch.Generator, shape, scale: float, cfg: RunCfg, device) -> torch.Tensor:
@@ -379,7 +558,17 @@ def init_params(arch: ArchConfig, generator: torch.Generator, cfg: RunCfg = RunC
     The SSM leaves follow ``lm._ssm_layer_params``: conv_w std 0.3, conv_b
     0, A_log = log U(1, 16), D = 1, dt_bias the inverse softplus of
     U(1e-3, 1e-1); the MoE leaves ``lm._moe_layer_params``: router std
-    0.02, wo (1/F)^0.5 / (2L)^0.5 with F = d_ff_expert."""
+    0.02, wo (1/F)^0.5 / (2L)^0.5 with F = d_ff_expert.
+
+    With ``cfg.mesh`` every rank draws the whole model (on the mesh's
+    device) and keeps its shards: the weights of the single-device model."""
+    if cfg.mesh is not None:
+        whole = init_params(arch, generator, dataclasses.replace(cfg, mesh=None),
+                            mesh_device(cfg.mesh))
+        model = LM(arch, cfg)
+        for (name, w), (_, full) in zip(model.named_parameters(), whole.named_parameters()):
+            local(w).copy_(local(MeshPlacements(cfg.mesh, tuple(w.placements)).distribute(full)))
+        return model
     model = LM(arch, cfg, device)
     dev = model.device
     if generator.device.type != dev.type:

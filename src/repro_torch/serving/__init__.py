@@ -1,4 +1,4 @@
-"""Serving entry points of the port (single device)."""
+"""Serving entry points of the port (prefill also on a mesh)."""
 
 from .serve import greedy_generate, make_prefill_step, make_serve_step
 

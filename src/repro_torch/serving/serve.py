@@ -1,13 +1,17 @@
-"""Single-device serve step, prefill and greedy generation, with the
-semantics of ``repro.serving.serve``. The model carries its arch and run
-config; every entry point runs under ``torch.inference_mode()`` on the
-model's device. The decode cache is updated in place."""
+"""Serve step, prefill and greedy generation, with the semantics of
+``repro.serving.serve``. The model carries its arch and run config; every
+entry point runs under ``torch.inference_mode()`` on the model's device.
+The decode cache is updated in place. Prefill also runs a model built on
+a mesh (batch over data); the serve step and ``greedy_generate`` are
+single-device until sharded decode is ported (ROADMAP §1)."""
 
 from __future__ import annotations
 
 import torch
 
 from ..models.lm import LM
+from ..parallel.comm import gather_dim
+from ..parallel.sharding import local_rows
 
 __all__ = ["make_serve_step", "make_prefill_step", "greedy_generate"]
 
@@ -33,14 +37,25 @@ def make_serve_step(model: LM):
 def make_prefill_step(model: LM):
     """Batched prefill: (batch with ``tokens`` [B,S], or ``embeds`` [B,S,H]
     for an embeds-input arch) -> logits, only the last position's
-    ([B,1,V]) for causal archs, every position's ([B,S,V]) for encoders."""
+    ([B,1,V]) for causal archs, every position's ([B,S,V]) for encoders.
+    For a model built on a mesh, every rank passes the whole batch and
+    gets the whole logits back: each rank runs its rows (the batch over
+    (pod?, data), replicated where B does not divide) and the logits are
+    gathered over the batch axes."""
     positions = "last" if model.arch.causal else "all"
     key = "embeds" if model.arch.embeds_input else "tokens"
 
     @torch.inference_mode()
     def prefill(batch):
-        x = torch.as_tensor(batch[key], device=model.device)
-        return model(logits_positions=positions, **{key: x})
+        whole = torch.as_tensor(batch[key], device=model.device)
+        mesh = model.cfg.mesh
+        x = whole if mesh is None else local_rows(whole, mesh, model.comm.batch_axes)
+        logits = model(logits_positions=positions, **{key: x})
+        if x.shape[0] == whole.shape[0]:          # one device, or a replicated batch
+            return logits
+        for d in reversed(model.comm.batch_dims):  # minor axis first
+            logits = gather_dim(logits, 0, mesh.get_group(d))
+        return logits
 
     return prefill
 

@@ -1,4 +1,5 @@
 """Training substrate of the port: the counterpart of ``repro.train``
-(optimizer, microbatched single-device train step, the numpy data
-pipeline, checkpoints in the reference's on-disk format, straggler
-monitoring and restart)."""
+(optimizer, the microbatched train step on one device or FSDP x
+TP-sharded on a mesh, the numpy data pipeline, checkpoints in the
+reference's on-disk format, straggler monitoring, restart and elastic
+resharding)."""

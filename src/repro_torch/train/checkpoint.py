@@ -17,6 +17,10 @@ writes a bf16 leaf through ``ml_dtypes``, which ``np.savez`` stores as raw
 writes the same bytes without ``ml_dtypes`` (the tensor's bits viewed as
 ``|V2``) and, reading the dtype from the manifest, restores such a leaf as
 a CPU bf16 tensor.
+
+A sharded state (DTensor leaves) writes the same files: every rank gathers
+each leaf (``full_tensor``) and rank 0 writes. ``restore_checkpoint`` with
+``placements`` hands its leaves back as DTensors on a mesh, any mesh.
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.comm import is_dtensor
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "restore_latest", "latest_step",
            "CheckpointManager", "to_numpy_tree", "leaf_tensor"]
@@ -41,6 +48,8 @@ _RAW2 = np.dtype("V2")
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        if is_dtensor(leaf):             # a collective: every rank of its mesh calls it
+            leaf = leaf.full_tensor()
         if leaf.dtype == torch.bfloat16:
             return leaf.contiguous().view(torch.int16).cpu().numpy().view(_RAW2)
         return leaf.cpu().numpy()
@@ -86,7 +95,21 @@ def _flatten(tree, prefix=()) -> Dict[str, Any]:
 
 def save_checkpoint(ckpt_dir, step: int, state: Dict[str, Any],
                     extra: Optional[Dict] = None, keep_last: int = 3) -> Path:
-    """state: dict of trees (e.g. {"params": ..., "opt_state": ...})."""
+    """state: dict of trees (e.g. {"params": ..., "opt_state": ...}). With a
+    process group (a sharded state), every rank calls it: DTensor leaves
+    are gathered, rank 0 writes, and the others wait for it at a barrier."""
+    if dist.is_initialized():
+        host = {name: to_numpy_tree(tree) for name, tree in state.items()}
+        final = Path(ckpt_dir) / f"step_{step:08d}"
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, host, extra, keep_last)
+        dist.barrier()
+        return final
+    return _write(ckpt_dir, step, state, extra, keep_last)
+
+
+def _write(ckpt_dir, step: int, state: Dict[str, Any], extra: Optional[Dict],
+           keep_last: int) -> Path:
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
@@ -132,27 +155,36 @@ def _unflatten(flat: Dict[str, Any]) -> Dict:
     return tree
 
 
-def restore_checkpoint(ckpt_dir, step: int) -> Tuple[Dict[str, Any], Dict]:
+def restore_checkpoint(ckpt_dir, step: int, placements: Optional[Dict[str, Dict]] = None
+                       ) -> Tuple[Dict[str, Any], Dict]:
     """(every tree of the checkpoint as nested dicts of numpy arrays, and
-    of CPU bf16 tensors where the manifest says ``"bfloat16"``, extra)."""
+    of CPU bf16 tensors where the manifest says ``"bfloat16"``, extra).
+    ``placements`` (the counterpart of the reference's ``shardings``) maps
+    a tree name to {leaf path in the tree: ``MeshPlacements``}
+    (``ShardingPlanner.checkpoint``): those leaves come back as DTensors
+    on that mesh, each rank holding its shards."""
     path = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((path / "manifest.json").read_text())
+    placements = placements or {}
 
-    def leaf(a, meta):
-        return leaf_tensor(a.view(_RAW2)) if meta["dtype"] == BF16 else a
+    def leaf(a, meta, placed):
+        if meta["dtype"] == BF16 or placed is not None:
+            a = leaf_tensor(a.view(_RAW2) if meta["dtype"] == BF16 else a)
+        return a if placed is None else placed.distribute(a)
 
     with np.load(path / "arrays.npz") as data:
-        state = {name: _unflatten({k: leaf(data[f"{name}::{k}"], meta)
+        state = {name: _unflatten({k: leaf(data[f"{name}::{k}"], meta,
+                                           placements.get(name, {}).get(k))
                                    for k, meta in keys.items()})
                  for name, keys in manifest["trees"].items()}
     return state, manifest["extra"]
 
 
-def restore_latest(ckpt_dir):
+def restore_latest(ckpt_dir, placements=None):
     step = latest_step(ckpt_dir)
     if step is None:
         return None, None, None
-    state, extra = restore_checkpoint(ckpt_dir, step)
+    state, extra = restore_checkpoint(ckpt_dir, step, placements)
     return step, state, extra
 
 
@@ -175,10 +207,12 @@ class CheckpointManager:
             return False
         self.wait()
         host_state = to_numpy_tree(state() if callable(state) else state)
+        if dist.is_initialized():           # every rank takes part: save in this thread
+            save_checkpoint(self.dir, step, host_state, extra, self.keep_last)
+            return True
         self._pending = threading.Thread(
-            target=save_checkpoint,
-            args=(self.dir, step, host_state),
-            kwargs={"extra": extra, "keep_last": self.keep_last})
+            target=_write,
+            args=(self.dir, step, host_state, extra, self.keep_last))
         self._pending.start()
         if block:
             self.wait()

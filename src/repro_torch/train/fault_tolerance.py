@@ -1,13 +1,16 @@
-"""Fault tolerance: straggler detection and checkpoint/restart, copied
-from ``repro.train.fault_tolerance`` (whose module imports jax, so the port
-keeps its own copy). ``elastic_reshard`` moves a state onto another mesh
-and comes with distribution (ROADMAP queue 1).
+"""Fault tolerance: straggler detection, checkpoint/restart and elastic
+mesh resharding, the counterpart of ``repro.train.fault_tolerance``
+(whose module imports jax, so the port keeps its own copy).
 
 * :class:`StragglerMonitor` — per-step wall-time ring buffer; flags steps
   exceeding ``threshold x`` the running median and recommends an action.
 * :func:`run_with_restart` — drives a step function under a fault
   injector; on failure restores the latest checkpoint and replays
   (exactly-once semantics come from the counter-based data pipeline).
+* :func:`elastic_reshard` — moves a sharded state onto a different mesh
+  (e.g. after losing part of it): every leaf's placements derive from its
+  name (``parallel.sharding``), so resharding is a gather to the host and
+  a distribution at the new mesh's placements.
 """
 
 from __future__ import annotations
@@ -17,7 +20,10 @@ import statistics
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-__all__ = ["StragglerMonitor", "run_with_restart"]
+from ..parallel.comm import is_dtensor
+from ..parallel.sharding import MeshPlacements, ShardingPlanner
+
+__all__ = ["StragglerMonitor", "run_with_restart", "elastic_reshard"]
 
 
 @dataclass
@@ -79,3 +85,29 @@ def run_with_restart(
             else:
                 state, step = restored, last
     return state, {"restarts": restarts, "final_step": step}
+
+
+def elastic_reshard(state: Dict[str, Any], arch, new_mesh) -> Dict[str, Any]:
+    """Re-place a {"params": {name: tensor}, "opt_state": {"m", "v", "step"}}
+    state onto ``new_mesh`` (grown or shrunk): each leaf gathered whole
+    (``full_tensor``, a collective over its old mesh, which every rank of
+    the process group calls) and distributed at the new mesh's placements
+    (``ShardingPlanner``). Plain tensors are taken as whole. The step, a
+    scalar, and any other entry come back as they are. Ranks outside
+    ``new_mesh`` get empty shards."""
+    whole = lambda t: t.full_tensor() if is_dtensor(t) else t
+    planner = ShardingPlanner(new_mesh, arch)
+    out: Dict[str, Any] = dict(state)
+    names = state["params"] if "params" in state else state["opt_state"]["m"]
+    placed = planner.params({n: tuple(t.shape) for n, t in names.items()})
+
+    def move(tree):
+        return {n: MeshPlacements(new_mesh, placed[n]).distribute(whole(t.detach()))
+                for n, t in tree.items()}
+
+    if "params" in state:
+        out["params"] = move(state["params"])
+    if "opt_state" in state:
+        opt = state["opt_state"]
+        out["opt_state"] = {**opt, "m": move(opt["m"]), "v": move(opt["v"])}
+    return out

@@ -405,3 +405,55 @@ def test_rmsnorm_bwd_register_widths_are_the_instantiated_ones():
         assert all(h == h2 for h, h2, _ in cases)
         assert {int(h): int(g) for h, _, g in cases} == BWD_ROW_GROUPS
     assert set(BWD_ROW_GROUPS) == {256 * v for v in ROW_VPL} | {1536, 1600, 3200}
+
+
+# ------------------------------------------------------------------ DTensor arguments
+
+@pytest.fixture(scope="module")
+def one_rank_mesh(tmp_path_factory):
+    """A (1, 1) ("data", "model") CPU mesh over a one-rank gloo group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    store = dist.FileStore(str(tmp_path_factory.mktemp("pg") / "store"), 1)
+    dist.init_process_group("gloo", rank=0, world_size=1, store=store)
+    try:
+        yield init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dtensor_calls():
+    """(name, call(as_dtensor)) for every wrapper and named check: each
+    call passes its first tensor argument through ``as_dtensor``."""
+    from repro_torch import kernels
+    from repro_torch.kernels.ssd_scan import _check_rows
+    q, k, v = _qkv(B=1, S=16, nh=2, nkv=1, hd=32, dtype=F32)
+    lse = torch.zeros(1, 2, 16)
+    x, w = torch.zeros(4, 64), torch.ones(64)
+    sx, sdt, sA = torch.zeros(1, 2, 16, 16), torch.zeros(1, 2, 16), -torch.ones(2)
+    sB = torch.zeros(1, 16, 16)
+    return [
+        ("flash_attention", lambda d: kernels.flash_attention(d(q), k, v)),
+        ("flash_attention_bwd", lambda d: kernels.flash_attention_bwd(d(q), k, v, q, q, lse)),
+        ("flash check_args", lambda d: flash_check(d(q), k, v, 0)),
+        ("flash check_bwd_args", lambda d: flash_bwd_check(q, k, v, d(q), q, 0)),
+        ("rmsnorm", lambda d: kernels.rmsnorm(d(x), w)),
+        ("rmsnorm_bwd", lambda d: kernels.rmsnorm_bwd(d(x), w, x)),
+        ("rmsnorm check_args", lambda d: rmsnorm_check(d(x), w)),
+        ("ssd_scan", lambda d: kernels.ssd_scan(d(sx), sdt, sA, sB, sB)),
+        ("ssd_scan_bwd", lambda d: kernels.ssd_scan_bwd(d(sx), sdt, sA, sB, sB, sx)),
+        ("ssd _check_rows", lambda d: _check_rows("x", d(sx))),
+    ]
+
+
+@pytest.mark.parametrize("case", range(10), ids=[n for n, _ in _dtensor_calls()])
+def test_wrappers_refuse_dtensors(one_rank_mesh, case):
+    """A DTensor would launch a kernel on its local shard under its global
+    shape: every wrapper and named check raises on one, before it looks at
+    the device (so here, on the CPU, too)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    name, call = _dtensor_calls()[case]
+    as_dtensor = lambda t: DTensor.from_local(t, one_rank_mesh, [Replicate(), Replicate()])
+    with pytest.raises(TypeError, match="DTensor"):
+        call(as_dtensor)
+    call(lambda t: t)               # the same call on plain tensors passes
