@@ -47,7 +47,22 @@ Phases, each of which fails the run by raising:
      16 layers (3 steps) and hymba-1.5b at 4 (one), each from the training
      phase's seed and batch; the first sharded step's launches, loss and
      fp32 masters must equal the single-device step's (bit for bit), then
-     its time and peak memory beside the training phase's step.
+     its time and peak memory beside the training phase's step;
+  8. sharded serving and expert parallelism in the same one-rank NCCL
+     group on the (1, 1) mesh: full-width yi-6b, mamba2-2.7b, hymba-1.5b
+     and granite-moe-3b-a800m (bf16, the serving phase's seed) decode B=4
+     on the mesh (the KV cache context parallel over "model", the SSM
+     state's heads over it, each layer's weights gathered, granite's
+     experts through ``moe_ep``) and on one device in turn, at positions
+     2-33 and 1985-2016 of a 2,048-slot cache (hymba past its ring;
+     mamba2 at 2-33 only), llava-next-34b at 4 layers from embeddings:
+     tokens and logits bit-equal at every step, each step's launches equal
+     to the single-device step's, then ms/token beside one device and the
+     peak memory; granite-moe at 4 layers trains one sharded step (the
+     expert-parallel layer both ways) whose launches, loss and masters
+     equal the single-device step's; ``compressed_psum`` and a one-stage
+     ``pipeline_apply`` (and its gradient) over NCCL against their
+     one-rank results.
 The last line is one JSON object with ``"ok": true`` and the device. It
 needs a CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -2056,15 +2071,11 @@ def sharded_step_gate(name, layers, steps, total, mesh, single=None, remat=False
         f"same call){beside}")
 
 
-def phase_sharded(total, single_steps):
-    """Section 7: a one-rank NCCL process group (a FileStore in a temporary
-    directory), the (1, 1) ("data", "model") mesh of ``launch.mesh.make_mesh``,
-    then ``sharded_step_gate`` for yi-6b at TRAIN_LAYERS' 16 layers (3
-    steps, timed beside the training phase's step; then one step with
-    remat on, the peak memory beside the single-device step's) and
-    hymba-1.5b at 4 layers (one step with remat off and one with it on:
-    the SSD scan, the windowed flash and the fused mixers on the sharded
-    path). The process group is destroyed at the end."""
+@contextlib.contextmanager
+def one_rank_nccl():
+    """A one-rank NCCL process group (a FileStore in a temporary directory)
+    and the (1, 1) ("data", "model") mesh of ``launch.mesh.make_mesh`` on
+    it; the group is destroyed at the end."""
     import os
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -2075,15 +2086,181 @@ def phase_sharded(total, single_steps):
                             store=dist.FileStore(os.path.join(tmp, "store"), 1),
                             device_id=torch.device("cuda", 0))
     try:
-        mesh = make_mesh((1, 1), ("data", "model"))
-        sharded_step_gate("yi-6b", TRAIN_LAYERS["yi-6b"], 3, total, mesh,
-                          single_steps.get("yi-6b"))
-        sharded_step_gate("yi-6b", TRAIN_LAYERS["yi-6b"], 1, total, mesh, remat=True)
-        sharded_step_gate("hymba-1.5b", 4, 1, total, mesh)
-        sharded_step_gate("hymba-1.5b", 4, 1, total, mesh, remat=True)
+        yield make_mesh((1, 1), ("data", "model"))
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_sharded(total, single_steps, mesh):
+    """Section 7, on ``mesh`` (``one_rank_nccl``): ``sharded_step_gate`` for
+    yi-6b at TRAIN_LAYERS' 16 layers (3 steps, timed beside the training
+    phase's step; then one step with remat on, the peak memory beside the
+    single-device step's) and hymba-1.5b at 4 layers (one step with remat
+    off and one with it on: the SSD scan, the windowed flash and the fused
+    mixers on the sharded path)."""
+    sharded_step_gate("yi-6b", TRAIN_LAYERS["yi-6b"], 3, total, mesh,
+                      single_steps.get("yi-6b"))
+    sharded_step_gate("yi-6b", TRAIN_LAYERS["yi-6b"], 1, total, mesh, remat=True)
+    sharded_step_gate("hymba-1.5b", 4, 1, total, mesh)
+    sharded_step_gate("hymba-1.5b", 4, 1, total, mesh, remat=True)
+
+
+# --------------------------------------------------------------------------
+# 8. sharded serving and expert parallelism on the (1, 1) mesh
+# --------------------------------------------------------------------------
+
+# decode B=4: (cache slots, first timed position) as the serving phase's
+# decode spans; mamba2's state does not grow with the context
+MESH_DECODE = {"yi-6b": ((40, 1), (2048, 1984)), "mamba2-2.7b": ((40, 1),),
+               "hymba-1.5b": ((40, 1), (2048, 1984)),
+               "granite-moe-3b-a800m": ((40, 1), (2048, 1984))}
+MESH_DECODE_STEPS = 32
+# llava-next-34b decodes from embeddings at 4 of its 60 layers: two copies of
+# all 60 (67.9 GB each) do not fit one card
+MESH_LLAVA_LAYERS = 4
+
+
+@torch.no_grad()
+def _on_mesh(model, mesh):
+    """``model``'s weights in an ``LM`` built on ``mesh`` (each rank its
+    shards; on the (1, 1) mesh a copy of each weight)."""
+    import dataclasses
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel.comm import local
+    from repro_torch.parallel.sharding import MeshPlacements
+    sharded = LM(model.arch, dataclasses.replace(model.cfg, mesh=mesh))
+    for (name, w), (_, p) in zip(sharded.named_parameters(), model.named_parameters()):
+        local(w).copy_(local(MeshPlacements(mesh, tuple(w.placements)).distribute(p)))
+    return sharded
+
+
+def _decode_gated(model, span, first, start, feed=None):
+    """MESH_DECODE_STEPS serve steps of ``model`` at ``first``, ... from a
+    fresh ``span``-slot cache after one step at ``first - 1``: the greedy
+    tokens fed back (or, for an embeds-input arch, ``feed`` [B, steps + 1,
+    H]), each step's launches counted (a synchronise after each step).
+    Returns (tokens, logits, launches of each step, ms/token on the host
+    clock over the steps)."""
+    from repro_torch.serving.serve import make_serve_step
+    serve = make_serve_step(model)
+    cache = model.init_cache(4, span)
+    tok = serve(cache, start if feed is None else feed[:, 0], first - 1)[0]
+    toks, logits, counts = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, pos in enumerate(range(first, first + MESH_DECODE_STEPS)):
+        x = tok if feed is None else feed[:, i + 1]
+        (tok, lg, _), n = _counts_since_reset(lambda: serve(cache, x, pos))
+        toks.append(tok)
+        logits.append(lg)
+        counts.append(n)
+    ms = (time.perf_counter() - t0) * 1e3 / MESH_DECODE_STEPS
+    return torch.stack(toks), torch.stack(logits), counts, ms
+
+
+def mesh_decode_gate(name, mesh, total, layers=None, spans=((40, 1),)):
+    """Full-width ``name`` (cut to ``layers``) in bf16 from the serving
+    phase's seed, on one device and on ``mesh``: for each (cache slots,
+    first position) of ``spans``, MESH_DECODE_STEPS decode steps of B=4
+    each way (``_decode_gated``; one device first, then the mesh, the other
+    way round at the next span), the mesh's launches added to ``total``.
+    Gates: tokens and fp32 logits equal bit for bit at every step, each
+    step's launches equal. Logs the steps' ms/token each way and the peak
+    memory of the mesh's decode (both models held)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import RunCfg, init_params
+    arch = get_config(name)
+    if layers:
+        arch = dataclasses.replace(arch, num_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    single = init_params(arch, gen, RunCfg(compute_dtype=torch.bfloat16), device="cuda")
+    sharded = _on_mesh(single, mesh)
+    start = torch.randint(0, arch.vocab, (4,), generator=gen, device="cuda")
+    feed = (_prompt(arch, gen, 4, MESH_DECODE_STEPS + 1) if arch.embeds_input else None)
+    times = []
+    for k, (span, first) in enumerate(spans):
+        runs = {}
+        for who in (("one device", "mesh") if k % 2 == 0 else ("mesh", "one device")):
+            if who == "mesh":
+                torch.cuda.reset_peak_memory_stats()
+            runs[who] = _decode_gated(sharded if who == "mesh" else single, span, first, start,
+                                      feed)
+            if who == "mesh":
+                peak = torch.cuda.max_memory_allocated() / 2**30
+        got, want = runs["mesh"], runs["one device"]
+        for counts in got[2]:
+            total.add(counts, arch)
+        steps = f"{name} decode B=4 at {first + 1}-{first + MESH_DECODE_STEPS} of {span} slots"
+        if not torch.equal(got[0], want[0]):
+            bad = (got[0] != want[0]).any(dim=1).nonzero()[0, 0].item()
+            raise AssertionError(f"{steps}: the mesh's tokens differ from one device's at step "
+                                 f"{bad}")
+        if not torch.equal(got[1], want[1]):
+            bad = (got[1] != want[1]).flatten(1).any(dim=1).nonzero()[0, 0].item()
+            raise AssertionError(f"{steps}: the mesh's logits differ from one device's from step "
+                                 f"{bad} (max |diff| {(got[1] - want[1]).abs().max().item():.3g})")
+        if got[2] != want[2]:
+            raise AssertionError(f"{steps}: launches a step, mesh {got[2][0]}, one device "
+                                 f"{want[2][0]}")
+        log(f"[mesh] {steps}: tokens and logits equal to one device's bit for bit at every "
+            f"step; launches a step {got[2][0]} (equal)")
+        times.append(f"{first + 1}-{first + MESH_DECODE_STEPS} of {span}: mesh {got[3]:.3f}, "
+                     f"one device {want[3]:.3f} ({got[3] / want[3]:.2f}x); mesh decode peak "
+                     f"{peak:.2f} GiB")
+    log(f"[time] {name} ({arch.num_layers} layers) decode B=4 ms/token on the (1, 1) mesh over "
+        f"NCCL and on one device, each step synchronised: {'; '.join(times)}")
+    del single, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_parallel_utilities(mesh):
+    """``compressed_psum`` over the mesh's "model" group (one rank, NCCL)
+    against the one-rank result (its own scales, no sum); ``pipeline_apply``
+    with one stage on "model" (G 4 microbatches [4, 4096], stage tanh(x @
+    w), the ring's send and receive to itself) and its gradient against
+    the stage applied to each microbatch, bit for bit."""
+    from repro_torch.parallel.compression import compressed_psum, dequantize_int8, quantize_int8
+    from repro_torch.parallel.pipeline import pipeline_apply
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(4096, 1000, generator=gen, device="cuda")
+    got = compressed_psum(x, mesh.get_group("model"))
+    want = dequantize_int8(*quantize_int8(x), x.shape, x.dtype)
+    if not torch.equal(got, want):
+        raise AssertionError("compressed_psum over one rank differs from its one-rank result")
+    err = ((got - x).norm() / x.norm()).item()
+    w = (torch.randn(1, 4096, 4096, generator=gen, device="cuda") / 64).requires_grad_()
+    mbs = torch.randn(4, 4, 4096, generator=gen, device="cuda")
+    stage = lambda w, x: torch.tanh(x @ w)
+    piped = pipeline_apply(stage, w, mbs, mesh, axis="model")
+    (piped ** 2).sum().backward()
+    w2 = w.detach().clone().requires_grad_()
+    seq = torch.stack([stage(w2[0], m) for m in mbs])
+    (seq ** 2).sum().backward()
+    grad_rel = ((w.grad - w2.grad).norm() / w2.grad.norm()).item()
+    if not torch.equal(piped, seq) or grad_rel > 1e-6:
+        raise AssertionError(f"pipeline_apply over one stage differs from the stage applied in "
+                             f"turn (outputs equal: {torch.equal(piped, seq)}, the gradient "
+                             f"{grad_rel:.3g} relative L2)")
+    log(f"[mesh] compressed_psum of [4096, 1000] fp32 over NCCL: equal to the one-rank int8 "
+        f"round trip (relative L2 {err:.3g} from x); pipeline_apply, 1 stage x 4 microbatches "
+        f"[4, 4096]: outputs equal to the stage applied in turn, its gradient "
+        f"{'equal' if torch.equal(w.grad, w2.grad) else f'{grad_rel:.3g} relative L2'}")
+
+
+def phase_mesh_serving(total, mesh):
+    """Section 8, on ``mesh`` (``one_rank_nccl``): ``mesh_decode_gate`` for
+    MESH_DECODE's models at full depth and llava-next-34b at
+    MESH_LLAVA_LAYERS; granite-moe's sharded train step at 4 layers
+    (``sharded_step_gate``: the expert-parallel layer forward and backward,
+    bit for bit); then ``mesh_parallel_utilities``."""
+    for name, spans in MESH_DECODE.items():
+        mesh_decode_gate(name, mesh, total, spans=spans)
+    mesh_decode_gate("llava-next-34b", mesh, total, layers=MESH_LLAVA_LAYERS)
+    sharded_step_gate("granite-moe-3b-a800m", 4, 1, total, mesh)
+    mesh_parallel_utilities(mesh)
 
 
 def kernel_line(rows, errs, total):
@@ -2322,8 +2499,12 @@ def main() -> int:
     phase_done("llava-next-34b serving")
     train_rows, single_steps = phase_train(total, phase_done)
     rows += train_rows
-    phase_sharded(total, single_steps)
-    phase_done("sharded training")
+    with one_rank_nccl() as mesh:
+        phase_sharded(total, single_steps, mesh)
+        phase_done("sharded training")
+        torch.cuda.reset_peak_memory_stats()
+        phase_mesh_serving(total, mesh)
+        phase_done("sharded serving and expert parallelism")
     for name in [*SOURCES]:
         if not total.get(name):
             raise AssertionError(f"kernel {name} was never launched on the main path")

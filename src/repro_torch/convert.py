@@ -53,7 +53,8 @@ def _leaf_paths(tree, prefix=()):
 def params_from_numpy(tree: Dict, arch: ArchConfig, cfg: RunCfg = RunCfg(),
                       device=None) -> LM:
     """Build an ``LM`` from the reference's parameter tree (numpy leaves, or
-    anything ``np.asarray`` takes). Weights are cast to ``cfg.compute_dtype``."""
+    anything ``np.asarray`` takes). Weights are cast to ``cfg.compute_dtype``.
+    With ``cfg.mesh`` every rank passes the whole tree and keeps its shards."""
     model = LM(arch, cfg, device)
     params = dict(model.named_parameters())
     want = {tree_path(n)[0] for n in params}
@@ -71,7 +72,10 @@ def params_from_numpy(tree: Dict, arch: ArchConfig, cfg: RunCfg = RunCfg(),
             a = a[layer]
         if a.shape != tuple(p.shape):
             raise ValueError(f"{'/'.join(path)}: tree has {a.shape}, model wants {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+        w = torch.from_numpy(np.array(a, dtype=np.float32))
+        if is_dtensor(p):               # a model on a mesh: this rank's shard
+            w = MeshPlacements(p.device_mesh, tuple(p.placements)).distribute(w)
+        local(p).copy_(local(w))
     return model
 
 

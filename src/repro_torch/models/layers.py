@@ -1,5 +1,4 @@
-"""Model primitives of the port: ``repro.models.layers`` without the
-expert-parallel ``moe_ep`` (it comes with distribution).
+"""Model primitives of the port: ``repro.models.layers``.
 
 ``rmsnorm``, ``attention`` and ``ssd_scan`` go through the port's kernels
 (``repro_torch.kernels``): the CUDA kernel for CUDA tensors, the plain
@@ -11,15 +10,16 @@ plain JAX in the reference. Layouts are the reference's: activations
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import kernels
 
-__all__ = ["rmsnorm", "rope", "attention", "decode_attention", "mlp", "moe", "ssd_scan",
-           "ssm_decode_step", "silu", "softplus", "squared_relu", "gelu"]
+__all__ = ["rmsnorm", "rope", "attention", "decode_attention", "mlp", "moe", "moe_ep",
+           "ssd_scan", "ssm_decode_step", "silu", "softplus", "squared_relu", "gelu"]
 
 
 def silu(x):
@@ -70,16 +70,6 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> t
     return out.to(x.dtype)
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Grouped attention of q [B,Q,nkv,g,hd] over all of k, v [B,S,nkv,hd],
-    with the reference's rounding: scores in the input type, softmax in
-    fp32, probabilities cast to v's type."""
-    scale = q.shape[-1] ** -0.5
-    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k) * scale
-    probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
-    return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
-
-
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0) -> torch.Tensor:
     """Training/prefill attention through the flash kernel.
@@ -105,15 +95,40 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     cache_len: int) -> torch.Tensor:
+                     cache_len: int, group=None) -> torch.Tensor:
     """q: [B,1,nh,hd]; caches [B,S_max,nkv,hd]; ``cache_len`` valid slots
-    (new token included). Plain PyTorch, as the reference: the slots past
+    (new token included). Plain PyTorch, as the reference's ``_attend``:
+    scores in the input type, the softmax in fp32 (row max, exp, row sum,
+    divide), probabilities cast to v's type before p v. The slots past
     ``cache_len``, which the reference masks, are sliced off instead; they
-    would add exact zeros to the softmax."""
+    would add exact zeros to the softmax.
+
+    With ``group``, the caches are this rank's shard of a span split over
+    the group's ranks (context parallel) and ``cache_len`` counts the valid
+    slots of this shard, maybe none: the row max is all-reduced (MAX), the
+    row sum and the partial outputs all-reduced (SUM), the order GSPMD
+    partitions the reference's ``_attend`` into. On one rank that is this
+    function's arithmetic without a group."""
     B, Sq, nh, hd = q.shape
     nkv = k_cache.shape[2]
     qg = q.reshape(B, Sq, nkv, nh // nkv, hd)
-    out = _attend(qg, k_cache[:, :cache_len], v_cache[:, :cache_len])
+    k, v = k_cache[:, :cache_len], v_cache[:, :cache_len]
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k) * hd ** -0.5
+    s32 = scores.float()
+    if cache_len:
+        m = s32.amax(dim=-1, keepdim=True)
+    else:                                  # no valid slot here: -inf, 0, 0
+        m = s32.new_full((*s32.shape[:-1], 1), float("-inf"))
+    if group is not None:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(s32 - m)
+    denom = e.sum(dim=-1, keepdim=True)
+    if group is not None:
+        dist.all_reduce(denom, group=group)
+    out = torch.einsum("bkgqs,bskh->bqkgh", (e / denom).to(v.dtype), v)
+    if group is not None:
+        out = out.contiguous()
+        dist.all_reduce(out, group=group)
     return out.reshape(B, Sq, nh, hd)
 
 
@@ -122,6 +137,55 @@ def mlp(x: torch.Tensor, params: Mapping[str, torch.Tensor], kind: str) -> torch
     if kind == "gated_silu":
         return (silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
     return ACTIVATIONS[kind](x @ params["wi"]) @ params["wo"]
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, top_k: int, pad: int = 0):
+    """The router in fp32 (fp64 for fp64 x): softmax over the experts and
+    ``pad`` more columns at -inf (an expert-parallel layer's padding), top-k,
+    gates renormalised. Returns (probs, gates [T,k], experts [T,k])."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    logits = x.to(acc) @ router.to(acc)                                         # [T,E]
+    if pad:
+        logits = F.pad(logits, (0, pad), value=float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, top_k, dim=-1)
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+    return probs, gate_vals, expert_idx
+
+
+def _experts(x: torch.Tensor, gate_vals: torch.Tensor, le: torch.Tensor, n_local: int, C: int,
+             w: Mapping[str, torch.Tensor], gated: bool, local: Optional[torch.Tensor] = None):
+    """The dispatch, the experts and the combine of ``n_local`` experts with
+    ``C`` slots each. ``le`` [T*k]: each (token, k) assignment's expert
+    among them, in the flat (token, k) order; with ``local`` (a mask of the
+    assignments to these experts), the others carry ``n_local``, a trash
+    class. Returns (out [T,H], load [n_local] int64 (assignments an expert,
+    dropped ones too), keep [T*k])."""
+    T, H = x.shape
+    top_k = gate_vals.shape[1]
+    # occupancy before each assignment, per expert; the count runs along the
+    # last dim of [E,T*k] (CUDA's scan down the first dim of [T*k,E] runs a
+    # thread a column: 203 ms of a granite-moe train step, PERF.md)
+    onehot = F.one_hot(le, n_local + (local is not None)).t().contiguous()      # [E(+1),T*k]
+    pos = (torch.cumsum(onehot, dim=1) - onehot).gather(0, le[None])[0]
+    keep = pos < C                                                              # capacity drop
+    if local is not None:
+        keep = keep & local
+    slot = torch.clamp_max(le, n_local - 1) * C + torch.clamp_max(pos, C - 1)  # [T*k]
+
+    x_rep = x.repeat_interleave(top_k, dim=0)                                   # [T*k,H]
+    dest = torch.where(keep, slot, n_local * C)                                 # drops: spare row
+    buf = x.new_zeros(n_local * C + 1, H).index_copy(0, dest, x_rep)
+    he = buf[:-1].view(n_local, C, H)
+    if gated:
+        inner = F.silu(torch.bmm(he, w["wg"])) * torch.bmm(he, w["wi"])
+    else:
+        inner = gelu(torch.bmm(he, w["wi"]))
+    out_e = torch.bmm(inner, w["wo"]).reshape(n_local * C, H)
+
+    weight = (keep[:, None] * gate_vals.reshape(-1)[:, None]).to(x.dtype)
+    out = (out_e[slot] * weight).reshape(T, top_k, H).sum(dim=1)
+    return out, onehot[:n_local].sum(dim=1), keep
 
 
 def moe(x: torch.Tensor, params: Mapping[str, torch.Tensor], top_k: int,
@@ -145,40 +209,80 @@ def moe(x: torch.Tensor, params: Mapping[str, torch.Tensor], top_k: int,
     reference's ``x * sigmoid(x)``), as in the SSM; see ROADMAP §3."""
     T, H = x.shape
     E = params["router"].shape[1]
-    acc = torch.promote_types(x.dtype, torch.float32)
-    probs = torch.softmax(x.to(acc) @ params["router"].to(acc), dim=-1)        # [T,E]
-    gate_vals, expert_idx = torch.topk(probs, top_k, dim=-1)                    # [T,k]
-    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
-
+    probs, gate_vals, expert_idx = _route(x, params["router"], top_k)
     C = int(max(1, capacity_factor * top_k * T / E))
-    flat_e = expert_idx.reshape(-1)                                             # [T*k]
-    # occupancy before each assignment, per expert; the count runs along the
-    # last dim of [E,T*k] (CUDA's scan down the first dim of [T*k,E] runs a
-    # thread a column: 203 ms of a granite-moe train step, PERF.md)
-    onehot = F.one_hot(flat_e, E).t().contiguous()                              # [E,T*k]
-    pos = (torch.cumsum(onehot, dim=1) - onehot).gather(0, flat_e[None])[0]
-    keep = pos < C                                                              # capacity drop
-    slot = flat_e * C + torch.clamp_max(pos, C - 1)                             # [T*k]
-
-    x_rep = x.repeat_interleave(top_k, dim=0)                                   # [T*k,H]
-    dest = torch.where(keep, slot, E * C)                                       # drops: spare row
-    buf = x.new_zeros(E * C + 1, H).index_copy(0, dest, x_rep)
-    he = buf[:-1].view(E, C, H)
-    if gated:
-        inner = F.silu(torch.bmm(he, params["wg"])) * torch.bmm(he, params["wi"])
-    else:
-        inner = gelu(torch.bmm(he, params["wi"]))
-    out_e = torch.bmm(inner, params["wo"]).reshape(E * C, H)
-
-    weight = (keep[:, None] * gate_vals.reshape(-1)[:, None]).to(x.dtype)
-    out = (out_e[slot] * weight).reshape(T, top_k, H).sum(dim=1)
+    out, load, keep = _experts(x, gate_vals, expert_idx.reshape(-1), E, C, params, gated)
     # 1 - mean(keep) as the reference's compiled graph has it: the mean's
     # fp32 reciprocal of T*k times the count, fused into the subtraction
     # (one rounding); a plain fp32 mean differs in the last bit
     recip = torch.tensor(1.0 / keep.numel(), dtype=torch.float32).item()
-    aux = {"load": onehot.sum(dim=1),
-           "drop_fraction": (1.0 - keep.sum(dtype=torch.float64) * recip).to(acc),
+    aux = {"load": load,
+           "drop_fraction": (1.0 - keep.sum(dtype=torch.float64) * recip).to(probs.dtype),
            "router_entropy": -(probs * torch.log(probs + 1e-9)).sum(-1).mean()}
+    return out, aux
+
+
+def moe_ep(x: torch.Tensor, params: Mapping[str, torch.Tensor], top_k: int, comm,
+           capacity_factor: float = 1.25, gated: bool = True, seq: bool = False):
+    """``repro.models.layers.moe_ep``: the expert-parallel MoE layer over the
+    "model" axis of ``comm`` (a ``parallel.comm.MeshComm``). x [T_l,H]:
+    this rank's tokens, the same on every rank of "model" (entered through
+    Megatron's f); with ``seq``, [B_l, S/model, H], the sequence shards of
+    this rank's rows, gathered here and the output reduce-scattered back.
+    ``params``: the layer's router [H,E] and experts wg/wi [E,H,F], wo
+    [E,F,H] as DTensors at the planner's placements. Returns (out, the
+    shape of x; aux {"load" [E_loc] fp32, "drop_fraction",
+    "router_entropy" 0}).
+
+    The experts are padded to E_pad = ceil(E/m) m (m the "model" size), the
+    padded router columns masked to -inf. Every rank routes its tokens,
+    keeps its E_loc = E_pad/m experts' assignments, C = int(max(1, cf k
+    T_l / E_pad)) slots each (``moe``'s dispatch; the rest go to a trash
+    class), runs its experts, and one all-reduce over "model" sums the
+    partial outputs (a reduce-scatter with ``seq``). A rank's experts are
+    its own model shard where the placements put E over "model" (gathered
+    over the batch axes only), else gathered whole, padded and cut. The
+    router's and those gathered experts' gradients are partial on each
+    rank (only its experts' gates and slots reach them).
+
+    The stats are the reference's: ``load`` counts each local expert's
+    assignments summed over the batch axes and over "model" at the same
+    local index (so its max is not the busiest expert's load), and
+    ``drop_fraction`` is 1 - kept / total, total = sum over the ranks of
+    T_l k / m."""
+    m, r = comm.size, comm.rank
+    E = params["router"].shape[1]
+    E_pad = -(-E // m) * m
+    E_loc = E_pad // m
+    h = comm.tp_in(x, seq)
+    shape = h.shape
+    h = h.reshape(-1, shape[-1])
+    T_l = h.shape[0]
+    router = comm.weight(params["router"], None, partial=True)
+    w = {}
+    for name in ("wg", "wi", "wo") if gated else ("wi", "wo"):
+        p = params[name]
+        if comm.tp_shard(p, 0):
+            w[name] = comm.weight(p, 0)                  # this rank's experts, its shard
+        else:
+            whole = comm.weight(p, None, partial=True)
+            if E_pad > E:
+                whole = F.pad(whole, (0, 0, 0, 0, 0, E_pad - E))
+            w[name] = whole[r * E_loc:(r + 1) * E_loc]
+    _, gate_vals, expert_idx = _route(h, router, top_k, E_pad - E)
+    C = int(max(1, capacity_factor * top_k * T_l / E_pad))
+    flat_e = expert_idx.reshape(-1)
+    local = (flat_e >= r * E_loc) & (flat_e < (r + 1) * E_loc)
+    le = torch.where(local, flat_e - r * E_loc, E_loc)
+    partial, load, keep = _experts(h, gate_vals, le, E_loc, C, w, gated, local)
+    out = comm.tp_out(partial.reshape(shape), seq)
+    with torch.no_grad():
+        stats = torch.cat([load.to(torch.float32), keep.sum(dtype=torch.float32)[None]])
+        comm.sum_over_mesh(stats)
+    total = T_l * top_k * comm.batch_ranks()       # sum of T_l k over the batch axes and
+    aux = {"load": stats[:E_loc],                  # "model", over m
+           "drop_fraction": 1.0 - stats[E_loc] / total,
+           "router_entropy": torch.zeros((), dtype=torch.float32, device=x.device)}
     return out, aux
 
 

@@ -42,10 +42,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from ..parallel.comm import MeshComm, local
+from ..parallel.comm import MeshComm, gather_dim, local
 from ..parallel.sharding import MeshPlacements, ShardingPlanner, mesh_device
-from .layers import (attention, decode_attention, mlp, moe, rmsnorm, rope, softplus, ssd_scan,
-                     ssm_decode_step)
+from .layers import (attention, decode_attention, mlp, moe, moe_ep, rmsnorm, rope, softplus,
+                     ssd_scan, ssm_decode_step)
 
 __all__ = ["RunCfg", "LM", "Block", "init_params", "loss_fn", "param_count"]
 
@@ -56,12 +56,14 @@ class RunCfg:
     no counterpart (the flash kernel is tiled), nor ``ssd_chunk``: no
     caller changes its 256, the plain SSD version's default chunk (the SSD
     kernel blocks by its own); ``scan_layers`` has none (the layers are a
-    loop), nor ``batch_axes`` (the mesh sets it), nor ``expert_axis`` (it
-    comes with the expert-parallel ``moe_ep``). ``capacity_factor`` sets
-    the MoE layer's slots an expert (``layers.moe``). ``param_dtype`` is the type of training's master
-    weights. ``remat`` recomputes each ``Block`` in the backward
-    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
-    layer body); it acts only where autograd records. Logits are always
+    loop), nor ``batch_axes`` (the mesh sets it), nor ``expert_axis``: the
+    expert-parallel ``layers.moe_ep`` runs over "model", the reference's
+    default, which no caller changes. ``capacity_factor`` sets the MoE
+    layer's slots an expert (``layers.moe``, ``layers.moe_ep``).
+    ``param_dtype`` is the type of training's master weights. ``remat``
+    recomputes each ``Block`` in the backward (``torch.utils.checkpoint``,
+    the reference's ``jax.checkpoint`` of the layer body); it acts only
+    where autograd records. Logits are always
     fp32 (the reference's default ``logits_fp32=True``, which no caller
     changes).
 
@@ -78,13 +80,27 @@ class RunCfg:
     seq_shard: bool = False
 
 
-def _check_supported(arch: ArchConfig, cfg: "RunCfg") -> None:
+def _check_supported(arch: ArchConfig) -> None:
     if arch.block not in ("attn", "ssm", "hymba"):
         raise NotImplementedError(f"{arch.name}: block={arch.block!r} is unknown")
-    if cfg.mesh is not None and arch.n_experts:
-        raise NotImplementedError(
-            f"{arch.name}: an MoE layer on a mesh runs the expert-parallel layers.moe_ep "
-            f"(repro/models/lm.py:213-222), which is not ported yet (ROADMAP §1)")
+
+
+@dataclass(frozen=True)
+class _Part:
+    """Where a rank's block of one decode-cache leaf sits, in a layer's
+    slice [B, ...] (``LM._cache_parts``). ``rows``: the rows this rank
+    computes within its block, where the block holds every row while the
+    rows are computed a "data" shard at a time (its updates are then
+    gathered over "data", so the replicas stay equal); ``dim``: the dim
+    sharded over "model" (None: replicated over it); ``start``: this
+    rank's first index on ``dim``."""
+
+    rows: Optional[slice] = None
+    dim: Optional[int] = None
+    start: int = 0
+
+
+_WHOLE = _Part()
 
 
 def _empty(device, dtype, *shape) -> nn.Parameter:
@@ -99,7 +115,9 @@ class Block(nn.Module):
 
     On a mesh (``plan_mesh``) the weights are DTensors, each gathered for
     the layer by ``MeshComm.weight``, and the residual [B_local, S or
-    S/model, H] holds this rank's rows. Attention is tensor parallel over
+    S/model, H] holds this rank's rows. The MoE layer is the
+    expert-parallel ``layers.moe_ep`` over "model" (each rank its experts,
+    on its rows' whole sequence). Attention is tensor parallel over
     whole heads where the q heads divide the "model" axis and each rank's q
     heads have their kv heads: wq, wk, wv column-parallel, wo row-parallel;
     where the kv heads do not divide the axis, wk and wv are gathered and a
@@ -214,10 +232,14 @@ class Block(nn.Module):
                 w = {n: self._w(p, seq) for n, p in self.mlp.items()}
             y = mlp(self._enter(h, self.mlp_tp, seq), w, a.mlp)
             return x + self._leave(y, self.mlp_tp, seq), {}
-        B, S, H = x.shape
-        out, aux = moe(h.reshape(B * S, H), self.moe, a.top_k, self.capacity_factor,
-                       gated=a.mlp == "gated_silu")
-        return x + out.reshape(B, S, H), {"moe_drop": aux["drop_fraction"],
+        gated = a.mlp == "gated_silu"
+        if c is None:
+            out, aux = moe(h.reshape(-1, h.shape[-1]), self.moe, a.top_k, self.capacity_factor,
+                           gated=gated)
+        else:
+            out, aux = moe_ep(h if seq else h.reshape(-1, h.shape[-1]), self.moe, a.top_k, c,
+                              self.capacity_factor, gated=gated, seq=seq)
+        return x + out.reshape(x.shape), {"moe_drop": aux["drop_fraction"],
                                           "moe_load_max": aux["load"].max().to(torch.float32)}
 
     def _attn(self, h: torch.Tensor, positions: torch.Tensor, seq: bool = False) -> torch.Tensor:
@@ -234,23 +256,41 @@ class Block(nn.Module):
         o = attention(q, k, v, causal=self.arch.causal, window=self.arch.window)
         return o.reshape(B, S, -1) @ wo
 
-    def _attn_decode(self, h: torch.Tensor, cache: Dict[str, torch.Tensor],
-                     pos: int) -> torch.Tensor:
+    def _attn_decode(self, h: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
+                     part: _Part = _WHOLE) -> torch.Tensor:
         """``lm._decode_attn``: h [B,1,H] -> [B,1,H]. Writes this token's k, v
         into slot ``pos`` of the layer's cache, ``pos % span`` for window
         archs (a ring of ``span`` slots), and attends over the
-        ``min(pos + 1, span)`` slots written."""
-        a, p = self.arch, self.attn
+        ``min(pos + 1, span)`` slots written. On a mesh every weight is
+        gathered whole and the span may be split over "model" (``part``):
+        the rank that holds the slot writes it, and each attends over its
+        own valid slots, the softmax reduced over "model"
+        (``layers.decode_attention``)."""
+        a = self.arch
         B = h.shape[0]
         posb = torch.full((B, 1), pos, device=h.device)
-        q, k, v = self._qkv(h, posb, p["wq"], p["wk"], p["wv"], a.n_heads, a.n_kv)
+        wq, wk, wv, wo = (self._w(self.attn[n]) for n in ("wq", "wk", "wv", "wo"))
+        q, k, v = self._qkv(h, posb, wq, wk, wv, a.n_heads, a.n_kv)
         k_cache, v_cache = cache["k"], cache["v"]
-        span = k_cache.shape[1]
-        slot = pos % span if self.arch.window else pos
-        k_cache[:, slot] = k[:, 0]
-        v_cache[:, slot] = v[:, 0]
-        o = decode_attention(q, k_cache, v_cache, min(pos + 1, span))
-        return o.reshape(B, 1, -1) @ p["wo"]
+        held = k_cache.shape[1]                       # this rank's slots
+        span = held if part.dim is None else held * self.comm.size
+        slot = (pos % span if a.window else pos) - part.start
+        if 0 <= slot < held:
+            k_cache[:, slot] = self._rows_whole(k[:, 0], part)
+            v_cache[:, slot] = self._rows_whole(v[:, 0], part)
+        if part.rows is not None:
+            k_cache, v_cache = k_cache[part.rows], v_cache[part.rows]
+        valid = max(0, min(min(pos + 1, span) - part.start, held))
+        group = None if part.dim is None else self.comm.group
+        o = decode_attention(q, k_cache, v_cache, valid, group)
+        return o.reshape(B, 1, -1) @ wo
+
+    def _rows_whole(self, t: torch.Tensor, part: _Part) -> torch.Tensor:
+        """This rank's rows ``t`` of a cache update, gathered over "data"
+        where the cache block holds every row (``_Part.rows``)."""
+        if part.rows is None:
+            return t
+        return gather_dim(t, 0, self.comm.groups[self.comm.data_dim])
 
     def _split(self, proj: torch.Tensor):
         """in_proj's output -> z [.,di], xbc [.,conv_dim], dt's input [.,nh]."""
@@ -291,25 +331,48 @@ class Block(nn.Module):
         y = rmsnorm(y.reshape(B, S, di) * F.silu(z), p["ssm_norm"])
         return y @ p["out_proj"]
 
-    def _ssm_decode(self, h: torch.Tensor, conv_cache: torch.Tensor,
-                    ssm_cache: torch.Tensor) -> torch.Tensor:
+    def _ssm_decode(self, h: torch.Tensor, conv_cache: torch.Tensor, ssm_cache: torch.Tensor,
+                    parts: Optional[Dict[str, _Part]] = None) -> torch.Tensor:
         """``lm._decode_ssm``: h [B,1,H] -> [B,1,H]. Updates the layer's
         conv cache [B,K-1,conv_dim] and SSM state [B,nh,hp,N] in place. The
         fp32 leaves stay fp32, as in the reference's decode, so the conv
-        sum and its SiLU run in fp32 before the cast."""
-        a, p = self.arch, self.ssm
+        sum and its SiLU run in fp32 before the cast.
+
+        On a mesh (``parts``) every weight is gathered whole and each rank
+        updates its block of the caches: the conv on its channels (then the
+        conv's output gathered over "model"), the recurrence on its heads,
+        or its slice of the head dim (then y gathered over "model"). Every
+        step is per channel or per (head, hp), so the split is exact."""
+        a = self.arch
+        p = {n: self._w(w) for n, w in self.ssm.items()}
         B = h.shape[0]
         di, N, nh, hp = a.d_inner, a.ssm_state, a.ssm_n_heads, a.ssm_headdim
+        pc, ps = (_WHOLE, _WHOLE) if parts is None else (parts["conv"], parts["ssm"])
         z, xbc, dtr = self._split((h @ p["in_proj"])[:, 0])
-        hist = torch.cat([conv_cache, xbc[:, None]], dim=1)          # [B,K,conv_dim]
-        conv = (hist * p["conv_w"]).sum(dim=1) + p["conv_b"]
-        conv_cache.copy_(hist[:, 1:])
-        xs, Bm, Cm = F.silu(conv).to(h.dtype).split([di, N, N], dim=-1)
+        cols = slice(pc.start, pc.start + conv_cache.shape[-1])     # this rank's channels
+        held = conv_cache if pc.rows is None else conv_cache[pc.rows]
+        hist = torch.cat([held, xbc[:, None, cols]], dim=1)          # [B,K,channels]
+        conv = (hist * p["conv_w"][:, cols]).sum(dim=1) + p["conv_b"][cols]
+        conv_cache.copy_(self._rows_whole(hist[:, 1:], pc))
+        act = F.silu(conv).to(h.dtype)
+        if pc.dim is not None:
+            act = gather_dim(act, 1, self.comm.group)
+        xs, Bm, Cm = act.split([di, N, N], dim=-1)
         dt = softplus(dtr.float() + p["dt_bias"])
         A = -torch.exp(p["A_log"])
         x3 = xs.reshape(B, nh, hp)
-        y, new_state = ssm_decode_step(x3, dt, A, Bm, Cm, ssm_cache)
-        ssm_cache.copy_(new_state)
+        state = ssm_cache if ps.rows is None else ssm_cache[ps.rows]
+        if ps.dim == 1:                                             # this rank's heads
+            hs = slice(ps.start, ps.start + state.shape[1])
+            y, new_state = ssm_decode_step(x3[:, hs], dt[:, hs], A[hs], Bm, Cm, state)
+        elif ps.dim == 2:                                           # its part of hp
+            y, new_state = ssm_decode_step(x3[:, :, ps.start:ps.start + state.shape[2]], dt, A,
+                                           Bm, Cm, state)
+        else:
+            y, new_state = ssm_decode_step(x3, dt, A, Bm, Cm, state)
+        ssm_cache.copy_(self._rows_whole(new_state, ps))
+        if ps.dim is not None:
+            y = gather_dim(y, ps.dim, self.comm.group)
         y = y + p["D"].to(y.dtype)[:, None] * x3
         y = rmsnorm(y.reshape(B, 1, di) * F.silu(z)[:, None], p["ssm_norm"])
         return y @ p["out_proj"]
@@ -337,21 +400,20 @@ class Block(nn.Module):
             x = x + 0.5 * (self._attn(h, positions, seq) + self._ssm(h, seq))
         return self._ffn(x, seq)
 
-    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
+               parts: Optional[Dict[str, _Part]] = None) -> torch.Tensor:
         """One token: x [B,1,H]; ``cache`` holds this layer's slices of the
         model's cache, updated in place (the reference returns a new
         cache): k, v [B,span,nkv,hd] get this token's k, v; conv and ssm
-        get the new conv window and SSM state."""
-        h = rmsnorm(x, self.norm1)
+        get the new conv window and SSM state. On a mesh, x holds this
+        rank's rows, ``cache`` its blocks and ``parts`` where they sit."""
+        h = rmsnorm(x, self._w(self.norm1))
         block = self.arch.block
-        if block == "attn":
-            x = x + self._attn_decode(h, cache, pos)
-        elif block == "ssm":
-            x = x + self._ssm_decode(h, cache["conv"], cache["ssm"])
-        else:
-            a = self._attn_decode(h, cache, pos)
-            s = self._ssm_decode(h, cache["conv"], cache["ssm"])
-            x = x + 0.5 * (a + s)
+        if block != "ssm":
+            a = self._attn_decode(h, cache, pos, _WHOLE if parts is None else parts["k"])
+        if block != "attn":
+            s = self._ssm_decode(h, cache["conv"], cache["ssm"], parts)
+        x = x + (a if block == "attn" else s if block == "ssm" else 0.5 * (a + s))
         return self._ffn(x)[0]
 
 
@@ -363,12 +425,14 @@ class LM(nn.Module):
     shard only (uninitialised, as on one device; ``init_params`` and
     ``train.step.init_train_state`` fill them from full weights). The
     forward then takes this rank's batch rows and returns their logits,
-    the same on every rank of the "model" axis. Decode on a mesh is not
-    ported yet (ROADMAP §1)."""
+    the same on every rank of the "model" axis; so does ``decode_step``,
+    over a cache that ``init_cache`` places as ``ShardingPlanner.cache``
+    says (context-parallel KV over "model", the SSM state's heads over
+    it)."""
 
     def __init__(self, arch: ArchConfig, cfg: RunCfg = RunCfg(), device=None):
         super().__init__()
-        _check_supported(arch, cfg)
+        _check_supported(arch)
         device = resolve_device(device) if cfg.mesh is None else mesh_device(cfg.mesh)
         self.arch, self.cfg, self._device = arch, cfg, device
         build = device if cfg.mesh is None else torch.device("meta")
@@ -465,44 +529,71 @@ class LM(nn.Module):
             return logits
         return logits, {k: torch.stack([a[k] for a in per_layer]).mean() for k in per_layer[0]}
 
-    def _one_device(self, what: str) -> None:
-        if self.comm is not None:
-            raise NotImplementedError(
-                f"{what} on a mesh is sharded decode (context-parallel KV over 'model', "
-                f"cache_pspecs), not ported yet (ROADMAP §1)")
-
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         """Attention archs: KV cache k, v [L,B,span,nkv,hd] in the compute
         dtype; window archs keep a ring buffer of ``window`` positions. SSM
         and hybrid archs: the conv window [L,B,K-1,conv_dim] in the compute
         dtype and the state [L,B,nh,hp,N] in fp32, whatever ``max_len``
-        (hybrid archs keep both sets)."""
-        self._one_device("init_cache")
+        (hybrid archs keep both sets). Zeros. On a mesh each leaf is a
+        DTensor at ``ShardingPlanner.cache``'s placements (B over "data",
+        the span, the conv channels and the SSM heads, or else hp, over
+        "model", each where it divides), each rank allocating its block."""
         a, L, dt = self.arch, self.arch.num_layers, self.cfg.compute_dtype
-        z = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=self.device)
-        cache = {}
+        shapes = {}
         if a.has_attention:
             span = min(a.window, max_len) if a.window else max_len
-            cache["k"] = z((L, batch, span, a.n_kv, a.head_dim), dt)
-            cache["v"] = z((L, batch, span, a.n_kv, a.head_dim), dt)
+            shapes["k"] = shapes["v"] = ((L, batch, span, a.n_kv, a.head_dim), dt)
         if a.block in ("ssm", "hymba"):
-            cache["conv"] = z((L, batch, a.conv_width - 1, a.d_inner + 2 * a.ssm_state), dt)
-            cache["ssm"] = z((L, batch, a.ssm_n_heads, a.ssm_headdim, a.ssm_state),
+            shapes["conv"] = ((L, batch, a.conv_width - 1, a.d_inner + 2 * a.ssm_state), dt)
+            shapes["ssm"] = ((L, batch, a.ssm_n_heads, a.ssm_headdim, a.ssm_state),
                              torch.float32)
+        if self.comm is None:
+            return {n: torch.zeros(shape, dtype=d, device=self.device)
+                    for n, (shape, d) in shapes.items()}
+        mesh = self.cfg.mesh
+        placed = ShardingPlanner(mesh, a).cache({n: shape for n, (shape, _) in shapes.items()})
+        cache = {}
+        for n, (shape, d) in shapes.items():
+            cache[n] = MeshPlacements(mesh, placed[n]).empty(shape, d, self.device)
+            local(cache[n]).zero_()
         return cache
+
+    def _cache_parts(self, cache: Dict[str, torch.Tensor], rows: int) -> Dict[str, _Part]:
+        """Where this rank's block of each cache leaf sits (``_Part``), for a
+        step over ``rows`` rows: all B where B does not divide "data",
+        else this "data" rank's shard of them."""
+        c = self.comm
+        parts = {}
+        for name, t in cache.items():
+            pl = t.placements
+            taken = None
+            if rows != t.shape[1] and not pl[c.data_dim].is_shard(1):
+                r0 = c.mesh.get_local_rank(c.data_dim) * rows
+                taken = slice(r0, r0 + rows)
+            model = pl[c.model_dim]
+            if model.is_shard():
+                parts[name] = _Part(taken, model.dim - 1, c.rank * local(t).shape[model.dim])
+            else:
+                parts[name] = _Part(taken)
+        return parts
 
     def decode_step(self, cache: Dict[str, torch.Tensor], tokens: Optional[torch.Tensor],
                     pos: int, embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One autoregressive step at position ``pos``: tokens [B] (or, for
         an embeds-input arch, embeds [B,H]) -> fp32 logits [B,V]. ``cache``
         is updated in place: the KV slots of ``pos`` and/or the conv
-        windows and SSM states (``lm._decode_ssm``)."""
-        self._one_device("decode_step")
+        windows and SSM states (``lm._decode_ssm``). On a mesh, ``cache``
+        is ``init_cache``'s, and tokens and logits are this rank's rows:
+        the batch over "data" where B divides it, else all of it
+        (``serving.serve`` cuts and gathers them); each layer's weights are
+        gathered whole a layer at a time (the reference's weight
+        streaming), the MoE layer is ``moe_ep``."""
         x = self._input(tokens, embeds)[:, None]
+        parts = None if self.comm is None else self._cache_parts(cache, x.shape[0])
+        blocks = {n: local(c) for n, c in cache.items()}
         for i, blk in enumerate(self.blocks):
-            x = blk.decode(x, {name: c[i] for name, c in cache.items()}, pos)
-        logits = rmsnorm(x, self.final_norm) @ self.lm_head
-        return logits[:, 0].float()
+            x = blk.decode(x, {n: c[i] for n, c in blocks.items()}, pos, parts)
+        return self._logits(x)[:, 0].float()
 
 
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:

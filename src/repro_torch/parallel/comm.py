@@ -199,6 +199,7 @@ class MeshComm:
         self.mesh = mesh
         self.names = tuple(mesh.mesh_dim_names)
         self.model_dim = self.names.index(_MODEL)
+        self.data_dim = self.names.index("data")
         self.batch_axes = ("pod", "data") if "pod" in self.names else ("data",)
         self.batch_dims = tuple(self.names.index(a) for a in self.batch_axes)
         self.size = mesh.size(self.model_dim)
@@ -288,3 +289,7 @@ class MeshComm:
     def sum_over_batch(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the batch axes (no autograd; a new tensor)."""
         return all_reduce_over(t.detach().clone(), self.mesh, self.batch_dims)
+
+    def sum_over_mesh(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed in place over the batch axes and "model" (no autograd)."""
+        return all_reduce_over(t, self.mesh, (*self.batch_dims, self.model_dim))

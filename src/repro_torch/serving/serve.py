@@ -1,9 +1,16 @@
 """Serve step, prefill and greedy generation, with the semantics of
 ``repro.serving.serve``. The model carries its arch and run config; every
 entry point runs under ``torch.inference_mode()`` on the model's device.
-The decode cache is updated in place. Prefill also runs a model built on
-a mesh (batch over data); the serve step and ``greedy_generate`` are
-single-device until sharded decode is ported (ROADMAP §1)."""
+The decode cache is updated in place.
+
+Every entry point also runs a model built on a mesh (the reference's
+``jit_with`` shardings; the caller builds the mesh, e.g.
+``launch.mesh.make_serving_mesh``): every rank passes the whole batch and
+gets the whole outputs back. Prefill runs this rank's rows over the batch
+axes, decode over "data" (the cache's batch axis, ``cache_pspecs``), each
+replicated where B does not divide; the outputs are gathered over those
+axes. Decode keeps the cache context parallel over "model" and streams
+the weights a layer at a time (``models.lm.LM.decode_step``)."""
 
 from __future__ import annotations
 
@@ -11,7 +18,7 @@ import torch
 
 from ..models.lm import LM
 from ..parallel.comm import gather_dim
-from ..parallel.sharding import local_rows
+from ..parallel.sharding import FSDP, local_rows
 
 __all__ = ["make_serve_step", "make_prefill_step", "greedy_generate"]
 
@@ -20,15 +27,20 @@ def make_serve_step(model: LM):
     """One greedy decode step: (cache, tokens [B], pos) ->
     (next_tokens [B] int32, logits [B,V], cache). For an embeds-input arch
     the input is embeds [B,H] in place of tokens (the reference's
-    ``serve_step``)."""
+    ``serve_step``). ``cache`` is ``model.init_cache``'s; ``pos`` a Python
+    int."""
+    mesh = model.cfg.mesh
 
     @torch.inference_mode()
     def serve_step(cache, tokens, pos: int):
-        x = torch.as_tensor(tokens, device=model.device)
+        whole = torch.as_tensor(tokens, device=model.device)
+        x = whole if mesh is None else local_rows(whole, mesh, (FSDP,))
         if model.arch.embeds_input:
             logits = model.decode_step(cache, None, pos, embeds=x)
         else:
             logits = model.decode_step(cache, x, pos)
+        if x.shape[0] != whole.shape[0]:
+            logits = gather_dim(logits, 0, mesh.get_group(FSDP))
         return logits.argmax(dim=-1).to(torch.int32), logits, cache
 
     return serve_step
@@ -64,7 +76,8 @@ def make_prefill_step(model: LM):
 def greedy_generate(model: LM, prompt_tokens, max_new: int) -> torch.Tensor:
     """Prefill the prompt token by token through the decode step, then
     decode ``max_new`` tokens greedily. Returns [B, max_new] int32. Token
-    archs only, as the reference's."""
+    archs only, as the reference's. A model on a mesh decodes through the
+    sharded serve step (the reference's ``greedy_generate(mesh=)``)."""
     if max_new < 1:
         raise ValueError(f"max_new must be >= 1, got {max_new}")
     prompt = torch.as_tensor(prompt_tokens, device=model.device)
