@@ -62,7 +62,16 @@ Phases, each of which fails the run by raising:
      expert-parallel layer both ways) whose launches, loss and masters
      equal the single-device step's; ``compressed_psum`` and a one-stage
      ``pipeline_apply`` (and its gradient) over NCCL against their
-     one-rank results.
+     one-rank results;
+  9. the dry-run (``repro_torch.launch.dryrun``: the entry points on meta
+     tensors, each kernel op through its fake implementation) held to the
+     card: yi-6b's 16-layer train step and its 32-layer serving run on the
+     card and, in a child with no card visible, dry-run; the dry-run's
+     peak within 5% of ``max_memory_allocated``, the train step's flops
+     equal to ``FlopCounterMode``'s on the card, phase 7's sharded step's
+     collectives equal kind by kind to the dry-run's on a fake (1, 1)
+     mesh, ``kernels.build``'s target constants equal to the card's, and
+     the CLI on one production cell ``ok`` without the card; under 60 s.
 The last line is one JSON object with ``"ok": true`` and the device. It
 needs a CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -971,16 +980,26 @@ def _log_row(r):
         f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library {lib}")
 
 
-def _causal_pairs(S, window=0):
-    """(query, key) pairs a causal, optionally windowed, attention of S
-    tokens computes."""
-    return sum(min(i + 1, window) if window else i + 1 for i in range(S))
+def flash_fwd_bound(q, k, causal=True, window=0):
+    """((bound ms, "bytes" or "operations"), products) of the flash forward
+    on these inputs: q, k, v read once, o written once; the products of the
+    (query, key) pairs this input needs (``kernels.flash_attention.flops``,
+    the count its ``FlopCounterMode`` formula gives)."""
+    from repro_torch.kernels.flash_attention import flops
+    B, nh, S, hd = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    n = flops(B, nh, S, hd, causal, window)
+    return _bound(nbytes, n, q.dtype), n
 
 
-def _pairs(S, causal=True, window=0):
-    """(query, key) pairs the attention of S tokens computes: all S^2
-    without the causal mask (no arch runs a window without it)."""
-    return _causal_pairs(S, window) if causal else S * S
+def flash_bwd_bound(q, k, causal=True, window=0):
+    """The same for the backward: read q, k, v, o, dO, write dq, dk, dv;
+    five products over the pairs (``kernels.flash_attention.bwd_flops``)."""
+    from repro_torch.kernels.flash_attention import bwd_flops
+    B, nh, S, hd = q.shape
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    n = bwd_flops(B, nh, S, hd, causal, window)
+    return _bound(nbytes, n, q.dtype), n
 
 
 def _flash_row(gen, views, case=FLASH_MAIN, window=0, causal=True, name="flash_attention"):
@@ -996,9 +1015,7 @@ def _flash_row(gen, views, case=FLASH_MAIN, window=0, causal=True, name="flash_a
     q, k, v = _flash_inputs(gen, B, S, nh, nkv, hd, dt)
     if views:
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    flops = 4 * B * nh * hd * _pairs(S, causal, window)     # the pairs this input needs
-    bound, by = _bound(nbytes, flops, dt)
+    (bound, by), flops = flash_fwd_bound(q, k, causal, window)
     if window:
         mask = attention_mask(S, True, window, q.device)
         library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
@@ -1049,15 +1066,14 @@ def times_attn_kernels(gen):
 def ssd_fwd_bound(x, dt, A, Bm, Cm, Q):
     """(bound ms, "bytes" or "operations") of the SSD forward on these
     inputs: each input read once, y written once; the chunked algorithm's
-    products at chunk Q with C.B^T shared across heads, per token: C.B^T
-    2QN; per head, scores x 2Q hp, chunk state 2 hp N, inter-chunk output
-    2 N hp."""
+    products at chunk Q (``kernels.ssd_scan.fwd_flops``, the count its
+    ``FlopCounterMode`` formula gives at the kernels' chunk)."""
+    from repro_torch.kernels.ssd_scan import fwd_flops
     B, nh, S, hp = x.shape
     N = Bm.shape[-1]
     nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4 + A.numel() * 4
               + (Bm.numel() + Cm.numel()) * Bm.element_size())
-    flops = B * S * (2 * Q * N + nh * (2 * Q * hp + 4 * hp * N))
-    return _bound(nbytes, flops, x.dtype)
+    return _bound(nbytes, fwd_flops(B, nh, S, hp, N, Q), x.dtype)
 
 
 def times_hymba_kernels(gen):
@@ -1318,19 +1334,15 @@ def _ssd_bwd_case(name, chunk, x, dt, A, Bm, Cm, initial_state=None, d_final=Non
 def ssd_bwd_bound(x, dt, A, Bm, Cm, dtype):
     """(bound ms, "bytes" or "operations") of the SSD backward on these
     inputs: read x, dy, dt, A, Bm, Cm once and write dx, ddt, dA, dBm, dCm
-    once; the products the kernel's 64-token chunks need: C.B^T per (b,
-    chunk) and, per (b, h, chunk), dy.x^T and the dx, dB and dC products
-    over the causal pairs, and per token the five [hp, N] products (the
-    entering state, its gradient, dx's and dB's state terms, h_c^T dy)."""
-    from repro_torch.kernels.ssd_scan import KERNEL_CHUNK
+    once; the products the kernel's 64-token chunks need
+    (``kernels.ssd_scan.bwd_flops``, the count its ``FlopCounterMode``
+    formula gives)."""
+    from repro_torch.kernels.ssd_scan import bwd_flops
     B, nh, S, hp = x.shape
     N = Bm.shape[-1]
     e = x.element_size()
     nbytes = 3 * x.numel() * e + 2 * (dt.numel() + A.numel()) * 4 + 4 * Bm.numel() * e
-    pairs = sum(n * (n + 1) // 2 for n in
-                [KERNEL_CHUNK] * (S // KERNEL_CHUNK) + [S % KERNEL_CHUNK])
-    flops = B * pairs * 2 * N + B * nh * (pairs * 2 * (2 * hp + 2 * N) + S * 5 * 2 * hp * N)
-    return _bound(nbytes, flops, dtype)
+    return _bound(nbytes, bwd_flops(B, nh, S, hp, N), dtype)
 
 
 def phase_ssd_bwd_parity():
@@ -1821,10 +1833,7 @@ def _flash_bwd_row(gen, case, causal=True, name="flash_attention_bwd"):
     q, k, v = _flash_inputs(gen, B, S, nh, nkv, hd, dt)
     o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
     do = _randn(gen, B, nh, S, hd, dtype=dt)
-    # read q, k, v, o, dO, write dq, dk, dv; five products over the pairs
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
-    flops = 5 * 2 * B * nh * hd * _pairs(S, causal, window)
-    bound, by = _bound(nbytes, flops, dt)
+    (bound, by), flops = flash_bwd_bound(q, k, causal, window)
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     if window:
         lo = F.scaled_dot_product_attention(ql, kl, vl, enable_gqa=True,
@@ -1993,7 +2002,7 @@ def _masters_on_host(state):
     return {n: local(p).detach().to("cpu", copy=True) for n, p in state.params.items()}
 
 
-def sharded_step_gate(name, layers, steps, total, mesh, single=None, remat=False):
+def sharded_step_gate(name, layers, steps, total, mesh, single=None, remat=False, comm=None):
     """``name`` at full width cut to ``layers``, from the training phase's
     seed and fixed batch, remat off or on (``remat``: each Block recomputed
     in the backward, its collectives issued again there): one single-device
@@ -2005,7 +2014,9 @@ def sharded_step_gate(name, layers, steps, total, mesh, single=None, remat=False
     sharded steps after the first timed (host clock around synchronised
     steps) and the peak memory, logged beside the single-device step's
     peak and ``single`` (the training phase's (median ms, peak GiB) at
-    this config)."""
+    this config). With ``comm`` (a dict), the first sharded step runs under
+    ``launch.comm_analysis.CollectiveCounter``, whose record goes into
+    ``comm``."""
     from repro_torch.parallel.comm import local
     from repro_torch.train.step import init_train_state, make_train_step
     arch, cfg = _train_arch(name, layers), _train_cfg(remat=remat)
@@ -2027,7 +2038,14 @@ def sharded_step_gate(name, layers, steps, total, mesh, single=None, remat=False
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if i == 0:
-            (state, got), counts = _counts_since_reset(lambda: step(state, batch))
+            counter = contextlib.nullcontext()
+            if comm is not None:
+                from repro_torch.launch.comm_analysis import CollectiveCounter
+                counter = CollectiveCounter()
+            with counter:
+                (state, got), counts = _counts_since_reset(lambda: step(state, batch))
+            if comm is not None:
+                comm.update(counter.record())
         else:
             state, got = step(state, batch)
         torch.cuda.synchronize()
@@ -2098,12 +2116,16 @@ def phase_sharded(total, single_steps, mesh):
     phase's step; then one step with remat on, the peak memory beside the
     single-device step's) and hymba-1.5b at 4 layers (one step with remat
     off and one with it on: the SSD scan, the windowed flash and the fused
-    mixers on the sharded path)."""
+    mixers on the sharded path). Returns the collectives of yi-6b's first
+    sharded step (``CollectiveCounter.record``), which phase 9 holds the
+    dry-run to."""
+    comm = {}
     sharded_step_gate("yi-6b", TRAIN_LAYERS["yi-6b"], 3, total, mesh,
-                      single_steps.get("yi-6b"))
+                      single_steps.get("yi-6b"), comm=comm)
     sharded_step_gate("yi-6b", TRAIN_LAYERS["yi-6b"], 1, total, mesh, remat=True)
     sharded_step_gate("hymba-1.5b", 4, 1, total, mesh)
     sharded_step_gate("hymba-1.5b", 4, 1, total, mesh, remat=True)
+    return comm
 
 
 # --------------------------------------------------------------------------
@@ -2261,6 +2283,227 @@ def phase_mesh_serving(total, mesh):
     mesh_decode_gate("llava-next-34b", mesh, total, layers=MESH_LLAVA_LAYERS)
     sharded_step_gate("granite-moe-3b-a800m", 4, 1, total, mesh)
     mesh_parallel_utilities(mesh)
+
+
+# --------------------------------------------------------------------------
+# 9. the dry-run held to the card
+# --------------------------------------------------------------------------
+
+DRYRUN_MEMORY_TOL = 0.05        # the dry-run's peak within 5% of the card's
+DRYRUN_PHASE_S = 60.0
+DRYRUN_DECODE = (2048, 1984, 4)  # decode: cache slots, first position, steps
+DRYRUN_CLI = ["--arch", "yi-6b", "--shape", "train_4k", "--mesh", "single"]
+
+
+def _no_card_env():
+    """The environment of a child that must not touch the card: none visible."""
+    import os
+    return {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+            "PYTHONPATH": str(ROOT / "src")}
+
+
+def _dryrun_train_args(device):
+    """yi-6b at TRAIN_LAYERS' 16 layers, the training phase's config (remat
+    off, G = 2 x 1 x 2048): a fresh train state and the training phase's
+    fixed batch on ``device`` (as tensors, so the step copies nothing in)."""
+    from repro_torch.train.step import init_train_state
+    arch, cfg = _train_arch("yi-6b"), _train_cfg()
+    gen = (torch.Generator(device="cuda") if device == "cuda" else torch.Generator()).manual_seed(0)
+    state = init_train_state(arch, cfg, gen, device)
+    host = _train_data(arch).batch_at(0)
+    if device == "cuda":
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
+    else:
+        batch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v[:0]).dtype, device=device)
+                 for k, v in host.items()}
+    return state, batch
+
+
+def _dryrun_train_step(args):
+    from repro_torch.train.step import make_train_step
+    state, batch = args
+    return make_train_step(_train_arch("yi-6b"), _train_cfg())(state, batch)
+
+
+def _dryrun_serving_args(device):
+    """Full-width yi-6b (32 layers, bf16): the model, a prefill batch B=2
+    S=2000, a DRYRUN_DECODE cache for B=4 and its first tokens, on ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import RunCfg, init_params
+    gen = (torch.Generator(device="cuda") if device == "cuda" else torch.Generator()).manual_seed(0)
+    model = init_params(get_config("yi-6b"), gen, RunCfg(compute_dtype=torch.bfloat16), device)
+    tokens = torch.zeros(2, 2000, dtype=torch.int32, device=device)
+    cache = model.init_cache(4, DRYRUN_DECODE[0])
+    return model, tokens, cache, torch.zeros(4, dtype=torch.int32, device=device)
+
+
+def _dryrun_serving_step(args):
+    """Prefill, then DRYRUN_DECODE's greedy serve steps."""
+    from repro_torch.serving.serve import make_prefill_step, make_serve_step
+    model, tokens, cache, tok = args
+    logits = make_prefill_step(model)({"tokens": tokens})
+    serve = make_serve_step(model)
+    _, first, steps = DRYRUN_DECODE
+    for pos in range(first, first + steps):
+        tok, _, _ = serve(cache, tok, pos)
+    return logits, tok
+
+
+def _card_peak(build_args, step):
+    """``step(build_args())`` on the card: (the arguments, the bytes
+    allocated when the step starts and the peak over it, each above what
+    the process held before ``build_args``). The dry-run's ``measure`` on
+    the card."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = build_args()
+    torch.cuda.synchronize()
+    gc.collect()
+    start = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    out = step(args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return args, start, peak
+
+
+def _memory_gate(name, dry, start, peak):
+    err = abs(dry["peak_bytes"] - peak) / peak
+    log(f"[dryrun] {name}: peak {peak} B ({peak / 2**30:.3f} GiB) on the card, "
+        f"{dry['peak_bytes']} B ({dry['peak_bytes'] / 2**30:.3f} GiB) dry-run, "
+        f"{100 * err:.2f}% apart; live at the step's start {start} B on the card, "
+        f"{dry['live_bytes_at_start']} B dry-run")
+    if err > DRYRUN_MEMORY_TOL:
+        raise AssertionError(f"dry-run peak of {name} {100 * err:.2f}% from the card's "
+                             f"max_memory_allocated (limit {100 * DRYRUN_MEMORY_TOL:.0f}%)")
+    return err
+
+
+def dryrun_child() -> int:
+    """Run in a child with no card visible (``phase_dryrun``): the dry-runs
+    of phase 9's single-device train step and serving (``dryrun.measure``
+    on meta tensors), then of phase 7's sharded yi-6b step (16 layers,
+    remat off) on a fake (1, 1) mesh; prints their numbers as one JSON
+    line."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    if torch.cuda.is_available():
+        raise RuntimeError("the dry-run child sees a card")
+    out = {}
+    for name, build_args, step in (("train", _dryrun_train_args, _dryrun_train_step),
+                                   ("serving", _dryrun_serving_args, _dryrun_serving_step)):
+        m = dryrun.measure(lambda: build_args("meta"), step)
+        out[name] = {k: m[k] for k in ("peak_bytes", "live_bytes_at_start", "flops")}
+    dryrun.fake_world(1)
+    mesh = make_mesh((1, 1), ("data", "model"), "meta")
+    arch, cfg = _train_arch("yi-6b"), _train_cfg()
+    host = _train_data(arch).batch_at(0)
+    rec = dryrun.dry_train(arch, cfg, lambda: {k: torch.empty(v.shape, dtype=torch.int32,
+                                                              device="meta")
+                                               for k, v in host.items()}, mesh)
+    out["sharded"] = rec["collectives"]
+    print(json.dumps(out))
+    return 0
+
+
+def phase_dryrun(card_comm):
+    """Section 9: the dry-run (``repro_torch.launch.dryrun``) held to the
+    card. Two children with no card visible run beside the card's work:
+    the CLI on one cell, and ``dryrun_child``. (a) The CLI's record has
+    ``ok``, the peak, the argument bytes, flops, collectives and ``fits``.
+    (b) yi-6b's 16-layer train step (the training phase's config) and its
+    serving (prefill B=2 S=2000, 4 decode steps B=4 at 1984-1987 of a
+    2,048-slot cache), each run on the card: the dry-run's peak within
+    DRYRUN_MEMORY_TOL of ``max_memory_allocated``, the train step's flops
+    under ``FlopCounterMode`` on the card equal to the dry-run's. (c) The
+    collectives of phase 7's first sharded yi-6b step (``card_comm``)
+    equal, kind by kind, to the dry-run's on a fake (1, 1) mesh. (d)
+    ``kernels.build``'s target constants equal to the card's properties."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    cli = subprocess.Popen([sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+                            *DRYRUN_CLI, "--out", out_dir], cwd=ROOT, env=_no_card_env(),
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    child = subprocess.Popen([sys.executable, "-W", "ignore", "-c",
+                              "import sys, chip_smoke; sys.exit(chip_smoke.dryrun_child())"],
+                             cwd=ROOT, env=_no_card_env(), stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    mark = lambda what: log(f"[dryrun] {what} at {time.perf_counter() - t0:.1f} s")
+    try:
+        props = torch.cuda.get_device_properties(0)
+        got = (props.name, props.multi_processor_count, props.total_memory)
+        want = (build.TARGET_NAME, build.TARGET_SMS, build.TARGET_MEMORY)
+        log(f"[dryrun] (d) the card: {got}; kernels.build's target: {want}")
+        if got != want:
+            raise AssertionError(f"the card's (name, SMs, memory) {got} are not the target's "
+                                 f"{want}")
+
+        # (b) on the card: training (memory, then flops on a second step), serving
+        card = {}
+        args, start, peak = _card_peak(lambda: _dryrun_train_args("cuda"), _dryrun_train_step)
+        with FlopCounterMode(display=False) as fc:
+            _dryrun_train_step(args)
+        card["train"] = (start, peak, fc.get_total_flops())
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
+        args, start, peak = _card_peak(lambda: _dryrun_serving_args("cuda"), _dryrun_serving_step)
+        card["serving"] = (start, peak, None)
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("the card's steps done")
+
+        stdout, stderr = child.communicate(timeout=2 * DRYRUN_PHASE_S)
+        if child.returncode != 0:
+            raise AssertionError(f"the dry-run child failed:\n{stderr[-4000:]}")
+        dry = json.loads(stdout.strip().splitlines()[-1])
+        mark("the dry-run child done")
+        errs = {}
+        for name, what in (("train", "yi-6b 16 layers, train step G=2 x 1 x 2048, remat off"),
+                           ("serving", "yi-6b 32 layers, prefill B=2 S=2000 and decode B=4")):
+            start, peak, flops = card[name]
+            errs[name] = _memory_gate(what, dry[name], start, peak)
+        log(f"[dryrun] (b) yi-6b train step flops: {card['train'][2]} under FlopCounterMode on "
+            f"the card, {dry['train']['flops']} dry-run")
+        if card["train"][2] != dry["train"]["flops"]:
+            raise AssertionError(f"train step flops {card['train'][2]} on the card, "
+                                 f"{dry['train']['flops']} dry-run")
+        log(f"[dryrun] (c) yi-6b sharded step on the (1, 1) mesh: collectives on the card "
+            f"{card_comm}; dry-run {dry['sharded']}")
+        if dry["sharded"] != card_comm:
+            raise AssertionError(f"collectives differ: card {card_comm}, dry-run "
+                                 f"{dry['sharded']}")
+
+        # (a) the CLI
+        text = cli.communicate(timeout=2 * DRYRUN_PHASE_S)[0]
+        mark("the CLI done")
+        path = Path(out_dir) / "yi-6b__train_4k__single.json"
+        if cli.returncode != 0 or not path.is_file():
+            raise AssertionError(f"dryrun CLI exited {cli.returncode}:\n{text[-4000:]}")
+        rec = json.loads(path.read_text())
+        need = ("ok", "memory", "flops", "collectives", "fits", "target")
+        if not rec.get("ok") or any(k not in rec for k in need):
+            raise AssertionError(f"dryrun CLI record lacks {need}: {sorted(rec)}")
+        log(f"[dryrun] (a) python -m repro_torch.launch.dryrun {' '.join(DRYRUN_CLI)} (no card "
+            f"visible): ok, peak {rec['memory']['peak_bytes']} B, arguments "
+            f"{rec['memory']['argument_bytes']}, flops {rec['flops']}, collectives "
+            f"{rec['collectives']}, fits {rec['fits']}, {rec['wall_s']} s")
+    finally:
+        for proc in (cli, child):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"[dryrun] the phase: {seconds:.1f} s; peaks {100 * errs['train']:.2f}% (train) and "
+        f"{100 * errs['serving']:.2f}% (serving) from the card's")
+    if seconds > DRYRUN_PHASE_S:
+        raise AssertionError(f"the dry-run phase took {seconds:.1f} s (limit {DRYRUN_PHASE_S} s)")
 
 
 def kernel_line(rows, errs, total):
@@ -2500,11 +2743,13 @@ def main() -> int:
     train_rows, single_steps = phase_train(total, phase_done)
     rows += train_rows
     with one_rank_nccl() as mesh:
-        phase_sharded(total, single_steps, mesh)
+        card_comm = phase_sharded(total, single_steps, mesh)
         phase_done("sharded training")
         torch.cuda.reset_peak_memory_stats()
         phase_mesh_serving(total, mesh)
         phase_done("sharded serving and expert parallelism")
+    phase_dryrun(card_comm)
+    phase_done("dry-run held to the card")
     for name in [*SOURCES]:
         if not total.get(name):
             raise AssertionError(f"kernel {name} was never launched on the main path")

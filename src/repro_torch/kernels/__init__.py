@@ -4,10 +4,17 @@ Each kernel has three parts: ``csrc/<name>.cu`` (the CUDA kernel for
 sm_90a), ``<name>.py`` (the wrapper: checks, allocation, launch, a
 ``launches`` counter) and its plain PyTorch version in ``ref.py``. A
 wrapper dispatches on the tensor's device alone: CPU tensors take the
-plain version, CUDA tensors the kernel, and anything else raises.
+plain version, CUDA tensors the kernel, tensors without storage (meta,
+fake) the CUDA path's checks and allocations, and any other device
+raises.
 ``flash_attention``, ``rmsnorm`` and ``ssd_scan`` are autograd Functions
 whose backward is the wrapper ``flash_attention_bwd`` / ``rmsnorm_bwd`` /
 ``ssd_scan_bwd`` (a kernel of its own, counted under its own name).
+Each forward and backward is one ``torch.library`` op,
+``torch.ops.repro_torch.<name>`` (``build.define_op``), which picks the
+launch, the plain version or, for meta and fake tensors, a fake
+implementation (the CUDA path's checks and allocations) by the tensors'
+dispatch key; launches are counted in the CUDA implementation only.
 """
 
 from typing import Dict

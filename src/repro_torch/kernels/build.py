@@ -5,7 +5,19 @@ process a source, all started together) and links them into one shared
 library with a plain C interface under ``build/repro_torch/`` at the
 repository root; the file name carries a hash of the sources, so an
 edited kernel is rebuilt and an unchanged one is loaded as it is. The
-library is loaded with ``ctypes``. Nothing here runs at import time.
+library is loaded with ``ctypes``. Nothing here is built or loaded at
+import time.
+
+Each wrapper's forward and backward is one ``torch.library`` operator in
+the ``repro_torch`` namespace (``define_op``): a CUDA implementation (the
+launch), a CPU implementation (the plain version from ``ref.py``) and a
+fake implementation for tensors without storage (the meta device, or a
+``FakeTensorMode``). The fake implementation runs the CUDA path's checks
+and allocates what the CUDA path allocates, outputs and scratch, and
+launches nothing; ``launch.dryrun`` walks a model through it. Where the
+CUDA path plans by the card's SM count, the fake path takes
+``TARGET_SMS``, the count of the card the port is written for
+(``chip_smoke.py`` holds it to the card).
 
 There is no ``-lcuda``: the one driver call the kernels need,
 ``cuTensorMapEncodeTiled`` (the TMA maps of the flash and SSD kernels), is
@@ -24,17 +36,28 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable, Dict, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 
-__all__ = ["library", "build", "check", "dtype_code", "stream_of", "sm_count", "refuse_dtensor"]
+__all__ = ["library", "build", "check", "dtype_code", "stream_of", "sm_count", "refuse_dtensor",
+           "define_op", "fake_impl", "address", "sms_of", "TARGET_NAME", "TARGET_SMS",
+           "TARGET_MEMORY"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
+
+# The card the port is written for, as torch.cuda.get_device_properties
+# reads an H100 SXM: its name, its SMs and its device memory in bytes.
+# A fake run plans and judges fit by these; chip_smoke.py checks them.
+TARGET_NAME = "NVIDIA H100 80GB HBM3"
+TARGET_SMS = 132
+TARGET_MEMORY = 85_017_493_504
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -152,6 +175,53 @@ def stream_of(t: torch.Tensor) -> int:
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of card ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _no_storage(t: torch.Tensor) -> bool:
+    """Whether ``t`` has no memory behind it: a meta or a fake tensor."""
+    return t.is_meta or isinstance(t, FakeTensor)
+
+
+def address(t: torch.Tensor) -> int:
+    """``t.data_ptr()``; for a fake tensor, its offset in bytes from its
+    storage's base (a meta tensor's ``data_ptr`` is that offset already).
+    The CUDA caching allocator aligns a base to 512 bytes, so the kernels'
+    alignment checks read the same on all three."""
+    if isinstance(t, FakeTensor):
+        return t.storage_offset() * t.element_size()
+    return t.data_ptr()
+
+
+def sms_of(t: torch.Tensor) -> int:
+    """The SM count the kernels plan by: the card's for a CUDA tensor,
+    ``TARGET_SMS`` for a tensor without storage."""
+    return TARGET_SMS if _no_storage(t) else sm_count(t.device.index or 0)
+
+
+LIB = torch.library.Library("repro_torch", "DEF")
+_FAKE: Dict[str, Callable] = {}
+
+
+def define_op(name: str, schema: str, *, cuda: Callable, cpu: Callable, fake: Callable):
+    """Define ``torch.ops.repro_torch.<name>`` with ``schema`` (the argument
+    list and returns, e.g. ``"(Tensor x, float eps) -> Tensor"``): ``cuda``
+    for CUDA tensors (the launch), ``cpu`` for CPU tensors (the plain
+    version), ``fake`` for tensors without storage (the CUDA path's checks
+    and allocations; no launch). Returns the op."""
+    LIB.define(name + schema)
+    LIB.impl(name, cuda, "CUDA")
+    LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=LIB)
+    _FAKE[name] = fake
+    return getattr(torch.ops.repro_torch, name)
+
+
+def fake_impl(op) -> Optional[Callable]:
+    """The fake implementation of a ``repro_torch`` op (an ``OpOverload``
+    or its packet), or None for any other op."""
+    if op.namespace != "repro_torch":
+        return None
+    return _FAKE[op.__name__.split(".")[0]]
 
 
 def refuse_dtensor(op: str, *tensors) -> None:

@@ -30,6 +30,13 @@ backward is ``flash_attention_bwd``, picked by ``bwd_kernel_path``:
 Both read the forward's LSE and D = rowsum(dO o) from a launch of its own
 (``csrc/flash_attention_bwd.cu``); nothing recomputes the row statistics.
 CPU tensors take ``ref.flash_attention_bwd_ref``.
+
+Forward and backward are the ops ``repro_torch::flash_attention_fwd`` and
+``repro_torch::flash_attention_bwd`` (``build.define_op``: the launch for
+CUDA tensors, the plain version for CPU tensors, the CUDA path's checks
+and allocations for tensors without storage). ``flops`` and ``bwd_flops``
+count their products, for ``FlopCounterMode`` and for the bounds in
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -37,12 +44,14 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "check_args",
-           "check_bwd_args", "kernel_path", "bwd_kernel_path", "bwd_slices", "lse_stride",
+           "check_bwd_args", "kernel_path", "bwd_kernel_path", "bwd_slices", "lse_stride", "pairs",
+           "flops", "bwd_flops",
            "HEAD_DIMS", "WGMMA_HEAD_DIMS"]
 
 HEAD_DIMS = (32, 64, 80, 128)       # head dims some kernel is instantiated for
@@ -92,10 +101,34 @@ def lse_stride(S: int) -> int:
     return -(-S // LSE_ROWS) * LSE_ROWS
 
 
+def pairs(S: int, causal: bool = True, window: int = 0) -> int:
+    """(query, key) pairs the attention of S tokens computes: each query
+    i sees min(i + 1, window) keys under a window, i + 1 under the causal
+    mask alone, and all S without it (no arch runs a window without the
+    causal mask)."""
+    if not causal:
+        return S * S
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flops(B: int, nh: int, S: int, hd: int, causal: bool = True, window: int = 0) -> int:
+    """The forward's products: q kᵀ and p v, 2 hd each over every pair."""
+    return 4 * B * nh * hd * pairs(S, causal, window)
+
+
+def bwd_flops(B: int, nh: int, S: int, hd: int, causal: bool = True, window: int = 0) -> int:
+    """The backward's products as its bound counts them: five of 2 hd over
+    every pair (S = q kᵀ, dP = dO vᵀ, dV, dK, dQ); the kernels recompute S
+    and dP for dQ, which the count leaves out."""
+    return 5 * 2 * B * nh * hd * pairs(S, causal, window)
+
+
 def check_args(q, k, v, window) -> str:
     """Raise on what the kernels do not take; return ``kernel_path``.
-    Looks at shapes, dtypes, strides and addresses only, so it runs on any
-    device."""
+    Looks at shapes, dtypes, strides and addresses only (``build.address``),
+    so it runs on any device."""
     build.refuse_dtensor("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention takes q [B,nh,S,hd], k/v [B,nkv,S,hd], got "
@@ -119,8 +152,9 @@ def _check_layout(name, t, device):
     if not strides_ok(t):
         raise ValueError(f"{name} needs a contiguous head dim and strides that are multiples "
                          f"of 16 bytes, got strides {t.stride()}")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} needs a 16-byte aligned base, got address {t.data_ptr():#x}")
+    if build.address(t) % 16:
+        raise ValueError(f"{name} needs a 16-byte aligned base, got address "
+                         f"{build.address(t):#x}")
 
 
 def strides_ok(t) -> bool:
@@ -147,29 +181,20 @@ def _strides(*ts):
     return (ctypes.c_longlong * (3 * len(ts)))(*(s for t in ts for s in t.stride()[:3]))
 
 
-def _lse_buffer(B, nh, S, device) -> torch.Tensor:
+def _lse_buffer(B, nh, S, device, dtype=torch.float32) -> torch.Tensor:
     """An LSE or D buffer as the kernels take it, seen as [B, nh, S]."""
-    return torch.empty(B, nh, lse_stride(S), dtype=torch.float32, device=device)[..., :S]
+    return torch.empty(B, nh, lse_stride(S), dtype=dtype, device=device)[..., :S]
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0, lse: bool = True):
-    """(o, lse or None): the forward, and with ``lse`` each row's
-    log-sum-exp (``ref.flash_attention_fwd_ref``'s definition: fp32
-    [B,nh,S], log2 units of the scaled scores), which the backward reads.
-    On CUDA tensors the LSE is a [B,nh,S] view of a buffer whose rows are
-    ``lse_stride(S)`` apart."""
-    build.refuse_dtensor("flash_attention", q, k, v)
-    if q.device.type == "cpu":
-        if lse:
-            return flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
-        return flash_attention_ref(q, k, v, causal=causal, window=window), None
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
+def _fwd(q, k, v, causal, window, lse, launch):
+    """The CUDA forward on checked arguments: o and, with ``lse``, the LSE
+    buffer (else an empty tensor); with ``launch`` the kernel (one launch
+    counted)."""
     path = check_args(q, k, v, window)
     B, nh, S, hd = q.shape
     out = torch.empty_like(q)           # keeps a dense q's strides: [B,S,nh,hd] views stay so
-    row_lse = _lse_buffer(B, nh, S, q.device) if lse else None
-    if B == 0 or S == 0:
+    row_lse = _lse_buffer(B, nh, S, q.device) if lse else q.new_empty(0, dtype=torch.float32)
+    if B == 0 or S == 0 or not launch:
         return out, row_lse
     lib = build.library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -185,32 +210,60 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0, lse: b
     return out, row_lse
 
 
+def _fwd_plain(q, k, v, causal, window, lse):
+    """The plain forward, its outputs in the CUDA path's layouts (o in q's,
+    the LSE in the kernels' padded rows)."""
+    o = torch.empty_like(q)
+    if not lse:
+        o.copy_(flash_attention_ref(q, k, v, causal=causal, window=window))
+        return o, q.new_empty(0, dtype=torch.float32)
+    ref_o, ref_lse = flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
+    row_lse = _lse_buffer(*q.shape[:3], q.device, ref_lse.dtype)    # fp64 for fp64 inputs
+    o.copy_(ref_o)
+    row_lse.copy_(ref_lse)
+    return o, row_lse
+
+
+_fwd_op = build.define_op(
+    "flash_attention_fwd",
+    "(Tensor q, Tensor k, Tensor v, bool causal, int window, bool lse) -> (Tensor, Tensor)",
+    cuda=lambda *a: _fwd(*a, launch=True), cpu=_fwd_plain,
+    fake=lambda *a: _fwd(*a, launch=False))
+
+
+@register_flop_formula(_fwd_op)
+def _fwd_op_flops(q, k, v, causal, window, lse, *, out_shape=None, **kwargs) -> int:
+    B, nh, S, hd = q
+    return flops(B, nh, S, hd, causal, window)
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0, lse: bool = True):
+    """(o, lse or None): the forward, and with ``lse`` each row's
+    log-sum-exp (``ref.flash_attention_fwd_ref``'s definition: fp32
+    [B,nh,S], log2 units of the scaled scores), which the backward reads.
+    The op ``repro_torch::flash_attention_fwd``. On CUDA tensors the LSE is
+    a [B,nh,S] view of a buffer whose rows are ``lse_stride(S)`` apart."""
+    build.refuse_dtensor("flash_attention", q, k, v)
+    o, row_lse = _fwd_op(q, k, v, bool(causal), int(window), bool(lse))
+    return o, (row_lse if lse else None)
+
+
 def _kernel_lse(lse, B, nh, S):
     """``lse`` as the kernels read it: rows ``lse_stride(S)`` apart, 16-byte
     aligned; anything else (a caller's own [B,nh,S] tensor) is copied so."""
     ld = lse_stride(S)
     if (lse.shape != (B, nh, S) or lse.dtype != torch.float32
-            or lse.stride() != (nh * ld, ld, 1) or lse.data_ptr() % 16):
+            or lse.stride() != (nh * ld, ld, 1) or build.address(lse) % 16):
         buf = _lse_buffer(B, nh, S, lse.device)
         buf.copy_(lse)
         return buf
     return lse
 
 
-def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int = 0,
-                        slices: int = 0):
-    """(q, k, v, o and lse = flash_attention_fwd(q, k, v), do = dL/do) ->
-    (dq, dk, dv), each in its input's type and layout. CUDA tensors: one
-    launch counted, which runs D = rowsum(do o) per (b, h, row), then the
-    ``bwd_kernel_path`` kernels (wgmma: dK/dV into per-slice fp32 partials,
-    dQ, the fixed-order sum of the partials; mma: dK/dV looping over the
-    group, dQ). ``slices`` overrides ``bwd_slices`` (a divisor of the GQA
-    group; wgmma path only)."""
-    build.refuse_dtensor("flash_attention_bwd", q, k, v, o, do, lse)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention_bwd runs on CUDA or CPU tensors, got {q.device}")
+def _bwd(q, k, v, o, do, lse, causal, window, slices, launch):
+    """The CUDA backward on checked arguments: dq, dk, dv, the D buffer and
+    the wgmma path's fp32 partials; with ``launch`` the kernels (one launch
+    counted)."""
     path = check_bwd_args(q, k, v, o, do, window)
     B, nh, S, hd = q.shape
     nkv = k.shape[1]
@@ -219,6 +272,16 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int
         return dq, dk, dv
     lse = _kernel_lse(lse, B, nh, S)
     delta = _lse_buffer(B, nh, S, q.device)
+    parts, gs = None, 1
+    if path == "wgmma":
+        gs = slices or bwd_slices(nh // nkv, -(-S // 128) * nkv * B, build.sms_of(q))
+        if gs < 1 or (nh // nkv) % gs:
+            raise ValueError(f"slices must divide the GQA group {nh // nkv}, got {gs}")
+        # fp32 partial dK and dV of each slice; none when one slice
+        if gs > 1:
+            parts = torch.empty(2, gs, B, nkv, S, hd, dtype=torch.float32, device=q.device)
+    if not launch:
+        return dq, dk, dv
     ld = lse_stride(S)
     lib = build.library()
     with torch.cuda.device(q.device):
@@ -231,13 +294,6 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int
                 dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr())
         strides = _strides(q, k, v, do, dq, dk, dv)
         if path == "wgmma":
-            gs = slices or bwd_slices(nh // nkv, -(-S // 128) * nkv * B,
-                                      build.sm_count(q.device.index or 0))
-            if gs < 1 or (nh // nkv) % gs:
-                raise ValueError(f"slices must divide the GQA group {nh // nkv}, got {gs}")
-            # fp32 partial dK and dV of each slice; none when one slice
-            parts = (torch.empty(2, gs, B, nkv, S, hd, dtype=torch.float32, device=q.device)
-                     if gs > 1 else None)
             err = lib.flash_attention_bwd_wgmma_launch(
                 *ptrs, parts.data_ptr() if parts is not None else None, strides, B, nh, nkv,
                 S, hd, int(causal), int(window), ld, gs, stream)
@@ -247,6 +303,41 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int
     build.check(err, f"flash_attention_bwd ({path})")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+def _bwd_plain(q, k, v, o, do, lse, causal, window, slices):
+    """The plain backward, dq, dk, dv in their inputs' layouts."""
+    grads = flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
+    return tuple(torch.empty_like(t).copy_(g) for t, g in zip((q, k, v), grads))
+
+
+_bwd_op = build.define_op(
+    "flash_attention_bwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor o, Tensor do, Tensor lse, bool causal, int window, "
+    "int slices) -> (Tensor, Tensor, Tensor)",
+    cuda=lambda *a: _bwd(*a, launch=True), cpu=_bwd_plain,
+    fake=lambda *a: _bwd(*a, launch=False))
+
+
+@register_flop_formula(_bwd_op)
+def _bwd_op_flops(q, k, v, o, do, lse, causal, window, slices, *, out_shape=None,
+                  **kwargs) -> int:
+    B, nh, S, hd = q
+    return bwd_flops(B, nh, S, hd, causal, window)
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int = 0,
+                        slices: int = 0):
+    """(q, k, v, o and lse = flash_attention_fwd(q, k, v), do = dL/do) ->
+    (dq, dk, dv), each in its input's type and layout; the op
+    ``repro_torch::flash_attention_bwd``. CUDA tensors: one launch counted,
+    which runs D = rowsum(do o) per (b, h, row), then the
+    ``bwd_kernel_path`` kernels (wgmma: dK/dV into per-slice fp32 partials,
+    dQ, the fixed-order sum of the partials; mma: dK/dV looping over the
+    group, dQ). ``slices`` overrides ``bwd_slices`` (a divisor of the GQA
+    group; wgmma path only). CPU tensors: ``ref.flash_attention_bwd_ref``."""
+    build.refuse_dtensor("flash_attention_bwd", q, k, v, o, do, lse)
+    return _bwd_op(q, k, v, o, do, lse, bool(causal), int(window), int(slices))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -266,7 +357,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.to(q.dtype)
-        if do.device.type == "cuda" and not (strides_ok(do) and do.data_ptr() % 16 == 0):
+        if do.device.type != "cpu" and not (strides_ok(do) and build.address(do) % 16 == 0):
             do = do.contiguous()        # e.g. a broadcast gradient (stride 0)
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, causal=ctx.causal,
                                          window=ctx.window)

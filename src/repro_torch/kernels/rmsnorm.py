@@ -6,6 +6,12 @@ bf16 row in registers and reads it once, for H = 256 * v with v in
 ``ROW_VPL`` (2560, 4096 and 5120, the widths of the served models);
 ``"loop"`` takes fp32 and every other H that is a multiple of 8.
 
+Forward and backward are the ops ``repro_torch::rmsnorm`` and
+``repro_torch::rmsnorm_bwd`` (``build.define_op``: the launch for CUDA
+tensors, the plain version for CPU tensors, the CUDA path's checks and
+allocations for tensors without storage). Under ``FlopCounterMode`` they
+count nothing, as every elementwise op there.
+
 Gradients: ``rmsnorm`` is a ``torch.autograd.Function`` that saves x and w.
 Its backward is ``rmsnorm_bwd``: ``csrc/rmsnorm_bwd.cu`` for CUDA tensors,
 the plain ``ref.rmsnorm_bwd_ref`` for CPU tensors. ``bwd_kernel_path``
@@ -53,8 +59,8 @@ def kernel_path(dtype: torch.dtype, H: int) -> str:
 
 def check_args(x, w) -> str:
     """Raise on what the kernel does not take; return ``kernel_path``.
-    Looks at shapes, dtypes, strides and addresses only, so it runs on any
-    device."""
+    Looks at shapes, dtypes, strides and addresses only (``build.address``),
+    so it runs on any device."""
     build.refuse_dtensor("rmsnorm", x, w)
     if x.dim() != 2 or w.shape != (x.shape[1],):
         raise ValueError(f"rmsnorm takes x [T,H] and w [H], got {tuple(x.shape)}, "
@@ -65,22 +71,19 @@ def check_args(x, w) -> str:
         raise ValueError("rmsnorm kernel takes contiguous x and w")
     path = kernel_path(x.dtype, x.shape[1])
     for name, t in (("x", x), ("w", w)):
-        if t.data_ptr() % 16:     # the kernel moves rows in 16-byte vectors
+        if build.address(t) % 16:     # the kernel moves rows in 16-byte vectors
             raise ValueError(f"rmsnorm kernel needs 16-byte aligned tensors, {name} is at "
-                             f"address {t.data_ptr():#x}")
+                             f"address {build.address(t):#x}")
     return path
 
 
-def _forward(x, w, eps):
-    build.refuse_dtensor("rmsnorm", x, w)
-    if x.device.type == "cpu":
-        return rmsnorm_ref(x, w, eps)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"rmsnorm runs on CUDA or CPU tensors, got {x.device}")
+def _fwd(x, w, eps, launch):
+    """The CUDA path on checked arguments: allocate, and with ``launch``
+    run the kernel (one launch counted)."""
     path = check_args(x, w)
     T, H = x.shape
     out = torch.empty_like(x)           # fresh from the allocator: aligned
-    if T == 0:
+    if T == 0 or not launch:
         return out
     vpl = H // 256 if path == "rows" else 0
     lib = build.library()
@@ -90,6 +93,12 @@ def _forward(x, w, eps):
     build.check(err, f"rmsnorm ({path})")
     rmsnorm.launches += 1
     return out
+
+
+_fwd_op = build.define_op(
+    "rmsnorm", "(Tensor x, Tensor w, float eps) -> Tensor",
+    cuda=lambda x, w, eps: _fwd(x, w, eps, True), cpu=rmsnorm_ref,
+    fake=lambda x, w, eps: _fwd(x, w, eps, False))
 
 
 def bwd_kernel_path(dtype: torch.dtype, H: int) -> str:
@@ -117,28 +126,25 @@ def bwd_grid(path: str, T: int, H: int, sms: int):
     return max(1, min(2 * sms, -(-T // warps))), warps
 
 
-def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-5):
-    """(x [T,H], w [H], dy [T,H]) -> (dx in x's type, dw in w's type).
-    CUDA tensors: two kernels (``bwd_kernel_path``'s, then the sum of the
-    dw partials), one launch counted."""
-    build.refuse_dtensor("rmsnorm_bwd", x, w, dy)
-    if x.device.type == "cpu":
-        return rmsnorm_bwd_ref(x, w, dy, eps)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"rmsnorm_bwd runs on CUDA or CPU tensors, got {x.device}")
+def _bwd(x, w, dy, eps, launch):
+    """The CUDA backward on checked arguments: dx, dw and the fp32 dw
+    partial rows, and with ``launch`` the two kernels (one launch
+    counted)."""
     check_args(x, w)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy must be {x.dtype} {tuple(x.shape)} on {x.device} like x, got "
                          f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
-    if not dy.is_contiguous() or dy.data_ptr() % 16:
+    if not dy.is_contiguous() or build.address(dy) % 16:
         raise ValueError("rmsnorm backward takes a contiguous, 16-byte aligned dy")
     T, H = x.shape
     dx, dw = torch.empty_like(x), torch.empty_like(w)
     if T == 0:
         return dx, dw.zero_()
     path = bwd_kernel_path(x.dtype, H)
-    blocks, warps = bwd_grid(path, T, H, build.sm_count(x.device.index or 0))
+    blocks, warps = bwd_grid(path, T, H, build.sms_of(x))
     partial = torch.empty(blocks, H, dtype=torch.float32, device=x.device)
+    if not launch:
+        return dx, dw
     lib = build.library()
     with torch.cuda.device(x.device):
         err = lib.rmsnorm_bwd_launch(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
@@ -150,6 +156,21 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-5):
     return dx, dw
 
 
+_bwd_op = build.define_op(
+    "rmsnorm_bwd", "(Tensor x, Tensor w, Tensor dy, float eps) -> (Tensor, Tensor)",
+    cuda=lambda x, w, dy, eps: _bwd(x, w, dy, eps, True), cpu=rmsnorm_bwd_ref,
+    fake=lambda x, w, dy, eps: _bwd(x, w, dy, eps, False))
+
+
+def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-5):
+    """(x [T,H], w [H], dy [T,H]) -> (dx in x's type, dw in w's type):
+    the op ``repro_torch::rmsnorm_bwd``. CUDA tensors: two kernels
+    (``bwd_kernel_path``'s, then the sum of the dw partials), one launch
+    counted; CPU tensors: ``ref.rmsnorm_bwd_ref``."""
+    build.refuse_dtensor("rmsnorm_bwd", x, w, dy)
+    return _bwd_op(x, w, dy, float(eps))
+
+
 class RMSNorm(torch.autograd.Function):
     """The forward kernel, with ``rmsnorm_bwd`` as its gradient."""
 
@@ -157,13 +178,14 @@ class RMSNorm(torch.autograd.Function):
     def forward(ctx, x, w, eps):
         ctx.save_for_backward(x, w)
         ctx.eps = eps
-        return _forward(x, w, eps)
+        build.refuse_dtensor("rmsnorm", x, w)
+        return _fwd_op(x, w, float(eps))
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dy = dy.to(x.dtype)
-        if dy.device.type == "cuda" and not (dy.is_contiguous() and dy.data_ptr() % 16 == 0):
+        if dy.device.type != "cpu" and not (dy.is_contiguous() and build.address(dy) % 16 == 0):
             dy = dy.contiguous()
         dx, dw = rmsnorm_bwd(x, w, dy, eps=ctx.eps)
         return dx, dw, None

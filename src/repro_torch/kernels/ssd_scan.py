@@ -30,6 +30,13 @@ Both take strides, so x may be a [B,nh,S,hp] view of the model's
 [B,S,nh,hp] tensor, Bm and Cm column slices of the conv output and dt a
 [B,nh,S] view of a [B,S,nh] tensor: no copy in any case. y is allocated
 in x's layout (dense, dims in x's stride order).
+
+Forward and backward are the ops ``repro_torch::ssd_scan`` and
+``repro_torch::ssd_scan_bwd`` (``build.define_op``: the launch for CUDA
+tensors, the plain version for CPU tensors, the CUDA path's checks and
+allocations, scratch included, for tensors without storage).
+``fwd_flops`` and ``bwd_flops`` count their products, for
+``FlopCounterMode`` and for the bounds in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 from .ref import ssd_scan_bwd_ref, ssd_scan_ref
@@ -45,7 +53,7 @@ from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 __all__ = ["ssd_scan", "ssd_scan_bwd", "SSDScan", "check_args", "check_bwd_args", "kernel_path",
            "bwd_kernel_path", "segment_chunks", "bwd_plan", "launch_fma", "launch_bwd_fma",
            "HEAD_DIMS", "STATE_DIMS", "WGMMA_STATE_DIMS", "BWD_WGMMA_STATE_DIMS", "KERNEL_CHUNK",
-           "SCAN_COST"]
+           "SCAN_COST", "fwd_flops", "bwd_flops"]
 
 HEAD_DIMS = (16, 32, 64)           # hp some kernel is instantiated for
 STATE_DIMS = (16, 32, 64, 128)     # ... and N
@@ -70,14 +78,15 @@ def _rows_ok(t) -> bool:
     """Unit stride along the last dim, rows 16-byte aligned (the FMA kernels
     stage rows in 16-byte vectors; TMA takes only such strides and bases)."""
     vec = 16 // t.element_size()
-    return t.stride(-1) == 1 and not any(s % vec for s in t.stride()[:-1]) and t.data_ptr() % 16 == 0
+    return (t.stride(-1) == 1 and not any(s % vec for s in t.stride()[:-1])
+            and build.address(t) % 16 == 0)
 
 
 def _check_rows(name, t):
     build.refuse_dtensor("ssd_scan", t)
     if not _rows_ok(t):
         raise ValueError(f"{name} needs a unit last stride and 16-byte aligned rows, got "
-                         f"strides {t.stride()} at address {t.data_ptr():#x}")
+                         f"strides {t.stride()} at address {build.address(t):#x}")
 
 
 def _check_inputs(x, dt, A, Bm, Cm):
@@ -113,8 +122,8 @@ def _check_state(name, t, x, hp, N):
 
 def check_args(x, dt, A, Bm, Cm, initial_state=None, return_state=False) -> str:
     """Raise on what the kernels do not take; return ``kernel_path``. Looks
-    at shapes, dtypes, strides and addresses only, so it runs on any
-    device."""
+    at shapes, dtypes, strides and addresses only (``build.address``), so
+    it runs on any device."""
     hp, N = _check_inputs(x, dt, A, Bm, Cm)
     path = kernel_path(x.dtype, hp, N)
     if (initial_state is not None or return_state) and path != "wgmma":
@@ -256,14 +265,21 @@ def _strides(x, dt, Bm, Cm, y):
 
 def launch_fma(x, dt, A, Bm, Cm) -> torch.Tensor:
     """Launch the FMA kernel on checked CUDA arguments, whatever
-    ``kernel_path`` says (``ssd_scan`` calls it on its "fma" path; timing
+    ``kernel_path`` says (``ssd_scan`` runs it on its "fma" path; timing
     scripts call it to hold the wgmma path against it). Not counted."""
+    return _fma(x, dt, A, Bm, Cm, True)
+
+
+def _fma(x, dt, A, Bm, Cm, launch):
     B, nh, S, hp = x.shape
     y = torch.empty_like(x)        # dense, in x's dim order: [B,S,nh,hp] for the model's views
     _check_rows("y", y)
+    A = A.contiguous()
+    if not launch:
+        return y
     lib = build.library()
     with torch.cuda.device(x.device):
-        err = lib.ssd_scan_fma_launch(x.data_ptr(), dt.data_ptr(), A.contiguous().data_ptr(),
+        err = lib.ssd_scan_fma_launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                                       Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
                                       _strides(x, dt, Bm, Cm, y), B, nh, S, hp, Bm.shape[-1],
                                       build.dtype_code(x), build.stream_of(x))
@@ -271,11 +287,11 @@ def launch_fma(x, dt, A, Bm, Cm) -> torch.Tensor:
     return y
 
 
-def _launch_wgmma(x, dt, A, Bm, Cm, initial_state, return_state):
+def _wgmma(x, dt, A, Bm, Cm, initial_state, return_state, launch):
     B, nh, S, hp = x.shape
     N = Bm.shape[-1]
     y = torch.empty_like(x)
-    seg = segment_chunks(B, nh, S, build.sm_count(x.device.index or 0), N)
+    seg = segment_chunks(B, nh, S, build.sms_of(x), N)
     nc = -(-S // KERNEL_CHUNK)
     n_seg = -(-nc // seg)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -283,12 +299,15 @@ def _launch_wgmma(x, dt, A, Bm, Cm, initial_state, return_state):
     cb = torch.empty(B, nc, KERNEL_CHUNK * KERNEL_CHUNK, **f32)
     states = torch.empty(B, nh, max(n_seg - 1, 1), hp * N, **f32)
     seg_decay = torch.empty(B, nh, max(n_seg - 1, 1), **f32)
+    A = A.contiguous()
     init = None if initial_state is None else initial_state.contiguous()
     final = torch.empty(B, nh, hp, N, **f32) if return_state else None
+    if not launch:
+        return y, final
     lib = build.library()
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_wgmma_launch(
-            x.data_ptr(), dt.data_ptr(), A.contiguous().data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             y.data_ptr(), cb.data_ptr(), states.data_ptr(), seg_decay.data_ptr(),
             None if init is None else init.data_ptr(), None if final is None else final.data_ptr(),
             _strides(x, dt, Bm, Cm, y), B, nh, S, N, seg, build.stream_of(x))
@@ -296,30 +315,67 @@ def _launch_wgmma(x, dt, A, Bm, Cm, initial_state, return_state):
     return y, final
 
 
-def _forward(x, dt, A, Bm, Cm, chunk, initial_state, return_state):
-    """The forward on either device: the plain version for CPU tensors, the
-    ``kernel_path`` kernel (one launch counted) for CUDA tensors."""
-    build.refuse_dtensor("ssd_scan", x, dt, A, Bm, Cm, initial_state)
-    if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state,
-                            return_state=return_state)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"ssd_scan runs on CUDA or CPU tensors, got {x.device}")
+def _fwd(x, dt, A, Bm, Cm, initial_state, chunk, return_state, launch):
+    """The CUDA forward on checked arguments: y, and the final state where
+    ``return_state`` (else an empty tensor), with the ``kernel_path``
+    kernel's scratch; with ``launch`` the kernel (one launch counted)."""
     path = check_args(x, dt, A, Bm, Cm, initial_state, return_state)
     B, nh, S, hp = x.shape
+    none = x.new_empty(0, dtype=torch.float32)
     if B == 0 or S == 0:
         y = torch.empty_like(x)
         if not return_state:
-            return y
+            return y, none
         final = (initial_state.clone() if initial_state is not None else
                  torch.zeros(B, nh, hp, Bm.shape[-1], dtype=torch.float32, device=x.device))
         return y, final
     if path == "wgmma":
-        y, final = _launch_wgmma(x, dt, A, Bm, Cm, initial_state, return_state)
+        y, final = _wgmma(x, dt, A, Bm, Cm, initial_state, return_state, launch)
     else:
-        y, final = launch_fma(x, dt, A, Bm, Cm), None
-    ssd_scan.launches += 1
-    return (y, final) if return_state else y
+        y, final = _fma(x, dt, A, Bm, Cm, launch), None
+    if launch:
+        ssd_scan.launches += 1
+    return y, (final if return_state else none)
+
+
+def _fwd_plain(x, dt, A, Bm, Cm, initial_state, chunk, return_state):
+    """The plain forward, y in x's layout as the CUDA path allocates it."""
+    out = ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state,
+                       return_state=return_state)
+    y, final = out if return_state else (out, x.new_empty(0, dtype=torch.float32))
+    return torch.empty_like(x).copy_(y), final
+
+
+_fwd_op = build.define_op(
+    "ssd_scan",
+    "(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm, Tensor? initial_state, int chunk, "
+    "bool return_state) -> (Tensor, Tensor)",
+    cuda=lambda *a: _fwd(*a, launch=True), cpu=_fwd_plain, fake=lambda *a: _fwd(*a, launch=False))
+
+
+def fwd_flops(B: int, nh: int, S: int, hp: int, N: int, Q: int = KERNEL_CHUNK) -> int:
+    """The forward's products at chunk Q, with C.B^T shared across heads,
+    per token: C.B^T 2QN; per head, scores x 2Q hp, chunk state 2 hp N,
+    inter-chunk output 2 N hp."""
+    return B * S * (2 * Q * N + nh * (2 * Q * hp + 4 * hp * N))
+
+
+def bwd_flops(B: int, nh: int, S: int, hp: int, N: int) -> int:
+    """The backward's products in the kernels' 64-token chunks: C.B^T per
+    (b, chunk) and, per (b, h, chunk), dy.x^T and the dx, dB and dC
+    products over the causal pairs, and per token the five [hp, N]
+    products (the entering state, its gradient, dx's and dB's state terms,
+    h_c^T dy)."""
+    full, tail = divmod(S, KERNEL_CHUNK)
+    pairs = full * KERNEL_CHUNK * (KERNEL_CHUNK + 1) // 2 + tail * (tail + 1) // 2
+    return B * pairs * 2 * N + B * nh * (pairs * 2 * (2 * hp + 2 * N) + S * 5 * 2 * hp * N)
+
+
+@register_flop_formula(_fwd_op)
+def _fwd_op_flops(x, dt, A, Bm, Cm, initial_state, chunk, return_state, *, out_shape=None,
+                  **kwargs) -> int:
+    B, nh, S, hp = x
+    return fwd_flops(B, nh, S, hp, Bm[-1])
 
 
 def _bwd_strides(x, dt, Bm, Cm, dy, dx, ddt):
@@ -334,10 +390,14 @@ def _ptr(t):
 
 def launch_bwd_fma(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, out=None):
     """Launch the FMA backward on checked CUDA arguments with B, S > 0,
-    whatever ``bwd_kernel_path`` says (``ssd_scan_bwd`` calls it on its
+    whatever ``bwd_kernel_path`` says (``ssd_scan_bwd`` runs it on its
     "fma" path; timing scripts and chip_smoke.py call it to hold the wgmma
     path against it). Not counted. Returns (dx, ddt, dA, dBm, dCm,
     d_initial), or fills ``out``, a tuple of such tensors."""
+    return _bwd_fma(x, dt, A, Bm, Cm, dy, initial_state, d_final, out, True)
+
+
+def _bwd_fma(x, dt, A, Bm, Cm, dy, initial_state, d_final, out, launch):
     B, nh, S, hp = x.shape
     N = Bm.shape[-1]
     dx, ddt, dA, dBm, dCm, d_initial = out if out is not None else _bwd_outputs(x, dt, Bm)
@@ -348,18 +408,20 @@ def launch_bwd_fma(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, out=N
     states, dstates = (torch.empty(B, nh, nc, hp, N, **f32) for _ in range(2))
     dBp, dCp = (torch.empty(B, nh, S, N, **f32) for _ in range(2))
     dAp = torch.empty(B, nh, nc, **f32)
+    A = A.contiguous()
     init = None if initial_state is None else initial_state.contiguous()
     fin = None if d_final is None else d_final.contiguous()
-    lib = build.library()
-    with torch.cuda.device(x.device):
-        err = lib.ssd_scan_bwd_launch(
-            x.data_ptr(), dt.data_ptr(), A.contiguous().data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            dy.data_ptr(), _ptr(init), _ptr(fin), states.data_ptr(), dstates.data_ptr(),
-            dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-            dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), d_initial.data_ptr(),
-            _bwd_strides(x, dt, Bm, Cm, dy, dx, ddt), B, nh, S, hp, N, build.dtype_code(x),
-            build.stream_of(x))
-    build.check(err, "ssd_scan_bwd (fma)")
+    if launch:
+        lib = build.library()
+        with torch.cuda.device(x.device):
+            err = lib.ssd_scan_bwd_launch(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                dy.data_ptr(), _ptr(init), _ptr(fin), states.data_ptr(), dstates.data_ptr(),
+                dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), d_initial.data_ptr(),
+                _bwd_strides(x, dt, Bm, Cm, dy, dx, ddt), B, nh, S, hp, N, build.dtype_code(x),
+                build.stream_of(x))
+        build.check(err, "ssd_scan_bwd (fma)")
     return dx, ddt, dA, dBm, dCm, d_initial
 
 
@@ -374,11 +436,12 @@ def bwd_scratch_bytes(B: int, nh: int, S: int, N: int, seg: int, group: int,
     return 4 * floats
 
 
-def _launch_bwd_wgmma(x, dt, A, Bm, Cm, dy, initial_state, d_final, out, plan=None):
+def _launch_bwd_wgmma(x, dt, A, Bm, Cm, dy, initial_state, d_final, out, plan=None,
+                      launch=True):
     B, nh, S, hp = x.shape
     N = Bm.shape[-1]
     dx, ddt, dA, dBm, dCm, d_initial = out
-    seg, group = plan or bwd_plan(B, nh, S, build.sm_count(x.device.index or 0), N)
+    seg, group = plan or bwd_plan(B, nh, S, build.sms_of(x), N)
     nc = -(-S // KERNEL_CHUNK)
     n_seg, n_groups = -(-nc // seg), -(-nh // group)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -391,12 +454,15 @@ def _launch_bwd_wgmma(x, dt, A, Bm, Cm, dy, initial_state, d_final, out, plan=No
     stash = torch.empty(B, n_groups, nc, hp * N, **f32)
     part = torch.empty(2, n_groups, B, nc * KERNEL_CHUNK, N, **f32)
     dAp = torch.empty(B, nh, nc, **f32)
+    A = A.contiguous()
     init = None if initial_state is None else initial_state.contiguous()
     fin = None if d_final is None else d_final.contiguous()
+    if not launch:
+        return
     lib = build.library()
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_bwd_wgmma_launch(
-            x.data_ptr(), dt.data_ptr(), A.contiguous().data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             dy.data_ptr(), _ptr(init), _ptr(fin), cb.data_ptr(), ends.data_ptr(), ld.data_ptr(),
             stash.data_ptr(), part.data_ptr(), dAp.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
             dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), d_initial.data_ptr(),
@@ -416,20 +482,10 @@ def _bwd_outputs(x, dt, Bm):
     return dx, ddt, torch.empty(nh, **f32), dBm, dCm, torch.empty(B, nh, hp, N, **f32)
 
 
-def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, chunk: int = 256):
-    """(the forward's inputs, dy = dL/dy [B,nh,S,hp], the forward's
-    ``initial_state`` or None, d_final = dL/d(final state) or None) ->
-    (dx, ddt, dA, dBm, dCm, d_initial): each in its input's type, dx in x's
-    layout, ddt in dt's, dBm and dCm dense [B,S,N], d_initial fp32
-    [B,nh,hp,N] (the gradient of the state the recurrence starts from).
-    CPU tensors: ``ref.ssd_scan_bwd_ref`` (``chunk`` is its chunk length).
-    CUDA tensors: the ``bwd_kernel_path`` kernel, ``csrc/ssd_scan_bwd_wgmma.cu``
-    (five launches) or ``csrc/ssd_scan_bwd.cu`` (four), one launch counted."""
-    build.refuse_dtensor("ssd_scan_bwd", x, dt, A, Bm, Cm, dy, initial_state, d_final)
-    if x.device.type == "cpu":
-        return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, initial_state, d_final, chunk=chunk)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"ssd_scan_bwd runs on CUDA or CPU tensors, got {x.device}")
+def _bwd(x, dt, A, Bm, Cm, dy, initial_state, d_final, chunk, launch):
+    """The CUDA backward on checked arguments: the six outputs and the
+    ``bwd_kernel_path`` kernel's scratch; with ``launch`` the kernel (one
+    launch counted)."""
     path = check_bwd_args(x, dt, A, Bm, Cm, dy, initial_state, d_final)
     B, nh, S, hp = x.shape
     out = _bwd_outputs(x, dt, Bm)
@@ -442,11 +498,51 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, chun
         return dx, ddt, dA.zero_(), dBm, dCm, d_initial
     _check_rows("dx", dx)
     if path == "wgmma":
-        _launch_bwd_wgmma(x, dt, A, Bm, Cm, dy, initial_state, d_final, out)
+        _launch_bwd_wgmma(x, dt, A, Bm, Cm, dy, initial_state, d_final, out, launch=launch)
     else:
-        launch_bwd_fma(x, dt, A, Bm, Cm, dy, initial_state, d_final, out)
-    ssd_scan_bwd.launches += 1
+        _bwd_fma(x, dt, A, Bm, Cm, dy, initial_state, d_final, out, launch)
+    if launch:
+        ssd_scan_bwd.launches += 1
     return out
+
+
+def _bwd_plain(x, dt, A, Bm, Cm, dy, initial_state, d_final, chunk):
+    """The plain backward, each gradient in the layout the CUDA path
+    allocates (``_bwd_outputs``) and its input's type."""
+    grads = ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, initial_state, d_final, chunk=chunk)
+    dx, ddt, dA, dBm, dCm, d_initial = grads
+    return (torch.empty_like(x).copy_(dx), torch.empty_like(dt).copy_(ddt), dA,
+            torch.empty(Bm.shape, dtype=Bm.dtype).copy_(dBm),
+            torch.empty(Cm.shape, dtype=Cm.dtype).copy_(dCm), d_initial)
+
+
+_bwd_op = build.define_op(
+    "ssd_scan_bwd",
+    "(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm, Tensor dy, Tensor? initial_state, "
+    "Tensor? d_final, int chunk) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cuda=lambda *a: _bwd(*a, launch=True), cpu=_bwd_plain,
+    fake=lambda *a: _bwd(*a, launch=False))
+
+
+@register_flop_formula(_bwd_op)
+def _bwd_op_flops(x, dt, A, Bm, Cm, dy, initial_state, d_final, chunk, *, out_shape=None,
+                  **kwargs) -> int:
+    B, nh, S, hp = x
+    return bwd_flops(B, nh, S, hp, Bm[-1])
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state=None, d_final=None, *, chunk: int = 256):
+    """(the forward's inputs, dy = dL/dy [B,nh,S,hp], the forward's
+    ``initial_state`` or None, d_final = dL/d(final state) or None) ->
+    (dx, ddt, dA, dBm, dCm, d_initial): each in its input's type, dx in x's
+    layout, ddt in dt's, dBm and dCm dense [B,S,N], d_initial fp32
+    [B,nh,hp,N] (the gradient of the state the recurrence starts from).
+    The op ``repro_torch::ssd_scan_bwd``. CPU tensors:
+    ``ref.ssd_scan_bwd_ref`` (``chunk`` is its chunk length). CUDA tensors:
+    the ``bwd_kernel_path`` kernel, ``csrc/ssd_scan_bwd_wgmma.cu`` (five
+    launches) or ``csrc/ssd_scan_bwd.cu`` (four), one launch counted."""
+    build.refuse_dtensor("ssd_scan_bwd", x, dt, A, Bm, Cm, dy, initial_state, d_final)
+    return _bwd_op(x, dt, A, Bm, Cm, dy, initial_state, d_final, int(chunk))
 
 
 class SSDScan(torch.autograd.Function):
@@ -457,13 +553,15 @@ class SSDScan(torch.autograd.Function):
     def forward(ctx, x, dt, A, Bm, Cm, initial_state, chunk, return_state):
         ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
         ctx.chunk = chunk
-        return _forward(x, dt, A, Bm, Cm, chunk, initial_state, return_state)
+        build.refuse_dtensor("ssd_scan", x, dt, A, Bm, Cm, initial_state)
+        y, final = _fwd_op(x, dt, A, Bm, Cm, initial_state, int(chunk), bool(return_state))
+        return (y, final) if return_state else y
 
     @staticmethod
     def backward(ctx, dy, d_final=None):
         x, dt, A, Bm, Cm, initial_state = ctx.saved_tensors
         dy = dy.to(x.dtype)
-        if dy.device.type == "cuda" and not _rows_ok(dy):
+        if dy.device.type != "cpu" and not _rows_ok(dy):
             dy = dy.contiguous()            # e.g. a broadcast gradient (stride 0)
         dx, ddt, dA, dBm, dCm, d_initial = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, initial_state,
                                                         d_final, chunk=ctx.chunk)

@@ -652,7 +652,9 @@ def init_params(arch: ArchConfig, generator: torch.Generator, cfg: RunCfg = RunC
     0.02, wo (1/F)^0.5 / (2L)^0.5 with F = d_ff_expert.
 
     With ``cfg.mesh`` every rank draws the whole model (on the mesh's
-    device) and keeps its shards: the weights of the single-device model."""
+    device) and keeps its shards: the weights of the single-device model.
+    On the meta device (``launch.dryrun``) nothing is drawn and any
+    generator will do."""
     if cfg.mesh is not None:
         whole = init_params(arch, generator, dataclasses.replace(cfg, mesh=None),
                             mesh_device(cfg.mesh))
@@ -662,7 +664,7 @@ def init_params(arch: ArchConfig, generator: torch.Generator, cfg: RunCfg = RunC
         return model
     model = LM(arch, cfg, device)
     dev = model.device
-    if generator.device.type != dev.type:
+    if generator.device.type != dev.type and dev.type != "meta":   # a meta model draws nothing
         raise ValueError(f"generator is on {generator.device}, the model on {dev}")
     L = arch.num_layers
     stacked = (1.0 / L) ** 0.5

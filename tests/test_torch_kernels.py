@@ -409,20 +409,33 @@ def test_cpu_calls_launch_no_kernel():
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
-    """Without a card, asking for CUDA raises; a tensor on a device that is
-    neither CPU nor CUDA raises instead of running the plain version."""
+    """Without a card, asking for CUDA raises. A tensor without storage
+    (the meta device) takes the CUDA path's checks and allocations, never
+    the plain version: what the kernels refuse raises (where the plain
+    version would run), the LSE comes in the kernels' padded rows, and
+    nothing launches."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    kernels.reset_launch_counts()
     meta = torch.empty(2, 4, 64, 32, device="meta")
-    with pytest.raises(RuntimeError, match="CUDA or CPU"):
-        flash_attention(meta, meta[:, :2], meta[:, :2])
-    with pytest.raises(RuntimeError, match="CUDA or CPU"):
-        rmsnorm(torch.empty(4, 8, device="meta"), torch.empty(8, device="meta"))
+    o, lse = flash_attention_fwd(meta, meta[:, :2], meta[:, :2])
+    assert o.device.type == "meta" and o.shape == meta.shape
+    assert lse.shape == (2, 4, 64) and lse.stride() == (4 * 128, 128, 1)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(*(torch.empty(1, 2, 8, 48, device="meta") for _ in range(3)))
+    assert rmsnorm(torch.empty(4, 8, device="meta"), torch.empty(8, device="meta")).is_meta
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rmsnorm(torch.empty(4, 12, device="meta"), torch.empty(12, device="meta"))
     x = torch.empty(1, 2, 40, 16, device="meta")
     bc = torch.empty(1, 40, 16, device="meta")
-    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+    assert ssd_scan(x, torch.empty(1, 2, 40, device="meta"), torch.empty(2, device="meta"), bc,
+                    bc).is_meta
+    bc = torch.empty(1, 40, 48, device="meta")
+    with pytest.raises(ValueError, match="instantiated"):
         ssd_scan(x, torch.empty(1, 2, 40, device="meta"), torch.empty(2, device="meta"), bc, bc)
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
