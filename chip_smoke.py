@@ -8,7 +8,12 @@ Phases, each of which fails the run by raising:
   2. hold each kernel against its plain PyTorch version on the card
      (the cases of tests/test_kernels.py and the main path's shapes; bf16
      outputs against the fp32 result of the same bf16 inputs; each path of
-     a kernel that has two, such as the SSD scan's wgmma and FMA kernels);
+     a kernel that has two, such as the SSD scan's wgmma and FMA kernels;
+     flash at head dim 192, fp32 and bf16: nemotron-4-340b's prefill shape
+     FLASH_NEMOTRON in the model's views and FLASH_HD192_CASES around the
+     64-row kv tiles, S 1, 127, 200 and 300, each causal, with a window and
+     non-causal; RMSNorm at every main-path shape of each served model,
+     nemotron's H 18432 included);
   3. serve full-width yi-6b, mamba2-2.7b, hymba-1.5b and
      granite-moe-3b-a800m in turn (random bf16 weights from a seed),
      through the port's entry points: prefill B=2 S=2000 with its kernel
@@ -20,12 +25,22 @@ Phases, each of which fails the run by raising:
      dim 80, logits at every position of B=2 S=2000 embeddings, no
      decode) and llava-next-34b at full width (all 60 layers where the
      card holds its 67.9 GB of bf16 weights: prefill B=2 S=2000 and decode
-     B=4 from embeddings), their logits gates at 4 layers;
+     B=4 from embeddings), their logits gates at 4 layers; then
+     nemotron-4-340b at full width and the depth the card holds (8 of 96
+     layers on an 80 GB card; flash at head dim 192): prefill B=2 S=2000
+     counted, greedy generation, decode B=4 at 2-33 and 1985-2016 of a
+     2,048-slot cache, the bf16 teacher-forced check reported at that depth,
+     and with the model freed its gates (bf16 logits at 4 layers against an
+     fp32 copy built a layer at a time, the fp32 teacher-forced check on 1
+     layer, whose fp32 copy is 51.6 GB), drawn at the served depth's scales;
   4. after each model's path, time its kernels beside their bound, their
      plain version and one PyTorch library call where there is one (the
      SSD forward's wgmma path, at mamba2's N 128 and hymba's N 16, beside
-     its FMA kernel, which it must beat), and time prefill and decode;
-  5. hold the backward kernels (flash attention, RMSNorm on both its
+     its FMA kernel, which it must beat; nemotron's flash at head dim 192
+     forward and backward beside SDPA), and time prefill and decode;
+  5. hold the backward kernels (flash attention, at head dims 32 to 192:
+     FLASH_BWD_CASES at each, nemotron's layer at FLASH_BWD_NEMOTRON, the
+     hd-192 cases non-causal; RMSNorm on both its
      versions, the SSD scan on both its paths: wgmma for bf16 at hp 64 /
      N 16, 64, 128, and the FMA kernel, which also runs each of those
      cases) against their plain backwards (``kernels/ref.py``), each call
@@ -66,7 +81,8 @@ Phases, each of which fails the run by raising:
   9. the dry-run (``repro_torch.launch.dryrun``: the entry points on meta
      tensors, each kernel op through its fake implementation) held to the
      card: yi-6b's 16-layer train step and its 32-layer serving run on the
-     card and, in a child with no card visible, dry-run; the dry-run's
+     card and, in a child with no card visible, dry-run, and so does
+     nemotron-4-340b's serving at the depth the card holds; the dry-run's
      peak within 5% of ``max_memory_allocated``, the train step's flops
      equal to ``FlopCounterMode``'s on the card, phase 7's sharded step's
      collectives equal kind by kind to the dry-run's on a fake (1, 1)
@@ -125,6 +141,11 @@ FLASH_HYMBA = (2, 2000, 25, 5, 64)       # hymba-1.5b prefill (window 1024)
 FLASH_GRANITE = (2, 2000, 24, 8, 64)     # granite-moe-3b-a800m prefill (GQA group 3)
 FLASH_HUBERT = (2, 2000, 16, 16, 80)     # hubert-xlarge prefill: non-causal, hd 80, no GQA
 FLASH_LLAVA = (2, 2000, 56, 8, 128)      # llava-next-34b prefill (GQA group 7)
+FLASH_NEMOTRON = (2, 2000, 96, 8, 192)   # nemotron-4-340b prefill: hd 192, GQA group 12
+# hd 192 around its 64-row kv tiles (S 1, 127, 200, 300: none a multiple of
+# 64) and GQA groups 2, 12, 12; each causal, with a window, and non-causal
+FLASH_HD192_CASES = [(1, 1, 4, 2, 192), (2, 127, 4, 2, 192), (1, 200, 12, 1, 192),
+                     (2, 300, 24, 2, 192)]
 # non-causal cases beside hubert's: a tail of 2 rows past the 128-row tiles
 # at hd 80, and hd 128 (B, S, nh, nkv, hd)
 FLASH_NONCAUSAL_CASES = [(2, 130, 4, 4, 80), (2, 200, 8, 2, 128)]
@@ -157,6 +178,9 @@ RMS_MAIN_NEW = [(4000, 1600), (4000, 3200), (4000, 1536), (4, 1600), (4, 3200), 
 # 7168), both on the loop version: prefill B*S, llava's decode B and final
 # norm B, its teacher-forced S
 RMS_MAIN_EMBEDS = [(4000, 1280), (4000, 7168), (4, 7168), (2, 7168), (64, 7168), (1, 7168)]
+# nemotron-4-340b (H 18432, the loop version): prefill B*S, decode B,
+# prefill's final norm B, teacher-forced S and its decode
+RMS_MAIN_NEMOTRON = [(4000, 18432), (4, 18432), (2, 18432), (64, 18432), (1, 18432)]
 # backward cases, B, S, nh, nkv, window (GQA groups 1, 2, 8; S 1, 127, 200,
 # 2048; causal, one window), each at hd 32, 64 and 128; the training shape
 FLASH_BWD_CASES = [(1, 1, 2, 2, 0), (2, 127, 4, 2, 0), (1, 200, 8, 1, 0), (1, 200, 4, 4, 37),
@@ -165,6 +189,7 @@ FLASH_BWD_MAIN = (1, 2048, 32, 4, 0, 128)      # yi-6b training: B, S, nh, nkv, 
 FLASH_BWD_HYMBA = (1, 2048, 25, 5, 1024, 64)   # hymba-1.5b's attention (GQA group 5)
 FLASH_BWD_GRANITE = (1, 2048, 24, 8, 0, 64)    # granite-moe-3b-a800m's attention (group 3)
 FLASH_BWD_HUBERT = (1, 2048, 16, 16, 0, 80)    # hubert-xlarge's attention: non-causal, hd 80
+FLASH_BWD_NEMOTRON = (1, 2048, 96, 8, 0, 192)  # nemotron-4-340b's layer: hd 192, GQA group 12
 RMS_BWD_CASES = [(1, 256), (7, 4096), (300, 1000), (4096, 256), (4096, 4096), (33, 12288),
                  (2048, 2560), (5, 2560), (2048, 5120), (1, 5120), (1, 1600), (9, 1536),
                  (300, 3200)]
@@ -206,6 +231,10 @@ SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu"
                                     "src/repro/kernels/flash_attention.py:87"),
            "flash_attention_bwd_hd80": ("src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
                                         "src/repro/kernels/flash_attention.py:87"),
+           # the wgmma flash forward at head dim 192 (nemotron-4-340b, served
+           # only: its backward is a shape of flash_attention_bwd's entry)
+           "flash_attention_hd192": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                     "src/repro/kernels/flash_attention.py:87"),
            "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                        "src/repro/kernels/rmsnorm.py:24"),
            "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
@@ -253,9 +282,23 @@ def phase_build():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
     log_ssd_wgmma_resources()
+    log_flash_resources()
     log_bwd_resources()
     log_ssd_bwd_resources()
     log_ssd_bwd_wgmma_resources()
+
+
+def _log_info(name, info, spills_ok=False):
+    """Log one kernel's (registers, local bytes, shared bytes, CTAs an SM)
+    from a ``*_info`` entry point; fail if a CTA does not fit on an SM, or
+    on a spill unless ``spills_ok``."""
+    regs, local, smem, ctas = info
+    log(f"[build] {name}: {regs} registers, {local} bytes local (spills), {smem} bytes dynamic "
+        f"shared memory, {ctas} CTAs an SM")
+    if local and not spills_ok:
+        raise AssertionError(f"{name} spills {local} bytes a thread")
+    if ctas < 1:
+        raise AssertionError(f"{name} does not fit on an SM")
 
 
 def log_ssd_wgmma_resources():
@@ -272,11 +315,7 @@ def log_ssd_wgmma_resources():
         build.check(lib.ssd_scan_wgmma_info(N, info), "ssd_scan_wgmma_info")
         for k, name in enumerate(("ssd_cb16" if N == 16 else "ssd_cb", "ssd_segment_states",
                                   "ssd_chunk_scan")):
-            regs, local, smem, ctas = info[4 * k:4 * k + 4]
-            log(f"[build] {name}<N={N}>: {regs} registers, {local} bytes local (spills), "
-                f"{smem} bytes dynamic shared memory, {ctas} CTAs an SM")
-            if local:
-                raise AssertionError(f"{name}<N={N}> spills {local} bytes a thread")
+            _log_info(f"{name}<N={N}>", info[4 * k:4 * k + 4])
         if info[11] < SCAN_COST[N]["ctas"]:
             raise AssertionError(f"ssd_chunk_scan<N={N}>: {info[11]} CTAs an SM, "
                                  f"segment_chunks assumes {SCAN_COST[N]['ctas']}")
@@ -295,11 +334,7 @@ def log_ssd_bwd_resources():
         info = (ctypes.c_int * 12)()
         build.check(lib.ssd_scan_bwd_info(hp, N, info), "ssd_scan_bwd_info")
         for k, name in enumerate(("ssd_bwd_states", "ssd_bwd_dstates", "ssd_bwd_chunk")):
-            regs, local, smem, ctas = info[4 * k:4 * k + 4]
-            log(f"[build] {name}<hp={hp},N={N}>: {regs} registers, {local} bytes local (spills), "
-                f"{smem} bytes dynamic shared memory, {ctas} CTAs an SM")
-            if ctas < 1:
-                raise AssertionError(f"{name}<hp={hp},N={N}> does not fit on an SM")
+            _log_info(f"{name}<hp={hp},N={N}>", info[4 * k:4 * k + 4], spills_ok=True)
 
 
 def log_ssd_bwd_wgmma_resources():
@@ -316,46 +351,54 @@ def log_ssd_bwd_wgmma_resources():
         for k, name in enumerate(("ssd_cb16" if N == 16 else "ssd_cb<transposed too>",
                                   "ssd_bwd_segment_ends",
                                   "ssd_bwd_fold", "ssd_bwd_chunk", "ssd_bwd_sums")):
-            regs, local, smem, ctas = info[4 * k:4 * k + 4]
-            log(f"[build] {name}<N={N}>: {regs} registers, {local} bytes local (spills), "
-                f"{smem} bytes dynamic shared memory, {ctas} CTAs an SM")
-            if local:
-                raise AssertionError(f"{name}<N={N}> spills {local} bytes a thread")
-            if ctas < 1:
-                raise AssertionError(f"{name}<N={N}> does not fit on an SM")
+            _log_info(f"{name}<N={N}>", info[4 * k:4 * k + 4])
+
+
+def log_flash_resources():
+    """Registers, spills, dynamic shared memory and CTAs an SM of the flash
+    kernels beside the wgmma backward's (``log_bwd_resources``): the wgmma
+    forward at each of WGMMA_HEAD_DIMS (fails on a spill) and the mma
+    kernels' fp32 forward and backward at hd 128 and 192 (a spill logged,
+    not failed: at hd 192 the backward's dK and dV pass 255 registers, and
+    it serves only the fp32 gates)."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS
+    lib = build.library()
+    for hd in WGMMA_HEAD_DIMS:
+        info = (ctypes.c_int * 4)()
+        build.check(lib.flash_attention_wgmma_info(hd, info), "flash_attention_wgmma_info")
+        _log_info(f"flash_wgmma<hd={hd}>", info[:])
+    fp32 = build.DTYPE_CODES[torch.float32]
+    for hd in (128, 192):
+        info = (ctypes.c_int * 4)()
+        build.check(lib.flash_attention_mma_info(hd, fp32, info), "flash_attention_mma_info")
+        _log_info(f"flash_fwd<float, hd={hd}>", info[:], spills_ok=True)
+        info = (ctypes.c_int * 8)()
+        build.check(lib.flash_attention_bwd_info(hd, fp32, info), "flash_attention_bwd_info")
+        _log_info(f"flash_bwd_dkdv<float, hd={hd}>", info[:4], spills_ok=True)
+        _log_info(f"flash_bwd_dq<float, hd={hd}>", info[4:], spills_ok=True)
 
 
 def log_bwd_resources():
     """Registers, spills (local memory), dynamic shared memory and CTAs an
     SM of the wgmma flash backward's kernels (dK/dV, dQ, the partials' sum)
-    at hd 64 and 128 and of the register RMSNorm backward at each of its
-    widths (BWD_ROW_GROUPS), from the runtime; fails on a spill, or if a
-    CTA does not fit on an SM."""
+    at hd 64, 128 and 192 and of the register RMSNorm backward at each of
+    its widths (BWD_ROW_GROUPS), from the runtime; fails on a spill, or if
+    a CTA does not fit on an SM."""
     import ctypes
     from repro_torch.kernels import build
     from repro_torch.kernels.rmsnorm import BWD_ROW_GROUPS
     lib = build.library()
-    for hd in (64, 128):
+    for hd in (64, 128, 192):
         info = (ctypes.c_int * 12)()
         build.check(lib.flash_attention_bwd_wgmma_info(hd, info), "flash_attention_bwd_wgmma_info")
         for k, name in enumerate(("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_sum")):
-            regs, local, smem, ctas = info[4 * k:4 * k + 4]
-            log(f"[build] {name}<hd={hd}>: {regs} registers, {local} bytes local (spills), "
-                f"{smem} bytes dynamic shared memory, {ctas} CTAs an SM")
-            if local:
-                raise AssertionError(f"{name}<hd={hd}> spills {local} bytes a thread")
-            if ctas < 1:
-                raise AssertionError(f"{name}<hd={hd}> does not fit on an SM")
+            _log_info(f"{name}<hd={hd}>", info[4 * k:4 * k + 4])
     for H, groups in BWD_ROW_GROUPS.items():
         info = (ctypes.c_int * 4)()
         build.check(lib.rmsnorm_bwd_rows_info(H, info), "rmsnorm_bwd_rows_info")
-        regs, local, smem, ctas = info
-        log(f"[build] rmsnorm_bwd_rows<H={H}, {groups} row groups>: {regs} registers, {local} "
-            f"bytes local (spills), {smem} bytes dynamic shared memory, {ctas} CTAs an SM")
-        if local:
-            raise AssertionError(f"rmsnorm_bwd_rows<H={H}> spills {local} bytes a thread")
-        if ctas < 1:
-            raise AssertionError(f"rmsnorm_bwd_rows<H={H}> does not fit on an SM")
+        _log_info(f"rmsnorm_bwd_rows<H={H}, {groups} row groups>", info[:])
 
 
 # --------------------------------------------------------------------------
@@ -484,6 +527,46 @@ def _ssd_case(name, chunk, x, dt, A, Bm, Cm, initial_state=None, return_state=Fa
     return err
 
 
+def flash_hd192_parity(gen, dtype):
+    """The flash forward at hd 192 (nemotron-4-340b) against its plain
+    version: the prefill shape in the model's views (rows 96 x 192 apart),
+    then FLASH_HD192_CASES around the 64-row kv tiles, each causal, with a
+    window and non-causal. Returns the prefill shape's max abs error."""
+    tag = str(dtype).replace("torch.", "")
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _flash_inputs(gen, *FLASH_NEMOTRON, dtype))
+    err = _flash_case(f"flash {tag} nemotron {FLASH_NEMOTRON} [B,S,nh,hd] views", q, k, v)
+    del q, k, v
+    for case in FLASH_HD192_CASES:
+        inputs = _flash_inputs(gen, *case, dtype)
+        for window, causal in ((0, True), (96, True), (0, False)):
+            mode = f"window={window}" if causal else "non-causal"
+            _flash_case(f"flash {tag} hd=192 B,S,nh,nkv,hd={case} {mode}", *inputs,
+                        window=window, causal=causal)
+    return err
+
+
+def flash_bwd_hd192_parity(gen, dtype):
+    """The flash backward at hd 192 against its plain backward, each call
+    twice for the same bits (FLASH_BWD_CASES at hd 192 run in
+    ``phase_bwd_parity``'s loop over head dims): FLASH_HD192_CASES[2:]
+    non-causal, and nemotron-4-340b's layer at a training shape
+    (FLASH_BWD_NEMOTRON, group 12) in the model's layout; no card trains
+    nemotron, so its backward is held here. Returns that shape's max abs
+    error."""
+    tag = str(dtype).replace("torch.", "")
+    for B, S, nh, nkv, hd in FLASH_HD192_CASES[2:]:
+        _flash_bwd_case(f"flash_bwd {tag} non-causal hd={hd} B,S,nh,nkv=({B},{S},{nh},{nkv})",
+                        *_flash_inputs(gen, B, S, nh, nkv, hd, dtype), 0, causal=False)
+    B, S, nh, nkv, window, hd = FLASH_BWD_NEMOTRON
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _flash_inputs(gen, B, S, nh, nkv, hd, dtype))
+    do = _randn(gen, B, S, nh, hd, dtype=dtype).transpose(1, 2)
+    return _flash_bwd_case(
+        f"flash_bwd {tag} nemotron {FLASH_BWD_NEMOTRON[:4]} hd={hd} [B,S,nh,hd] views",
+        q, k, v, window, do)
+
+
 def phase_parity():
     from repro_torch.kernels import rmsnorm
     from repro_torch.kernels.ref import rmsnorm_ref
@@ -536,7 +619,9 @@ def phase_parity():
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
                    for t in _flash_inputs(gen, *FLASH_LLAVA, dtype))
         _flash_case(f"flash {tag} llava {FLASH_LLAVA} [B,S,nh,hd] views", q, k, v)
-        for T, H in RMS_CASES + RMS_MAIN + RMS_MAIN_SSM + RMS_MAIN_NEW + RMS_MAIN_EMBEDS:
+        errs[("flash_attention_hd192", dtype)] = flash_hd192_parity(gen, dtype)
+        for T, H in (RMS_CASES + RMS_MAIN + RMS_MAIN_SSM + RMS_MAIN_NEW + RMS_MAIN_EMBEDS
+                     + RMS_MAIN_NEMOTRON):
             x, w = _randn(gen, T, H, dtype=dtype), _randn(gen, H, dtype=dtype)
             out = rmsnorm(x, w)
             torch.cuda.synchronize()
@@ -681,27 +766,54 @@ def _prompt(arch, gen, B, S):
     return torch.randint(0, arch.vocab, (B, S), generator=gen, device="cuda")
 
 
+def _fp32_logits(model, x):
+    """fp32 logits at every position of tokens (or embeddings) ``x`` of
+    ``model``'s weights in fp32, through the plain versions: one layer's
+    fp32 copy at a time, the embed rows and the head's columns cast as they
+    are used (the fp32 model's forward, without its whole copy: 93 GB for
+    nemotron-4-340b at 4 layers)."""
+    import dataclasses
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.lm import Block
+    cfg32 = dataclasses.replace(model.cfg, compute_dtype=torch.float32)
+    with plain_versions():
+        with torch.inference_mode():
+            h = x.float() if model.arch.embeds_input else model.embed[x].float()
+            positions = torch.arange(h.shape[1], device=h.device).expand(*h.shape[:2])
+        for blk in model.blocks:
+            blk32 = Block(model.arch, cfg32, model.device)
+            blk32.load_state_dict(blk.state_dict())
+            with torch.inference_mode():
+                h, _ = blk32(h, positions)
+            del blk32
+        with torch.inference_mode():
+            h = rmsnorm(h, model.final_norm.float())
+            cols = 1 << 15
+            return torch.cat([h @ model.lm_head[:, c:c + cols].float()
+                              for c in range(0, model.arch.vocab, cols)], dim=-1)
+
+
 def check_model_bf16(model, tokens, want):
     """The bf16 model's logits at every position of ``tokens`` (or
     embeddings), through the kernels (launching ``want``) and through their
     plain versions, each against the same weights in fp32 through the
-    plain versions. The kernels must land no further from fp32 than bf16
-    rounding puts the plain versions: relative L2 within 1.5x the plain
-    gap, argmax agreement within 0.05 of it."""
-    import dataclasses
-    from repro_torch.models.lm import LM
-    model32 = LM(model.arch, dataclasses.replace(model.cfg, compute_dtype=torch.float32),
-                 device=model.device)
-    model32.load_state_dict(model.state_dict())
+    plain versions (``_fp32_logits``, first: its one-layer fp32 copy is
+    freed before the bf16 logits exist, so nemotron-4-340b's three [B·S,
+    V] fp32 logits stay on the card beside its 4-layer model). The
+    kernels must land no further from fp32 than bf16 rounding puts the
+    plain versions: relative L2 within 1.5x the plain gap, argmax
+    agreement within 0.05 of it."""
+    t0 = time.perf_counter()
+    exact = _fp32_logits(model, tokens)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
     with torch.inference_mode():
         kern, counts = _counts_since_reset(lambda: _forward(model, tokens, logits_positions="all"))
         with plain_versions():
             plain, plain_counts = _counts_since_reset(
                 lambda: _forward(model, tokens, logits_positions="all"))
-            exact = _forward(model32, tokens, logits_positions="all")
-    del model32
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
     if counts != want or any(plain_counts.values()):
         raise AssertionError(f"launches: kernels {counts} (expected {want}), "
                              f"plain versions {plain_counts}")
@@ -710,7 +822,9 @@ def check_model_bf16(model, tokens, want):
             raise AssertionError(f"model bf16 check: {name} logits not finite")
     (k_rel, k_agree), (p_rel, p_agree) = _gap(kern, exact), _gap(plain, exact)
     kp_rel, kp_agree = _gap(kern, plain)
-    log(f"[slice] (c) bf16 logits B,S={tuple(tokens.shape)} vs fp32 weights-equal model: "
+    log(f"[slice] (c) bf16 logits check: fp32 {t1 - t0:.1f} s, kernels and plain {t2 - t1:.1f} s, "
+        f"comparison {time.perf_counter() - t2:.1f} s")
+    log(f"[slice] (c) bf16 logits B,S={tuple(tokens.shape[:2])} vs fp32 weights-equal model: "
         f"kernels rel_l2={k_rel:.4g} argmax={k_agree:.4f}; plain rel_l2={p_rel:.4g} "
         f"argmax={p_agree:.4f}; kernels vs plain rel_l2={kp_rel:.4g} argmax={kp_agree:.4f}; "
         f"limits rel_l2<={1.5 * p_rel:.4g} argmax>={p_agree - 0.05:.4f}")
@@ -758,7 +872,9 @@ def _forward_launches(arch):
 def _kernel_names(arch, dtype=torch.bfloat16):
     """The kernel line's names for ``arch``'s launches at ``dtype``:
     ``flash_attention_hd80`` / ``flash_attention_bwd_hd80`` where bf16
-    attention runs the wgmma kernels at head dim 80 (hubert-xlarge); for
+    attention runs the wgmma kernels at head dim 80 (hubert-xlarge),
+    ``flash_attention_hd192`` where it runs the forward at head dim 192
+    (nemotron-4-340b, served only); for
     the SSD ``ssd_scan_fma`` / ``ssd_scan_bwd_fma`` where a pass takes the
     FMA kernel, ``ssd_scan_n16`` / ``ssd_scan_bwd_n16`` where it takes the
     wgmma path at N 16; the wrappers' own names otherwise."""
@@ -767,6 +883,8 @@ def _kernel_names(arch, dtype=torch.bfloat16):
     if arch.has_attention and arch.head_dim == 80 and dtype == torch.bfloat16:
         names = {"flash_attention": "flash_attention_hd80",
                  "flash_attention_bwd": "flash_attention_bwd_hd80"}
+    if arch.has_attention and arch.head_dim == 192 and dtype == torch.bfloat16:
+        names = {"flash_attention": "flash_attention_hd192"}
     if arch.block not in ("ssm", "hymba"):
         return names
     hp, N = arch.ssm_headdim, arch.ssm_state
@@ -1125,6 +1243,20 @@ def times_llava_kernels(gen):
             dict(_rms_row(gen, *RMS_MAIN_EMBEDS[1]), model="llava-next-34b")]
 
 
+def times_nemotron_kernels(gen):
+    """nemotron-4-340b's kernels, bf16: flash at hd 192, GQA group 12, at
+    its prefill shape in the model's views (the kernel line's
+    ``flash_attention_hd192``), RMSNorm's loop version at [4000, 18432] (a
+    shape under ``rmsnorm``), and the flash backward at hd 192 at
+    FLASH_BWD_NEMOTRON (a shape under ``flash_attention_bwd``, with no
+    main-path launches: no card trains nemotron), each beside its bound,
+    its plain version and SDPA (``enable_gqa``) or ``F.rms_norm``."""
+    return [_flash_row(gen, True, FLASH_NEMOTRON, name="flash_attention_hd192"),
+            dict(_rms_row(gen, *RMS_MAIN_NEMOTRON[0]), model="nemotron-4-340b"),
+            dict(_flash_bwd_row(gen, FLASH_BWD_NEMOTRON), model="nemotron-4-340b",
+                 note="not on the main path: no card trains nemotron-4-340b")]
+
+
 def times_ssd_fwd_kernel(gen, name, case):
     """The SSD forward at ``case`` (B, nh, S, hp, N) on the wgmma path, in
     the model's layout (bf16 x, B, C column slices of the conv output, fp32
@@ -1406,12 +1538,13 @@ def phase_bwd_parity():
     """Each backward kernel against its plain backward (``kernels/ref.py``)
     on the same inputs, the forward kernels' LSE against the plain
     forward's, and each backward twice for the same bits: flash at hd
-    32/64/80/128 (bf16 hd 64/80/128 on the wgmma path, the rest on the mma
-    path), GQA groups 1, 2 and 8, S 1, 127, 200 and 2048, causal and one
-    window, the model's strided views, the training shape, hymba-1.5b's
-    (group 5, window 1024) and granite-moe's (group 3); non-causal at
-    hubert-xlarge's training shape (hd 80, fp32 and bf16), a tail at hd 80
-    and hd 128; RMSNorm at H 256, 1280,
+    32/64/80/128/192 (bf16 hd 64/80/128/192 on the wgmma path, the rest on
+    the mma path), GQA groups 1, 2 and 8, S 1, 127, 200 and 2048, causal
+    and one window, the model's strided views, the training shape,
+    hymba-1.5b's (group 5, window 1024) and granite-moe's (group 3);
+    non-causal at hubert-xlarge's training shape (hd 80, fp32 and bf16), a
+    tail at hd 80 and hd 128; hd 192 non-causal and at nemotron-4-340b's
+    layer (``flash_bwd_hd192_parity``); RMSNorm at H 256, 1280,
     1000, 1536, 1600, 2560, 3200, 4096, 5120 and 12288 (the register
     version at 1536/1600/2560/3200/4096/5120 in bf16) and T 1-4096."""
     from repro_torch.kernels import rmsnorm_bwd
@@ -1420,7 +1553,7 @@ def phase_bwd_parity():
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
-        for hd in (32, 64, 80, 128):
+        for hd in (32, 64, 80, 128, 192):
             for B, S, nh, nkv, window in FLASH_BWD_CASES:
                 _flash_bwd_case(f"flash_bwd {tag} hd={hd} B,S,nh,nkv=({B},{S},{nh},{nkv}) "
                                 f"window={window}", *_flash_inputs(gen, B, S, nh, nkv, hd, dtype),
@@ -1447,6 +1580,7 @@ def phase_bwd_parity():
         for B, S, nh, nkv, hd in FLASH_NONCAUSAL_CASES:
             _flash_bwd_case(f"flash_bwd {tag} non-causal hd={hd} B,S,nh,nkv=({B},{S},{nh},{nkv})",
                             *_flash_inputs(gen, B, S, nh, nkv, hd, dtype), 0, causal=False)
+        errs[("flash_attention_bwd_hd192", dtype)] = flash_bwd_hd192_parity(gen, dtype)
         B, S, nh, nkv, window, hd = FLASH_BWD_MAIN
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
                    for t in _flash_inputs(gen, B, S, nh, nkv, hd, dtype))
@@ -2325,13 +2459,17 @@ def _dryrun_train_step(args):
     return make_train_step(_train_arch("yi-6b"), _train_cfg())(state, batch)
 
 
-def _dryrun_serving_args(device):
-    """Full-width yi-6b (32 layers, bf16): the model, a prefill batch B=2
-    S=2000, a DRYRUN_DECODE cache for B=4 and its first tokens, on ``device``."""
+def _dryrun_serving_args(device, name="yi-6b", layers=None):
+    """Full-width ``name`` (bf16; all its layers, or ``layers``): the model, a
+    prefill batch B=2 S=2000, a DRYRUN_DECODE cache for B=4 and its first
+    tokens, on ``device``."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.lm import RunCfg, init_params
+    arch = get_config(name)
+    arch = dataclasses.replace(arch, num_layers=layers or arch.num_layers)
     gen = (torch.Generator(device="cuda") if device == "cuda" else torch.Generator()).manual_seed(0)
-    model = init_params(get_config("yi-6b"), gen, RunCfg(compute_dtype=torch.bfloat16), device)
+    model = init_params(arch, gen, RunCfg(compute_dtype=torch.bfloat16), device)
     tokens = torch.zeros(2, 2000, dtype=torch.int32, device=device)
     cache = model.init_cache(4, DRYRUN_DECODE[0])
     return model, tokens, cache, torch.zeros(4, dtype=torch.int32, device=device)
@@ -2381,19 +2519,22 @@ def _memory_gate(name, dry, start, peak):
     return err
 
 
-def dryrun_child() -> int:
+def dryrun_child(nemotron_layers) -> int:
     """Run in a child with no card visible (``phase_dryrun``): the dry-runs
-    of phase 9's single-device train step and serving (``dryrun.measure``
-    on meta tensors), then of phase 7's sharded yi-6b step (16 layers,
-    remat off) on a fake (1, 1) mesh; prints their numbers as one JSON
-    line."""
+    of phase 9's single-device train step and servings (yi-6b; nemotron-4-340b
+    at ``nemotron_layers``) (``dryrun.measure`` on meta tensors), then of
+    phase 7's sharded yi-6b step (16 layers, remat off) on a fake (1, 1)
+    mesh; prints their numbers as one JSON line."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
     if torch.cuda.is_available():
         raise RuntimeError("the dry-run child sees a card")
     out = {}
+    nemotron_args = lambda device: _dryrun_serving_args(device, "nemotron-4-340b",
+                                                        nemotron_layers)
     for name, build_args, step in (("train", _dryrun_train_args, _dryrun_train_step),
-                                   ("serving", _dryrun_serving_args, _dryrun_serving_step)):
+                                   ("serving", _dryrun_serving_args, _dryrun_serving_step),
+                                   ("nemotron", nemotron_args, _dryrun_serving_step)):
         m = dryrun.measure(lambda: build_args("meta"), step)
         out[name] = {k: m[k] for k in ("peak_bytes", "live_bytes_at_start", "flops")}
     dryrun.fake_world(1)
@@ -2415,21 +2556,29 @@ def phase_dryrun(card_comm):
     ``ok``, the peak, the argument bytes, flops, collectives and ``fits``.
     (b) yi-6b's 16-layer train step (the training phase's config) and its
     serving (prefill B=2 S=2000, 4 decode steps B=4 at 1984-1987 of a
-    2,048-slot cache), each run on the card: the dry-run's peak within
-    DRYRUN_MEMORY_TOL of ``max_memory_allocated``, the train step's flops
+    2,048-slot cache), and nemotron-4-340b's serving the same way at the
+    depth the card holds (``_layers_that_fit``), each run on the card: the
+    dry-run's peak within DRYRUN_MEMORY_TOL of ``max_memory_allocated``,
+    the train step's flops
     under ``FlopCounterMode`` on the card equal to the dry-run's. (c) The
     collectives of phase 7's first sharded yi-6b step (``card_comm``)
     equal, kind by kind, to the dry-run's on a fake (1, 1) mesh. (d)
     ``kernels.build``'s target constants equal to the card's properties."""
     from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.models.lm import RunCfg
     t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    nemotron = _layers_that_fit(get_config("nemotron-4-340b"), RunCfg(compute_dtype=torch.bfloat16))
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     cli = subprocess.Popen([sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
                             *DRYRUN_CLI, "--out", out_dir], cwd=ROOT, env=_no_card_env(),
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     child = subprocess.Popen([sys.executable, "-W", "ignore", "-c",
-                              "import sys, chip_smoke; sys.exit(chip_smoke.dryrun_child())"],
+                              "import sys, chip_smoke; "
+                              f"sys.exit(chip_smoke.dryrun_child({nemotron}))"],
                              cwd=ROOT, env=_no_card_env(), stdout=subprocess.PIPE,
                              stderr=subprocess.PIPE, text=True)
     mark = lambda what: log(f"[dryrun] {what} at {time.perf_counter() - t0:.1f} s")
@@ -2456,6 +2605,12 @@ def phase_dryrun(card_comm):
         del args
         gc.collect()
         torch.cuda.empty_cache()
+        args, start, peak = _card_peak(
+            lambda: _dryrun_serving_args("cuda", "nemotron-4-340b", nemotron), _dryrun_serving_step)
+        card["nemotron"] = (start, peak, None)
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
         mark("the card's steps done")
 
         stdout, stderr = child.communicate(timeout=2 * DRYRUN_PHASE_S)
@@ -2465,7 +2620,9 @@ def phase_dryrun(card_comm):
         mark("the dry-run child done")
         errs = {}
         for name, what in (("train", "yi-6b 16 layers, train step G=2 x 1 x 2048, remat off"),
-                           ("serving", "yi-6b 32 layers, prefill B=2 S=2000 and decode B=4")):
+                           ("serving", "yi-6b 32 layers, prefill B=2 S=2000 and decode B=4"),
+                           ("nemotron", f"nemotron-4-340b {nemotron} layers, prefill B=2 S=2000 "
+                                        f"and decode B=4")):
             start, peak, flops = card[name]
             errs[name] = _memory_gate(what, dry[name], start, peak)
         log(f"[dryrun] (b) yi-6b train step flops: {card['train'][2]} under FlopCounterMode on "
@@ -2500,8 +2657,9 @@ def phase_dryrun(card_comm):
                 proc.wait()
         shutil.rmtree(out_dir, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    log(f"[dryrun] the phase: {seconds:.1f} s; peaks {100 * errs['train']:.2f}% (train) and "
-        f"{100 * errs['serving']:.2f}% (serving) from the card's")
+    log(f"[dryrun] the phase: {seconds:.1f} s; peaks {100 * errs['train']:.2f}% (train), "
+        f"{100 * errs['serving']:.2f}% (serving) and {100 * errs['nemotron']:.2f}% (nemotron "
+        f"serving) from the card's")
     if seconds > DRYRUN_PHASE_S:
         raise AssertionError(f"the dry-run phase took {seconds:.1f} s (limit {DRYRUN_PHASE_S} s)")
 
@@ -2517,7 +2675,9 @@ def kernel_line(rows, errs, total):
     launches of the model that trains there (at that width and the model's
     others); flash's and RMSNorm's forward entries list the embeds-input
     archs' prefill shapes under "shapes" with that model's launches. The
-    wgmma flash at head dim 80 (hubert-xlarge) has entries of its own."""
+    wgmma flash at head dim 80 (hubert-xlarge) has entries of its own, and
+    its forward at head dim 192 (nemotron-4-340b) one; the backward at hd
+    192 is a shape of ``flash_attention_bwd``'s (0 main-path launches)."""
     bf16 = torch.bfloat16
     new_width = lambda r: r["name"] == "rmsnorm_bwd" and r["H"] != RMS_BWD_MAIN[1]
     out, rms_new = [], [r for r in rows if new_width(r)]
@@ -2528,7 +2688,8 @@ def kernel_line(rows, errs, total):
                 {"model": r["model"], "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"],
-                 "launches": total.by_model[r["model"], bf16][r["name"]]})
+                 "launches": total.by_model[r["model"], bf16][r["name"]],
+                 **({"note": r["note"]} if "note" in r else {})})
     for r in rows:
         if new_width(r) or "model" in r:
             continue
@@ -2591,33 +2752,43 @@ def _layers_that_fit(arch, cfg, reserve=6 * 2**30):
     return min(arch.num_layers, fit)
 
 
-def phase_embeds_slice(name, total, time_kernels, decode_spans, gate_layers=4, tf_len=64):
-    """Serve full-width ``name``, an embeds-input arch, through the port's
-    entry points (random bf16 weights from seed 0; as many layers as the
-    card holds, all for both archs here): prefill B=2 S=2000 from fp32
-    embeddings with its launches counted (logits at every position for an
-    encoder, the last for a causal arch), and for a causal arch 4 serve
-    steps from embeddings B=4, counted; its kernels' and end-to-end times.
-    Then, with the model freed, the gates at ``gate_layers`` layers of the
-    same seed, drawn at the full depth's scales (``_as_first_layers_of``:
-    drawn as a 4-layer model, llava's wq would have std 0.5 where the
-    served model's has 0.129, and its fp32 teacher-forced check read 1.73x
-    the 2e-2 tolerance): the bf16 logits through the kernels against the
-    plain versions (``check_model_bf16``) at the prefill's shape, and for a
-    causal arch the teacher-forced forward/decode check from ``tf_len``
-    embeddings (``_teacher_forced_gate``, fp32 gated). Returns the kernel
-    rows."""
+def phase_capped_slice(name, total, time_kernels, decode_spans, gate_layers=4, tf_len=64,
+                       tf_layers=None):
+    """Serve full-width ``name`` through the port's entry points (random
+    bf16 weights from seed 0) at as many of its layers as the card holds
+    (``_layers_that_fit``): the archs whose gates cannot run beside the
+    served model, the embeds-input ones (hubert-xlarge, llava-next-34b)
+    and nemotron-4-340b (8 of its 96 layers on an 80 GB card). Prefill B=2
+    S=2000 from fp32 embeddings or tokens with its launches counted (logits
+    at every position for an encoder, the last for a causal arch); for a
+    causal arch 4 serve steps B=4, counted, for a token arch greedy
+    generation, counted, and where the fp32 check is cut to ``tf_layers``
+    (nemotron: 1) the bf16 teacher-forced forward/decode check over
+    ``tf_len`` inputs at the served depth (reported: bf16 is gated by the
+    logits check); its end-to-end and kernels' times. Then, with the
+    model freed, the gates on the first layers of the same seed, drawn at
+    the served depth's scales (``_as_first_layers_of``: drawn as a 4-layer
+    model, llava's wq would have std 0.5 where the served model's has
+    0.129, and its fp32 teacher-forced check read 1.73x the 2e-2
+    tolerance): the bf16 logits through the kernels against the plain
+    versions (``check_model_bf16``) at the prefill's shape on
+    ``gate_layers`` layers, and for a causal arch the teacher-forced check
+    from ``tf_len`` inputs, fp32 gated, on ``tf_layers`` layers
+    (``gate_layers`` by default; nemotron's fp32 copy holds one layer).
+    Returns the kernel rows."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.lm import RunCfg, init_params, param_count
-    from repro_torch.serving.serve import make_prefill_step, make_serve_step
+    from repro_torch.serving.serve import greedy_generate, make_prefill_step, make_serve_step
 
     cfg = RunCfg(compute_dtype=torch.bfloat16)
     arch = get_config(name)
     layers = _layers_that_fit(arch, cfg)
-    if layers < 1:
-        raise AssertionError(f"{name}: not one layer fits beside the head")
+    if layers < max(1, gate_layers):
+        raise AssertionError(f"{name}: {layers} layers fit beside the head, the gates take "
+                             f"{gate_layers}")
     arch = dataclasses.replace(arch, num_layers=layers)
+    key = "embeds" if arch.embeds_input else "tokens"
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     model = init_params(arch, gen, cfg, device="cuda")
@@ -2627,22 +2798,24 @@ def phase_embeds_slice(name, total, time_kernels, decode_spans, gate_layers=4, t
         f"{time.perf_counter() - t0:.2f} s")
     V = arch.vocab
 
-    # (a), (b) prefill from embeddings with its launches counted
+    # (a), (b) prefill with its launches counted
     prefill = make_prefill_step(model)
-    embeds = _prompt(arch, gen, 2, 2000)
-    logits, counts = _counts_since_reset(lambda: prefill({"embeds": embeds}))
+    prompt = _prompt(arch, gen, 2, 2000)
+    logits, counts = _counts_since_reset(lambda: prefill({key: prompt}))
     want_shape = (2, 1 if arch.causal else 2000, V)
     if logits.shape != want_shape or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite {want_shape}")
     want = _forward_launches(arch)
     if counts != want:
         raise AssertionError(f"prefill launched {counts}, expected {want}")
-    log(f"[slice] (a,b) {name} prefill B=2 S=2000 from embeddings: logits "
-        f"{tuple(logits.shape)} finite; launches {counts}")
+    log(f"[slice] (a,b) {name} prefill B=2 S=2000 from {key}: logits {tuple(logits.shape)} "
+        f"finite; launches {counts}")
     total.add(counts, arch)
     del logits
 
-    # (e) serve steps from embeddings (causal archs; an encoder has no decode)
+    # (e) serve steps (causal archs; an encoder has no decode), (d) greedy
+    # generation (token archs), (c) bf16 teacher-forced at the served depth
+    # where the fp32 check is cut (nemotron)
     serve = make_serve_step(model)
     if arch.causal:
         cache = model.init_cache(4, 8)
@@ -2659,29 +2832,47 @@ def phase_embeds_slice(name, total, time_kernels, decode_spans, gate_layers=4, t
             raise AssertionError("serve_step output malformed")
         if counts != _launches(rmsnorm=4 * _norms(arch)):
             raise AssertionError(f"4 serve steps launched {counts}")
-        log(f"[slice] (e) {name} 4 serve steps B=4 from embeddings: logits {tuple(lg.shape)} "
+        log(f"[slice] (e) {name} 4 serve steps B=4 from {key}: logits {tuple(lg.shape)} "
             f"finite; launches {counts}")
         del cache
+        tf = _prompt(arch, torch.Generator(device="cuda").manual_seed(1), 1, tf_len)
+        if not arch.embeds_input:
+            start = torch.randint(0, V, (4, 32), generator=gen, device="cuda")
+            out, counts = _counts_since_reset(lambda: greedy_generate(model, start, 32))
+            total.add(counts, arch)
+            if out.shape != (4, 32) or out.min() < 0 or out.max() >= V:
+                raise AssertionError(f"greedy_generate gave {tuple(out.shape)} in "
+                                     f"[{out.min()}, {out.max()}]")
+            log(f"[slice] (d) {name} greedy_generate B=4 prompt 32 new 32: tokens "
+                f"{tuple(out.shape)}; launches {counts}")
+        if tf_layers is not None:
+            full, dec = _teacher_forced(model, tf)
+            log(f"[slice] (c) {name} teacher-forced S={tf_len} bf16, the served "
+                f"{arch.num_layers} layers (reported): {_tf_summary(full, dec)}")
+            del full, dec
 
+    # end-to-end times, then (the model freed: the plain versions' scratch
+    # does not fit beside nemotron's weights) the kernels' times
     tgen = torch.Generator(device="cuda").manual_seed(11)
-    rows = time_kernels(tgen)
-    for r in rows:
-        _log_row(r)
     times_end_to_end(name, model, prefill, serve, tgen, decode_spans)
     del model, prefill, serve
     gc.collect()
     torch.cuda.empty_cache()
+    rows = time_kernels(tgen)
+    for r in rows:
+        _log_row(r)
 
-    # (c) the gates at gate_layers layers of the same seed
+    # (c) the gates on the first layers of the same seed
     cut = dataclasses.replace(arch, num_layers=gate_layers)
     if arch.causal:
-        tf = _prompt(cut, torch.Generator(device="cuda").manual_seed(1), 1, tf_len)
-        _teacher_forced_gate(name, cut, tf_len, gate_layers, tf, None,
+        tf_layers = tf_layers or gate_layers
+        _teacher_forced_gate(name, dataclasses.replace(arch, num_layers=tf_layers), tf_len,
+                             tf_layers, tf, None,
                              {"full_depth": False, "bf16_layers": gate_layers,
-                              "depth": arch.num_layers}, embeds)
+                              "depth": arch.num_layers}, prompt)
     else:
         model = init_params(cut, torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
-        check_model_bf16(_as_first_layers_of(model, arch.num_layers), embeds,
+        check_model_bf16(_as_first_layers_of(model, arch.num_layers), prompt,
                          _forward_launches(cut))
         del model
         torch.cuda.empty_cache()
@@ -2736,10 +2927,16 @@ def main() -> int:
     phase_done("granite-moe-3b-a800m serving")
     # the embeds-input archs: hubert-xlarge, an encoder (no decode), and
     # llava-next-34b, decoded from embeddings at positions 2-33
-    rows += phase_embeds_slice("hubert-xlarge", total, times_hubert_kernels, ())
+    rows += phase_capped_slice("hubert-xlarge", total, times_hubert_kernels, ())
     phase_done("hubert-xlarge serving")
-    rows += phase_embeds_slice("llava-next-34b", total, times_llava_kernels, ((40, 1),))
+    rows += phase_capped_slice("llava-next-34b", total, times_llava_kernels, ((40, 1),))
     phase_done("llava-next-34b serving")
+    # nemotron-4-340b at the depth the card holds (8 of 96 layers): decode
+    # after a short prompt and at 1985-2016 of a 2,048-slot cache; the fp32
+    # teacher-forced gate on 1 layer (its fp32 copy: 51.6 GB)
+    rows += phase_capped_slice("nemotron-4-340b", total, times_nemotron_kernels,
+                               ((40, 1), (2048, 1984)), tf_layers=1)
+    phase_done("nemotron-4-340b serving")
     train_rows, single_steps = phase_train(total, phase_done)
     rows += train_rows
     with one_rank_nccl() as mesh:

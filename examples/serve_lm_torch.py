@@ -7,6 +7,12 @@ reports tokens/s. On the card by default:
     PYTHONPATH=src python examples/serve_lm_torch.py --arch yi-6b
     PYTHONPATH=src python examples/serve_lm_torch.py --arch mamba2-2.7b --device cpu
 
+``--layers N`` serves the first N layers at the scale's widths: a model
+larger than one card at full width, such as nemotron-4-340b (18.9 GB of
+embed and head, 6.9 GB a layer in bf16), on one 80 GB card:
+
+    PYTHONPATH=src python examples/serve_lm_torch.py --arch nemotron-4-340b --scale full --layers 8
+
 ``--mesh D,M`` serves on a (data, model) mesh of D x M ranks
 (``launch.mesh.make_serving_mesh``: the batch over "data", the KV span and
 the SSM heads over "model", the weights gathered a layer at a time), one
@@ -20,6 +26,7 @@ nor ports the simulator.
 """
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -46,6 +53,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=48)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the first N layers (default: all of the scale's)")
     ap.add_argument("--mesh", default=None, help="D,M: serve on a (data, model) mesh "
                                                  "(under torchrun with D*M processes)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -59,6 +68,8 @@ def main(argv=None) -> int:
     from repro_torch.serving.serve import greedy_generate
 
     arch = scale_arch(get_config(args.arch), args.scale)
+    if args.layers:
+        arch = dataclasses.replace(arch, num_layers=args.layers)
     if arch.embeds_input:
         raise SystemExit(f"{arch.name} takes precomputed embeddings; use an LM arch for this "
                          f"example")
@@ -77,7 +88,7 @@ def main(argv=None) -> int:
     rank = 0 if mesh is None else torch.distributed.get_rank()
     if rank == 0:
         ranks = "" if mesh is None else f" on a {tuple(mesh.shape)} mesh"
-        print(f"{arch.name}: generated {tuple(out.shape)} in {dt:.2f}s "
+        print(f"{arch.name} (L={arch.num_layers}): generated {tuple(out.shape)} in {dt:.2f}s "
               f"({args.batch * args.new_tokens / dt:.1f} tok/s on {device.type}{ranks}, "
               f"batch={args.batch})")
         print("first sequence:", out[0][:16].tolist())

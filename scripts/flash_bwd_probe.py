@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """The backward kernels of flash attention and RMSNorm on one NVIDIA card,
-at yi-6b's training shapes.
+at yi-6b's and nemotron-4-340b's training shapes.
 
     python3 scripts/flash_bwd_probe.py [--quick]
 
-Builds the kernels, prints each new kernel's registers, spills and shared
+Builds the kernels, prints each kernel's registers, spills and shared
 memory, holds the backward kernels and the forward's LSE against their
-plain versions on a few shapes (``chip_smoke.py``'s gates), then times
-(median of 5 x 20 launches, CUDA events): the flash backward at
-q [1,32,2048,128] for each number of GQA slices of the wgmma path
-(``flash_attention_bwd(..., slices=...)``) beside SDPA's backward and its
-device time by kernel (``torch.profiler``), the flash
-forward with and without the LSE, and the RMSNorm backward at every width
-of its register version (H 1536, 1600, 2560, 3200, 4096, 5120) beside
-``F.rms_norm``'s backward. ``--quick`` stops after the
-parity checks. Prints the card's name and power limit. Imports no JAX.
+plain versions on a few shapes, hd 192 through ``chip_smoke.py``'s own
+checks (``flash_hd192_parity``, ``flash_bwd_hd192_parity``), then times
+(median of 5 x 20 launches, CUDA events), at q [1,32,2048,128] and
+q [1,96,2048,192] in the model's views: the flash backward for each
+number of GQA slices of the wgmma path (``flash_attention_bwd(...,
+slices=...)``) beside SDPA's backward and its device time by kernel
+(``torch.profiler``), the flash forward with and without the LSE; and
+the RMSNorm backward at every width of its register version (H 1536,
+1600, 2560, 3200, 4096, 5120) beside ``F.rms_norm``'s backward.
+``--quick`` stops after the parity checks. Prints the card's name and
+power limit. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -31,8 +33,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from chip_smoke import (_bound, _bwd_gate, _flash_bwd_case, _flash_inputs, _randn,  # noqa: E402
-                        log, log_bwd_resources, time_device)
+from chip_smoke import (FLASH_BWD_MAIN, FLASH_BWD_NEMOTRON, _bound, _bwd_gate,  # noqa: E402
+                        _flash_bwd_case, _flash_inputs, _randn, flash_bwd_bound,
+                        flash_bwd_hd192_parity, flash_hd192_parity, log, log_bwd_resources,
+                        log_flash_resources, time_device)
 
 
 def parity(gen):
@@ -40,7 +44,7 @@ def parity(gen):
     from repro_torch.kernels.ref import rmsnorm_bwd_ref
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).replace("torch.", "")
-        hds = (64, 128) if dtype == torch.bfloat16 else (32,)
+        hds = (64, 128, 192) if dtype == torch.bfloat16 else (32, 192)
         for hd in hds:
             for B, S, nh, nkv, window in ((1, 1, 2, 2, 0), (2, 127, 4, 2, 0), (1, 200, 8, 1, 0),
                                           (1, 200, 4, 4, 37), (1, 2048, 25, 5, 1024),
@@ -48,6 +52,8 @@ def parity(gen):
                 _flash_bwd_case(f"flash_bwd {tag} hd={hd} B,S,nh,nkv=({B},{S},{nh},{nkv}) "
                                 f"window={window}", *_flash_inputs(gen, B, S, nh, nkv, hd, dtype),
                                 window)
+        flash_hd192_parity(gen, dtype)
+        flash_bwd_hd192_parity(gen, dtype)
         for T, H in ((7, 4096), (2048, 2560), (2048, 4096), (2048, 5120), (300, 1000),
                      (2048, 1536), (2048, 1600), (2048, 3200), (9, 1600), (1, 3200)):
             x, w, dy = (_randn(gen, T, H, dtype=dtype), _randn(gen, H, dtype=dtype),
@@ -65,24 +71,27 @@ def times(gen):
     from repro_torch.kernels import rmsnorm_bwd
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     dt = torch.bfloat16
-    B, S, nh, nkv, hd = 1, 2048, 32, 4, 128
-    q, k, v = _flash_inputs(gen, B, S, nh, nkv, hd, dt)
-    o, lse = flash_attention_fwd(q, k, v)
-    do = _randn(gen, B, nh, S, hd, dtype=dt)
-    flops = 5 * 2 * B * nh * hd * S * (S + 1) // 2
-    bound, _ = _bound((4 * q.numel() + 4 * k.numel()) * q.element_size(), flops, dt)
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
-    sdpa = time_device(lambda: torch.autograd.grad(lo, (ql, kl, vl), do, retain_graph=True))
-    log(f"[time] SDPA backward q[{B},{nh},{S},{hd}]: {sdpa:.4f} ms; bound {bound:.4f} ms")
-    for slices in (1, 2, 4, 8, 0, 0, 8, 4, 2, 1):
-        ms = time_device(lambda: flash_attention_bwd(q, k, v, o, do, lse, slices=slices))
-        log(f"[time] flash_attention_bwd slices={slices or 'auto'}: {ms:.4f} ms, "
-            f"{100 * bound / ms:.1f}% of the bound, kernel / SDPA {ms / sdpa:.3f}")
-    kernel_split(lambda: flash_attention_bwd(q, k, v, o, do, lse))
-    for with_lse in (False, True, True, False):
-        ms = time_device(lambda: flash_attention_fwd(q, k, v, lse=with_lse))
-        log(f"[time] flash forward q[{B},{nh},{S},{hd}] lse={with_lse}: {ms:.4f} ms")
+    for B, S, nh, nkv, window, hd in (FLASH_BWD_MAIN, FLASH_BWD_NEMOTRON):
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in _flash_inputs(gen, B, S, nh, nkv, hd, dt))
+        o, lse = flash_attention_fwd(q, k, v)
+        do = _randn(gen, B, S, nh, hd, dtype=dt).transpose(1, 2)
+        (bound, _), _ = flash_bwd_bound(q, k)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+        sdpa = time_device(lambda: torch.autograd.grad(lo, (ql, kl, vl), do, retain_graph=True))
+        shape = f"q[{B},{nh},{S},{hd}] kv {nkv} heads"
+        log(f"[time] SDPA backward {shape}: {sdpa:.4f} ms; bound {bound:.4f} ms")
+        group = nh // nkv
+        slices = [n for n in range(1, group + 1) if group % n == 0]
+        for n in [*slices, 0, 0, *slices[::-1]]:
+            ms = time_device(lambda: flash_attention_bwd(q, k, v, o, do, lse, slices=n))
+            log(f"[time] flash_attention_bwd {shape} slices={n or 'auto'}: {ms:.4f} ms, "
+                f"{100 * bound / ms:.1f}% of the bound, kernel / SDPA {ms / sdpa:.3f}")
+        kernel_split(lambda: flash_attention_bwd(q, k, v, o, do, lse))
+        for with_lse in (False, True, True, False):
+            ms = time_device(lambda: flash_attention_fwd(q, k, v, lse=with_lse))
+            log(f"[time] flash forward {shape} lse={with_lse}: {ms:.4f} ms")
     for H in (1536, 1600, 2560, 3200, 4096, 5120):
         T = 2048
         x, w, dy = _randn(gen, T, H, dtype=dt), _randn(gen, H, dtype=dt), _randn(gen, T, H, dtype=dt)
@@ -131,6 +140,7 @@ def main() -> int:
         if ("registers" in line or "spill" in line or "Compiling entry" in line
                 or "error" in line or "warning" in line):
             log(f"[build] {line.strip()}")
+    log_flash_resources()
     log_bwd_resources()
     gen = torch.Generator(device="cuda").manual_seed(5)
     parity(gen)

@@ -73,6 +73,9 @@ SIGNATURES = {
     "flash_attention_bwd_launch": (_I, [_P] * 9 + [_LL] + [_I] * 9 + [_P]),
     "flash_attention_bwd_wgmma_launch": (_I, [_P] * 10 + [_LL] + [_I] * 9 + [_P]),
     "flash_attention_bwd_wgmma_info": (_I, [_I, ctypes.POINTER(ctypes.c_int)]),
+    "flash_attention_wgmma_info": (_I, [_I, ctypes.POINTER(ctypes.c_int)]),
+    "flash_attention_mma_info": (_I, [_I, _I, ctypes.POINTER(ctypes.c_int)]),
+    "flash_attention_bwd_info": (_I, [_I, _I, ctypes.POINTER(ctypes.c_int)]),
     "ssd_scan_fma_launch": (_I, [_P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
                                  _I, _I, _I, _I, _I, _I, _P]),
     "ssd_scan_wgmma_launch": (_I, [_P] * 11 + [ctypes.POINTER(ctypes.c_longlong),

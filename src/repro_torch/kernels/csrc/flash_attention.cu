@@ -1,6 +1,6 @@
 // GQA flash attention (forward), causal or not, with an optional sliding
-// window, for Hopper (sm_90a): the bf16 kernel at head_dim 64, 80 and 128,
-// built on wgmma and TMA. fp32 (every head_dim) and bf16 at head_dim 32 go
+// window, for Hopper (sm_90a): the bf16 kernel at head_dim 64, 80, 128 and
+// 192, built on wgmma and TMA. fp32 (every head_dim) and bf16 at head_dim 32 go
 // to the
 // mma.sync / FMA kernel in flash_attention_mma.cu; kernels/flash_attention.py
 // picks by (dtype, head_dim).
@@ -15,7 +15,9 @@
 // flops (two products over the causal pairs), which at 989 TFLOP/s (bf16
 // tensor cores) is the least time. At yi-6b prefill (B 2, nh 32, S 2000,
 // hd 128) that is 65.6 GFLOP, 0.066 ms; the bytes (q, k, v read once, o
-// written once: 37 MB) take 0.011 ms at 3.35 TB/s. Without the causal mask
+// written once: 37 MB) take 0.011 ms at 3.35 TB/s. At nemotron-4-340b's
+// prefill (B 2, nh 96, nkv 8, S 2000, hd 192) 295.1 GFLOP, 0.2983 ms.
+// Without the causal mask
 // every (query, key) pair counts, 4*B*nh*hd*S^2: at hubert-xlarge's prefill
 // (B 2, nh 16, S 2000, hd 80) 40.96 GFLOP, 0.0414 ms.
 //
@@ -48,6 +50,14 @@
 //    against 80 + 80), for one code path with hd 128's layout, registers
 //    and descriptors. (A 16-column box with a 32-byte swizzle and an n80
 //    p v would do no extra work; later work.)
+//  * hd 192 (nemotron-4-340b): a 384-byte row is three boxes. At 128 kv
+//    rows a tile, q (48 KB) and two ring slots of k and v (192 KB) pass
+//    the 227 KB a block may have, and a consumer thread would hold o at
+//    N 192 (96 fp32), the scores (64) and p (32) under setmaxnreg's 240.
+//    So kv tiles are 64 rows here (kv_rows): the scores take 32 registers
+//    and p 16 beside o's 96, and the ring has three slots (q 48 KB + 3 x
+//    48 KB). q k^T is wgmma.m64n64k16, p v one wgmma.m64n192k16 per 16
+//    kv rows over the three boxes (LBO = a box).
 //  * Products: S = q k^T is a wgmma with both operands in shared memory,
 //    K-major, 128-byte swizzled. o += p v takes p from registers (the score
 //    accumulators rounded to bf16 become the A fragments without leaving
@@ -72,30 +82,37 @@ namespace repro_torch {
 namespace {
 
 constexpr int kBQ = 128;                  // q rows per work item
-constexpr int kBK = 128;                  // kv rows per tile
-constexpr int kStages = 2;                // k/v ring slots
 constexpr int kBoxCols = 64;              // bf16 columns in one 128-byte swizzle span
-constexpr int kBoxBytes = 128 * kBoxCols * 2;   // a [128 rows][64] box (kBQ == kBK == 128)
 constexpr int kConsumers = 256;           // two consumer warpgroups
 constexpr int kThreads = kConsumers + 128;      // and one producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kBQ == 128 && kBK == 128, "boxes are 128 rows");
+
+// kv rows of a tile and k/v ring slots: 128 and 2, or 64 and 3 at hd 192
+// (see the header)
+__host__ __device__ constexpr int kv_rows(int hd) { return hd > 128 ? 64 : 128; }
+__host__ __device__ constexpr int ring_stages(int hd) { return hd > 128 ? 3 : 2; }
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
 // repeats every 8 rows of 128 bytes): q, the k ring, the v ring, barriers.
 // A head dim that is not a multiple of 64 takes whole boxes (hd 80: two),
 // the columns past hd zero-filled by TMA.
 template <int HD> struct Smem {
-  static_assert(HD % 16 == 0 && HD <= 128, "head dims of whole k16 slabs, at most two boxes");
+  static_assert(HD % 16 == 0 && HD <= 192, "head dims of whole k16 slabs, at most three boxes");
+  static constexpr int kBK = kv_rows(HD);
+  static constexpr int kStages = ring_stages(HD);
   static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;
   static constexpr int kCols = kBoxes * kBoxCols;    // the padded width p v runs at
-  static constexpr int kTile = kBoxes * kBoxBytes;   // one q, k or v tile
+  static constexpr int kQBox = kBQ * 128;            // a [128 rows][64] box
+  static constexpr int kKvBox = kBK * 128;           // a [kBK rows][64] box
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kKvTile = kBoxes * kKvBox;    // one k or v tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTile;
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBar = kV + kStages * kTile;   // q_full, q_empty, then k_full[], k_empty[],
-                                                      // v_full[], v_empty[]
+  static constexpr int kK = kQ + kQTile;
+  static constexpr int kV = kK + kStages * kKvTile;
+  static constexpr int kBar = kV + kStages * kKvTile;   // q_full, q_empty, then k_full[], k_empty[],
+                                                        // v_full[], v_empty[]
   static constexpr int kBytes = kBar + 8 * (2 + 4 * kStages) + 1024;   // + alignment slack
+  static_assert(kBytes <= 232448, "more shared memory than a block may have");
 };
 
 struct Params {
@@ -106,21 +123,21 @@ struct Params {
   float scale_log2;   // hd^-0.5 * log2(e): scores go through exp2
 };
 
-// Online softmax over one [64 x kBK] score tile of a warpgroup, in fp32:
+// Online softmax over one [64 x BK] score tile of a warpgroup, in fp32:
 // the running row max m (unscaled) and this thread's share l of the row
 // sums, for the thread's two rows (see the accumulator layout below).
-struct Softmax {
+template <int BK> struct Softmax {
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
 
   // p = exp2(s * scale_log2 - m * scale_log2), written as bf16 A fragments
   // of p v (l sums the fp32 p). Returns the factors (row g, row g + 8) by
   // which o, accumulated under the previous max, must be rescaled.
-  __device__ __forceinline__ float2 step(const float (&s)[kBK / 2], uint32_t (&pa)[kBK / 16][4],
+  __device__ __forceinline__ float2 step(const float (&s)[BK / 2], uint32_t (&pa)[BK / 16][4],
                                          float sc) {
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
       mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
       mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
@@ -135,7 +152,7 @@ struct Softmax {
       l[i] *= corr[i];
     }
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       float pf[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -157,9 +174,11 @@ struct Item {
   int q0, h, b, kt_begin, kt_end;
 };
 
-// Item `r` of this CTA's share, or false past the last. Items are numbered
-// heaviest causal q tile first; CTA c takes one of every gridDim.x, in a
-// snake order (c, then 2G - 1 - c, ...) that evens out the CTAs' loads.
+// Item `r` of this CTA's share, or false past the last, over kv tiles of BK
+// rows. Items are numbered heaviest causal q tile first; CTA c takes one of
+// every gridDim.x, in a snake order (c, then 2G - 1 - c, ...) that evens
+// out the CTAs' loads.
+template <int BK>
 __device__ __forceinline__ bool item_of(const Params& p, int r, Item& it) {
   const int G = gridDim.x, c = blockIdx.x;
   const int idx = r * G + ((r & 1) ? G - 1 - c : c);
@@ -169,8 +188,8 @@ __device__ __forceinline__ bool item_of(const Params& p, int r, Item& it) {
   it.h = idx % p.nh;
   it.b = (idx / p.nh) % p.B;
   const int k_end = p.causal ? min(p.S, it.q0 + kBQ) : p.S;
-  it.kt_end = (k_end + kBK - 1) / kBK;
-  it.kt_begin = p.window > 0 ? max(0, it.q0 - p.window + 1) / kBK : 0;
+  it.kt_end = (k_end + BK - 1) / BK;
+  it.kt_begin = p.window > 0 ? max(0, it.q0 - p.window + 1) / BK : 0;
   return true;
 }
 
@@ -182,7 +201,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Params p) {
   using L = Smem<HD>;
-  constexpr int HDP = L::kCols;
+  constexpr int HDP = L::kCols, kBK = L::kBK, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
@@ -212,26 +231,26 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       int stage = 0;
       uint32_t phase = 0;
       Item it{};
-      for (int r = 0; item_of(p, r, it); ++r) {
+      for (int r = 0; item_of<kBK>(p, r, it); ++r) {
         const int hk = it.h / (p.nh / p.nkv);
         for (int kt = it.kt_begin; kt < it.kt_end; ++kt) {
-          const uint32_t off = stage * L::kTile;
+          const uint32_t off = stage * L::kKvTile;
           mbar_wait(k_empty + 8 * stage, phase ^ 1);
-          mbar_expect_tx(k_full + 8 * stage, L::kTile);
+          mbar_expect_tx(k_full + 8 * stage, L::kKvTile);
           for (int c = 0; c < L::kBoxes; ++c)
-            tma_load(sK + off + c * kBoxBytes, &tk, k_full + 8 * stage, c * kBoxCols, kt * kBK,
+            tma_load(sK + off + c * L::kKvBox, &tk, k_full + 8 * stage, c * kBoxCols, kt * kBK,
                      hk, it.b);
           if (kt == it.kt_begin) {
             // q goes in once every consumer is done with the last item's
             if (r > 0) mbar_wait(q_empty, (r - 1) & 1);
-            mbar_expect_tx(q_full, L::kTile);
+            mbar_expect_tx(q_full, L::kQTile);
             for (int c = 0; c < L::kBoxes; ++c)
-              tma_load(sQ + c * kBoxBytes, &tq, q_full, c * kBoxCols, it.q0, it.h, it.b);
+              tma_load(sQ + c * L::kQBox, &tq, q_full, c * kBoxCols, it.q0, it.h, it.b);
           }
           mbar_wait(v_empty + 8 * stage, phase ^ 1);
-          mbar_expect_tx(v_full + 8 * stage, L::kTile);
+          mbar_expect_tx(v_full + 8 * stage, L::kKvTile);
           for (int c = 0; c < L::kBoxes; ++c)
-            tma_load(sV + off + c * kBoxBytes, &tv, v_full + 8 * stage, c * kBoxCols, kt * kBK,
+            tma_load(sV + off + c * L::kKvBox, &tv, v_full + 8 * stage, c * kBoxCols, kt * kBK,
                      hk, it.b);
           if (++stage == kStages) {
             stage = 0;
@@ -258,17 +277,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     // S = q k^T over hd, 16 columns of hd per wgmma (hd 80: the fifth slab
     // is the second box's first 32 bytes)
     auto issue_qk = [&](int stage) {
-      const uint64_t dk = sw128_desc(sK + stage * L::kTile, 16, 1024);
+      const uint64_t dk = sw128_desc(sK + stage * L::kKvTile, 16, 1024);
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t step = ((kk / 4) * kBoxBytes + (kk % 4) * 32) >> 4;
-        wgmma_ss_n128(s, dq + step, dk + step, kk > 0);
+        const uint32_t a = ((kk / 4) * L::kQBox + (kk % 4) * 32) >> 4;
+        const uint32_t b = ((kk / 4) * L::kKvBox + (kk % 4) * 32) >> 4;
+        wgmma_ss<kBK>(s, dq + a, dk + b, kk > 0);
       }
       wgmma_commit();
     };
     // o += p v, 16 kv rows per wgmma, at the padded width
     auto issue_pv = [&](int stage) {
-      const uint64_t dv = sw128_desc(sV + stage * L::kTile, kBoxBytes, 1024);
+      const uint64_t dv = sw128_desc(sV + stage * L::kKvTile, L::kKvBox, 1024);
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<HDP>(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
       wgmma_commit();
@@ -301,10 +321,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     int stage = 0;
     uint32_t phase = 0;
     Item it{};
-    for (int r = 0; item_of(p, r, it); ++r) {
+    for (int r = 0; item_of<kBK>(p, r, it); ++r) {
 #pragma unroll
       for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
-      Softmax sm;
+      Softmax<kBK> sm;
       wait_full(q_full, r & 1);
       const int n_tiles = it.kt_end - it.kt_begin;
       for (int i = 0; i < n_tiles; ++i) {
@@ -366,12 +386,22 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
 }
 
+template <int HD> cudaError_t set_smem_limit() {
+  return cudaFuncSetAttribute(flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Smem<HD>::kBytes);
+}
+
+template <int HD> int info(int* out) {
+  const cudaError_t e = set_smem_limit<HD>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return kernel_info(flash_wgmma_kernel<HD>, kThreads, Smem<HD>::kBytes, out);
+}
+
 template <int HD>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const Params& p,
            cudaStream_t stream) {
   constexpr int bytes = Smem<HD>::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(flash_wgmma_kernel<HD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t e = set_smem_limit<HD>();
   // persistent: one CTA per SM (shared memory and registers allow no more)
   static int sms = 0;
   int dev = 0;
@@ -387,7 +417,8 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
 }  // namespace
 }  // namespace repro_torch
 
-// bf16 only, hd 64, 80 or 128 (any other returns cudaErrorInvalidValue). q, o: [B, nh, S, hd] and k, v: [B, nkv, S, hd]
+// bf16 only, hd 64, 80, 128 or 192 (any other returns cudaErrorInvalidValue).
+// q, o: [B, nh, S, hd] and k, v: [B, nkv, S, hd]
 // as element strides (batch, head, seq) in `strides` (q, k, v, o in turn,
 // 12 values, each a multiple of 8); hd contiguous; q, k, v 16-byte aligned.
 // lse: fp32 [B, nh, lse_ld] (lse_ld >= S) for each row's log-sum-exp, or
@@ -401,9 +432,9 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
   if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || (lse != nullptr && lse_ld < S))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  int err = make_head_map(&tq, q, hd, S, nh, B, strides, 128);
-  if (err == 0) err = make_head_map(&tk, k, hd, S, nkv, B, strides + 3, 128);
-  if (err == 0) err = make_head_map(&tv, v, hd, S, nkv, B, strides + 6, 128);
+  int err = make_head_map(&tq, q, hd, S, nh, B, strides, kBQ);
+  if (err == 0) err = make_head_map(&tk, k, hd, S, nkv, B, strides + 3, kv_rows(hd));
+  if (err == 0) err = make_head_map(&tv, v, hd, S, nkv, B, strides + 6, kv_rows(hd));
   if (err != 0) return err;
   Params p;
   p.o = o;
@@ -426,6 +457,21 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
     case 64: return launch<64>(tq, tk, tv, p, s);
     case 80: return launch<80>(tq, tk, tv, p, s);
     case 128: return launch<128>(tq, tk, tv, p, s);
+    case 192: return launch<192>(tq, tk, tv, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// For hd (64, 80, 128 or 192; any other returns cudaErrorInvalidValue), four
+// ints: registers a thread, local-memory bytes a thread (spills), dynamic
+// shared memory bytes, CTAs that fit on one SM. Returns a cudaError_t.
+extern "C" int flash_attention_wgmma_info(int hd, int* out) {
+  using namespace repro_torch;
+  switch (hd) {
+    case 64: return info<64>(out);
+    case 80: return info<80>(out);
+    case 128: return info<128>(out);
+    case 192: return info<192>(out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

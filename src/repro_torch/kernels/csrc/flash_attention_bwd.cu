@@ -1,7 +1,7 @@
 // GQA flash attention, causal, windowed or neither, backward, for Hopper
-// (sm_90a): the mma.sync / FMA kernels, for fp32 at head_dim 32, 64, 80 and
-// 128 and bf16 at head_dim 32 (bf16 at head_dim 64, 80 and 128 goes to the
-// wgmma + TMA kernels of flash_attention_bwd_wgmma.cu), and the
+// (sm_90a): the mma.sync / FMA kernels, for fp32 at head_dim 32, 64, 80, 128
+// and 192 and bf16 at head_dim 32 (bf16 at head_dim 64, 80, 128 and 192
+// goes to the wgmma + TMA kernels of flash_attention_bwd_wgmma.cu), and the
 // D = rowsum(dO * O) launch that both paths run first;
 // kernels/flash_attention.py picks by (dtype, head_dim).
 //
@@ -44,6 +44,11 @@
 //    padded entry gives P = 0 and dS = 0 exactly.
 //  * Strides are arguments: q, k, v, o, dO and the gradients may be
 //    [B,nh,S,hd] tensors or views of [B,S,nh,hd] ones, hd contiguous.
+//  * hd 192 (fp32 only: the gates): dkdv stages four tiles of 64 rows of
+//    196 floats, the LSE and D rows and the P scratch, 218,624 bytes of
+//    shared memory; its dK and dV (96 fp32 each a thread) beside P^T and
+//    dS^T pass 255 registers, so it spills to local memory
+//    (flash_attention_bwd_info reports it).
 #include <math.h>
 
 #include "common.cuh"
@@ -270,8 +275,9 @@ __device__ __forceinline__ void q_tiles(const BwdParams& p, int k0, int& begin, 
 }
 
 // ---- D = rowsum(dO * O): a group of `width` lanes per row (a power of
-// two), the first `chunks` of them a 16-byte vector of o and of dO each;
-// rows in [S, ld) get 0 ----------------------------------------------------
+// two, at most 32), lane l summing 16-byte vectors l, l + width, ... of the
+// row's `chunks` of o and of dO (one each where chunks <= 32; fp32 at hd 192
+// has 48); rows in [S, ld) get 0 -------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const T* o, const T* dO, float* delta,
                                                               long long o_sb, long long o_sh,
@@ -288,8 +294,8 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const T* o, const 
     const long long bh = r / ld;
     const int h = static_cast<int>(bh % nh), b = static_cast<int>(bh / nh);
     const int lane = static_cast<int>(t % width);
-    const int c = lane * kVec;
-    if (row < S && lane < chunks) {
+    for (int v = lane; row < S && v < chunks; v += width) {
+      const int c = v * kVec;
       const uint4 ou = *reinterpret_cast<const uint4*>(o + b * o_sb + h * o_sh + row * o_ss + c);
       const uint4 du = *reinterpret_cast<const uint4*>(dO + b * d_sb + h * d_sh + row * d_ss + c);
       const T* oe = reinterpret_cast<const T*>(&ou);
@@ -463,8 +469,21 @@ int launch_f32(const BwdParams& p, int B, int hd, cudaStream_t stream) {
     case 64: return launch<float, 64>(p, B, stream);
     case 80: return launch<float, 80>(p, B, stream);
     case 128: return launch<float, 128>(p, B, stream);
+    case 192: return launch<float, 192>(p, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T, int HD> int info(int* out) {
+  const int kv_bytes = smem_bytes<T, HD>(4, 2, true), q_bytes = smem_bytes<T, HD>(4, 0, true);
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, q_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int err = kernel_info(flash_bwd_dkdv_kernel<T, HD>, kThreads, kv_bytes, out);
+  return err != 0 ? err : kernel_info(flash_bwd_dq_kernel<T, HD>, kThreads, q_bytes, out + 4);
 }
 
 }  // namespace
@@ -510,8 +529,8 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
 
 // D = rowsum(dO * O) for both backward paths: o, dO [B, nh, S, hd] as
 // element strides (batch, head, seq) in `strides` (o, dO: 6 values), hd
-// contiguous, rows 16-byte aligned, hd a whole number of 16-byte vectors
-// (at most 32); delta: fp32 [B, nh, ld], written in full (0 past S).
+// contiguous, rows 16-byte aligned, hd a whole number of 16-byte vectors;
+// delta: fp32 [B, nh, ld], written in full (0 past S).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_bwd_delta_launch(const void* o, const void* dO, void* delta,
                                                 const long long* strides, int B, int nh, int S,
@@ -521,9 +540,9 @@ extern "C" int flash_attention_bwd_delta_launch(const void* o, const void* dO, v
   if (dtype != kFloat32 && dtype != kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
   const int bytes = hd * (dtype == kFloat32 ? 4 : 2);
   const int chunks = bytes / 16;   // 16-byte vectors a row
-  if (hd <= 0 || bytes % 16 != 0 || chunks > 32) return static_cast<int>(cudaErrorInvalidValue);
-  int width = 1;                   // lanes a row: the power of two that covers the vectors
-  while (width < chunks) width *= 2;
+  if (hd <= 0 || bytes % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  int width = 1;                   // lanes a row: the power of two that covers the vectors,
+  while (width < chunks && width < 32) width *= 2;   // at most a warp
   const long long rows = static_cast<long long>(B) * nh * ld;
   const unsigned blocks = static_cast<unsigned>((rows * width + 255) / 256);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -538,4 +557,25 @@ extern "C" int flash_attention_bwd_delta_launch(const void* o, const void* dO, v
         static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dO), d, st[0],
         st[1], st[2], st[3], st[4], st[5], nh, S, ld, width, chunks, rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+// For (hd, dtype) as flash_attention_bwd_launch takes them (fp32 at hd 32,
+// 64, 80, 128 or 192, bf16 at hd 32; any other returns
+// cudaErrorInvalidValue), per kernel (dK/dV, dQ) in turn, four ints:
+// registers a thread, local-memory bytes a thread (spills), dynamic shared
+// memory bytes, CTAs that fit on one SM. Returns a cudaError_t.
+extern "C" int flash_attention_bwd_info(int hd, int dtype, int* out) {
+  using namespace repro_torch;
+  if (dtype == kBFloat16) {
+    return hd == 32 ? info<__nv_bfloat16, 32>(out) : static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype != kFloat32) return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 32: return info<float, 32>(out);
+    case 64: return info<float, 64>(out);
+    case 80: return info<float, 80>(out);
+    case 128: return info<float, 128>(out);
+    case 192: return info<float, 192>(out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

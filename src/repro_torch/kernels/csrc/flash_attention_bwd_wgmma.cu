@@ -1,6 +1,6 @@
 // GQA flash attention, causal, windowed or neither, backward, for Hopper
-// (sm_90a): the bf16 kernels at head_dim 64, 80 and 128, built on wgmma
-// and TMA. fp32 and bf16
+// (sm_90a): the bf16 kernels at head_dim 64, 80, 128 and 192, built on
+// wgmma and TMA. fp32 and bf16
 // at head_dim 32 go to the mma.sync / FMA kernels of flash_attention_bwd.cu;
 // kernels/flash_attention.py picks by (dtype, head_dim).
 //
@@ -52,6 +52,17 @@
 //    its five k16 slabs; those with hd as N (dV, dK, dQ) at the padded
 //    width 128, whose columns past 80 sum zeros and are never stored.
 //    Non-causal items walk every q (dK/dV) or kv (dQ) tile.
+//  * hd 192 (nemotron-4-340b): a consumer holding dK and dV at N 192
+//    (96 + 96 fp32) beside S^T and dP^T (32 + 32) needs 256 registers
+//    before addresses, past the 232 below. So each kv tile is two dK/dV
+//    items (`kinds`): one recomputes S^T and accumulates dV = P^T dO, the
+//    other computes S^T and dP^T and accumulates dK = dS^T Q, each in one
+//    accumulator of 96 (176 registers in all). That is five products a
+//    (kv tile, q tile) where the fused item does four, where splitting
+//    hd's columns instead would take six. The tiles do not change; three
+//    boxes a row, the rings two slots deep in both kernels (dK/dV: K, V
+//    96 KB + 2 x 48.5 KB; dQ: Q, dO 96 KB + 2 x 48 KB), and the products
+//    with hd as N are one wgmma.m64n192k16 per 16 rows.
 //  * setmaxnreg gives the producer's registers to the consumers: 32 and
 //    232 a thread from the 168 of the launch (the producer's item loops
 //    spill at 24; what it frees at 32, 136 x 128, covers 64 more for
@@ -69,8 +80,12 @@ namespace {
 constexpr int kBoxCols = 64;              // bf16 columns in one 128-byte swizzle span
 constexpr int kConsumers = 256;           // two consumer warpgroups
 constexpr int kThreads = kConsumers + 128;      // and one producer warpgroup
-constexpr int kStages = 3;                // ring slots, both kernels
 constexpr float kLog2e = 1.4426950408889634f;
+
+// ring slots of both kernels: 3, or 2 at hd 192 (three boxes a row)
+__host__ __device__ constexpr int ring_stages(int hd) { return hd > 128 ? 2 : 3; }
+// dK/dV items a kv tile: 1 (dK and dV together), or 2 at hd 192 (dV, dK)
+__host__ __device__ constexpr int dkdv_kinds(int hd) { return hd > 128 ? 2 : 1; }
 
 // dK/dV: kv rows of an item (64 per consumer warpgroup), q rows of a ring tile
 constexpr int kKvRows = 128;
@@ -82,7 +97,8 @@ constexpr int kDqKvRows = 64;
 // Shared memory of the dK/dV kernel, from a 1024-byte aligned base: K, V
 // (one tile each), the ring's Q and dO tiles, its LSE and D rows, barriers.
 template <int HD> struct DkdvSmem {
-  static_assert(HD % 16 == 0 && HD <= 128, "head dims of whole k16 slabs, at most two boxes");
+  static_assert(HD % 16 == 0 && HD <= 192, "head dims of whole k16 slabs, at most three boxes");
+  static constexpr int kStages = ring_stages(HD);
   static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;   // hd 80: two, zero-filled past 80
   static constexpr int kCols = kBoxes * kBoxCols;   // the padded width of the N = hd products
   static constexpr int kKvBox = kKvRows * 128;   // [128 rows][64 columns] bf16
@@ -97,12 +113,14 @@ template <int HD> struct DkdvSmem {
   static constexpr int kD = kL + kStages * kQRows * 4;
   static constexpr int kBar = kD + kStages * kQRows * 4;   // kv_full, kv_empty, full[], empty[]
   static constexpr int kBytes = kBar + 8 * (2 + 2 * kStages) + 1024;   // + alignment slack
+  static_assert(kBytes <= 232448, "more shared memory than a block may have");
 };
 
 // Shared memory of the dQ kernel: Q, dO (one tile each), the ring's K and V
 // tiles, barriers.
 template <int HD> struct DqSmem {
-  static_assert(HD % 16 == 0 && HD <= 128, "head dims of whole k16 slabs, at most two boxes");
+  static_assert(HD % 16 == 0 && HD <= 192, "head dims of whole k16 slabs, at most three boxes");
+  static constexpr int kStages = ring_stages(HD);
   static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;
   static constexpr int kCols = kBoxes * kBoxCols;
   static constexpr int kQBox = kDqRows * 128;
@@ -115,6 +133,7 @@ template <int HD> struct DqSmem {
   static constexpr int kV = kK + kStages * kKvTile;
   static constexpr int kBar = kV + kStages * kKvTile;      // q_full, q_empty, full[], empty[]
   static constexpr int kBytes = kBar + 8 * (2 + 2 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "more shared memory than a block may have");
 };
 
 struct Params {
@@ -123,7 +142,7 @@ struct Params {
   void *dq, *dk, *dv;
   float* parts;         // [2][slices][B][nkv][S][HD] fp32 partial dK, dV (slices > 1)
   long long dq_s[3], dk_s[3], dv_s[3];   // (batch, head, seq) element strides
-  int B, nh, nkv, S, causal, window, ld, slices;
+  int B, nh, nkv, S, causal, window, ld, slices, kinds;
   int n_kv_items, n_q_tiles, n_dq_items, n_dq_tiles;
   float scale, scale_log2;
 };
@@ -157,17 +176,20 @@ __device__ __forceinline__ void to_a_frags(const float (&d)[32], uint32_t (&a)[4
 // ---- dK / dV ---------------------------------------------------------------
 
 // A dK/dV work item: kv rows [k0, k0 + 128) of kv head hk, query heads
-// [h0, h1) (one slice of the group), and the q tiles they attend from.
+// [h0, h1) (one slice of the group), and the q tiles they attend from;
+// with two kinds a tile (hd 192), `kind` 0 accumulates dV, 1 dK.
 struct KvItem {
-  int k0, hk, b, slice, h0, h1, qt_begin, qt_end;
+  int k0, hk, b, slice, kind, h0, h1, qt_begin, qt_end;
 };
 
 __device__ __forceinline__ bool kv_item_of(const Params& p, int r, KvItem& it) {
   const int idx = snake(r);
   if (idx >= p.n_kv_items) return false;
-  const int per_tile = p.nkv * p.B * p.slices;
+  const int per_tile = p.nkv * p.B * p.slices * p.kinds;
   int rest = idx % per_tile;
   it.k0 = (idx / per_tile) * kKvRows;   // kv tile 0 first: the most causal q tiles
+  it.kind = rest % p.kinds;             // a tile's two kinds on neighbouring CTAs
+  rest /= p.kinds;
   it.slice = rest % p.slices;
   rest /= p.slices;
   it.hk = rest % p.nkv;
@@ -192,7 +214,10 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_const
                       const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                       const Params p) {
   using L = DkdvSmem<HD>;
-  constexpr int HDP = L::kCols;
+  constexpr int HDP = L::kCols, kStages = L::kStages;
+  // accumulators a consumer thread holds: dV and dK, or the item's one
+  constexpr bool kSplit = dkdv_kinds(HD) > 1;
+  constexpr int kAcc = kSplit ? 1 : 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   unsigned char* const gbase = smem_raw + (base - smem_addr(smem_raw));
@@ -262,11 +287,13 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_const
     const int col0 = 2 * (lane % 4);                      // q column of st[0] in a tile
     const float sc = p.scale_log2;
 
-    float dk[HDP / 2], dv[HDP / 2];   // columns past HD sum zeros, never stored
+    // acc[0] dV and acc[1] dK, or (kSplit) acc[0] the item's kind's;
+    // columns past HD sum zeros, never stored
+    float acc[kAcc][HDP / 2];
     float st[32], dpt[32];   // S^T and dP^T of one q tile, then P^T and dS^T
 #pragma unroll
     for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
-    uint32_t pa[4][4], da[4][4];   // P^T and dS^T as A fragments
+    uint32_t fr[kAcc][4][4];   // P^T and dS^T (or the kind's one) as A fragments
 
     const uint64_t dK = sw128_desc(sK + wg * 64 * 128, 16, 1024);
     const uint64_t dV = sw128_desc(sV + wg * 64 * 128, 16, 1024);
@@ -280,7 +307,12 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_const
     KvItem it{};
     for (int r = 0; kv_item_of(p, r, it); ++r) {
 #pragma unroll
-      for (int i = 0; i < HDP / 2; ++i) dk[i] = dv[i] = 0.f;
+      for (int a = 0; a < kAcc; ++a)
+#pragma unroll
+        for (int i = 0; i < HDP / 2; ++i) acc[a][i] = 0.f;
+      // whether accumulator a is dK (else dV), and whether dP^T is needed
+      auto is_dk = [&](int a) { return kSplit ? it.kind == 1 : a == 1; };
+      const bool need_dp = !kSplit || it.kind == 1;
       wait_full(kv_full, r & 1);
       const int n_tiles = (it.h1 - it.h0) * (it.qt_end - it.qt_begin);
       for (int i = 0; i < n_tiles; ++i) {
@@ -298,11 +330,13 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_const
           const uint32_t b = ((kk / 4) * L::kQBox + (kk % 4) * 32) >> 4;
           wgmma_ss_n64(st, dK + a, dq_k + b, kk > 0);
         }
+        if (need_dp) {
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          const uint32_t a = ((kk / 4) * L::kKvBox + (kk % 4) * 32) >> 4;
-          const uint32_t b = ((kk / 4) * L::kQBox + (kk % 4) * 32) >> 4;
-          wgmma_ss_n64(dpt, dV + a, ddo_k + b, kk > 0);
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint32_t a = ((kk / 4) * L::kKvBox + (kk % 4) * 32) >> 4;
+            const uint32_t b = ((kk / 4) * L::kQBox + (kk % 4) * 32) >> 4;
+            wgmma_ss_n64(dpt, dV + a, ddo_k + b, kk > 0);
+          }
         }
         wgmma_commit();
         wgmma_wait();
@@ -325,28 +359,35 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_const
             float pv = fast_exp2(fmaf(st[4 * j + e], sc, -lse[c]));
             if (edge && !live(p, q0 + c, it.k0 + row_in + (e / 2) * 8)) pv = 0.f;
             st[4 * j + e] = pv;
-            dpt[4 * j + e] = pv * (dpt[4 * j + e] - dd[c]);
+            if (need_dp) dpt[4 * j + e] = pv * (dpt[4 * j + e] - dd[c]);
           }
         }
-        to_a_frags(st, pa);
-        to_a_frags(dpt, da);
+        if (kSplit && it.kind == 1) {
+          to_a_frags(dpt, fr[0]);
+        } else {
+          to_a_frags(st, fr[0]);
+        }
+        if constexpr (!kSplit) to_a_frags(dpt, fr[1]);
 
         // dV += P^T dO and dK += dS^T Q, 16 q rows per wgmma, dO and Q MN-major
         const uint64_t ddo_m = sw128_desc(do_s, L::kQBox, 1024);
         const uint64_t dq_m = sw128_desc(q_s, L::kQBox, 1024);
-        fence_regs(dv);
-        fence_regs(dk);
+#pragma unroll
+        for (int a = 0; a < kAcc; ++a) fence_regs(acc[a]);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<HDP>(dv, pa[kk], ddo_m + ((kk * 16 * 128) >> 4));
+        for (int a = 0; a < kAcc; ++a) {
+          const uint64_t db = is_dk(a) ? dq_m : ddo_m;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<HDP>(dk, da[kk], dq_m + ((kk * 16 * 128) >> 4));
+          for (int kk = 0; kk < 4; ++kk) wgmma_rs<HDP>(acc[a], fr[a][kk], db + ((kk * 16 * 128) >> 4));
+        }
         wgmma_commit();
         wgmma_wait();
-        fence_regs(dv);
-        fence_regs(dk);
-        fence_regs(pa);
-        fence_regs(da);
+#pragma unroll
+        for (int a = 0; a < kAcc; ++a) {
+          fence_regs(acc[a]);
+          fence_regs(fr[a]);
+        }
         mbar_arrive(empty + 8 * stage);
         if (++stage == kStages) {
           stage = 0;
@@ -356,35 +397,32 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_const
       mbar_arrive(kv_empty);   // the producer may load the next item's K and V
 
       // one slice: dK * scale and dV in bf16, into their strided layouts;
-      // more: fp32 partials; rows past S unwritten
+      // more: fp32 partials (plane 0 dK, plane 1 dV); rows past S unwritten
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = it.k0 + row_in + 8 * i;
-        if (row >= p.S) continue;
-        if (p.slices == 1) {
-          __nv_bfloat16* krow = static_cast<__nv_bfloat16*>(p.dk) + it.b * p.dk_s[0] +
-                                it.hk * p.dk_s[1] + row * p.dk_s[2] + col0;
-          __nv_bfloat16* vrow = static_cast<__nv_bfloat16*>(p.dv) + it.b * p.dv_s[0] +
-                                it.hk * p.dv_s[1] + row * p.dv_s[2] + col0;
+      for (int a = 0; a < kAcc; ++a) {
+        const bool dk_acc = is_dk(a);
 #pragma unroll
-          for (int j = 0; j < HD / 8; ++j) {
-            *reinterpret_cast<__nv_bfloat162*>(krow + 8 * j) = __floats2bfloat162_rn(
-                dk[4 * j + 2 * i] * p.scale, dk[4 * j + 2 * i + 1] * p.scale);
-            *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * j) =
-                __floats2bfloat162_rn(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
-          }
-        } else {
-          const long long plane = static_cast<long long>(p.slices) * p.B * p.nkv * p.S * HD;
-          float* krow = p.parts +
-                        (((static_cast<long long>(it.slice) * p.B + it.b) * p.nkv + it.hk) * p.S +
-                         row) * HD + col0;
-          float* vrow = krow + plane;
+        for (int i = 0; i < 2; ++i) {
+          const int row = it.k0 + row_in + 8 * i;
+          if (row >= p.S) continue;
+          if (p.slices == 1) {
+            const long long* ds = dk_acc ? p.dk_s : p.dv_s;
+            __nv_bfloat16* out = static_cast<__nv_bfloat16*>(dk_acc ? p.dk : p.dv) +
+                                 it.b * ds[0] + it.hk * ds[1] + row * ds[2] + col0;
+            const float mul = dk_acc ? p.scale : 1.f;
 #pragma unroll
-          for (int j = 0; j < HD / 8; ++j) {
-            *reinterpret_cast<float2*>(krow + 8 * j) =
-                make_float2(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
-            *reinterpret_cast<float2*>(vrow + 8 * j) =
-                make_float2(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+            for (int j = 0; j < HD / 8; ++j)
+              *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(
+                  acc[a][4 * j + 2 * i] * mul, acc[a][4 * j + 2 * i + 1] * mul);
+          } else {
+            const long long plane = static_cast<long long>(p.slices) * p.B * p.nkv * p.S * HD;
+            float* out = p.parts + (dk_acc ? 0 : plane) +
+                         (((static_cast<long long>(it.slice) * p.B + it.b) * p.nkv + it.hk) *
+                              p.S + row) * HD + col0;
+#pragma unroll
+            for (int j = 0; j < HD / 8; ++j)
+              *reinterpret_cast<float2*>(out + 8 * j) =
+                  make_float2(acc[a][4 * j + 2 * i], acc[a][4 * j + 2 * i + 1]);
           }
         }
       }
@@ -450,7 +488,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                     const Params p) {
   using L = DqSmem<HD>;
-  constexpr int HDP = L::kCols;
+  constexpr int HDP = L::kCols, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kQ, sDO = base + L::kDO, sK = base + L::kK, sV = base + L::kV;
@@ -674,7 +712,8 @@ template <int HD> int info(int* out) {
 }  // namespace
 }  // namespace repro_torch
 
-// bf16 only, hd 64, 80 or 128 (any other returns cudaErrorInvalidValue). q, dO, dq: [B, nh, S, hd] and k, v, dk, dv:
+// bf16 only, hd 64, 80, 128 or 192 (any other returns cudaErrorInvalidValue).
+// q, dO, dq: [B, nh, S, hd] and k, v, dk, dv:
 // [B, nkv, S, hd] as element strides (batch, head, seq) in `strides` (q, k,
 // v, dO, dq, dk, dv in turn, 21 values, each a multiple of 8); hd
 // contiguous; every base 16-byte aligned. lse (log2 units) and delta: fp32
@@ -725,7 +764,8 @@ extern "C" int flash_attention_bwd_wgmma_launch(const void* q, const void* k, co
   p.window = window;
   p.ld = ld;
   p.slices = slices;
-  p.n_kv_items = (S + kKvRows - 1) / kKvRows * nkv * B * slices;
+  p.kinds = dkdv_kinds(hd);
+  p.n_kv_items = (S + kKvRows - 1) / kKvRows * nkv * B * slices * p.kinds;
   p.n_q_tiles = (S + kQRows - 1) / kQRows;
   p.n_dq_tiles = (S + kDqRows - 1) / kDqRows;
   p.n_dq_items = p.n_dq_tiles * nh * B;
@@ -736,11 +776,13 @@ extern "C" int flash_attention_bwd_wgmma_launch(const void* q, const void* k, co
     case 64: return launch<64>(m, p, s);
     case 80: return launch<80>(m, p, s);
     case 128: return launch<128>(m, p, s);
+    case 192: return launch<192>(m, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// For hd (64, 80 or 128; any other returns cudaErrorInvalidValue), per kernel (dK/dV, dQ, the partials' sum) in turn,
+// For hd (64, 80, 128 or 192; any other returns cudaErrorInvalidValue), per
+// kernel (dK/dV, dQ, the partials' sum) in turn,
 // four ints: registers a thread, local-memory bytes a thread (spills),
 // dynamic shared memory bytes, CTAs that fit on one SM. Returns a
 // cudaError_t.
@@ -750,6 +792,7 @@ extern "C" int flash_attention_bwd_wgmma_info(int hd, int* out) {
     case 64: return info<64>(out);
     case 80: return info<80>(out);
     case 128: return info<128>(out);
+    case 192: return info<192>(out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

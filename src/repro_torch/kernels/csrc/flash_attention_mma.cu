@@ -1,8 +1,10 @@
 // GQA flash attention (forward), causal or not, with an optional sliding
-// window: the mma.sync / FMA kernel, for fp32 at head_dim 32, 64, 80 and
-// 128 and for bf16 at head_dim 32. bf16 at head_dim 64, 80 and 128 goes to
-// the wgmma + TMA kernel in flash_attention.cu; kernels/flash_attention.py
-// picks by (dtype, head_dim).
+// window: the mma.sync / FMA kernel, for fp32 at head_dim 32, 64, 80, 128
+// and 192 and for bf16 at head_dim 32. bf16 at head_dim 64, 80, 128 and 192
+// goes to the wgmma + TMA kernel in flash_attention.cu;
+// kernels/flash_attention.py picks by (dtype, head_dim). At hd 192 fp32 a
+// CTA stages (64 + 2 x 64) rows of 196 floats and the p scratch: 167,936
+// bytes of shared memory.
 //
 // Replaces: src/repro/kernels/flash_attention.py, _flash_kernel /
 // flash_attention. o = softmax(mask(q k^T * hd^-0.5)) v per head, with the
@@ -359,8 +361,17 @@ int launch_f32(const FlashParams& p, int B, int hd, cudaStream_t stream) {
     case 64: return launch<float, 64>(p, B, stream);
     case 80: return launch<float, 80>(p, B, stream);
     case 128: return launch<float, 128>(p, B, stream);
+    case 192: return launch<float, 192>(p, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T, int HD> int info(int* out) {
+  constexpr int bytes = smem_bytes<T, HD>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return kernel_info(flash_fwd_kernel<T, HD>, kThreads, bytes, out);
 }
 
 }  // namespace
@@ -399,4 +410,25 @@ extern "C" int flash_attention_mma_launch(const void* q, const void* k, const vo
   if (dtype == kFloat32) return launch_f32(p, B, hd, s);
   if (dtype == kBFloat16 && hd == 32) return launch<__nv_bfloat16, 32>(p, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// For (hd, dtype) as flash_attention_mma_launch takes them (fp32 at hd 32,
+// 64, 80, 128 or 192, bf16 at hd 32; any other returns
+// cudaErrorInvalidValue), four ints: registers a thread, local-memory bytes
+// a thread (spills), dynamic shared memory bytes, CTAs that fit on one SM.
+// Returns a cudaError_t.
+extern "C" int flash_attention_mma_info(int hd, int dtype, int* out) {
+  using namespace repro_torch;
+  if (dtype == kBFloat16) {
+    return hd == 32 ? info<__nv_bfloat16, 32>(out) : static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype != kFloat32) return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 32: return info<float, 32>(out);
+    case 64: return info<float, 64>(out);
+    case 80: return info<float, 80>(out);
+    case 128: return info<float, 128>(out);
+    case 192: return info<float, 192>(out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -3,12 +3,13 @@
 ``repro.kernels.ops``).
 
 Two CUDA kernels serve it, picked by (dtype, head_dim) in ``kernel_path``:
-* ``"wgmma"``, ``csrc/flash_attention.cu``: bf16 at head_dim 64, 80 and
-  128 (hymba-1.5b, hubert-xlarge, yi-6b). Warp-specialised, with TMA copies
-  and wgmma products, for Hopper; hd 80 runs in two 64-column boxes whose
-  columns past 80 TMA zero-fills in shared memory.
-* ``"mma"``, ``csrc/flash_attention_mma.cu``: fp32 at head_dim 32, 64, 80
-  and 128 (plain FMAs, no TF32) and bf16 at head_dim 32 (mma.sync).
+* ``"wgmma"``, ``csrc/flash_attention.cu``: bf16 at head_dim 64, 80, 128
+  and 192 (hymba-1.5b, hubert-xlarge, yi-6b, nemotron-4-340b).
+  Warp-specialised, with TMA copies and wgmma products, for Hopper; hd 80
+  runs in two 64-column boxes whose columns past 80 TMA zero-fills in
+  shared memory; hd 192 in three, over kv tiles of 64 rows.
+* ``"mma"``, ``csrc/flash_attention_mma.cu``: fp32 at head_dim 32, 64, 80,
+  128 and 192 (plain FMAs, no TF32) and bf16 at head_dim 32 (mma.sync).
 There is no fallback between them: a launch that fails raises. Both take
 ``causal=False`` (hubert-xlarge): every kv tile is live, and the only
 mask is the tail past S.
@@ -22,11 +23,12 @@ forward also writes each row's log-sum-exp (LSE, fp32, log2 units; only
 when an input needs a gradient) and saves it beside q, k, v and o. Its
 backward is ``flash_attention_bwd``, picked by ``bwd_kernel_path``:
 * ``"wgmma"``, ``csrc/flash_attention_bwd_wgmma.cu``: bf16 at head_dim 64,
-  80 and 128. dK/dV per (kv tile, kv head, batch, slice of the GQA group)
-  into fp32 partials summed in a fixed order, dQ per (q tile, head,
-  batch); TMA and wgmma, warp-specialised.
+  80, 128 and 192. dK/dV per (kv tile, kv head, batch, slice of the GQA
+  group; at hd 192 dV and dK in items of their own) into fp32 partials
+  summed in a fixed order, dQ per (q tile, head, batch); TMA and wgmma,
+  warp-specialised.
 * ``"mma"``, ``csrc/flash_attention_bwd.cu``: fp32 (head_dim 32, 64, 80,
-  128) and bf16 at head_dim 32 (mma.sync / FMA).
+  128, 192) and bf16 at head_dim 32 (mma.sync / FMA).
 Both read the forward's LSE and D = rowsum(dO o) from a launch of its own
 (``csrc/flash_attention_bwd.cu``); nothing recomputes the row statistics.
 CPU tensors take ``ref.flash_attention_bwd_ref``.
@@ -54,8 +56,8 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "che
            "flops", "bwd_flops",
            "HEAD_DIMS", "WGMMA_HEAD_DIMS"]
 
-HEAD_DIMS = (32, 64, 80, 128)       # head dims some kernel is instantiated for
-WGMMA_HEAD_DIMS = (64, 80, 128)     # bf16 head dims of the wgmma kernels
+HEAD_DIMS = (32, 64, 80, 128, 192)      # head dims some kernel is instantiated for
+WGMMA_HEAD_DIMS = (64, 80, 128, 192)    # bf16 head dims of the wgmma kernels
 LSE_ROWS = 128                  # the LSE and D rows of a (b, h) are padded to this
 # dK/dV work items of the wgmma backward the grid should have per SM
 # before the GQA group is split further. yi-6b at S 2048 (64 kv items,

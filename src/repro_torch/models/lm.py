@@ -627,9 +627,24 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Di
     return loss, {"loss": total, **aux}
 
 
-def _dense(gen: torch.Generator, shape, scale: float, cfg: RunCfg, device) -> torch.Tensor:
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * scale
-    return w.to(cfg.compute_dtype)
+# A leaf of more elements than this is drawn a block of rows at a time, so
+# that drawing nemotron-4-340b's embed and head (4.7 B elements each) takes
+# 4 GiB of fp32 scratch, not 19 GB beside the weights; every smaller leaf is
+# drawn in one call, as the reference's _dense draws it.
+_DRAW_BLOCK = 2 ** 30
+
+
+def _dense(w: torch.Tensor, gen: torch.Generator, scale: float) -> None:
+    """Fill ``w`` with N(0, 1) * ``scale`` drawn in fp32 and rounded to
+    ``w``'s dtype; past ``_DRAW_BLOCK`` elements a block of rows at a time
+    (the same distribution, another stream of draws)."""
+    rows = w.shape[0]
+    if w.numel() > _DRAW_BLOCK:
+        rows = max(1, _DRAW_BLOCK // w[0].numel())
+    for r0 in range(0, w.shape[0], rows):
+        part = w[r0:r0 + rows]
+        part.copy_(torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                               device=w.device).mul_(scale))
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float, device) -> torch.Tensor:
@@ -677,33 +692,33 @@ def init_params(arch: ArchConfig, generator: torch.Generator, cfg: RunCfg = RunC
         blk.norm1.fill_(1.0)
         if arch.has_attention:
             for name in ("wq", "wk", "wv"):
-                blk.attn[name].copy_(_dense(generator, blk.attn[name].shape, stacked, cfg, dev))
-            blk.attn["wo"].copy_(_dense(generator, blk.attn["wo"].shape, out_attn, cfg, dev))
+                _dense(blk.attn[name], generator, stacked)
+            _dense(blk.attn["wo"], generator, out_attn)
         if arch.block in ("ssm", "hymba"):
             p = blk.ssm
-            p["in_proj"].copy_(_dense(generator, p["in_proj"].shape, stacked, cfg, dev))
-            p["conv_w"].copy_(_dense(generator, p["conv_w"].shape, 0.3, cfg, dev))
+            _dense(p["in_proj"], generator, stacked)
+            _dense(p["conv_w"], generator, 0.3)
             p["conv_b"].zero_()
             p["A_log"].copy_(torch.log(_uniform(generator, p["A_log"].shape, 1.0, 16.0, dev)))
             p["D"].fill_(1.0)
             dt = _uniform(generator, p["dt_bias"].shape, 1e-3, 1e-1, dev)
             p["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))     # inverse softplus
             p["ssm_norm"].fill_(1.0)
-            p["out_proj"].copy_(_dense(generator, p["out_proj"].shape, out_ssm, cfg, dev))
+            _dense(p["out_proj"], generator, out_ssm)
         if hasattr(blk, "norm2"):
             blk.norm2.fill_(1.0)
             if arch.n_experts:
                 scales = {"router": 0.02, "wg": stacked, "wi": stacked, "wo": out_moe}
                 for name, p in blk.moe.items():
-                    p.copy_(_dense(generator, p.shape, scales[name], cfg, dev))
+                    _dense(p, generator, scales[name])
             else:
                 for name, p in blk.mlp.items():
                     scale = out_mlp if name == "wo" else stacked
-                    p.copy_(_dense(generator, p.shape, scale, cfg, dev))
+                    _dense(p, generator, scale)
     model.final_norm.fill_(1.0)
-    model.lm_head.copy_(_dense(generator, model.lm_head.shape, 0.02, cfg, dev))
+    _dense(model.lm_head, generator, 0.02)
     if not arch.embeds_input:
-        model.embed.copy_(_dense(generator, model.embed.shape, 0.02, cfg, dev))
+        _dense(model.embed, generator, 0.02)
     return model
 
 

@@ -480,7 +480,7 @@ def test_ssd_wgmma_rejects_unaligned_views(card):
 
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
-    q = torch.zeros(1, 2, 16, 80, device=card, dtype=torch.bfloat16)
+    q = torch.zeros(1, 2, 16, 224, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q)
     q = torch.zeros(1, 2, 16, 64, device=card, dtype=torch.float16)
@@ -703,7 +703,7 @@ def test_flash_forward_lse_matches_plain(card, B, S, nh, nkv, window, hd, dtype)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd,dtype,slices", [(32, "float32", 0), (32, "bfloat16", 0)] + [
-    (hd, "bfloat16", slices) for hd in (64, 128) for slices in (0, 1, 2, 8)])
+    (hd, "bfloat16", slices) for hd in (64, 128, 192) for slices in (0, 1, 2, 8)])
 def test_flash_bwd_gives_the_same_bits_twice(card, hd, dtype, slices):
     """No atomics: two backward calls on the same inputs give identical
     bits, on both paths and for any number of GQA slices (0: the

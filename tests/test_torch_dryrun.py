@@ -8,8 +8,7 @@ counter on a hand-built c10d sequence (the reference's HLO parser test,
 ``tests/test_system.py``); each kernel op's fake implementation against
 its CPU implementation (shapes, dtypes, strides); the dry-run's flops
 against ``FlopCounterMode``'s; one full-scale cell end to end, and the
-nemotron-4-340b cell that reaches flash at head dim 192 failing on the
-kernel's check. Cells on a "fake" process group run in subprocesses, so
+nemotron-4-340b cell that reaches flash at head dim 192. Cells on a "fake" process group run in subprocesses, so
 no process group outlives its test."""
 
 import dataclasses
@@ -336,12 +335,12 @@ def test_ssd_ops_fake_match_cpu(dtype, hp, N, views, state):
 
 
 def test_fake_ops_refuse_what_the_card_refuses():
-    """A fake run raises where the CUDA path would: head dim 192
-    (nemotron-4-340b), an SSD state width no kernel has, a misaligned view
-    (a storage offset of 2 bytes)."""
+    """A fake run raises where the CUDA path would: a head dim no kernel
+    has (224), an SSD state width no kernel has, a misaligned view (a
+    storage offset of 2 bytes)."""
     meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
     with pytest.raises(ValueError, match="head_dim"):
-        kflash.flash_attention(meta(1, 96, 16, 192), meta(1, 8, 16, 192), meta(1, 8, 16, 192))
+        kflash.flash_attention(meta(1, 96, 16, 224), meta(1, 8, 16, 224), meta(1, 8, 16, 224))
     x = meta(1, 2, 40, 64)
     with pytest.raises(ValueError, match="instantiated"):
         kssd.ssd_scan(x, meta(1, 2, 40, dtype=torch.float32), meta(2, dtype=torch.float32),
@@ -425,17 +424,20 @@ def test_one_full_scale_cell(tmp_path):
 
 
 def test_nemotron_prefill_fails_on_head_dim_192(tmp_path):
-    """nemotron-4-340b's prefill reaches flash at head dim 192, which no
-    kernel serves yet (ROADMAP §2): the cell records ok false and the
-    kernel's check. A port of hd 192 flips this test."""
+    """nemotron-4-340b's prefill_32k on the 16x16 pod reaches flash at head
+    dim 192 (the name is from before hd 192 had a kernel, when this cell
+    stopped on the kernel's check): the cell records ok, its flash calls
+    planned by the hd-192 instantiation's fake implementation, with a peak
+    under the card's memory (20.62 GiB a device; ~7 s on a CPU)."""
     r = subprocess.run([sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
                         "--arch", "nemotron-4-340b", "--shape", "prefill_32k", "--mesh", "single",
                         "--out", str(tmp_path)], env=_env(), cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
-    assert r.returncode == 1
+    assert r.returncode == 0, r.stderr[-4000:]
     rec = json.loads((tmp_path / "nemotron-4-340b__prefill_32k__single.json").read_text())
-    assert rec["ok"] is False
-    assert "flash kernel is instantiated for head_dim (32, 64, 80, 128), got 192" in rec["error"]
+    assert rec["ok"] and rec["fits"] and rec["chips"] == 256
+    assert 0 < rec["memory"]["peak_bytes"] < rec["target"]["total_memory"]
+    assert rec["flops"] > 0 and rec["collectives"]["calls"]["total"] > 0
 
 
 # --------------------------------------------------- chip_smoke.py's bounds

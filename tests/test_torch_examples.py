@@ -54,3 +54,11 @@ def test_serve_example_on_one_device_and_a_mesh():
                    "localhost", "--master-port", str(port), *args, "--mesh", "1,2"])
     assert "on a (1, 2) mesh" in meshed
     assert _first_sequence(meshed) == _first_sequence(single) != []
+
+
+def test_serve_example_serves_the_first_layers():
+    """``--layers`` cuts the depth at the scale's widths (the way one card
+    serves full-width nemotron-4-340b: ``--scale full --layers 8``)."""
+    out = _run(["examples/serve_lm_torch.py", *SMALL, "--arch", "nemotron-4-340b", "--layers",
+                "1", "--batch", "2", "--prompt-len", "4", "--new-tokens", "4"])
+    assert "nemotron-4-340b (L=1): generated (2, 4)" in out

@@ -34,6 +34,7 @@ FLASH_GRID = [
     (2, 200, 4, 2, 64),     # GQA, padded tail
     (1, 384, 8, 1, 32),     # MQA, hd below lane width
     (2, 256, 6, 3, 128),    # grouped, 128-wide heads
+    (1, 200, 12, 1, 192),   # nemotron-4-340b's hd 192 and GQA group 12, padded tail
 ]
 RMS_GRID = [(64, 256), (100, 512), (256, 1024)]
 SSD_GRID = [                    # B, nh, S, hp, N, chunk (tests/test_kernels.py:40-44)
@@ -87,6 +88,7 @@ NONCAUSAL_GRID = [
     (1, 130, 2, 2, 80),     # a tail of 2 rows
     (2, 256, 6, 3, 128),
     (1, 128, 4, 2, 64),
+    (1, 200, 12, 1, 192),   # nemotron-4-340b's hd 192, a tail of 72 rows
 ]
 
 
@@ -113,6 +115,22 @@ def test_flash_attention_noncausal_backward_at_hd80_matches_jax():
     o, lse = flash_attention_fwd_ref(tq, tk, tv, causal=False)
     got = flash_attention_bwd_ref(tq, tk, tv, o, torch.from_numpy(do), lse, causal=False)
     _, vjp = jax.vjp(lambda a, b, c: jax_flash_ref(a, b, c, causal=False), jq, jk, jv)
+    for g, w in zip(got, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(_np(g), _np(w), **_tol("float32"))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_backward_at_hd192_matches_jax(causal):
+    """The plain backward at nemotron-4-340b's head_dim 192 and GQA group
+    12, a tail S, causal and not (fed the plain forward's LSE, as the
+    kernels are fed the forward kernel's) against ``jax.vjp`` of the
+    reference, fp32 at the grid's 3e-4."""
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_fwd_ref
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(8, 1, 130, 12, 1, 192, "float32")
+    do = np.random.default_rng(10).standard_normal(tq.shape, dtype=np.float32)
+    o, lse = flash_attention_fwd_ref(tq, tk, tv, causal=causal)
+    got = flash_attention_bwd_ref(tq, tk, tv, o, torch.from_numpy(do), lse, causal=causal)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash_ref(a, b, c, causal=causal), jq, jk, jv)
     for g, w in zip(got, vjp(jnp.asarray(do))):
         np.testing.assert_allclose(_np(g), _np(w), **_tol("float32"))
 

@@ -40,14 +40,15 @@ def _qkv(B=2, S=40, nh=8, nkv=2, hd=128, dtype=BF16):
 
 
 @pytest.mark.parametrize("dtype,hd,path", [
-    (BF16, 64, "wgmma"), (BF16, 80, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "mma"),
-    (F32, 32, "mma"), (F32, 64, "mma"), (F32, 80, "mma"), (F32, 128, "mma")])
+    (BF16, 64, "wgmma"), (BF16, 80, "wgmma"), (BF16, 128, "wgmma"), (BF16, 192, "wgmma"),
+    (BF16, 32, "mma"), (F32, 32, "mma"), (F32, 64, "mma"), (F32, 80, "mma"), (F32, 128, "mma"),
+    (F32, 192, "mma")])
 def test_flash_dispatch_by_dtype_and_head_dim(dtype, hd, path):
     assert flash_path(dtype, hd) == path
     assert flash_check(*_qkv(hd=hd, dtype=dtype), 0) == path
 
 
-@pytest.mark.parametrize("hd", [16, 48, 96, 192, 256])
+@pytest.mark.parametrize("hd", [16, 48, 96, 224, 256])
 def test_flash_rejects_head_dims_no_kernel_has(hd):
     with pytest.raises(ValueError, match="head_dim"):
         flash_path(BF16, hd)
@@ -63,7 +64,7 @@ def test_flash_rejects_other_dtypes():
         flash_check(q, k.float(), v, 0)
 
 
-@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128, 192])
 def test_flash_takes_the_models_strided_views(hd):
     """layers.attention passes [B,S,nh,hd] tensors as [B,nh,S,hd] views."""
     B, S, nh, nkv = 2, 40, 8, 2
@@ -298,17 +299,19 @@ def test_ssd_wgmma_state_dims_are_the_instantiated_ones():
 # ---------------------------------------------------------------- backward routing
 
 @pytest.mark.parametrize("dtype,hd,path", [
-    (BF16, 64, "wgmma"), (BF16, 80, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "mma"),
-    (F32, 32, "mma"), (F32, 64, "mma"), (F32, 80, "mma"), (F32, 128, "mma")])
+    (BF16, 64, "wgmma"), (BF16, 80, "wgmma"), (BF16, 128, "wgmma"), (BF16, 192, "wgmma"),
+    (BF16, 32, "mma"), (F32, 32, "mma"), (F32, 64, "mma"), (F32, 80, "mma"), (F32, 128, "mma"),
+    (F32, 192, "mma")])
 def test_flash_bwd_dispatch_by_dtype_and_head_dim(dtype, hd, path):
-    """bf16 at hd 64/80/128 (yi-6b, hymba-1.5b, hubert-xlarge) takes the wgmma + TMA backward;
+    """bf16 at hd 64/80/128/192 (yi-6b, hymba-1.5b, hubert-xlarge,
+    nemotron-4-340b) takes the wgmma + TMA backward;
     fp32 and bf16 hd 32 the mma.sync / FMA one; ``check_bwd_args`` says so."""
     assert flash_bwd_path(dtype, hd) == path
     q, k, v = _qkv(hd=hd, dtype=dtype)
     assert flash_bwd_check(q, k, v, torch.zeros_like(q), torch.zeros_like(q), 0) == path
 
 
-@pytest.mark.parametrize("hd", [16, 96, 192])
+@pytest.mark.parametrize("hd", [16, 96, 224])
 def test_flash_bwd_rejects_head_dims_no_kernel_has(hd):
     with pytest.raises(ValueError, match="head_dim"):
         flash_bwd_path(BF16, hd)
@@ -318,7 +321,7 @@ def test_flash_bwd_head_dims_are_the_instantiated_ones():
     """The wgmma backward takes exactly WGMMA_HEAD_DIMS, each a case of an
     exhaustive switch (any other head dim returns an error); the mma
     backward instantiates bf16 only at hd 32."""
-    assert WGMMA_HEAD_DIMS == (64, 80, 128)
+    assert WGMMA_HEAD_DIMS == (64, 80, 128, 192)
     for name, fn in (("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_launch"),
                      ("flash_attention", "flash_attention_wgmma_launch")):
         src = (CSRC / f"{name}.cu").read_text()
