@@ -59,10 +59,12 @@ Phases, each of which fails the run by raising:
      times (the SSD backward's wgmma path, at mamba2's N 128 and hymba's
      N 16, beside its FMA kernel, which it must beat);
   7. the FSDP x TP train step over NCCL on a one-card (1, 1) mesh: yi-6b at
-     16 layers (3 steps) and hymba-1.5b at 4 (one), each from the training
-     phase's seed and batch; the first sharded step's launches, loss and
-     fp32 masters must equal the single-device step's (bit for bit), then
-     its time and peak memory beside the training phase's step;
+     16 layers (3 steps), hymba-1.5b at 4 (one) and mamba2-2.7b at full
+     width and SHARDED_MAMBA2_LAYERS (3 steps; its mixer head parallel over
+     the one-rank "model" axis), each with remat off and on, from the
+     training phase's seed and batch; the first sharded step's launches,
+     loss and fp32 masters must equal the single-device step's (bit for
+     bit), then its time and peak memory beside the single-device step's;
   8. sharded serving and expert parallelism in the same one-rank NCCL
      group on the (1, 1) mesh: full-width yi-6b, mamba2-2.7b, hymba-1.5b
      and granite-moe-3b-a800m (bf16, the serving phase's seed) decode B=4
@@ -211,10 +213,11 @@ TRAIN_LAYERS = {"yi-6b": 16, "mamba2-2.7b": 64, "hymba-1.5b": 32, "granite-moe-3
                 "hubert-xlarge": 48}
 # layers of each model's train_loop and checkpoint round trip, cut to keep
 # the run near 600 s: the checkpoint's save, check and restore run at ~0.4
-# GB/s (PERF.md). yi-6b at 4 (16 GB), mamba2 at 8 (4.4 GB), the new two at
-# 2, which holds every leaf kind of their trees (hymba's attention, SSM and
-# MLP, granite's [E,H,F] experts), hubert at 2 (a tree without embed)
-TRAIN_LOOP_LAYERS = {"yi-6b": 4, "mamba2-2.7b": 8, "hymba-1.5b": 2, "granite-moe-3b-a800m": 2,
+# GB/s (PERF.md). yi-6b at 2 (0.87 B parameters, 10.4 GB of masters and
+# moments; 4 layers took 136 s of the run), mamba2 at 8 (4.4 GB), the new
+# two at 2, which holds every leaf kind of their trees (hymba's attention,
+# SSM and MLP, granite's [E,H,F] experts), hubert at 2 (a tree without embed)
+TRAIN_LOOP_LAYERS = {"yi-6b": 2, "mamba2-2.7b": 8, "hymba-1.5b": 2, "granite-moe-3b-a800m": 2,
                      "hubert-xlarge": 2}
 # drop-free capacity factor for MoE checks that compare two routings of the
 # same tokens (tests/test_models.py:58-62)
@@ -2148,7 +2151,9 @@ def sharded_step_gate(name, layers, steps, total, mesh, single=None, remat=False
     sharded steps after the first timed (host clock around synchronised
     steps) and the peak memory, logged beside the single-device step's
     peak and ``single`` (the training phase's (median ms, peak GiB) at
-    this config). With ``comm`` (a dict), the first sharded step runs under
+    this config); without ``single``, the single-device state takes
+    ``steps`` - 1 more steps after the first, timed the same way. With
+    ``comm`` (a dict), the first sharded step runs under
     ``launch.comm_analysis.CollectiveCounter``, whose record goes into
     ``comm``."""
     from repro_torch.parallel.comm import local
@@ -2161,6 +2166,13 @@ def sharded_step_gate(name, layers, steps, total, mesh, single=None, remat=False
     (state, metrics), want = _counts_since_reset(lambda: make_train_step(arch, cfg)(state, batch))
     single_peak = torch.cuda.max_memory_allocated() / 2**30
     loss, masters = float(metrics["loss"]), _masters_on_host(state)
+    single_ms = []
+    for _ in range(0 if single else steps - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(arch, cfg)(state, batch)
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t0) * 1e3)
     del state, metrics
     gc.collect()
     torch.cuda.empty_cache()
@@ -2216,11 +2228,20 @@ def sharded_step_gate(name, layers, steps, total, mesh, single=None, remat=False
              else "")
     beside = (f"; single-device step {single[0]:.2f} ms, peak {single[1]:.2f} GiB "
               f"(training phase, same config)" if single else "")
+    if single_ms:
+        beside = (f"; single-device steps after the first {[round(x, 2) for x in single_ms]} "
+                  f"ms, median {statistics.median(single_ms):.2f} (same call)")
     log(f"[time] sharded train step {name} {layers} layers, remat {'on' if remat else 'off'}, "
         f"(1, 1) mesh over NCCL, G={TRAIN_G} x 1 x {TRAIN_S} tokens: "
         f"{[round(x, 2) for x in ms]} ms (the first with its launches counted); {timed}peak "
         f"memory {peak:.2f} GiB, the single-device step's {single_peak:.2f} GiB (one step, "
         f"same call){beside}")
+
+
+# mamba2-2.7b's depth in phase 7: 16 of 64 layers, 0.90 B parameters, 16.2 GB
+# of train state at 18 B a parameter (fp32 masters and moments, the bf16
+# model); the single-device state is freed before the sharded one is built
+SHARDED_MAMBA2_LAYERS = 16
 
 
 @contextlib.contextmanager
@@ -2248,17 +2269,22 @@ def phase_sharded(total, single_steps, mesh):
     """Section 7, on ``mesh`` (``one_rank_nccl``): ``sharded_step_gate`` for
     yi-6b at TRAIN_LAYERS' 16 layers (3 steps, timed beside the training
     phase's step; then one step with remat on, the peak memory beside the
-    single-device step's) and hymba-1.5b at 4 layers (one step with remat
+    single-device step's), hymba-1.5b at 4 layers (one step with remat
     off and one with it on: the SSD scan, the windowed flash and the fused
-    mixers on the sharded path). Returns the collectives of yi-6b's first
-    sharded step (``CollectiveCounter.record``), which phase 9 holds the
-    dry-run to."""
+    mixers on the sharded path) and mamba2-2.7b at SHARDED_MAMBA2_LAYERS
+    (3 steps with remat off, timed beside as many single-device steps, and
+    one with it on: the head-parallel mixer, in_proj's columns taken in
+    their order, the scan on the rank's heads, out_proj row-parallel).
+    Returns the collectives of yi-6b's first sharded step
+    (``CollectiveCounter.record``), which phase 9 holds the dry-run to."""
     comm = {}
     sharded_step_gate("yi-6b", TRAIN_LAYERS["yi-6b"], 3, total, mesh,
                       single_steps.get("yi-6b"), comm=comm)
     sharded_step_gate("yi-6b", TRAIN_LAYERS["yi-6b"], 1, total, mesh, remat=True)
     sharded_step_gate("hymba-1.5b", 4, 1, total, mesh)
     sharded_step_gate("hymba-1.5b", 4, 1, total, mesh, remat=True)
+    sharded_step_gate("mamba2-2.7b", SHARDED_MAMBA2_LAYERS, 3, total, mesh)
+    sharded_step_gate("mamba2-2.7b", SHARDED_MAMBA2_LAYERS, 1, total, mesh, remat=True)
     return comm
 
 

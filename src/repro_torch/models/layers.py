@@ -17,9 +17,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import kernels
+from ..parallel.comm import psum
 
-__all__ = ["rmsnorm", "rope", "attention", "decode_attention", "mlp", "moe", "moe_ep",
-           "ssd_scan", "ssm_decode_step", "silu", "softplus", "squared_relu", "gelu"]
+__all__ = ["rmsnorm", "rmsnorm_sharded", "rope", "attention", "decode_attention", "mlp", "moe",
+           "moe_ep", "ssd_scan", "ssm_decode_step", "silu", "softplus", "squared_relu", "gelu"]
 
 
 def silu(x):
@@ -55,6 +56,20 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     H = x.shape[-1]
     out = kernels.rmsnorm(x.reshape(-1, H).contiguous(), w.to(x.dtype), eps=eps)
     return out.reshape(x.shape)
+
+
+def rmsnorm_sharded(x: torch.Tensor, w: torch.Tensor, width: int, group,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm of rows split by columns over ``group``: x [..., width/n] this
+    rank's columns, w [width/n] its block of the weight. The fp32 sum of
+    squares of the local columns is summed over the group (``comm.psum``,
+    whose backward sums too) and divided by ``width``; then the
+    reference's order (``repro.models.layers.rmsnorm``): cast, times w in
+    x's type. Eager ops: the RMSNorm kernel reduces whole rows."""
+    acc = torch.promote_types(x.dtype, torch.float32)       # fp32, or fp64 for fp64
+    xf = x.to(acc)
+    ss = psum((xf * xf).sum(dim=-1, keepdim=True), group)
+    return (xf * torch.rsqrt(ss / width + eps)).to(x.dtype) * w.to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> torch.Tensor:

@@ -44,8 +44,8 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..parallel.comm import MeshComm, gather_dim, local
 from ..parallel.sharding import MeshPlacements, ShardingPlanner, mesh_device
-from .layers import (attention, decode_attention, mlp, moe, moe_ep, rmsnorm, rope, softplus,
-                     ssd_scan, ssm_decode_step)
+from .layers import (attention, decode_attention, mlp, moe, moe_ep, rmsnorm, rmsnorm_sharded,
+                     rope, softplus, ssd_scan, ssm_decode_step)
 
 __all__ = ["RunCfg", "LM", "Block", "init_params", "loss_fn", "param_count"]
 
@@ -101,6 +101,9 @@ class _Part:
 
 
 _WHOLE = _Part()
+# the SSM mixer's leaves kept sharded over "model" on d_inner where it is head
+# parallel (``Block.ssm_tp``)
+_SSM_TAIL = ("ssm_norm", "out_proj")
 
 
 def _empty(device, dtype, *shape) -> nn.Parameter:
@@ -122,16 +125,24 @@ class Block(nn.Module):
     heads have their kv heads: wq, wk, wv column-parallel, wo row-parallel;
     where the kv heads do not divide the axis, wk and wv are gathered and a
     rank takes its q heads' kv head (Megatron replicates KV heads so). The
-    MLP is tensor parallel where d_ff divides the axis. Every other
-    sublayer, the SSM mixer always (in_proj's columns interleave z, x, B, C
-    and dt), gathers its weights over "model" too and every model rank
-    computes it whole."""
+    MLP is tensor parallel where d_ff divides the axis. The SSM mixer is
+    tensor parallel over whole SSM heads where they divide the axis and
+    out_proj and ssm_norm are sharded over it on their d_inner dim
+    (``ssm_tp``; rank r's block of them is then exactly heads [r nh/M,
+    (r+1) nh/M)): in_proj, conv_w and conv_b are gathered and this rank's
+    columns taken (z and x of its heads, B and C whole, dt of its heads:
+    in_proj's columns interleave the five, so a column shard holds no whole
+    head), the scan runs on its heads, the gated RMSNorm sums its squares
+    over "model" (``layers.rmsnorm_sharded``), out_proj is row-parallel.
+    Elsewhere (hymba-1.5b's 50 heads on a 4-, 8- or 16-way axis) the
+    mixer's weights are gathered whole and every model rank computes it
+    whole, as every other sublayer does."""
 
     def __init__(self, arch: ArchConfig, cfg: "RunCfg", device):
         super().__init__()
         self.arch, self.capacity_factor = arch, cfg.capacity_factor
         self.comm: Optional[MeshComm] = None
-        self.attn_tp = self.kv_tp = self.mlp_tp = False
+        self.attn_tp = self.kv_tp = self.mlp_tp = self.ssm_tp = False
         dtype = cfg.compute_dtype
         H, nh, nkv, hd, F = arch.d_model, arch.n_heads, arch.n_kv, arch.head_dim, arch.d_ff
         e = lambda *shape: _empty(device, dtype, *shape)
@@ -174,6 +185,10 @@ class Block(nn.Module):
         if hasattr(self, "mlp"):
             self.mlp_tp = all(comm.tp_shard(w, 0 if n == "wo" else 1)
                               for n, w in self.mlp.items())
+        if hasattr(self, "ssm"):
+            p = self.ssm
+            self.ssm_tp = (a.ssm_n_heads % M == 0 and comm.tp_shard(p["out_proj"], 0)
+                           and comm.tp_shard(p["ssm_norm"], 0))
 
     def _w(self, p: torch.Tensor, partial: bool = False) -> torch.Tensor:
         """Weight ``p`` whole, as a layer every model rank computes whole uses
@@ -292,10 +307,51 @@ class Block(nn.Module):
             return t
         return gather_dim(t, 0, self.comm.groups[self.comm.data_dim])
 
-    def _split(self, proj: torch.Tensor):
-        """in_proj's output -> z [.,di], xbc [.,conv_dim], dt's input [.,nh]."""
+    def _split(self, proj: torch.Tensor, nh: int):
+        """in_proj's output of ``nh`` heads -> z [.,nh hp], xbc [.,nh hp + 2N],
+        dt's input [.,nh]."""
         a = self.arch
-        return proj.split([a.d_inner, a.d_inner + 2 * a.ssm_state, a.ssm_n_heads], dim=-1)
+        d = nh * a.ssm_headdim
+        return proj.split([d, d + 2 * a.ssm_state, nh], dim=-1)
+
+    def _ssm_weights(self, partial: bool):
+        """(weights, heads) the mixer computes with on this rank: each weight
+        whole (``_w``), or where the mixer is head parallel (``ssm_tp``)
+        this rank's heads' part of it: in_proj's columns [z_r | x_r | B | C
+        | dt_r] and conv_w's and conv_b's [x_r | B | C] taken from the
+        gathered leaves in one copy each, A_log, D and dt_bias sliced, the
+        model shards of ssm_norm and out_proj kept. With one model rank
+        the parts are the whole leaves, used as they are."""
+        a, c = self.arch, self.comm
+        if c is None or not self.ssm_tp:
+            return {n: self._w(w, partial) for n, w in self.ssm.items()}, a.ssm_n_heads
+        nh = a.ssm_n_heads // c.size
+        p = {n: self._w(self.ssm[n], True)
+             for n in ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias")}
+        for n in _SSM_TAIL:
+            p[n] = c.weight(self.ssm[n], 0)
+        if c.size > 1:
+            di, N, hp = a.d_inner, a.ssm_state, a.ssm_headdim
+            h0 = c.rank * nh
+            r0, d = h0 * hp, nh * hp
+            cols = lambda w, *spans: torch.cat([w[..., s:s + n] for s, n in spans], dim=-1)
+            p["in_proj"] = cols(p["in_proj"], (r0, d), (di + r0, d), (2 * di, 2 * N),
+                                (2 * di + 2 * N + h0, nh))
+            for n in ("conv_w", "conv_b"):
+                p[n] = cols(p[n], (r0, d), (di, 2 * N))
+            for n in ("A_log", "D", "dt_bias"):
+                p[n] = p[n][h0:h0 + nh]
+        return p, nh
+
+    def _gated_norm(self, y: torch.Tensor, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """rmsnorm(y silu(z), ssm_norm) of this rank's columns: whole rows
+        through the RMSNorm kernel, or with the heads split over more than
+        one model rank ``layers.rmsnorm_sharded`` over all d_inner."""
+        g = y * F.silu(z)
+        c = self.comm
+        if c is None or not self.ssm_tp or c.size == 1:
+            return rmsnorm(g, w)
+        return rmsnorm_sharded(g, w, self.arch.d_inner, c.group)
 
     def _ssm(self, h: torch.Tensor, seq: bool = False) -> torch.Tensor:
         """``lm._run_ssm`` (prefill): h [B,S,H] -> [B,S,H]. The causal
@@ -308,28 +364,29 @@ class Block(nn.Module):
         roundings the port's bf16 gradients of A_log and dt_bias sat 1.9x
         further from fp32 than the reference's own bf16 (tiny mamba2,
         tests/test_torch_train.py). The MLP's ``silu`` keeps its two."""
-        return self._leave(self._ssm_rows(self._enter(h, False, seq), seq), False, seq)
+        y = self._ssm_rows(self._enter(h, self.ssm_tp, seq), seq)
+        return self._leave(y, self.ssm_tp, seq)
 
     def _ssm_rows(self, h: torch.Tensor, partial: bool) -> torch.Tensor:
-        """The mixer of whole rows h [B,S,H], computed whole; ``partial``:
-        the weights' gradients on this rank are a part of theirs."""
+        """The mixer of whole rows h [B,S,H]: the output, or where it is
+        head parallel this rank's heads' partial sum of it; ``partial``:
+        the whole weights' gradients on this rank are a part of theirs."""
         a = self.arch
-        p = {n: self._w(w, partial) for n, w in self.ssm.items()}
+        p, nh = self._ssm_weights(partial)
         B, S, _ = h.shape
-        di, N, nh, hp, K = a.d_inner, a.ssm_state, a.ssm_n_heads, a.ssm_headdim, a.conv_width
-        cdt = h.dtype
-        z, xbc, dtr = self._split(h @ p["in_proj"])
+        N, hp, K = a.ssm_state, a.ssm_headdim, a.conv_width
+        d, cdt = nh * hp, h.dtype
+        z, xbc, dtr = self._split(h @ p["in_proj"], nh)
         padded = F.pad(xbc, (0, 0, K - 1, 0))
         conv = sum(padded[:, k:k + S] * p["conv_w"][k] for k in range(K)) + p["conv_b"].to(cdt)
-        xs, Bm, Cm = F.silu(conv).split([di, N, N], dim=-1)
+        xs, Bm, Cm = F.silu(conv).split([d, N, N], dim=-1)
         acc = torch.promote_types(cdt, torch.float32)          # fp32, or fp64 for fp64
         dt = softplus(dtr.to(acc) + p["dt_bias"].to(cdt).to(acc))
         A = -torch.exp(p["A_log"].to(cdt))
         x4 = xs.reshape(B, S, nh, hp)
         y = ssd_scan(x4, dt, A, Bm, Cm)
         y = y + p["D"].to(cdt)[:, None] * x4
-        y = rmsnorm(y.reshape(B, S, di) * F.silu(z), p["ssm_norm"])
-        return y @ p["out_proj"]
+        return self._gated_norm(y.reshape(B, S, d), z, p["ssm_norm"]) @ p["out_proj"]
 
     def _ssm_decode(self, h: torch.Tensor, conv_cache: torch.Tensor, ssm_cache: torch.Tensor,
                     parts: Optional[Dict[str, _Part]] = None) -> torch.Tensor:
@@ -338,17 +395,23 @@ class Block(nn.Module):
         fp32 leaves stay fp32, as in the reference's decode, so the conv
         sum and its SiLU run in fp32 before the cast.
 
-        On a mesh (``parts``) every weight is gathered whole and each rank
-        updates its block of the caches: the conv on its channels (then the
-        conv's output gathered over "model"), the recurrence on its heads,
-        or its slice of the head dim (then y gathered over "model"). Every
-        step is per channel or per (head, hp), so the split is exact."""
-        a = self.arch
-        p = {n: self._w(w) for n, w in self.ssm.items()}
+        On a mesh (``parts``) each rank updates its block of the caches: the
+        conv on its channels (then the conv's output gathered over
+        "model"), the recurrence on its heads, or its slice of the head dim
+        (then y gathered over "model"). Every step is per channel or per
+        (head, hp), so the split is exact. Where the state is split by heads
+        and the mixer is head parallel (``ssm_tp``), y stays on this rank's
+        heads: the D skip, the gated norm (``_gated_norm``) and a
+        row-parallel out_proj, then one all-reduce of [B,1,H]; every other
+        weight is gathered whole."""
+        a, c = self.arch, self.comm
         B = h.shape[0]
         di, N, nh, hp = a.d_inner, a.ssm_state, a.ssm_n_heads, a.ssm_headdim
         pc, ps = (_WHOLE, _WHOLE) if parts is None else (parts["conv"], parts["ssm"])
-        z, xbc, dtr = self._split((h @ p["in_proj"])[:, 0])
+        tp = self.ssm_tp and ps.dim == 1
+        p = {n: c.weight(w, 0) if tp and n in _SSM_TAIL else self._w(w)
+             for n, w in self.ssm.items()}
+        z, xbc, dtr = self._split((h @ p["in_proj"])[:, 0], nh)
         cols = slice(pc.start, pc.start + conv_cache.shape[-1])     # this rank's channels
         held = conv_cache if pc.rows is None else conv_cache[pc.rows]
         hist = torch.cat([held, xbc[:, None, cols]], dim=1)          # [B,K,channels]
@@ -356,7 +419,7 @@ class Block(nn.Module):
         conv_cache.copy_(self._rows_whole(hist[:, 1:], pc))
         act = F.silu(conv).to(h.dtype)
         if pc.dim is not None:
-            act = gather_dim(act, 1, self.comm.group)
+            act = gather_dim(act, 1, c.group)
         xs, Bm, Cm = act.split([di, N, N], dim=-1)
         dt = softplus(dtr.float() + p["dt_bias"])
         A = -torch.exp(p["A_log"])
@@ -371,11 +434,16 @@ class Block(nn.Module):
         else:
             y, new_state = ssm_decode_step(x3, dt, A, Bm, Cm, state)
         ssm_cache.copy_(self._rows_whole(new_state, ps))
+        if tp:
+            d = state.shape[1] * hp
+            y = y + p["D"][hs].to(y.dtype)[:, None] * x3[:, hs]
+            y = self._gated_norm(y.reshape(B, 1, d), z[:, None, hs.start * hp:hs.start * hp + d],
+                                 p["ssm_norm"])
+            return c.tp_out(y @ p["out_proj"], False)
         if ps.dim is not None:
-            y = gather_dim(y, ps.dim, self.comm.group)
+            y = gather_dim(y, ps.dim, c.group)
         y = y + p["D"].to(y.dtype)[:, None] * x3
-        y = rmsnorm(y.reshape(B, 1, di) * F.silu(z)[:, None], p["ssm_norm"])
-        return y @ p["out_proj"]
+        return rmsnorm(y.reshape(B, 1, di) * F.silu(z)[:, None], p["ssm_norm"]) @ p["out_proj"]
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         """x [B,S,H] -> (x [B,S,H], aux: {} or the MoE layer's stats). On a
@@ -388,13 +456,15 @@ class Block(nn.Module):
             x = x + self._attn(h, positions, seq)
         elif block == "ssm":
             x = x + self._ssm(h, seq)
-        elif self.comm is not None and self.attn_tp:
-            # hymba with parallel heads: one way in and out for both mixers,
-            # the mixer's share 1/model a rank (exact for a power of two), so
-            # the gradients add up in the order they do on one device
+        elif self.comm is not None and (self.attn_tp or self.ssm_tp):
+            # hymba with parallel heads: one way in and out for both mixers;
+            # a mixer computed whole adds its share 1/model a rank (exact for
+            # a power of two), so the gradients add up in the order they do
+            # on one device
             c = self.comm
             h = c.tp_in(h, seq)
-            y = self._attn_rows(h, positions, seq) + self._ssm_rows(h, True) / c.size
+            ya, ys = self._attn_rows(h, positions, True), self._ssm_rows(h, True)
+            y = (ya if self.attn_tp else ya / c.size) + (ys if self.ssm_tp else ys / c.size)
             x = x + c.tp_out(0.5 * y, seq)
         else:                               # hymba: parallel attn + mamba heads, mean
             x = x + 0.5 * (self._attn(h, positions, seq) + self._ssm(h, seq))

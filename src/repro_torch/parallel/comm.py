@@ -14,7 +14,8 @@ over the ``model`` axis's process group (Megatron's pattern: an identity
 whose backward all-reduces before a column-parallel product, an all-reduce
 after a row-parallel one; with ``seq_shard``, an all-gather of the
 sequence whose backward reduce-scatters, and a reduce-scatter back onto
-the sequence shards). They use only ``all_reduce``,
+the sequence shards; ``psum``, a sum every rank reads whole, whose
+backward sums too). They use only ``all_reduce``,
 ``all_gather_into_tensor`` and ``reduce_scatter_tensor``, which NCCL and
 gloo both run.
 """
@@ -27,7 +28,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
-__all__ = ["MeshComm", "is_dtensor", "local", "all_reduce_over", "gather_dim"]
+__all__ = ["MeshComm", "is_dtensor", "local", "all_reduce_over", "gather_dim", "psum"]
 
 _MODEL = "model"
 
@@ -119,6 +120,32 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _Psum(torch.autograd.Function):
+    """All-reduce of a sum every rank reads whole; the backward all-reduces
+    too (each rank's gradient is a part of each input's), where
+    ``_AllReduce``'s identity backward is right only for a row-parallel
+    product's output, whose gradient every rank already holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, the backward summing over it too (JAX's
+    ``psum`` and its transpose)."""
+    return _Psum.apply(x, group)
 
 
 class _Gather(torch.autograd.Function):

@@ -12,15 +12,28 @@ Cases (tiny archs, G = 2 microbatches of 2 x 24 tokens, ``seed=3`` data):
 yi-6b from the reference's init (fp32: against JAX's step too),
 mamba2-2.7b, hymba-1.5b and hubert-xlarge from the port's init rescaled to
 fan-in H (``FAN_IN_H``), each in fp32, and all four in bf16 on fan-in-H
-weights; ``seq_shard`` and remat (recompute in the backward) for yi-6b
-and hymba-1.5b; yi-6b on a 1x8 mesh, where its 4 heads do not divide the
-model axis (attention gathered whole), and on a (2, 2, 2) ("pod", "data",
-"model") mesh;
+weights; ``seq_shard`` and remat (recompute in the backward) for yi-6b,
+mamba2-2.7b and hymba-1.5b; yi-6b on a 1x8 mesh, where its 4 heads do not
+divide the model axis (attention gathered whole), and on a (2, 2, 2)
+("pod", "data", "model") mesh; hymba-1.5b on 1x8 (its 8 SSM heads one a
+rank, its 4 attention heads whole); mamba2-2.7b with 6 SSM heads
+(d_inner 192) on 2x4, where the heads do not divide the model axis and
+the mixer is computed whole;
 ``elastic_reshard`` and a checkpoint from 2x4 onto a 2x2 mesh of ranks
 0-3; prefill and the eval step on 2x4. The MoE archs on a mesh are
 tests/test_torch_moe_mesh.py's.
 On 2x4 tiny yi-6b's 2 kv heads do not divide the 4-way model axis: its
 kv projections are gathered and each rank takes its q head's kv head.
+The SSM mixer of tiny mamba2-2.7b and hymba-1.5b (8 heads of hp 32, N 16)
+is head parallel on 2x4 and 1x8 (``Block.ssm_tp``): the shapes each rank
+computes with are recorded (in_proj's columns, the scan's heads,
+out_proj's rows). The fp32 mamba2-2.7b step on 2x4 is also held against
+the reference's own step on a 2x4 mesh of 8 host devices
+(tests/torch_mesh_reference.py's ``train``) from the same weights, at
+the fp32 bounds below. The sharded gated RMSNorm
+(``layers.rmsnorm_sharded``, 64 of 256 columns a rank) and its gradients
+are held against ``kernels.ref.rmsnorm_ref`` of whole rows: fp32 within
+1e-5 relative and 1e-6 absolute, fp64 within 1e-12.
 
 Bounds. fp32: loss 1e-5 relative, grad norm 1e-3, masters as
 tests/torch_train_common.py's G=2 step (1e-6, 2 lr where |clipped
@@ -51,9 +64,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_mesh_common import reference_results, start_reference  # noqa: E402
+
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 8
 ARCHS = ("yi-6b", "mamba2-2.7b", "hymba-1.5b", "hubert-xlarge")
+SSM_ARCHS = ("mamba2-2.7b", "hymba-1.5b")
 LR = dict(peak_lr=1e-3, warmup_steps=0, decay_steps=10)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # archs whose fp32 step runs on fan-in-H weights, as tests/torch_train_common.py's
@@ -69,10 +85,13 @@ FAN_IN_H = ("mamba2-2.7b", "hymba-1.5b", "hubert-xlarge")
 GRAD_FP32 = {n: 1e-4 if n in FAN_IN_H else 1e-3 for n in ARCHS}
 
 
-def _arch(name):
+def _arch(name, heads=None):
+    """Tiny ``name``; ``heads``: that many SSM heads (d_inner = heads x hp)."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.train import scale_arch
-    return scale_arch(get_config(name), "tiny")
+    arch = scale_arch(get_config(name), "tiny")
+    return arch if heads is None else dataclasses.replace(arch, d_inner=heads * arch.ssm_headdim)
 
 
 def _batch(arch):
@@ -89,15 +108,16 @@ def _cfg(dtype, seq_shard=False, remat=False):
                     opt=optim.OptimizerCfg(**LR), num_microbatches=2)
 
 
-def _state(name, dtype, mesh=None, params=None, seq_shard=False, fan_in_h=None):
-    """A train state of tiny ``name``: the port's init (seed 9), rescaled to
-    fan-in H where ``fan_in_h`` (default: the archs of ``FAN_IN_H``, and
-    every arch in bf16), or the reference's tree ``params``."""
+def _state(name, dtype, mesh=None, params=None, seq_shard=False, fan_in_h=None, heads=None):
+    """A train state of tiny ``name`` (``heads``: ``_arch``'s): the port's
+    init (seed 9), rescaled to fan-in H where ``fan_in_h`` (default: the
+    archs of ``FAN_IN_H``, and every arch in bf16), or the reference's tree
+    ``params``."""
     from repro_torch.convert import train_state_from_numpy
     from repro_torch.train.step import init_train_state
     from repro_torch.parallel.comm import local
     from repro_torch.train.step import sync_model
-    arch = _arch(name)
+    arch = _arch(name, heads)
     state = init_train_state(arch, _cfg(dtype, seq_shard), torch.Generator().manual_seed(9),
                              "cpu", mesh=mesh)
     if fan_in_h is None:
@@ -122,10 +142,11 @@ def _zeros_like(tree):
     return np.zeros_like(np.asarray(tree))
 
 
-def _step(name, dtype, mesh=None, params=None, seq_shard=False, remat=False, fan_in_h=None):
+def _step(name, dtype, mesh=None, params=None, seq_shard=False, remat=False, fan_in_h=None,
+          heads=None):
     """(state after one G=2 step, metrics)."""
     from repro_torch.train.step import make_train_step
-    arch, state = _state(name, dtype, mesh, params, seq_shard, fan_in_h)
+    arch, state = _state(name, dtype, mesh, params, seq_shard, fan_in_h, heads)
     return make_train_step(arch, _cfg(dtype, seq_shard, remat), mesh)(state, _batch(arch))
 
 
@@ -138,6 +159,61 @@ def _whole(named):
         t = t.detach()
         out[n] = (t.full_tensor() if is_dtensor(t) else t).float().numpy()
     return out
+
+
+def _mixer_shapes(model):
+    """What each rank's SSM mixers compute with, in one forward of this
+    rank's rows: {"ssm_tp": per block, "in_proj": the [H, columns] each
+    block multiplies by, "out_proj": its [rows, H], "scan": the x [B, S,
+    heads, hp] of each ``ssd_scan`` call}."""
+    from repro_torch.models import lm
+    scans, plain = [], lm.ssd_scan
+
+    def seen(x, *args, **kw):
+        scans.append(list(x.shape))
+        return plain(x, *args, **kw)
+
+    weights = [blk._ssm_weights(True)[0] for blk in model.blocks]
+    lm.ssd_scan = seen
+    try:
+        with torch.no_grad():
+            model(torch.zeros(2, 8, dtype=torch.long))
+    finally:
+        lm.ssd_scan = plain
+    return {"ssm_tp": [blk.ssm_tp for blk in model.blocks],
+            "in_proj": [list(w["in_proj"].shape) for w in weights],
+            "out_proj": [list(w["out_proj"].shape) for w in weights], "scan": scans}
+
+
+NORM_DTYPES = ("float32", "float64")
+NORM_SHAPE = (6, 256)           # [T, H]: H over the 4-way model axis
+
+
+def _norm_inputs(dtype):
+    """(x, w, cot) whole, numpy, from seed 13."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal(NORM_SHAPE)
+    w = 1.0 + 0.3 * rng.standard_normal(NORM_SHAPE[1])
+    cot = rng.standard_normal(NORM_SHAPE)
+    return tuple(a.astype(dtype) for a in (x, w, cot))
+
+
+def _sharded_norm(mesh, dtype):
+    """``layers.rmsnorm_sharded`` of this model rank's columns, and the
+    gradients of sum(out * cot) in x and w: each gathered whole over
+    "model"."""
+    from repro_torch.models.layers import rmsnorm_sharded
+    from repro_torch.parallel.comm import MeshComm, gather_dim
+    c = MeshComm(mesh)
+    n = NORM_SHAPE[1] // c.size
+    cols = slice(c.rank * n, (c.rank + 1) * n)
+    x, w, cot = (torch.from_numpy(np.ascontiguousarray(a[..., cols])) for a in _norm_inputs(dtype))
+    x.requires_grad_()
+    w.requires_grad_()
+    out = rmsnorm_sharded(x, w, NORM_SHAPE[1], c.group)
+    (out * cot).sum().backward()
+    whole = lambda t, dim: gather_dim(t.detach(), dim, c.group).numpy()
+    return {"out": whole(out, 1), "dx": whole(x.grad, 1), "dw": whole(w.grad, 0)}
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +243,8 @@ def _worker(rank: int, tmp: Path) -> None:
     def keep(tag, metrics, state):
         print(f"{tag} {time.perf_counter() - t0:.1f} s", flush=True)
         results[tag] = {k: float(metrics[k]) for k in ("loss", "grad_norm", "lr")}
+        if hasattr(state.model.blocks[0], "ssm"):
+            results[tag]["mixer"] = _mixer_shapes(state.model)
         for n, a in _whole(state.params).items():
             arrays[f"{tag}|params|{n}"] = a
         for n, a in _whole(state.opt_state["m"]).items():
@@ -192,16 +270,23 @@ def _worker(rank: int, tmp: Path) -> None:
                 keep(f"{name}/{dtype}", m, state)
     state, m = _step("yi-6b", "float32", mesh, params=tree, seq_shard=True)
     keep("yi-6b/float32/seq", m, state)
-    state, m = _step("hymba-1.5b", "float32", mesh, seq_shard=True)
-    keep("hymba-1.5b/float32/seq", m, state)
+    for name in SSM_ARCHS:
+        state, m = _step(name, "float32", mesh, seq_shard=True)
+        keep(f"{name}/float32/seq", m, state)
     # remat: each Block's gathers and Megatron collectives run again in the
     # backward's recompute
     state, m = _step("yi-6b", "float32", mesh, params=tree, remat=True)
     keep("yi-6b/float32/remat", m, state)
-    state, m = _step("hymba-1.5b", "float32", mesh, remat=True)
-    keep("hymba-1.5b/float32/remat", m, state)
-    state, m = _step("yi-6b", "float32", make_mesh((1, WORLD), ("data", "model"), "cpu"))
+    for name in SSM_ARCHS:
+        state, m = _step(name, "float32", mesh, remat=True)
+        keep(f"{name}/float32/remat", m, state)
+    state, m = _step("mamba2-2.7b", "float32", mesh, heads=6)
+    keep("mamba2-2.7b/float32/6heads", m, state)
+    line = make_mesh((1, WORLD), ("data", "model"), "cpu")
+    state, m = _step("yi-6b", "float32", line)
     keep("yi-6b/float32/1x8", m, state)
+    state, m = _step("hymba-1.5b", "float32", line)
+    keep("hymba-1.5b/float32/1x8", m, state)
     pods = make_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
     state, m = _step("yi-6b", "float32", pods, params=tree)
     keep("yi-6b/float32/2x2x2", m, state)
@@ -230,6 +315,11 @@ def _worker(rank: int, tmp: Path) -> None:
         results["ckpt_placements"] = sorted(
             n for n, t in back.params.items() if tuple(t.placements) != pl[n])
     dist.barrier()
+
+    # the sharded gated norm and its gradients, 64 of 256 columns a model rank
+    for dtype in NORM_DTYPES:
+        for k, v in _sharded_norm(mesh, dtype).items():
+            arrays[f"norm/{dtype}|{k}"] = v
 
     # prefill and the eval step on 2x4, from the port's init (seed 5)
     arch = _arch("yi-6b")
@@ -299,9 +389,31 @@ def jax_yi():
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory, jax_yi):
-    """Run the 8 workers; (results, arrays) of rank 0."""
+def mesh_run(tmp_path_factory):
+    """The reference's fp32 mamba2-2.7b step on a 2x4 mesh of 8 host
+    devices (tests/torch_mesh_reference.py's ``train``), from the fan-in-H
+    weights the workers start from, started in the background; the tmp
+    dir the workers share and the started run."""
+    from repro_torch.convert import train_state_to_numpy
     tmp = tmp_path_factory.mktemp("dist")
+    name = "mamba2-2.7b"
+    tree = train_state_to_numpy(_state(name, "float32")[1])["params"]
+    inp = {f"{name}|tree|{k}": v for k, v in _flatten(tree).items()}
+    inp.update({f"{name}|batch|{k}": v for k, v in _batch(_arch(name)).items()})
+    np.savez(tmp / "train_in.npz", **inp)
+    return tmp, start_reference(tmp, "train")
+
+
+@pytest.fixture(scope="module")
+def reference(ranks, mesh_run):
+    """The reference's arrays of ``mesh_run``, after the workers."""
+    return reference_results(mesh_run[1])["train"]
+
+
+@pytest.fixture(scope="module")
+def ranks(mesh_run, jax_yi):
+    """Run the 8 workers (beside ``mesh_run``); (results, arrays) of rank 0."""
+    tmp = mesh_run[0]
     np.savez(tmp / "yi_params.npz", **jax_yi)
     env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"), "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1", "GLOO_SOCKET_IFNAME": "lo", "HOME": str(tmp),
@@ -474,7 +586,7 @@ def test_state_is_stored_at_the_planner_placements(ranks):
     assert results["placements_sharded"] > 0
 
 
-@pytest.mark.parametrize("name", ["yi-6b", "hymba-1.5b"])
+@pytest.mark.parametrize("name", ["yi-6b", "hymba-1.5b", "mamba2-2.7b"])
 def test_seq_shard_gives_the_same_loss(ranks, jax_yi, name):
     results, arrays = ranks
     off, on = results[f"{name}/float32"], results[f"{name}/float32/seq"]
@@ -484,15 +596,21 @@ def test_seq_shard_gives_the_same_loss(ranks, jax_yi, name):
     assert not _grads_off(results, arrays, f"{name}/float32/seq", single, m)
 
 
-@pytest.mark.parametrize("name", ["yi-6b", "hymba-1.5b"])
+@pytest.mark.parametrize("name", ["yi-6b", "hymba-1.5b", "mamba2-2.7b"])
 def test_sharded_step_with_remat(ranks, jax_yi, name):
     """Remat on (``RunCfg.remat``'s default): each Block's weight gathers,
-    Megatron collectives and, for hymba, the fused mixers' entry and exit
-    run again in the backward's recompute. Held to the fp32 rules above
-    against the single-device step with remat off."""
+    Megatron collectives, the SSM mixer's gated-norm sum and, for hymba,
+    the fused mixers' entry and exit run again in the backward's
+    recompute. Held to the fp32 rules above against the single-device
+    step with remat off."""
     results, arrays = ranks
     tag = f"{name}/float32/remat"
-    single, m = _single(f"{name}/float32", jax_yi)
+    _fp32_case(results, arrays, tag, *_single(f"{name}/float32", jax_yi))
+
+
+def _fp32_case(results, arrays, tag, single, m):
+    """Worker case ``tag`` against the single-device step (``single``,
+    ``m``) at the fp32 rules above."""
     r = results[tag]
     assert r["loss"] == pytest.approx(float(m["loss"]), rel=1e-5)
     assert r["grad_norm"] == pytest.approx(float(m["grad_norm"]), rel=1e-3)
@@ -500,6 +618,104 @@ def test_sharded_step_with_remat(ranks, jax_yi, name):
     got = {n: arrays[f"{tag}|params|{n}"] for n in want}
     assert not _masters_close(got, want, r["lr"], _whole(single.opt_state["m"]))
     assert not _grads_off(results, arrays, tag, single, m)
+
+
+# worker case -> the single-device step it is held to (``_step``'s arguments)
+SSM_SPLIT_CASES = {"mamba2-2.7b/float32/6heads": dict(name="mamba2-2.7b", heads=6),
+                   "hymba-1.5b/float32/1x8": dict(name="hymba-1.5b")}
+
+
+@pytest.mark.parametrize("tag", SSM_SPLIT_CASES)
+def test_ssm_mixer_where_heads_do_not_split_like_attention(ranks, tag):
+    """mamba2-2.7b with 6 SSM heads on 2x4 (6 do not divide the 4-way axis:
+    the mixer gathered whole, though out_proj and ssm_norm are sharded);
+    hymba-1.5b on 1x8 (the mixer head parallel, one head a rank, beside
+    attention computed whole: the fused mixers' share of it 1/8 a rank)."""
+    results, arrays = ranks
+    _fp32_case(results, arrays, tag, *_step(dtype="float32", **SSM_SPLIT_CASES[tag]))
+
+
+# tag -> (model axis, SSM heads): the mixer is head parallel exactly where
+# the heads divide the axis (Block.plan_mesh; out_proj and ssm_norm are
+# sharded over "model" in every case here)
+MIXER_CASES = {"mamba2-2.7b/float32": (4, 8), "mamba2-2.7b/bfloat16": (4, 8),
+               "mamba2-2.7b/float32/seq": (4, 8), "mamba2-2.7b/float32/remat": (4, 8),
+               "hymba-1.5b/float32": (4, 8), "hymba-1.5b/bfloat16": (4, 8),
+               "hymba-1.5b/float32/seq": (4, 8), "hymba-1.5b/float32/remat": (4, 8),
+               "hymba-1.5b/float32/1x8": (8, 8), "mamba2-2.7b/float32/6heads": (4, 6)}
+
+
+@pytest.mark.parametrize("tag", MIXER_CASES)
+def test_ssm_mixer_is_head_parallel_where_heads_divide(ranks, tag):
+    """``Block.ssm_tp`` as ``plan_mesh`` says it, and the shapes each rank
+    computes with: one in_proj product over [z_r | x_r | B | C | dt_r]
+    (2 x heads/M x hp + 2 N + heads/M columns), the scan on heads/M heads,
+    out_proj's heads/M x hp rows; or, where the heads do not divide, the
+    whole mixer."""
+    results, _ = ranks
+    M, nh = MIXER_CASES[tag]
+    arch = _arch(tag.split("/")[0])
+    hp, N, H = arch.ssm_headdim, arch.ssm_state, arch.d_model
+    mixer = results[tag]["mixer"]
+    tp = nh % M == 0
+    assert mixer["ssm_tp"] == [tp] * arch.num_layers
+    local = nh // M if tp else nh
+    assert mixer["in_proj"] == [[H, 2 * local * hp + 2 * N + local]] * arch.num_layers
+    assert mixer["out_proj"] == [[local * hp, H]] * arch.num_layers
+    assert mixer["scan"] == [[2, 8, local, hp]] * arch.num_layers
+    assert tp == (tag != "mamba2-2.7b/float32/6heads")
+
+
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+def test_sharded_gated_norm_matches_whole_rows(ranks, dtype):
+    """``layers.rmsnorm_sharded`` over the 4-way model axis (64 of 256
+    columns a rank, the squares summed across ranks) and its gradients in
+    x and w (the sum's backward summing across ranks too) against
+    ``kernels.ref.rmsnorm_ref`` of the whole rows and autograd through
+    it: fp32 within 1e-5 relative and 1e-6 absolute (another summation
+    order), fp64 within 1e-12."""
+    from repro_torch.kernels.ref import rmsnorm_ref
+    _, arrays = ranks
+    x, w, cot = (torch.from_numpy(a).requires_grad_() for a in _norm_inputs(dtype))
+    out = rmsnorm_ref(x, w)
+    (out * cot).sum().backward()
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == "float32" else dict(rtol=1e-12, atol=1e-12)
+    for key, want in (("out", out), ("dx", x.grad), ("dw", w.grad)):
+        np.testing.assert_allclose(arrays[f"norm/{dtype}|{key}"], want.detach().numpy(),
+                                   err_msg=key, **tol)
+
+
+def test_sharded_mamba2_step_matches_the_reference(ranks, reference):
+    """The port's sharded fp32 mamba2-2.7b step on 2x4 (the mixer head
+    parallel) against the reference's partitioned step on a 2x4 mesh of 8
+    host devices, from the same fan-in-H weights and batch: loss 1e-5,
+    grad norm 1e-3, masters 1e-6 (2 lr where the reference's first moment
+    says the step turned on the gradient's last digits), each leaf's
+    gradient (from the first moments) within 1e-4 relative L2."""
+    from repro_torch.convert import tree_path
+    results, arrays = ranks
+    name, tag = "mamba2-2.7b", "mamba2-2.7b/float32"
+    r = results[tag]
+    metric = lambda k: float(reference[f"{name}|metric|{k}"])
+    assert r["loss"] == pytest.approx(metric("loss"), rel=1e-5)
+    assert r["grad_norm"] == pytest.approx(metric("grad_norm"), rel=1e-3)
+    lr = metric("lr")
+    names = [k.split("|", 2)[2] for k in arrays if k.startswith(f"{tag}|params|")]
+    off = {}
+    for n in names:
+        path, layer = tree_path(n)
+        key = "/".join(path)
+        w, mom = reference[f"{name}|params|{key}"], reference[f"{name}|m|{key}"]
+        if layer is not None:
+            w, mom = w[layer], mom[layer]
+        near = np.abs(mom) / 0.1 < 1e-6
+        assert (np.abs(arrays[f"{tag}|params|{n}"] - w) <= np.where(near, 2 * lr, 1e-6)).all(), n
+        got = _grads_of({n: arrays[f"{tag}|m|{n}"]}, r["grad_norm"])[n]
+        off[n] = _rel(got, _grads_of({n: mom}, metric("grad_norm"))[n])
+    worst = max(off, key=off.get)
+    print(f"{tag} against the reference's mesh step: gradient, worst leaf {worst} "
+          f"{off[worst]:.3g}")
+    assert off[worst] <= 1e-4
 
 
 def test_heads_that_do_not_divide_the_model_axis(ranks):

@@ -155,6 +155,8 @@ for name in sorted(ARCHS):
     cfg = train_cfg_for(arch, SHAPES["train_4k"], 32 if multi else 16)
     state = init_train_state(arch, cfg, torch.Generator(), "meta", mesh=mesh)
     out[name] = dryrun.train_argument_bytes(state, {{}})
+    if arch.block in ("ssm", "hymba"):
+        out["ssm_tp|" + name] = sorted({{blk.ssm_tp for blk in state.model.blocks}})
 print(json.dumps(out))
 """
 
@@ -206,6 +208,17 @@ def test_train_state_bytes_equal_reference_shards(state_bytes, name, mesh):
     got = state_bytes[mesh][name]
     want = _reference_state_bytes(name, mesh)
     assert (got["params"], got["opt_state"]) == (want["params"], want["opt_state"])
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_ssm_mixer_is_head_parallel_at_full_width(state_bytes, mesh):
+    """On the 16-way model axis of both production meshes mamba2-2.7b's 80
+    SSM heads divide it, so its mixer is head parallel (``Block.ssm_tp``)
+    in every layer; hymba-1.5b's 50 do not, so its mixer is computed
+    whole."""
+    got = state_bytes[mesh]
+    assert got["ssm_tp|mamba2-2.7b"] == [True]
+    assert got["ssm_tp|hymba-1.5b"] == [False]
 
 
 # ------------------------------------------------------------------ collectives

@@ -12,8 +12,13 @@ named): a 2x4 ("data", "model") mesh, B over "data" and the cache span
 over "model" (context-parallel attention); a span that does not divide
 "model" (14 slots: the KV cache replicated, its rows' updates gathered
 over "data"); a 1x8 mesh; B 3, which does not divide "data"; mamba2-2.7b
-with 6 SSM heads (d_inner 192), where the state splits hp, not heads;
-hymba-1.5b 72 steps past its 64-slot window ring; llava-next-34b from
+with 6 SSM heads (d_inner 192), where the state splits hp, not heads (y
+gathered, the mixer's tail whole); tiny mamba2-2.7b and hymba-1.5b (8 SSM
+heads) on 2x4 and 1x8, where the state splits heads and the mixer is
+head parallel (``Block.ssm_tp``: y stays on a rank's heads through the
+gated norm and a row-parallel out_proj; on 1x8 one head a rank, and
+hymba's 4 attention heads whole); hymba-1.5b 72 steps past its 64-slot
+window ring; llava-next-34b from
 embeddings; granite-moe and dbrx drop-free (capacity factor 8). Each runs
 ``make_serve_step`` over fixed inputs; four run ``greedy_generate`` too.
 
@@ -91,6 +96,8 @@ DECODE = [
     Case("mamba2-2.7b", greedy=True),
     Case("mamba2-2.7b", replace=(("d_inner", 192),)),
     Case("mamba2-2.7b", "bfloat16"),
+    Case("mamba2-2.7b", mesh="1x8", greedy=True),
+    Case("hymba-1.5b", mesh="1x8"),
     Case("hymba-1.5b", max_len=80, steps=72, greedy=True),
     Case("hymba-1.5b", max_len=14),
     Case("hymba-1.5b", "bfloat16", max_len=80, steps=72),

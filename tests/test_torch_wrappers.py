@@ -26,6 +26,7 @@ from repro_torch.kernels.ssd_scan import (BWD_WGMMA_STATE_DIMS, HEAD_DIMS,  # no
                                           SCAN_COST, STATE_DIMS, WGMMA_STATE_DIMS,
                                           segment_chunks)
 from repro_torch.kernels.ssd_scan import bwd_kernel_path as ssd_bwd_path  # noqa: E402
+from repro_torch.kernels.ssd_scan import bwd_plan  # noqa: E402
 from repro_torch.kernels.ssd_scan import check_args as ssd_check  # noqa: E402
 from repro_torch.kernels.ssd_scan import check_bwd_args as ssd_bwd_check  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel_path as ssd_path  # noqa: E402
@@ -211,15 +212,36 @@ def test_ssd_rejects_other_dtypes():
         ssd_check(x, dt.to(BF16), A, Bm, Cm)
 
 
-@pytest.mark.parametrize("nh", [4, 80])
+# mamba2-2.7b's 80 SSM heads and a rank's share of them where its mixer is
+# head parallel over a 2-, 4-, 8-, 16- or 80-way "model" axis
+SHARD_HEADS = [4, 80, 40, 20, 10, 5, 1]
+
+
+@pytest.mark.parametrize("nh", SHARD_HEADS)
 def test_ssd_takes_the_models_strided_views(nh):
     """layers.ssd_scan passes x, Bm, Cm as slices of the conv output and dt
     as a [B,nh,S] view: rows of nh*64 + 256 values, Bm and Cm at element
-    offsets nh*64 and nh*64 + 128, all multiples of 16 bytes."""
+    offsets nh*64 and nh*64 + 128, all multiples of 16 bytes; on a
+    head-parallel mesh nh is the rank's heads, the conv output its
+    [x_r | B | C] columns."""
     x, dt, A, Bm, Cm = _ssd(nh=nh, views=True)
-    assert not (x.is_contiguous() or Bm.is_contiguous() or dt.is_contiguous())
+    assert not (x.is_contiguous() or Bm.is_contiguous())
+    assert nh == 1 or not dt.is_contiguous()       # a [B,1,S] view is contiguous
     assert x.stride(2) * 2 % 16 == 0 and (Bm.data_ptr() - x.data_ptr()) % 16 == 0
     assert ssd_check(x, dt, A, Bm, Cm) == "wgmma"
+
+
+@pytest.mark.parametrize("nh", SHARD_HEADS)
+def test_ssd_bwd_takes_a_shards_heads(nh):
+    """The backward's checks and its wgmma plan at mamba2-2.7b's training
+    shape (B 1, S 2048, N 128, 132 SMs) for a rank's heads: the model's
+    views, dy like x, a head group of at most nh heads, and the forward's
+    segment plan."""
+    x, dt, A, Bm, Cm = _ssd(B=1, nh=nh, S=2048, views=True)
+    assert ssd_bwd_check(x, dt, A, Bm, Cm, torch.zeros_like(x)) == "wgmma"
+    seg, group = bwd_plan(1, nh, 2048, 132)
+    assert seg >= 1 and 1 <= group <= nh
+    assert segment_chunks(1, nh, 2048, 132) >= 1
 
 
 def test_ssd_rejects_unaligned_views():

@@ -6,7 +6,8 @@ tests/test_torch_pipeline.py; pytest does not collect this module).
 processes with one torch thread each (as tests/test_torch_distributed.py
 does); each worker calls ``init_rank`` and rank 0 calls ``save``. The
 workers import no JAX. ``reference_runs`` runs tests/torch_mesh_reference.py
-(the reference on 8 host devices) in a subprocess.
+(the reference on 8 host devices) in a subprocess (``start_reference`` and
+``reference_results`` run it beside the workers).
 """
 
 import json
@@ -51,14 +52,34 @@ def spawn_ranks(script: str, tmp: Path, timeout: float = 300):
     return json.loads((tmp / "results.json").read_text()), dict(np.load(tmp / "arrays.npz"))
 
 
+def start_reference(tmp: Path, *cases: str):
+    """tests/torch_mesh_reference.py's ``cases`` (inputs ``tmp/<case>_in.npz``)
+    started in a subprocess; ``reference_results`` waits for them."""
+    log = open(tmp / "reference.log", "w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_mesh_reference.py"),
+                             str(tmp), *cases], stdout=log, stderr=subprocess.STDOUT,
+                            env=_env(tmp, JAX_PLATFORMS="cpu"))
+    return proc, log, tmp, cases
+
+
+def reference_results(started, timeout: float = 300):
+    """{case: its arrays} of a ``start_reference`` run."""
+    proc, log, tmp, cases = started
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    assert proc.returncode == 0, (tmp / "reference.log").read_text()[-4000:]
+    return {c: dict(np.load(tmp / f"{c}.npz")) for c in cases}
+
+
 def reference_runs(tmp: Path, *cases: str, timeout: float = 300):
     """tests/torch_mesh_reference.py's ``cases`` (inputs ``tmp/<case>_in.npz``);
     {case: its arrays}."""
-    proc = subprocess.run([sys.executable, str(ROOT / "tests" / "torch_mesh_reference.py"),
-                           str(tmp), *cases], capture_output=True, text=True, timeout=timeout,
-                          env=_env(tmp, JAX_PLATFORMS="cpu"))
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    return {c: dict(np.load(tmp / f"{c}.npz")) for c in cases}
+    return reference_results(start_reference(tmp, *cases), timeout)
 
 
 def init_rank(rank: int, tmp: Path) -> None:

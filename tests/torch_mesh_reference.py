@@ -17,8 +17,10 @@ and writes ``DIR/<case>.npz``:
   and ``jax.grad`` of the sum of its squared outputs; ``compressed_psum``
   on an 8-device axis, ``quantize_int8`` and ``ef_compress_tree``;
 * ``train``: one ``make_train_step(...).jit_with`` step for each tree in
-  the in-file (granite-moe and dbrx-132b), G = 2, fp32, the default
-  capacity: the masters and first moments after the step, and the metrics.
+  the in-file (granite-moe and dbrx-132b from tests/test_torch_moe_mesh.py,
+  mamba2-2.7b from tests/test_torch_distributed.py), G = 2, fp32, the
+  default capacity: the masters and first moments after the step, and the
+  metrics.
 """
 
 import os
@@ -126,7 +128,7 @@ def _train(jax, jnp, mesh, inp, out):
     from repro.train import step as jstep
     cfg = jstep.TrainCfg(run=jlm.RunCfg(q_chunk=0, remat=False, compute_dtype=jnp.float32),
                          opt=joptim.OptimizerCfg(**LR), num_microbatches=2)
-    for name in ("granite-moe-3b-a800m", "dbrx-132b"):
+    for name in sorted({k.split("|", 1)[0] for k in inp if "|tree|" in k}):
         arch = scale_arch(get_config(name), "tiny")
         params = jax.tree.map(jnp.asarray, unflatten(
             {k.split("|", 2)[2]: v for k, v in inp.items() if k.startswith(f"{name}|tree|")}))
