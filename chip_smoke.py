@@ -89,7 +89,16 @@ Phases, each of which fails the run by raising:
      equal to ``FlopCounterMode``'s on the card, phase 7's sharded step's
      collectives equal kind by kind to the dry-run's on a fake (1, 1)
      mesh, ``kernels.build``'s target constants equal to the card's, and
-     the CLI on one production cell ``ok`` without the card; under 60 s.
+     the CLI on one production cell ``ok`` without the card; under 60 s;
+ 10. the PALM simulator's core (``repro_torch.core``): the batched co-design
+     tier's 512-job sweep (full-width yi-6b at sequence 4096, the 16x16
+     tiled mesh of benchmarks/bench_sim_scaling.py, 32 tile rates x 8 DRAM
+     rates, plans (4,1,4) and (2,1,8)) through ``run_fast_batch`` on the
+     card (the group replay in ``chain_replay`` launches) and on the CPU,
+     bit-equal job by job, in 2 groups with every job batched; each plan's
+     grid corners equal to the scalar fast tier and the event tier;
+     ``chain_replay`` equal to its plain version on random programs
+     nesting to its depth limit at G 1 to 4096; under 30 s.
 The last line is one JSON object with ``"ok": true`` and the device. It
 needs a CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -259,7 +268,11 @@ SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu"
            "ssd_scan_fma": ("src/repro_torch/kernels/csrc/ssd_scan_fma.cu",
                             "src/repro/kernels/ssd_scan.py:65"),
            "ssd_scan_bwd_fma": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
-                                "src/repro/kernels/ssd_scan.py:65")}
+                                "src/repro/kernels/ssd_scan.py:65"),
+           # the simulator's batched chain replay (phase 10): it replaces the
+           # reference's numpy evaluator, not a Pallas kernel
+           "chain_replay": ("src/repro_torch/kernels/csrc/chain_replay.cu",
+                            "src/repro/core/fastbatch.py:283 (numpy _BatchEval)")}
 
 
 def log(*args):
@@ -289,6 +302,20 @@ def phase_build():
     log_bwd_resources()
     log_ssd_bwd_resources()
     log_ssd_bwd_wgmma_resources()
+    log_chain_replay_resources()
+
+
+def log_chain_replay_resources():
+    """Registers, local memory, CTAs an SM of ``chain_replay`` at each
+    stack depth it instantiates. Its par/spawn stack is an array indexed at
+    run time, so it lives in local memory by design (not a spill)."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library()
+    for depth in (4, 8, 16, 32):
+        info = (ctypes.c_int * 4)()
+        build.check(lib.chain_replay_info(depth, info), "chain_replay_info")
+        _log_info(f"chain_replay<DEPTH={depth}>", info, spills_ok=True)
 
 
 def _log_info(name, info, spills_ok=False):
@@ -2690,6 +2717,300 @@ def phase_dryrun(card_comm):
         raise AssertionError(f"the dry-run phase took {seconds:.1f} s (limit {DRYRUN_PHASE_S} s)")
 
 
+# --------------------------------------------------------------------------
+# 10. the PALM simulator's core on the card
+# --------------------------------------------------------------------------
+
+# The co-design sweep of the batched tier: the 16x16 tiled mesh of
+# benchmarks/bench_sim_scaling.py:68-77 (tiles of 4x4 cores, 1024 GB/s
+# inside a tile, 256 GB/s across, 20 ns links; 16 TFLOP/s and 3.75 MB a
+# core; DRAM 256 GB/s on 16 channels, 300 ns, a port every 4th row), its
+# hardware grid 32 tile rates x 8 DRAM rates, and its two fast-eligible
+# plans (_gate_plan, :88-93) on full-width yi-6b at sequence 4096: 512 jobs
+PALM_MESH = 16
+PALM_FLOPS = tuple(2e12 + i * 0.25e12 for i in range(32))
+PALM_DRAM_GBS = (16, 32, 48, 64, 96, 128, 192, 256)
+PALM_PLANS = ((4, 1, 4), (2, 1, 8))         # (pp, dp, tp)
+PALM_SEQ = 4096
+PALM_PHASE_S = 30.0
+CHAIN_G = (1, 31, 256, 4096)               # chain_replay's parity widths
+PEAK_FP64_S = 34e12                         # H100 SXM fp64 outside the tensor cores
+
+
+def palm_sims():
+    """The sweep's 512 simulators (timelines on), plan-major, each plan's
+    hardware grid tile rate major. One compiled topology serves every
+    hardware variant (the grid changes rates, not the mesh)."""
+    from repro_torch import core
+    from repro_torch.configs import get_config
+    from repro_torch.core.workload import arch_to_graph
+    spec = core.MeshSpec(rows=PALM_MESH, cols=PALM_MESH, intra_bw=1024e9, inter_bw=256e9,
+                         link_latency=2e-8, tile_shape=(4, 4))
+    topo = spec.compile()
+    ports = tuple(topo.device(r, 0) for r in range(0, PALM_MESH, 4))
+    arch = get_config("yi-6b")
+    sims = []
+    for pp, dp, tp in PALM_PLANS:
+        plan = core.ParallelPlan(pp=pp, dp=dp, tp=tp, microbatch=2, global_batch=8 * dp,
+                                 schedule=core.Schedule.ONE_F_ONE_B, recompute="never")
+        graph = arch_to_graph(arch, PALM_SEQ, plan.microbatch * plan.dp, training=True)
+        for flops in PALM_FLOPS:
+            for gbs in PALM_DRAM_GBS:
+                hw = core.HardwareSpec(
+                    name=f"mesh16-f{flops:g}-d{gbs}", topology=topo,
+                    tile=core.TileSpec(flops=flops, sram_bytes=3.75e6),
+                    dram=core.DRAMSpec(bandwidth=gbs * 1e9, response_time=3e-7,
+                                       channels=PALM_MESH),
+                    dram_ports=ports)
+                sims.append(core.PipelineSimulator(core.map_graph(graph, hw, plan),
+                                                   collect_timeline=True))
+    return sims
+
+
+def _result_key(r):
+    """Every SimResult field the batched tier fills, and the raw trace."""
+    import dataclasses
+    return (r.total_time, r.throughput, r.bubble_ratio, r.noc_bytes, r.dram_bytes,
+            r.event_count, r.recompute, r.engine,
+            [dataclasses.asdict(m) for m in r.stage_memory], r.trace.to_bytes())
+
+
+def _random_chain(shape, values, depth, spine=0):
+    """A chain of random structure (``shape``) and leaves (``values``):
+    dt, hold (0-2 lane keys), byte counters and par/spawn nesting at most
+    ``depth`` deep, ``spine`` levels of it forced at the front."""
+    chain = []
+    if spine:
+        inner = tuple(_random_chain(shape, values, depth - 1, spine - 1))
+        chain.append(("par", (inner,)) if shape.random() < 0.5 else ("spawn", inner))
+    for _ in range(int(shape.integers(0, 5))):
+        r = shape.random()
+        if r < 0.3:
+            chain.append(("dt", next(values)))
+        elif r < 0.55:
+            keys = tuple(int(k) for k in shape.integers(0, 1 << 40, int(shape.integers(0, 3))))
+            chain.append(("hold", keys, next(values)))
+        elif r < 0.75:
+            chain.append(("bytes", ("noc", "dram", "fabric")[shape.integers(3)], next(values)))
+        elif depth > 0 and r < 0.9:
+            chain.append(("par", tuple(tuple(_random_chain(shape, values, depth - 1))
+                                       for _ in range(int(shape.integers(0, 3))))))
+        elif depth > 0:
+            chain.append(("spawn", tuple(_random_chain(shape, values, depth - 1))))
+    return chain
+
+
+def chain_replay_parity():
+    """``chain_replay`` against ``chain_replay_ref`` (on the same CUDA
+    tensors) on random programs nesting par/spawn to the kernel's depth
+    limit, at each width of CHAIN_G; every call twice for the same bits.
+    Raises on any difference."""
+    import itertools
+    import numpy as np
+    from repro_torch.core.fastbatch import compile_chain
+    from repro_torch.kernels.chain_replay import MAX_DEPTH, chain_replay
+    from repro_torch.kernels.ref import chain_replay_ref
+    for G in CHAIN_G:
+        for depth in (2, 8, MAX_DEPTH):
+            # the structure from a seed; the leaves are V's, drawn below
+            chain = _random_chain(np.random.default_rng(depth), itertools.repeat(1.0), depth,
+                                  spine=depth)
+            code, prog, leaves = compile_chain(chain)
+            if prog.depth != depth:
+                raise AssertionError(f"random program nests {prog.depth} deep, wanted {depth}")
+            gen = np.random.default_rng(G * 100 + depth)
+            # magnitudes far apart, so an add's order shows in its bits
+            scale = gen.choice([1.0, 1e-3, 1e8, 3e15], size=(len(leaves), G))
+            V = torch.tensor(scale * gen.random((len(leaves), G)), device="cuda")
+            t = torch.tensor(gen.random(G) * 1e3, device="cuda")
+            accs = torch.tensor(gen.random((3, G)), device="cuda")
+            code_d = torch.from_numpy(code).cuda()
+            kw = dict(entry=prog.entry, holds=len(prog.keys), spawns=prog.spawns,
+                      depth=prog.depth)
+            runs = []
+            for _ in range(2):
+                a = accs.clone()
+                runs.append((*chain_replay(code_d, V, t, a, **kw), a))
+            a = accs.clone()
+            want = (*chain_replay_ref(code_d, V, t, a, prog.entry, len(prog.keys),
+                                      prog.spawns, prog.depth), a)
+            torch.cuda.synchronize()
+            for got, ref, again in zip(runs[0], want, runs[1]):
+                if not torch.equal(got, again):
+                    raise AssertionError(f"chain_replay G={G} depth {depth}: two calls differ")
+                same = (got == ref) | (torch.isnan(got) & torch.isnan(ref))
+                if not bool(same.all()):
+                    bad = (got - ref).abs().max().item()
+                    raise AssertionError(f"chain_replay G={G} depth {depth} differs from its "
+                                         f"plain version: {bad}")
+            log(f"[palm] chain_replay G={G} depth {depth}: {len(code)} words, "
+                f"{len(leaves)} leaves, {len(prog.keys)} holds, {prog.spawns} spawns: "
+                f"equal to chain_replay_ref bit for bit, twice")
+
+
+def _program_rows(code, entry):
+    """(leaf rows a program reads, its words) from ``code[entry:]``."""
+    from repro_torch.kernels.chain_replay import CHAIN_OPS
+    pc, rows = entry, 0
+    while code[pc] != CHAIN_OPS["end"]:
+        if code[pc] == CHAIN_OPS["seg"]:
+            k, h, n0, n1, n2 = (int(x) for x in code[pc + 1:pc + 6])
+            rows += k + n0 + n1 + n2
+            pc += 6 + k + h + n0 + n1 + n2
+        else:
+            pc += 1
+    return rows, pc + 1 - entry
+
+
+def chain_replay_row(sims):
+    """Time the first group's launches as the main path makes them (replayed
+    from a recording), per launch, beside their byte bound, and the plain
+    version on the same CUDA tensors."""
+    from repro_torch.core import fastbatch
+    from repro_torch.kernels.chain_replay import chain_replay
+    from repro_torch.kernels.ref import chain_replay_ref
+    calls = []
+
+    def record(code, V, t, accs, **kw):
+        calls.append((code, V, t, kw))
+        return chain_replay(code, V, t, accs, **kw)
+    fastbatch.chain_replay = record
+    try:
+        fastbatch.run_fast_batch(sims[:len(sims) // len(PALM_PLANS)], device="cuda")
+    finally:
+        fastbatch.chain_replay = chain_replay
+    torch.cuda.synchronize()
+    code_host = calls[0][0].cpu().numpy()
+    G = calls[0][1].shape[1]
+    nbytes = flops = 0
+    for code, V, t, kw in calls:
+        rows, words = _program_rows(code_host, kw["entry"])
+        # leaf rows, t in and out, the counters in and out, holds, spawns
+        nbytes += 8 * G * (rows + 2 + 6 + 2 * kw["holds"] + kw["spawns"]) + 4 * words
+        flops += rows * G
+    scratch = calls[0][1].new_zeros((3, G))
+
+    def kernel():
+        for code, V, t, kw in calls:
+            chain_replay(code, V, t, scratch, **kw)
+
+    def plain():
+        for code, V, t, kw in calls:
+            chain_replay_ref(code, V, t, scratch, kw["entry"], kw["holds"], kw["spawns"],
+                             kw["depth"])
+    n = len(calls)
+    ms = time_device(kernel, n=5, reps=3) / n
+    plain_ms = time_device(plain, n=1, reps=3) / n
+    t_bytes = nbytes / n / PEAK_BYTES_S * 1e3
+    t_ops = flops / n / PEAK_FP64_S * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return {"name": "chain_replay", "dtype": torch.float64,
+            "shape": f"G={G}, {n} launches (yi-6b pp4 tp4 group)", "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "bytes_per_launch": nbytes / n}
+
+
+def phase_palm_core(total):
+    """Section 10: the batched co-design tier (``repro_torch.core.
+    run_fast_batch``) on the sweep above. Gates: ``chain_replay`` equal to
+    its plain version on random programs (``chain_replay_parity``); the
+    sweep in 2 signature groups, all 512 jobs batched, none ineligible,
+    contended or stalled; every job bit-equal between ``device="cuda"`` and
+    ``device="cpu"`` (every field and the raw trace); each plan's 4 grid
+    corners equal to the scalar fast tier (raw trace) and the event tier
+    (canonical trace). ``chain_replay``'s main-path launches are those of
+    the card's run alone. Returns (the kernel row, its error)."""
+    from repro_torch import kernels
+    from repro_torch.core import PipelineSimulator, compile_stage_chains, replay_chains
+    from repro_torch.core import run_fast_batch
+    t0 = time.perf_counter()
+    chain_replay_parity()
+    err = 0.0               # bit for bit, or the parity raised
+    sims = palm_sims()
+    log(f"[palm] sweep: yi-6b full width seq {PALM_SEQ}, plans (pp, dp, tp) {PALM_PLANS}, "
+        f"{len(PALM_FLOPS)} tile rates x {len(PALM_DRAM_GBS)} DRAM rates: {len(sims)} jobs, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+
+    prof = {}
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    on_card = run_fast_batch(sims, device="cuda", profile=prof)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    counts = kernels.launch_counts()
+    launches = counts["chain_replay"]
+    if counts != _launches(chain_replay=launches) or launches == 0:
+        raise AssertionError(f"the batched sweep launched {counts}")
+    total["chain_replay"] = total.get("chain_replay", 0) + launches
+
+    prof_cpu = {}
+    t1 = time.perf_counter()
+    on_cpu = run_fast_batch(sims, device="cpu", profile=prof_cpu)
+    cpu_s = time.perf_counter() - t1
+    # the same call again on the card, warm (the first one pays the lazy
+    # CUDA set-up of every torch op it meets); its results must not change
+    prof_warm = {}
+    t1 = time.perf_counter()
+    again = run_fast_batch(sims, device="cuda", profile=prof_warm)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    if any(_result_key(a) != _result_key(b) for (a, _), (b, _) in zip(on_card, again)):
+        raise AssertionError("run_fast_batch on the card: a second call differs")
+
+    want = {"jobs": len(sims), "groups": 2, "batched_jobs": len(sims)}
+    for p, where in ((prof, "cuda"), (prof_cpu, "cpu")):
+        got = {k: p.get(k, 0) for k in ("jobs", "groups", "batched_jobs", "ineligible_jobs",
+                                        "contended_jobs", "scalar_jobs")}
+        if got != {**want, "ineligible_jobs": 0, "contended_jobs": 0, "scalar_jobs": 0}:
+            raise AssertionError(f"run_fast_batch({where}) profile {got}")
+    for i, ((a, why_a), (b, why_b)) in enumerate(zip(on_card, on_cpu)):
+        if a is None or b is None:
+            raise AssertionError(f"job {i}: no batched result ({why_a!r} on the card, "
+                                 f"{why_b!r} on the CPU)")
+        if _result_key(a) != _result_key(b):
+            raise AssertionError(f"job {i} ({sims[i].hw.name}, pp{sims[i].plan.pp} "
+                                 f"tp{sims[i].plan.tp}): card and CPU results differ")
+    log(f"[palm] run_fast_batch: {len(sims)} jobs bit-equal card against CPU (every field, "
+        f"raw traces); {prof['groups']} groups, {prof['batched_jobs']} batched, none "
+        f"ineligible, contended or stalled")
+
+    grid = len(PALM_FLOPS) * len(PALM_DRAM_GBS)
+    corners = [p * grid + i * len(PALM_DRAM_GBS) + j for p in range(len(PALM_PLANS))
+               for i in (0, len(PALM_FLOPS) - 1) for j in (0, len(PALM_DRAM_GBS) - 1)]
+    for i in corners:
+        sim = sims[i]
+        scalar, why = replay_chains(sim, compile_stage_chains(sim))
+        event = PipelineSimulator(sim.mapped, collect_timeline=True, engine="event").run()
+        res = on_card[i][0]
+        if scalar is None or _result_key(scalar) != _result_key(res):
+            raise AssertionError(f"corner {sim.hw.name}: scalar fast tier {why!r} or differs")
+        if ((event.total_time, event.throughput, event.noc_bytes, event.dram_bytes)
+                != (res.total_time, res.throughput, res.noc_bytes, res.dram_bytes)
+                or event.trace.canonical() != res.trace.canonical()):
+            raise AssertionError(f"corner {sim.hw.name}: event tier differs")
+        log(f"[palm] corner {sim.hw.name} pp{sim.plan.pp} tp{sim.plan.tp}: "
+            f"{res.total_time!r} s, {res.throughput!r} samples/s, equal to the scalar fast "
+            f"tier and the event tier")
+
+    us = lambda p, k: p.get(k, 0) / 1e6
+    for what, p, whole in (("card, first call", prof, card_s), ("card, warm", prof_warm, warm_s),
+                           ("plain CPU path on this host", prof_cpu, cpu_s)):
+        log(f"[palm] {what}: host compile (classify, chains, signatures) "
+            f"{us(p, 'compile_us'):.4f} s, group replay {us(p, 'eval_us'):.4f} s, interval "
+            f"validation {us(p, 'validate_us'):.4f} s, whole call {whole:.4f} s")
+    log(f"[palm] chain_replay: {launches} launches in {prof['groups']} groups")
+    row = chain_replay_row(sims)
+    _log_row(row)
+    log(f"[palm] chain_replay bytes a launch {row['bytes_per_launch']:.0f} (bound at "
+        f"{PEAK_BYTES_S / 1e12:.2f} TB/s)")
+    seconds = time.perf_counter() - t0
+    log(f"[palm] the phase: {seconds:.1f} s")
+    if seconds > PALM_PHASE_S:
+        raise AssertionError(f"the PALM core phase took {seconds:.1f} s "
+                             f"(limit {PALM_PHASE_S} s)")
+    return row, err
+
+
 def kernel_line(rows, errs, total):
     """The kernels line: one entry a kernel of the main path, the SSD scan's
     FMA paths apart from its wgmma ones, and the wgmma SSD forward and
@@ -2721,7 +3042,8 @@ def kernel_line(rows, errs, total):
             continue
         src, replaces = SOURCES[r["name"]]
         entry = {"name": r["name"], "route": "cuda", "source": src, "replaces": replaces,
-                 "launches": total[r["name"]], "max_abs_err": errs[(r["name"], bf16)],
+                 "launches": total[r["name"]],
+                 "max_abs_err": errs[(r["name"], r.get("dtype", bf16))],
                  "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         if r["name"] in ("ssd_scan_n16", "ssd_scan_bwd", "ssd_scan_bwd_n16"):
@@ -2973,6 +3295,9 @@ def main() -> int:
         phase_done("sharded serving and expert parallelism")
     phase_dryrun(card_comm)
     phase_done("dry-run held to the card")
+    palm_row, errs[("chain_replay", torch.float64)] = phase_palm_core(total)
+    rows.append(palm_row)
+    phase_done("the PALM core on the card")
     for name in [*SOURCES]:
         if not total.get(name):
             raise AssertionError(f"kernel {name} was never launched on the main path")

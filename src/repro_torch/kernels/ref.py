@@ -4,6 +4,10 @@
 match the kernel entry points: head-major attention, [T,H] rmsnorm,
 head-major SSD scan.
 
+``chain_replay_ref`` is the plain version of the simulator's batched chain
+replay (``csrc/chain_replay.cu``): the same int32 program walked with torch
+ops on (G,) fp64 vectors, each segment's fold an explicit add a row.
+
 The three backwards (``flash_attention_bwd_ref``, ``rmsnorm_bwd_ref``,
 ``ssd_scan_bwd_ref``) are written out, not taken from autograd: they are
 the math of the CUDA backward kernels, and ``tests/test_torch_grad.py``
@@ -20,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["flash_attention_ref", "flash_attention_fwd_ref", "flash_attention_bwd_ref",
-           "rmsnorm_ref", "rmsnorm_bwd_ref", "ssd_scan_ref", "ssd_scan_bwd_ref", "LOG2E"]
+           "rmsnorm_ref", "rmsnorm_bwd_ref", "ssd_scan_ref", "ssd_scan_bwd_ref", "LOG2E",
+           "chain_replay_ref", "CHAIN_OPS", "np_maximum", "np_minimum"]
 
 LOG2E = 1.4426950408889634       # log2(e): the LSE's units
 
@@ -372,3 +377,82 @@ def rmsnorm_bwd_ref(x, w, dy, eps=1e-5):
     dx = r * (wf * dyf) - xf * (r * r * r) * c
     dw = (dyf * xf * r).sum(dim=0)
     return dx.to(x.dtype), dw.to(w.dtype)
+
+
+# opcodes of a chain program (csrc/chain_replay.cu reads the same numbers)
+CHAIN_OPS = {"seg": 0, "par": 1, "branch_end": 2, "par_end": 3, "spawn": 4, "spawn_end": 5,
+             "end": 6}
+_SEG, _PAR, _BRANCH_END, _PAR_END, _SPAWN, _SPAWN_END, _END = range(7)
+
+
+def np_maximum(a, b):
+    """``np.maximum`` elementwise: ``a`` where ``a >= b`` or ``a`` is NaN,
+    else ``b`` (so a NaN in either propagates)."""
+    return torch.where((a >= b) | torch.isnan(a), a, b)
+
+
+def np_minimum(a, b):
+    """``np.minimum`` elementwise, NaN-propagating as ``np_maximum``."""
+    return torch.where((a <= b) | torch.isnan(a), a, b)
+
+
+def chain_replay_ref(code, V, t, accs, entry, holds, spawns, depth):
+    """Run the chain program at ``code[entry:]`` for every column of the
+    leaf matrix ``V`` [rows, G] (fp64) from the times ``t`` [G]. Returns
+    (end time [G], hold starts [holds, G], hold ends [holds, G], spawn ends
+    [spawns, G]) and adds the byte counters into ``accs`` [3, G] in place.
+    ``depth`` (the deepest par/spawn nesting) sizes the kernel's stack and
+    is not needed here. Every time is the left fold ``t = t + V[row]``, one
+    row at a time, never a reassociating ``cumsum``."""
+    prog = code.tolist()
+    t = t.clone()                   # an op's output may not alias its input
+    G = V.shape[1]
+    hold_start = V.new_empty((holds, G))
+    hold_end = V.new_empty((holds, G))
+    spawn_end = V.new_empty((spawns, G))
+    stack = []                      # [start time, best so far or None]
+    n_hold = n_spawn = 0
+    pc = entry
+    while True:
+        op = prog[pc]
+        if op == _SEG:
+            k, h, n0, n1, n2 = prog[pc + 1:pc + 6]
+            adv = prog[pc + 6:pc + 6 + k]
+            pos = prog[pc + 6 + k:pc + 6 + k + h]
+            j = 0
+            for i, row in enumerate(adv):
+                prev = t
+                t = t + V[row]
+                while j < h and pos[j] == i:
+                    hold_start[n_hold] = prev
+                    hold_end[n_hold] = t
+                    n_hold += 1
+                    j += 1
+            at = pc + 6 + k + h
+            for a, n in enumerate((n0, n1, n2)):
+                for row in prog[at:at + n]:
+                    accs[a] += V[row]
+                at += n
+            pc = at
+        elif op in (_PAR, _SPAWN):
+            stack.append([t, None])
+            pc += 1
+        elif op == _BRANCH_END:
+            frame = stack[-1]
+            frame[1] = t if frame[1] is None else np_maximum(frame[1], t)
+            t = frame[0]
+            pc += 1
+        elif op == _PAR_END:
+            best = stack.pop()[1]
+            if best is not None:
+                t = best
+            pc += 1
+        elif op == _SPAWN_END:
+            spawn_end[n_spawn] = t
+            n_spawn += 1
+            t = stack.pop()[0]
+            pc += 1
+        elif op == _END:
+            return t, hold_start, hold_end, spawn_end
+        else:
+            raise ValueError(f"chain program: unknown opcode {op} at word {pc}")

@@ -513,7 +513,7 @@ def test_tiny_prefill_on_the_card_matches_the_cpu(card):
     L = arch.num_layers
     assert kernels.launch_counts() == {"flash_attention": L, "flash_attention_bwd": 0,
                                        "rmsnorm": 2 * L + 1, "rmsnorm_bwd": 0, "ssd_scan": 0,
-                                       "ssd_scan_bwd": 0}
+                                       "ssd_scan_bwd": 0, "chain_replay": 0}
     ref = make_prefill_step(cpu)({"tokens": tokens})
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
 
@@ -534,7 +534,7 @@ def test_tiny_mamba2_prefill_on_the_card_matches_the_cpu(card):
     L = arch.num_layers
     assert kernels.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
                                        "rmsnorm": 2 * L + 1, "rmsnorm_bwd": 0, "ssd_scan": L,
-                                       "ssd_scan_bwd": 0}
+                                       "ssd_scan_bwd": 0, "chain_replay": 0}
     ref = make_prefill_step(cpu)({"tokens": tokens})
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
 
@@ -559,7 +559,7 @@ def test_tiny_hybrid_and_moe_prefill_on_the_card_matches_the_cpu(card, name):
     assert kernels.launch_counts() == {"flash_attention": L, "flash_attention_bwd": 0,
                                        "rmsnorm": (3 if hybrid else 2) * L + 1,
                                        "rmsnorm_bwd": 0, "ssd_scan": L if hybrid else 0,
-                                       "ssd_scan_bwd": 0}
+                                       "ssd_scan_bwd": 0, "chain_replay": 0}
     ref = make_prefill_step(cpu)({"tokens": tokens})
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
 
@@ -582,7 +582,7 @@ def test_tiny_embeds_prefill_on_the_card_matches_the_cpu(card, name):
     L = arch.num_layers
     assert kernels.launch_counts() == {"flash_attention": L, "flash_attention_bwd": 0,
                                        "rmsnorm": 2 * L + 1, "rmsnorm_bwd": 0, "ssd_scan": 0,
-                                       "ssd_scan_bwd": 0}
+                                       "ssd_scan_bwd": 0, "chain_replay": 0}
     ref = make_prefill_step(cpu)({"embeds": embeds})
     assert out.shape == ref.shape == (2, 100 if not arch.causal else 1, arch.vocab)
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
@@ -1020,3 +1020,73 @@ def test_train_grads_as_close_to_fp64_as_plain(card, name, scale, layers):
         assert dk <= max(1.5 * dp, 1e-4 * scale_n), (n, dk / scale_n, dp / scale_n)
     total = sum(w.norm().item() ** 2 for w in g64.values()) ** 0.5
     assert err["kernels"] ** 0.5 <= max(1.5 * err["plain"] ** 0.5, 1e-4 * total), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 31, 256, 4096])
+def test_chain_replay_equals_plain_version(card, G):
+    """``chain_replay`` against ``chain_replay_ref`` on the same CUDA tensors:
+    a program of every node kind nesting par/spawn to the kernel's depth
+    limit, bit for bit (fp64 adds only, in the same order)."""
+    from repro_torch.core.fastbatch import compile_chain
+    from repro_torch.kernels.chain_replay import MAX_DEPTH, chain_replay
+
+    def chain(depth):
+        inner = [("dt", 1.0), ("hold", (5, 1 << 33), 1.0), ("bytes", "noc", 1.0),
+                 ("bytes", "fabric", 1.0), ("spawn", (("dt", 1.0), ("bytes", "dram", 1.0)))]
+        if depth > 1:
+            inner.append(("par", (tuple(chain(depth - 1)), (("dt", 1.0),), ())))
+        return inner
+    code, prog, leaves = compile_chain(chain(MAX_DEPTH))
+    assert prog.depth == MAX_DEPTH
+    rng = np.random.default_rng(G)
+    scale = rng.choice([1.0, 1e-3, 1e8, 3e15], size=(len(leaves), G))
+    V = torch.tensor(scale * rng.random((len(leaves), G)), device=card)
+    t = torch.tensor(rng.random(G), device=card)
+    accs = torch.tensor(rng.random((3, G)), device=card)
+    code = torch.from_numpy(code).to(card)
+    kernels.reset_launch_counts()
+    got_accs = accs.clone()
+    got = chain_replay(code, V, t, got_accs, entry=prog.entry, holds=len(prog.keys),
+                       spawns=prog.spawns, depth=prog.depth)
+    assert kernels.launch_counts()["chain_replay"] == 1
+    want_accs = accs.clone()
+    want = ref.chain_replay_ref(code, V, t, want_accs, prog.entry, len(prog.keys), prog.spawns,
+                                prog.depth)
+    torch.cuda.synchronize()
+    for a, b in zip((*got, got_accs), (*want, want_accs)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_run_fast_batch_card_equals_cpu(card):
+    """The batched tier on the card and on the CPU: every job's result and
+    raw trace equal, timelines on and off (both validation paths)."""
+    from repro_torch import core
+    for timeline in (True, False):
+        def sims():
+            out = []
+            for flops in (2e12, 4e12, 8e12, 16e12):
+                spec = core.MeshSpec(rows=4, cols=4, intra_bw=64e9, inter_bw=16e9,
+                                     link_latency=2e-8, tile_shape=(2, 2))
+                hw = core.HardwareSpec(name=f"m{flops:g}", topology=spec,
+                                       tile=core.TileSpec(flops=flops, sram_bytes=2e6),
+                                       dram=core.DRAMSpec(bandwidth=64e9, response_time=3e-7,
+                                                          channels=4))
+                for pp, training in ((2, True), (4, False)):
+                    plan = core.ParallelPlan(pp=pp, microbatch=1, global_batch=4,
+                                             recompute="never", training=training)
+                    graph = core.transformer_lm_graph("t", 2, 256, 4, 64, 1, vocab=512)
+                    out.append(core.PipelineSimulator(core.map_graph(graph, hw, plan),
+                                                      collect_timeline=timeline))
+            return out
+        prof = {}
+        a = core.run_fast_batch(sims(), device=card, profile=prof)
+        b = core.run_fast_batch(sims(), device="cpu")
+        assert prof["batched_jobs"] == len(a)
+        for (ra, why_a), (rb, why_b) in zip(a, b):
+            assert why_a == why_b
+            if ra is not None:
+                assert (ra.total_time, ra.throughput, ra.noc_bytes, ra.dram_bytes,
+                        ra.trace.to_bytes()) == (rb.total_time, rb.throughput, rb.noc_bytes,
+                                                 rb.dram_bytes, rb.trace.to_bytes())

@@ -423,7 +423,7 @@ def test_cpu_calls_launch_no_kernel():
     ssd_scan(*(torch.from_numpy(a) for a in _ssd_inputs(1, 1, 2, 40, 16, 16)))
     assert kernels.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
                                        "rmsnorm": 0, "rmsnorm_bwd": 0, "ssd_scan": 0,
-                                       "ssd_scan_bwd": 0}
+                                       "ssd_scan_bwd": 0, "chain_replay": 0}
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
