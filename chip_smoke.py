@@ -98,7 +98,18 @@ Phases, each of which fails the run by raising:
      bit-equal job by job, in 2 groups with every job batched; each plan's
      grid corners equal to the scalar fast tier and the event tier;
      ``chain_replay`` equal to its plain version on random programs
-     nesting to its depth limit at G 1 to 4096; under 30 s.
+     nesting to its depth limit at G 1 to 4096; under 30 s;
+ 11. the scale-out fabric (``repro_torch.fabric``, ``repro_torch.obs``):
+     ``tiled_cluster`` (4 chips of 4x4 tiles on ``cluster_2x2``) with its
+     board and node link rates and tile rate crossed, full-width yi-6b at
+     sequence 4096 on plans (4,4,4) and (2,4,8): 128 ANALYTICAL jobs through
+     ``run_fast_batch`` on the card and on the CPU, bit-equal job by job,
+     in 2 groups with every job batched, the fabric-bytes accumulator
+     nonzero; grid corners equal to the scalar fast tier and the event
+     tier, with equal ``run_metrics`` sim documents; 8 MACRO jobs rejected
+     for contention by the card's interval validation as on the CPU, and
+     the first of them with ``metrics=True`` on the event tier: FABRIC
+     lanes and ``payload_by_level`` as expected; under 30 s.
 The last line is one JSON object with ``"ok": true`` and the device. It
 needs a CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -3011,6 +3022,231 @@ def phase_palm_core(total):
     return row, err
 
 
+# --------------------------------------------------------------------------
+# 11. the scale-out fabric on the card
+# --------------------------------------------------------------------------
+
+# The fabric co-design sweep: tiled_cluster (4 chips of 4x4 tiles, 16
+# TFLOP/s a tile, on cluster_2x2: 2 boards of 2 chips, 100 GB/s board and
+# 25 GB/s node links), its board and node link rates and its tile rate
+# crossed, and two plans over all 64 tiles on full-width yi-6b at sequence
+# 4096 (microbatch 2, global batch 8 dp, 1F1B, no recompute). In the
+# ANALYTICAL NoC mode every job batches; in the default MACRO mode the
+# fabric's holds contend in every job, so they all fall back
+FABRIC_BOARD_GBS = (25, 50, 100, 200)
+FABRIC_NODE_GBS = (6.25, 12.5, 25, 50)
+FABRIC_TILE_TFLOPS = (8, 16, 32, 64)
+FABRIC_PLANS = ((4, 4, 4), (2, 4, 8))       # (pp, dp, tp)
+FABRIC_MACRO = ((25, 100), (6.25, 50), (8, 64))     # board, node, tile
+# simulated bytes a level carries in the first MACRO job: the same on any host
+FABRIC_PAYLOAD = {"board": 3221225472.0, "node": 1073741824.0}
+FABRIC_PHASE_S = 30.0
+
+
+def fabric_sims(mode, plans=FABRIC_PLANS, boards=FABRIC_BOARD_GBS, nodes=FABRIC_NODE_GBS,
+                tiles=FABRIC_TILE_TFLOPS, metrics=False):
+    """The sweep's simulators (timelines on), plan-major, then board, node
+    and tile rate. The variants share tiled_cluster's compiled topology."""
+    import dataclasses
+    from repro_torch import core
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import tiled_cluster
+    from repro_torch.core.workload import arch_to_graph
+    base = tiled_cluster()
+    arch = get_config("yi-6b")
+    sims = []
+    for pp, dp, tp in plans:
+        plan = core.ParallelPlan(pp=pp, dp=dp, tp=tp, microbatch=2, global_batch=8 * dp,
+                                 schedule=core.Schedule.ONE_F_ONE_B, recompute="never")
+        graph = arch_to_graph(arch, PALM_SEQ, plan.microbatch * plan.dp, training=True)
+        for board in boards:
+            for node in nodes:
+                for tile in tiles:
+                    fabric = base.fabric.with_level(0, bandwidth=board * 1e9).with_level(
+                        1, bandwidth=node * 1e9)
+                    hw = base.with_(name=f"tiled_cluster-b{board:g}-n{node:g}-t{tile:g}",
+                                    tile=dataclasses.replace(base.tile, flops=tile * 1e12),
+                                    fabric=fabric)
+                    sims.append(core.PipelineSimulator(
+                        core.map_graph(graph, hw, plan), noc_mode=core.NoCMode(mode),
+                        collect_timeline=True, metrics=metrics))
+    return sims
+
+
+def _fabric_bytes_on_card(sims):
+    """Run the batch on the card once more, keeping each group's byte
+    counters; the sum of their fabric row (``chain_replay``'s third
+    accumulator) over every job, and the results."""
+    from repro_torch.core import fastbatch
+    from repro_torch.kernels.chain_replay import chain_replay
+    accs = {}
+
+    def keep(code, V, t, acc, **kw):
+        accs[id(acc)] = acc
+        return chain_replay(code, V, t, acc, **kw)
+    fastbatch.chain_replay = keep
+    try:
+        prof = {}
+        t1 = time.perf_counter()
+        out = fastbatch.run_fast_batch(sims, device="cuda", profile=prof)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+    finally:
+        fastbatch.chain_replay = chain_replay
+    return sum(float(a[2].sum()) for a in accs.values()), out, prof, seconds
+
+
+def phase_fabric(total):
+    """Section 11: the fabric co-design sweep through the batched tier.
+    Gates: the ANALYTICAL sweep in 2 signature groups, all 128 jobs
+    batched, none ineligible, contended or scalar; every job bit-equal
+    between ``device="cuda"`` and ``device="cpu"`` (every field and the raw
+    trace), and between the card's first and warm calls; each plan's 4 grid
+    corners (each rate at both ends) equal to the scalar fast tier (raw
+    trace) and the event tier (canonical trace), with equal ``run_metrics``
+    sim documents; the 8 MACRO jobs contended on the card and on the CPU,
+    with the same reasons; the first of them with ``metrics=True`` through
+    ``PipelineSimulator.run()`` (the simulator's default engine, the event
+    tier): FABRIC lanes in its trace and FABRIC_PAYLOAD by level. ``chain_replay``'s
+    main-path launches are those of the card's first ANALYTICAL and MACRO
+    calls."""
+    from repro_torch import kernels
+    from repro_torch.core import (NoCMode, PipelineSimulator, compile_stage_chains,
+                                  replay_chains, run_fast_batch)
+    from repro_torch.core.trace import KIND_FABRIC
+    from repro_torch.obs import run_metrics
+    t0 = time.perf_counter()
+    sims = fabric_sims("analytical")
+    log(f"[fabric] sweep: yi-6b full width seq {PALM_SEQ} on tiled_cluster, plans (pp, dp, tp) "
+        f"{FABRIC_PLANS}, board {FABRIC_BOARD_GBS} GB/s x node {FABRIC_NODE_GBS} GB/s x tile "
+        f"{FABRIC_TILE_TFLOPS} TFLOP/s, ANALYTICAL: {len(sims)} jobs, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    prof = {}
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    on_card = run_fast_batch(sims, device="cuda", profile=prof)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    counts = kernels.launch_counts()
+    launches = counts["chain_replay"]
+    if counts != _launches(chain_replay=launches) or launches == 0:
+        raise AssertionError(f"the fabric sweep launched {counts}")
+
+    prof_cpu = {}
+    t1 = time.perf_counter()
+    on_cpu = run_fast_batch(sims, device="cpu", profile=prof_cpu)
+    cpu_s = time.perf_counter() - t1
+    fabric_bytes, again, prof_warm, warm_s = _fabric_bytes_on_card(sims)
+    if any(_result_key(a) != _result_key(b) for (a, _), (b, _) in zip(on_card, again)):
+        raise AssertionError("the fabric sweep on the card: a second call differs")
+    if not fabric_bytes > 0:
+        raise AssertionError(f"the fabric sweep's fabric-bytes accumulator reads {fabric_bytes}")
+
+    want = {"jobs": len(sims), "groups": 2, "batched_jobs": len(sims), "ineligible_jobs": 0,
+            "contended_jobs": 0, "scalar_jobs": 0}
+    for p, where in ((prof, "cuda"), (prof_cpu, "cpu"), (prof_warm, "cuda, warm")):
+        got = {k: p.get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"fabric run_fast_batch({where}) profile {got}")
+    for i, ((a, why_a), (b, why_b)) in enumerate(zip(on_card, on_cpu)):
+        if a is None or b is None:
+            raise AssertionError(f"fabric job {i}: no batched result ({why_a!r} on the card, "
+                                 f"{why_b!r} on the CPU)")
+        if _result_key(a) != _result_key(b):
+            raise AssertionError(f"fabric job {i} ({sims[i].hw.name}, pp{sims[i].plan.pp} "
+                                 f"tp{sims[i].plan.tp}): card and CPU results differ")
+    times = {r.total_time for r, _ in on_card}
+    log(f"[fabric] run_fast_batch: {len(sims)} jobs bit-equal card against CPU (every field, "
+        f"raw traces) and card against card; {prof['groups']} groups, "
+        f"{prof['batched_jobs']} batched, none ineligible, contended or scalar; "
+        f"{len(times)} distinct total times; fabric bytes (chain_replay's third accumulator) "
+        f"summed over the sweep on the card: {fabric_bytes!r}")
+
+    grid = (len(FABRIC_BOARD_GBS), len(FABRIC_NODE_GBS), len(FABRIC_TILE_TFLOPS))
+    ends = [(0, 0, 0), (0, 1, 1), (1, 0, 1), (1, 1, 0)]
+    for p in range(len(FABRIC_PLANS)):
+        for e in ends:
+            b, n, t = ((g - 1) * x for g, x in zip(grid, e))
+            i = ((p * grid[0] + b) * grid[1] + n) * grid[2] + t
+            sim = sims[i]
+            res = on_card[i][0]
+            scalar, why = replay_chains(sim, compile_stage_chains(sim))
+            if scalar is None or _result_key(scalar) != _result_key(res):
+                raise AssertionError(f"corner {sim.hw.name}: scalar fast tier {why!r} or differs")
+            ev_sim = PipelineSimulator(sim.mapped, noc_mode=NoCMode.ANALYTICAL,
+                                       collect_timeline=True, engine="event")
+            event = ev_sim.run()
+            if ((event.total_time, event.throughput, event.noc_bytes, event.dram_bytes)
+                    != (res.total_time, res.throughput, res.noc_bytes, res.dram_bytes)
+                    or event.trace.canonical() != res.trace.canonical()):
+                raise AssertionError(f"corner {sim.hw.name}: event tier differs")
+            docs = [json.dumps(run_metrics(s, r)["sim"], sort_keys=True)
+                    for s, r in ((sim, res), (ev_sim, event))]
+            if docs[0] != docs[1]:
+                raise AssertionError(f"corner {sim.hw.name}: metrics documents differ")
+            log(f"[fabric] corner {sim.hw.name} pp{sim.plan.pp} dp{sim.plan.dp} "
+                f"tp{sim.plan.tp}: {res.total_time!r} s, {res.throughput!r} samples/s, "
+                f"noc+fabric bytes {res.noc_bytes!r}; equal to the scalar fast tier and the "
+                f"event tier, metrics documents equal")
+
+    macro = fabric_sims("macro", FABRIC_PLANS[:1], *FABRIC_MACRO)
+    prof_m = {}
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    m_card = run_fast_batch(macro, device="cuda", profile=prof_m)
+    torch.cuda.synchronize()
+    m_card_s = time.perf_counter() - t1
+    counts = kernels.launch_counts()
+    m_launches = counts["chain_replay"]
+    if counts != _launches(chain_replay=m_launches):
+        raise AssertionError(f"the MACRO fabric jobs launched {counts}")
+    prof_mc = {}
+    m_cpu = run_fast_batch(macro, device="cpu", profile=prof_mc)
+    reasons = [(why_a, why_b) for (_, why_a), (_, why_b) in zip(m_card, m_cpu)]
+    contended = "resource contention detected by interval validation"
+    if (any(r is not None for r, _ in m_card) or any(a != b or a != contended for a, b in reasons)
+            or prof_m.get("contended_jobs") != len(macro)
+            or prof_mc.get("contended_jobs") != len(macro)):
+        raise AssertionError(f"MACRO fabric jobs: reasons {reasons}, contended "
+                             f"{prof_m.get('contended_jobs')} on the card, "
+                             f"{prof_mc.get('contended_jobs')} on the CPU")
+    total["chain_replay"] = total.get("chain_replay", 0) + launches + m_launches
+    log(f"[fabric] MACRO: {len(macro)} jobs (pp4 dp4 tp4, board {FABRIC_MACRO[0]} x node "
+        f"{FABRIC_MACRO[1]} x tile {FABRIC_MACRO[2]}) rejected for contention by the card's "
+        f"interval validation, as on the CPU; {m_launches} chain_replay launches, "
+        f"{m_card_s:.4f} s")
+
+    first = fabric_sims("macro", FABRIC_PLANS[:1], *((x[0],) for x in FABRIC_MACRO),
+                        metrics=True)[0]
+    t1 = time.perf_counter()
+    res = first.run()
+    event_s = time.perf_counter() - t1
+    lanes = {int(r) for k, r in zip(res.trace.kind, res.trace.resource) if int(k) == KIND_FABRIC}
+    sim_doc, host = res.metrics["sim"], res.metrics["host"]
+    if (res.engine != "event" or host != {"engine": "event"} or not lanes
+            or sim_doc.get("payload_by_level") != FABRIC_PAYLOAD):
+        raise AssertionError(f"MACRO job with metrics: engine {res.engine}, host {host}, "
+                             f"{len(lanes)} fabric lanes, payload "
+                             f"{sim_doc.get('payload_by_level')}")
+    log(f"[fabric] {first.hw.name} with metrics=True: the event tier ({event_s:.4f} s), "
+        f"{res.total_time!r} s, {len(res.trace)} trace rows, {len(lanes)} FABRIC lanes, "
+        f"payload by level {sim_doc['payload_by_level']}")
+
+    us = lambda p, k: p.get(k, 0) / 1e6
+    for what, p, whole in (("card, first call", prof, card_s), ("card, warm", prof_warm, warm_s),
+                           ("plain CPU path on this host", prof_cpu, cpu_s)):
+        log(f"[fabric] {what}: host compile (classify, chains, signatures) "
+            f"{us(p, 'compile_us'):.4f} s, group replay {us(p, 'eval_us'):.4f} s, interval "
+            f"validation {us(p, 'validate_us'):.4f} s, whole call {whole:.4f} s")
+    log(f"[fabric] chain_replay: {launches} launches in {prof['groups']} groups "
+        f"({launches / prof['groups']:.1f} a group)")
+    seconds = time.perf_counter() - t0
+    log(f"[fabric] the phase: {seconds:.1f} s")
+    if seconds > FABRIC_PHASE_S:
+        raise AssertionError(f"the fabric phase took {seconds:.1f} s (limit {FABRIC_PHASE_S} s)")
+
+
 def kernel_line(rows, errs, total):
     """The kernels line: one entry a kernel of the main path, the SSD scan's
     FMA paths apart from its wgmma ones, and the wgmma SSD forward and
@@ -3298,6 +3534,8 @@ def main() -> int:
     palm_row, errs[("chain_replay", torch.float64)] = phase_palm_core(total)
     rows.append(palm_row)
     phase_done("the PALM core on the card")
+    phase_fabric(total)
+    phase_done("the scale-out fabric on the card")
     for name in [*SOURCES]:
         if not total.get(name):
             raise AssertionError(f"kernel {name} was never launched on the main path")

@@ -7,10 +7,10 @@ docs/simulator.md.
 The port's copy of ``repro.core`` (less its planner): the event kernel,
 the NoC/DRAM/SRAM models and the scalar fast tier are host code, as
 there; the batched co-design tier (:mod:`.fastbatch`) replays its
-signature groups on the card through the ``chain_replay`` kernel. Two
-paths wait for packages the port does not have yet and raise
-``NotImplementedError``: a hardware spec with a scale-out ``fabric``,
-and ``metrics=True``.
+signature groups on the card through the ``chain_replay`` kernel. A
+hardware spec with a scale-out ``fabric`` simulates through
+:mod:`repro_torch.fabric`, and ``metrics=True`` attaches
+:mod:`repro_torch.obs`'s document.
 """
 
 from .enums import BoundaryMode, Layout, NoCMode, Schedule

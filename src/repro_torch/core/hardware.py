@@ -131,7 +131,7 @@ class HardwareSpec:
     # device has local HBM (GPU/TPU style, no NoC traversal to reach DRAM).
     dram_ports: Tuple[int, ...] = ()
     precision_bytes: int = 2
-    # scale-out fabric (the reference's repro.fabric.FabricSpec) replicating the chip
+    # scale-out fabric (repro_torch.fabric.FabricSpec) replicating the chip
     # described above into a board/node/cluster hierarchy; None = single
     # chip (every existing preset, bit-identical behaviour).
     fabric: Optional[Any] = None
@@ -203,10 +203,9 @@ class HardwareSpec:
     def from_dict(cls, d: Dict[str, Any]) -> "HardwareSpec":
         fabric = None
         if d.get("fabric") is not None:
-            raise NotImplementedError(
-                "a hardware spec with a scale-out fabric needs "
-                "repro_torch.fabric, which the port does not have yet "
-                "(the fabric slice)")
+            from ..fabric.spec import FabricSpec  # pure data, no cycle
+
+            fabric = FabricSpec.from_dict(d["fabric"])
         try:
             return cls(
                 name=d["name"],
@@ -333,10 +332,19 @@ def tiled_cluster() -> HardwareSpec:
     accelerator with local HBM-style DRAM. The acceptance machine for the
     fabric subsystem — dp gradient all-reduces span chips and decompose
     into NoC legs + board/node fabric legs (hierarchical by default)."""
-    raise NotImplementedError(
-        "tiled_cluster carries a scale-out fabric, which needs "
-        "repro_torch.fabric; the port does not have it yet (the fabric "
-        "slice)")
+    from ..fabric.spec import cluster_2x2  # pure data, no cycle
+
+    spec = MeshSpec(rows=4, cols=4, intra_bw=512 * GB, link_latency=2e-8)
+    return HardwareSpec(
+        name="tiled_cluster",
+        topology=spec,
+        tile=TileSpec(flops=16 * TFLOPS, sram_bytes=3.75 * MB,
+                      compute_efficiency=0.55, vector_efficiency=0.15),
+        dram=DRAMSpec(bandwidth=256 * GB, response_time=2e-7, channels=16),
+        dram_ports=(),
+        precision_bytes=2,
+        fabric=cluster_2x2(),
+    )
 
 
 def tpu_v5e_torus_pod(rows: int = 16, cols: int = 16) -> HardwareSpec:

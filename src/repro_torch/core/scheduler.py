@@ -192,10 +192,11 @@ class PipelineSimulator:
             # multi-chip machine: the fabric facade owns one NoC + DRAM
             # per chip and routes chip-spanning traffic over the scale-out
             # links. Single-chip specs keep the plain models (bit-identical).
-            raise NotImplementedError(
-                "simulating a hardware spec with a scale-out fabric needs "
-                "repro_torch.fabric, which the port does not have yet (the "
-                "fabric slice)")
+            from ..fabric.model import FabricModel
+
+            self.noc = FabricModel(self.env, self.hw, mode=NoCMode(noc_mode),
+                                   recorder=res_rec)
+            self.dram = self.noc.dram
         else:
             self.noc = NoCModel(self.env, self.hw, mode=NoCMode(noc_mode),
                                 recorder=res_rec)
@@ -475,13 +476,12 @@ class PipelineSimulator:
         return self._attach_metrics(self._run_event())
 
     def _attach_metrics(self, result: SimResult) -> SimResult:
-        """The reference attaches its ``repro.obs`` metrics document
-        here when enabled; the port refuses ``metrics=True`` until it has
-        that package (no-op otherwise)."""
+        """Attach the repro_torch.obs metrics document when enabled (no-op —
+        and no import — otherwise, so disabled runs pay nothing)."""
         if self.metrics:
-            raise NotImplementedError(
-                "metrics=True needs repro_torch.obs, which the port does "
-                "not have yet (the obs slice)")
+            from ..obs.simmetrics import run_metrics
+
+            result.metrics = run_metrics(self, result)
         return result
 
     def _setup_events(self) -> None:

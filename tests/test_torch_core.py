@@ -3,7 +3,7 @@
 packages from the same arguments and asks for exact equality — the event
 tier, the scalar fast tier and its classifier, ``arch_to_graph`` for every
 arch of the zoo, the hardware presets, Trace bytes crossing both ways,
-``sweep_plans`` — and the paths the port does not have yet refuse."""
+``sweep_plans``, a fabric machine and the attached metrics document."""
 
 import dataclasses
 
@@ -179,7 +179,7 @@ def test_arch_to_graph_equals_reference(name):
             assert x.matmul_fraction == y.matmul_fraction
 
 
-PRESETS = [n for n in R.HARDWARE_PRESETS if n != "tiled_cluster"]
+PRESETS = list(R.HARDWARE_PRESETS)
 
 
 @pytest.mark.parametrize("name", PRESETS + ["a100x8", "hierarchical", "gpu_cluster"])
@@ -227,23 +227,43 @@ def test_sweep_plans_ranking_equals_reference():
     assert _ranking(T, cap) == capped
 
 
-def test_unported_paths_refuse():
-    """The fabric and obs paths wait for their slices and say so."""
-    with pytest.raises(NotImplementedError, match="fabric"):
-        T.HardwareSpec.from_dict(R.HARDWARE_PRESETS["tiled_cluster"]().to_dict())
-    with pytest.raises(NotImplementedError, match="fabric"):
-        T.HARDWARE_PRESETS["tiled_cluster"]()
+def test_fabric_paths_match_reference():
+    """A hardware spec with a scale-out fabric, by preset, by JSON from the
+    reference and by hand: the simulator builds the fabric model and gives
+    the reference's result, its FABRIC lanes included."""
+    ref_dict = R.HARDWARE_PRESETS["tiled_cluster"]().to_dict()
+    assert T.HardwareSpec.from_dict(ref_dict).to_dict() == ref_dict
+    assert T.HARDWARE_PRESETS["tiled_cluster"]().to_dict() == ref_dict
     from repro_torch.core.hardware import tiled_cluster
-    with pytest.raises(NotImplementedError, match="fabric"):
-        tiled_cluster()
-    plan = _plan(T)
-    graph = GRAPHS["lm"](T, 1)
-    with_fabric = dataclasses.replace(HARDWARE["mesh"](T), fabric=object())
-    with pytest.raises(NotImplementedError, match="fabric"):
-        T.PipelineSimulator(T.map_graph(graph, with_fabric, plan))
-    sim = T.PipelineSimulator(T.map_graph(graph, HARDWARE["mesh"](T), plan), metrics=True)
-    with pytest.raises(NotImplementedError, match="obs"):
-        sim.run()
+    from repro_torch.fabric import FabricModel
+    assert tiled_cluster().to_dict() == ref_dict
+    results = []
+    for pkg, hw in ((R, R.HARDWARE_PRESETS["tiled_cluster"]()),
+                    (T, T.HardwareSpec.from_dict(ref_dict))):
+        plan = _plan(pkg, pp=2, dp=2, tp=2)
+        sim = pkg.PipelineSimulator(pkg.map_graph(GRAPHS["lm"](pkg, 2), hw, plan),
+                                    noc_mode=pkg.NoCMode("detailed"), collect_timeline=True)
+        results.append((sim, sim.run()))
+    (_, a), (sim, b) = results
+    assert isinstance(sim.noc, FabricModel) and sim.dram is sim.noc.dram
+    assert_same_result(a, b)
+    assert any(int(k) == T.trace.KIND_FABRIC for k in b.trace.kind)
+
+
+def test_metrics_match_reference():
+    """``metrics=True`` attaches the reference's document, on one chip and
+    on the fabric machine, through both tiers."""
+    import json
+    for hw, engine in (("mesh", "event"), ("mesh", "fast"), ("tiled_cluster", "auto")):
+        docs = []
+        for pkg in PKGS:
+            machine = (pkg.HARDWARE_PRESETS["tiled_cluster"]() if hw == "tiled_cluster"
+                       else HARDWARE["mesh"](pkg))
+            sim = pkg.PipelineSimulator(pkg.map_graph(GRAPHS["lm"](pkg, 1), machine, _plan(pkg)),
+                                        engine=engine, metrics=True)
+            docs.append(json.dumps(sim.run().metrics, sort_keys=True))
+        assert docs[1] == docs[0], (hw, engine)
+        assert json.loads(docs[1])["host"]["engine"] == (engine if engine != "auto" else "event")
 
 
 def test_exports_equal_reference():
@@ -251,3 +271,18 @@ def test_exports_equal_reference():
         return sorted(n for n, v in vars(pkg).items()
                       if not n.startswith("_") and not isinstance(v, type(pkg)))
     assert names(R) == names(T)
+
+
+@pytest.mark.parametrize("name", ["fabric", "obs"])
+def test_subpackage_exports_equal_reference(name):
+    """The port's fabric and obs export the reference's public names."""
+    import importlib
+    ref, port = (importlib.import_module(f"{top}.{name}") for top in ("repro", "repro_torch"))
+    assert sorted(port.__all__) == sorted(ref.__all__)
+    for n in port.__all__:
+        assert type(getattr(port, n)).__name__ == type(getattr(ref, n)).__name__, n
+
+    def names(pkg):
+        return sorted(n for n, v in vars(pkg).items()
+                      if not n.startswith("_") and not isinstance(v, type(pkg)))
+    assert names(port) == names(ref)

@@ -44,7 +44,8 @@ def _graph(pkg, layers):
 
 def _mixed_combos(seed=13):
     """The reference's mixed batch (tests/test_fastbatch.py) as plain
-    arguments, without its fabric (tiled_cluster) machines: hardware
+    arguments, without its fabric (tiled_cluster) machines (those are in
+    ``_reference_combos``, which keeps its random stream): hardware
     families that share a chain shape, then random singletons over mesh
     sizes, tile shapes, DRAM ports, plans, schedules, recompute, training
     and NoC modes."""
@@ -73,10 +74,45 @@ def _mixed_combos(seed=13):
     return combos
 
 
+def _reference_combos():
+    """The reference's mixed batch exactly as its property test draws it
+    (``given(n_cases=1, seed=13)``: one stream seeded 130000), its
+    tiled_cluster singletons included; the hardware is ``"tiled_cluster"``
+    or ``_mesh_hw``'s arguments."""
+    rng = np.random.default_rng(13 * 10_000)
+    combos = []
+    for pp, dp, tp, mb in ((1, 1, 1, 1), (2, 1, 1, 2), (4, 1, 1, 1), (2, 2, 1, 1)):
+        plan = dict(pp=pp, dp=dp, tp=tp, microbatch=mb, global_batch=mb * dp * 4,
+                    recompute="never", training=bool(rng.random() < 0.7))
+        for flops in (2e12, 4e12, 8e12):
+            combos.append((dict(n=4, flops=flops), 2, plan, "analytical"))
+    for _ in range(12):
+        if rng.random() < 0.25:
+            hw = "tiled_cluster"
+            pp, dp, tp = [(1, 2, 2), (2, 1, 2), (2, 2, 2)][rng.integers(3)]
+        else:
+            n = int(rng.choice([4, 8]))
+            hw = dict(n=n, tile_shape=(2, 2) if rng.random() < 0.5 else (4, 4),
+                      ports=bool(rng.random() < 0.5))
+            pp, dp, tp = [(1, 1, 1), (2, 1, 1), (2, 1, 2), (2, 2, 1), (4, 1, 1),
+                          (1, 2, 2)][rng.integers(6)]
+        layers = int(rng.integers(1, 3))
+        pp = min(pp, len(_graph(T, layers).ops))
+        mb = int(rng.choice([1, 2]))
+        plan = dict(pp=pp, dp=dp, tp=tp, microbatch=mb,
+                    global_batch=mb * dp * int(rng.choice([2, 4])),
+                    schedule="1f1b" if rng.random() < 0.7 else "gpipe",
+                    recompute=str(rng.choice(["never", "always"])),
+                    training=bool(rng.random() < 0.8))
+        combos.append((hw, layers, plan, ["analytical", "macro", "detailed"][rng.integers(3)]))
+    return combos
+
+
 def _sim(pkg, combo, engine="auto", timeline=True):
     hw, layers, plan, mode = combo
+    machine = pkg.HARDWARE_PRESETS[hw]() if isinstance(hw, str) else _mesh_hw(pkg, **hw)
     return pkg.PipelineSimulator(
-        pkg.map_graph(_graph(pkg, layers), _mesh_hw(pkg, **hw), pkg.ParallelPlan(**plan)),
+        pkg.map_graph(_graph(pkg, layers), machine, pkg.ParallelPlan(**plan)),
         noc_mode=pkg.NoCMode(mode), engine=engine, collect_timeline=timeline)
 
 
@@ -134,6 +170,56 @@ def test_mixed_batch_equals_scalar_and_event_tier():
         assert_same_result(res, scalar, c)
         event = _sim(T, c, engine="event").run()
         for f in ("total_time", "throughput", "noc_bytes", "dram_bytes"):
+            assert getattr(res, f) == getattr(event, f), (c, f)
+        assert res.trace.canonical() == event.trace.canonical(), c
+    assert hits >= 5
+
+
+@pytest.mark.parametrize("timeline", [True, False], ids=["timeline", "no_timeline"])
+def test_reference_batch_with_tiled_cluster_equals_reference(timeline):
+    """The reference's own mixed batch, fabric machines included: every
+    outcome (result or reason) equal to the reference's, field by field
+    and in the raw trace, and the same profile counts."""
+    combos = _reference_combos()
+    assert sum(c[0] == "tiled_cluster" for c in combos) >= 2
+    a, b, prof_r, prof_t = _batch_both(combos, timeline)
+    fabric_reasons = set()
+    for c, (ra, why_a), (rb, why_b) in zip(combos, a, b):
+        assert why_a == why_b, c
+        assert (ra is None) == (rb is None), c
+        if c[0] == "tiled_cluster":
+            fabric_reasons.add(why_b)
+        if ra is None:
+            continue
+        assert_same_result(ra, rb, c)
+    assert {k: prof_r.get(k) for k in COUNTS} == {k: prof_t.get(k) for k in COUNTS}
+    assert prof_t["jobs"] == len(combos) and prof_t["groups"] < prof_t["batched_jobs"]
+    # the stream's fabric jobs are in MACRO and DETAILED modes: each falls
+    # back, with the reference's reason
+    assert fabric_reasons and None not in fabric_reasons
+
+
+def test_reference_batch_equals_scalar_and_event_tier():
+    """The reference's mixed batch through the port alone: each batched
+    result equal to the port's scalar fast tier (raw trace) and its event
+    kernel (canonical trace), as the reference's property test holds its
+    own; each fallback where the scalar tier falls back."""
+    combos = _reference_combos()
+    batched = T.run_fast_batch([_sim(T, c) for c in combos], device="cpu")
+    hits = 0
+    for c, (res, reason) in zip(combos, batched):
+        sim = _sim(T, c)
+        if T.classify_cached(sim) is not None:
+            scalar = None
+        else:
+            scalar, _ = T.replay_chains(sim, T.compile_stage_chains(sim))
+        assert (res is None) == (scalar is None), (c, reason)
+        if res is None:
+            continue
+        hits += 1
+        assert_same_result(res, scalar, c)
+        event = _sim(T, c, engine="event").run()
+        for f in ("total_time", "throughput", "bubble_ratio", "noc_bytes", "dram_bytes"):
             assert getattr(res, f) == getattr(event, f), (c, f)
         assert res.trace.canonical() == event.trace.canonical(), c
     assert hits >= 5

@@ -78,7 +78,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving.serve, repro_torch.convert, repro_torch.core, "
-            "repro_torch.core.fastbatch; "
+            "repro_torch.core.fastbatch, repro_torch.fabric, repro_torch.fabric.model, "
+            "repro_torch.obs; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
