@@ -110,6 +110,16 @@ Phases, each of which fails the run by raising:
      for contention by the card's interval validation as on the CPU, and
      the first of them with ``metrics=True`` on the event tier: FABRIC
      lanes and ``payload_by_level`` as expected; under 30 s.
+ 12. the simulator's front door (``repro_torch.api``, the serving
+     simulator, ``python -m repro_torch``): full-width yi-6b on the 16x16
+     TPU v5e slice, 4 tile rates x 4 DRAM rates x 4 plans (64 jobs,
+     ANALYTICAL, ``--engine auto``) through the command line in process on
+     the card and with ``--device cpu``, equal but for wall clock, every job
+     batched in 3 groups and ``chain_replay`` launched; the same as
+     ``python -m repro_torch`` in a child process and through a spawned
+     pool of 2, equal to the serial report; ``plan_codesign`` under the SLO
+     objective, host code (event engine, no launch); ``serve-sim`` and
+     ``serve-plan`` at full width; under 60 s.
 The last line is one JSON object with ``"ok": true`` and the device. It
 needs a CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -120,6 +130,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -3247,6 +3258,197 @@ def phase_fabric(total):
         raise AssertionError(f"the fabric phase took {seconds:.1f} s (limit {FABRIC_PHASE_S} s)")
 
 
+# the co-design sweep of phase 12 through the port's command line: full-width
+# yi-6b on the 16x16 TPU v5e slice, 4 tile rates x 4 DRAM rates x 4 plans
+FRONT_SWEEP = ["sweep", "--arch", "yi-6b", "--hardware", "tpu_v5e_16x16", "--seq-len", "4096",
+               "--global-batch", "256", "--noc-mode", "analytical", "--engine", "auto",
+               "--max-plans", "4", "--microbatch-sizes", "1",
+               "--hw-flops", "98e12", "197e12", "394e12", "788e12",
+               "--hw-dram-bw", "409e9", "819e9", "1638e9", "3276e9", "--profile", "--metrics"]
+FRONT_JOBS, FRONT_GROUPS = 64, 3
+FRONT_SERVE = ["--arch", "yi-6b", "--hardware", "tpu_v5e_4x4"]
+FRONT_PHASE_S = 60.0
+
+
+def _wall_clock_free(doc):
+    """A report document without what is wall clock: the profile's and the
+    host counters' microseconds (keys ending in ``us``)."""
+    if isinstance(doc, dict):
+        return {k: _wall_clock_free(v) for k, v in doc.items()
+                if not (k.endswith("_us") or k.endswith(".us"))}
+    if isinstance(doc, list):
+        return [_wall_clock_free(v) for v in doc]
+    return doc
+
+
+def _cli(argv):
+    """``repro_torch.api.cli.main(argv)`` in this process: (exit code,
+    standard output, seconds)."""
+    import io
+    from repro_torch.api import cli
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t1
+
+
+def _json_of(out):
+    return json.loads(out[out.index("\n{") + 1:])
+
+
+def phase_front_door(total):
+    """Section 12: the simulator's front door (``repro_torch.api``,
+    ``repro_torch.serving``, ``python -m repro_torch``). Gates: the
+    co-design sweep of FRONT_SWEEP through ``cli.main`` on the card (the
+    default device) launches ``chain_replay`` and nothing else and batches
+    all 64 jobs in 3 groups (no fallback); ``--device cpu`` launches
+    nothing; the two reports equal field by field but for wall clock; the
+    same sweep as ``python -m repro_torch`` in a child process prints the
+    in-process report, and with ``--workers 2`` (a spawned pool, a CUDA
+    context a worker) gives the serial report; ``plan_codesign`` with a
+    ``HardwareSearchSpace`` and the SLO objective on full-width yi-6b runs
+    once, as the host code it is (its experiments run the event engine and
+    never batch): it launches nothing and ranks every candidate on the
+    event engine; ``serve-sim`` (64 Poisson requests) and ``serve-plan``
+    on full-width yi-6b on the 4x4 slice run and print their summaries. ``chain_replay``'s main-path
+    launches are those of the in-process card sweep. The child runs
+    beside the rest of the phase, whose seconds include waiting for it."""
+    t0 = time.perf_counter()
+    # the child's start-up (an interpreter, torch, a CUDA context) runs
+    # beside the in-process sweeps and the pool; its output goes to files,
+    # so a full pipe never stalls it
+    child_out, child_err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    child = subprocess.Popen([sys.executable, "-m", "repro_torch", *FRONT_SWEEP, "--json", "-"],
+                             cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                             stdout=child_out, stderr=child_err, text=True)
+    try:
+        _front_door_gates(total, t0, child, child_out, child_err)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+        child_out.close()
+        child_err.close()
+
+
+def _front_door_gates(total, t0, child, child_out, child_err):
+    """The gates of :func:`phase_front_door`, beside the running child
+    ``python -m repro_torch`` (``child``, its output in the two files)."""
+    from repro_torch import api, kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import tpu_v5e_pod
+    from repro_torch.serving.system import ServingSpec
+    from repro_torch.serving.workload import WorkloadSpec
+    runs = {}
+    for device in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        argv = FRONT_SWEEP + ["--json", "-"] + (["--device", "cpu"] if device == "cpu" else [])
+        rc, out, seconds = _cli(argv)
+        counts = kernels.launch_counts()
+        if rc != 0:
+            raise AssertionError(f"front door sweep on {device}: exit {rc}")
+        doc = _json_of(out)
+        prof = doc["profile"]
+        want = {"jobs": FRONT_JOBS, "groups": FRONT_GROUPS, "batched_jobs": FRONT_JOBS,
+                "fallback_jobs": 0, "ineligible_jobs": 0, "contended_jobs": 0, "scalar_jobs": 0}
+        got = {k: prof.get(k, 0) for k in want}
+        if got != want or doc["num_candidates"] != FRONT_JOBS or len(doc["runs"]) != FRONT_JOBS:
+            raise AssertionError(f"front door sweep on {device}: profile {got}, "
+                                 f"{len(doc['runs'])} runs")
+        launches = counts["chain_replay"]
+        if device == "cuda" and (counts != _launches(chain_replay=launches) or launches == 0):
+            raise AssertionError(f"the front door sweep on the card launched {counts}")
+        if device == "cpu" and counts != _launches():
+            raise AssertionError(f"the front door sweep on the CPU launched {counts}")
+        runs[device] = (doc, seconds, launches)
+    card, cpu = (_wall_clock_free(runs[d][0]) for d in ("cuda", "cpu"))
+    if card != cpu:
+        diff = [k for k in card if card[k] != cpu.get(k)]
+        raise AssertionError(f"front door sweep: card and CPU reports differ in {diff}")
+    launches = runs["cuda"][2]
+    total["chain_replay"] = total.get("chain_replay", 0) + launches
+    best = card["runs"][0]
+    log(f"[front door] cli sweep: yi-6b full width seq 4096 on tpu_v5e_16x16, 16 hardware "
+        f"variants x 4 plans: {FRONT_JOBS} jobs, {FRONT_GROUPS} groups, all batched; card and "
+        f"CPU reports equal but for wall clock; {launches} chain_replay launches; best "
+        f"{best['hardware']} pp{best['plan']['pp']} dp{best['plan']['dp']} "
+        f"tp{best['plan']['tp']} {best['throughput']!r} samples/s")
+
+    rc, out, pool_s = _cli(FRONT_SWEEP + ["--workers", "2", "--json", "-"])
+    pooled = _wall_clock_free(_json_of(out))
+    # each worker groups its own shard, and the host half of the metrics
+    # counts the pool's work (shards, workers): neither is a result
+    if rc != 0 or pooled["executor"] != "process[2]" or \
+            pooled["profile"]["batched_jobs"] != FRONT_JOBS:
+        raise AssertionError(f"front door sweep, --workers 2: exit {rc}, executor "
+                             f"{pooled['executor']}, profile {pooled['profile']}")
+    result = lambda d: {**d, "executor": None, "profile": None,
+                        "metrics": {"sim": d["metrics"]["sim"]}}
+    if result(pooled) != result(card):
+        raise AssertionError("front door sweep: the spawned pool's report differs from serial")
+    log(f"[front door] --workers 2 (spawned, a CUDA context a worker): the serial report, "
+        f"every job batched in {pooled['profile']['groups']} groups over the shards, "
+        f"{pool_s:.2f} s with the pool's start")
+
+    arch = get_config("yi-6b")
+    slo = ServingSpec(workload=WorkloadSpec(rate=8.0, num_requests=12, seed=0, prompt_mean=128,
+                                            decode_mean=16),
+                      max_batch=4, ctx_bucket=128, slo_ttft_ms=500.0, slo_tpot_ms=8.0)
+    cfg = api.PlannerCfg(global_batch=32, seq_len=256, microbatch_sizes=(1,), max_plans=8,
+                         slo=slo, hardware_search=api.HardwareSearchSpace(
+                             mesh_shapes=((1, 4), (2, 2))))
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    res = api.plan_codesign(arch, tpu_v5e_pod(2, 2), cfg, objective="slo")
+    codesign_s = time.perf_counter() - t1
+    counts = kernels.launch_counts()
+    # the planner's experiments run the event engine and never batch
+    if counts != _launches():
+        raise AssertionError(f"plan_codesign(objective='slo') launched {counts}")
+    engines = {r.extra.get("engine", "event") for r in res.report.runs}
+    if res.objective != "slo" or res.run is not res.report.best or engines != {"event"} or \
+            not res.run.extra["serving"]["slo"]["attainment"] > 0:
+        raise AssertionError(f"plan_codesign(objective='slo'): {res.summary()}, engines {engines}")
+    log(f"[front door] plan_codesign, SLO objective, {res.report.num_candidates} candidates on "
+        f"{res.report.num_hardware} meshes: {res.summary()}; host code (the event engine, no "
+        f"launch), {codesign_s:.2f} s")
+
+    for argv in (["serve-sim", *FRONT_SERVE, "--num-requests", "64"],
+                 ["serve-plan", *FRONT_SERVE]):
+        rc, out, seconds = _cli(argv)
+        head = "goodput:" if argv[0] == "serve-sim" else "best serving split"
+        if rc != 0 or head not in out:
+            raise AssertionError(f"{argv[0]}: exit {rc}\n{out[-2000:]}")
+        for line in out.strip().splitlines():
+            log(f"[front door] {argv[0]} | {line}")
+        log(f"[front door] {argv[0]}: {seconds:.2f} s")
+
+    rc = child.wait(timeout=300)
+    child_s = time.perf_counter() - t0
+    child_out.seek(0)
+    child_err.seek(0)
+    if rc != 0:
+        raise AssertionError(f"python -m repro_torch: exit {rc}\n{child_err.read()[-3000:]}")
+    if _wall_clock_free(_json_of(child_out.read())) != card:
+        raise AssertionError("python -m repro_torch: its report differs from the in-process one")
+    log(f"[front door] python -m repro_torch (a child process on the card, beside the rest of "
+        f"the phase): the same report, done {child_s:.2f} s after its start")
+
+    for device in ("cuda", "cpu"):
+        doc, seconds, _ = runs[device]
+        p = doc["profile"]
+        log(f"[front door] sweep on {device}: host compile {p['compile_us'] / 1e6:.4f} s, group "
+            f"replay {p['eval_us'] / 1e6:.4f} s, interval validation "
+            f"{p['validate_us'] / 1e6:.4f} s, whole cli call {seconds:.4f} s")
+    seconds = time.perf_counter() - t0
+    log(f"[front door] the phase: {seconds:.1f} s")
+    if seconds > FRONT_PHASE_S:
+        raise AssertionError(f"the front door phase took {seconds:.1f} s "
+                             f"(limit {FRONT_PHASE_S} s)")
+
+
 def kernel_line(rows, errs, total):
     """The kernels line: one entry a kernel of the main path, the SSD scan's
     FMA paths apart from its wgmma ones, and the wgmma SSD forward and
@@ -3536,6 +3738,8 @@ def main() -> int:
     phase_done("the PALM core on the card")
     phase_fabric(total)
     phase_done("the scale-out fabric on the card")
+    phase_front_door(total)
+    phase_done("the simulator's front door")
     for name in [*SOURCES]:
         if not total.get(name):
             raise AssertionError(f"kernel {name} was never launched on the main path")

@@ -21,8 +21,9 @@ process a rank under ``torchrun``, NCCL on the card, gloo on the CPU:
     PYTHONPATH=src torchrun --nproc-per-node 2 examples/serve_lm_torch.py --mesh 1,2
 
 The reference's ``--plan-mesh`` (the mesh picked by ``plan_serving``
-through the PALM simulator) has no counterpart: the port neither imports
-nor ports the simulator.
+through the PALM simulator) has no counterpart yet: the port's
+``repro_torch.serving.plan_serving`` exists, and wiring it here is queued
+in ROADMAP.md §1, "The rest of the simulator", item 3.
 """
 
 import argparse

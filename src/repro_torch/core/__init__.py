@@ -4,13 +4,14 @@ Paper: "PALM: A Efficient Performance Simulator for Tiled Accelerators
 with Large-scale Model Training" (Fang et al., 2024). See
 docs/simulator.md.
 
-The port's copy of ``repro.core`` (less its planner): the event kernel,
+The port's copy of ``repro.core``: the event kernel,
 the NoC/DRAM/SRAM models and the scalar fast tier are host code, as
 there; the batched co-design tier (:mod:`.fastbatch`) replays its
 signature groups on the card through the ``chain_replay`` kernel. A
 hardware spec with a scale-out ``fabric`` simulates through
 :mod:`repro_torch.fabric`, and ``metrics=True`` attaches
-:mod:`repro_torch.obs`'s document.
+:mod:`repro_torch.obs`'s document. The planner (:mod:`.planner`) builds
+on :mod:`repro_torch.api` and is imported on its own, as in the reference.
 """
 
 from .enums import BoundaryMode, Layout, NoCMode, Schedule

@@ -57,6 +57,7 @@ field is compare-excluded and the sweep layer clears it anyway.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from time import perf_counter
 from typing import Dict, List, Optional, Tuple
 
@@ -75,7 +76,7 @@ from .fastpath import (
 from .parallelism import FD
 from .trace import KIND_BD, KIND_FD, KIND_GU, Trace
 
-__all__ = ["run_fast_batch", "compile_chain"]
+__all__ = ["run_fast_batch", "compile_chain", "BatchCompileError"]
 
 _CONTENDED = "resource contention detected by interval validation"
 _STALLED = "work-list replay stalled (mailbox never filled)"
@@ -629,6 +630,23 @@ def _replay_group(sims, progs: StageChains, code, V, profile: Optional[Dict]):
 # entry point
 # ---------------------------------------------------------------------------
 
+class BatchCompileError(Exception):
+    """The host half of a batch (per-job classification, chain compilation,
+    signature grouping, the scalar replay of a job no group takes) tripped
+    on one configuration. A sweep catches this one and re-runs the batch
+    job by job, as the reference does for any error of its batch. A group's
+    program compiler, its replay on the device and ``chain_replay``'s own
+    refusals are not wrapped: their errors propagate."""
+
+
+@contextmanager
+def _host_compile():
+    try:
+        yield
+    except (ValueError, KeyError, TypeError) as e:
+        raise BatchCompileError(f"{type(e).__name__}: {e}") from e
+
+
 def run_fast_batch(sims, *, min_group: int = 2,
                    classify_memo: Optional[Dict] = None,
                    profile: Optional[Dict] = None, device=None):
@@ -645,7 +663,8 @@ def run_fast_batch(sims, *, min_group: int = 2,
     ``profile`` are optional caller-owned dicts (classifier cache and
     per-phase timing/count accumulator). ``device`` is where the groups
     replay: ``None`` means the card (and raises without one), ``"cpu"``
-    the plain versions on the host."""
+    the plain versions on the host. An error of the host half raises
+    :class:`BatchCompileError`; any other error is raised as it is."""
     dev = resolve_device(device)
     out: List = [None] * len(sims)
     _padd(profile, "jobs", len(sims))
@@ -653,31 +672,33 @@ def run_fast_batch(sims, *, min_group: int = 2,
     t0 = perf_counter()
     groups: Dict[Tuple, List[int]] = {}
     per: List = [None] * len(sims)      # (chains, leaves) for eligible jobs
-    for i, sim in enumerate(sims):
-        reason = classify_cached(sim, classify_memo)
-        if reason is not None:
-            out[i] = (None, reason)
-            _padd(profile, "ineligible_jobs", 1)
-            continue
-        chains = compile_stage_chains(sim)
-        if getattr(sim.noc, "metrics_levels", False):
-            # per-level payload metadata rides as extra chain-node fields
-            # the group skeletonizer does not model — the scalar replay
-            # preserves it, so fabric jobs with metrics enabled skip
-            # signature grouping
-            out[i] = replay_chains(sim, chains)
-            _padd(profile, "scalar_jobs", 1)
-            continue
-        sig, leaves = _signature(sim, chains)
-        per[i] = (chains, leaves)
-        groups.setdefault(sig, []).append(i)
+    with _host_compile():
+        for i, sim in enumerate(sims):
+            reason = classify_cached(sim, classify_memo)
+            if reason is not None:
+                out[i] = (None, reason)
+                _padd(profile, "ineligible_jobs", 1)
+                continue
+            chains = compile_stage_chains(sim)
+            if getattr(sim.noc, "metrics_levels", False):
+                # per-level payload metadata rides as extra chain-node fields
+                # the group skeletonizer does not model — the scalar replay
+                # preserves it, so fabric jobs with metrics enabled skip
+                # signature grouping
+                out[i] = replay_chains(sim, chains)
+                _padd(profile, "scalar_jobs", 1)
+                continue
+            sig, leaves = _signature(sim, chains)
+            per[i] = (chains, leaves)
+            groups.setdefault(sig, []).append(i)
     _padd(profile, "compile_us", (perf_counter() - t0) * 1e6)
 
     for sig, idxs in groups.items():
         if len(idxs) < min_group:
             _padd(profile, "scalar_jobs", len(idxs))
-            for i in idxs:
-                out[i] = replay_chains(sims[i], per[i][0])
+            with _host_compile():
+                for i in idxs:
+                    out[i] = replay_chains(sims[i], per[i][0])
             continue
         t1 = perf_counter()
         v0 = profile.get("validate_us", 0) if profile is not None else 0

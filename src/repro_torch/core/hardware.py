@@ -12,12 +12,12 @@ The hardware layer is declarative end to end: every preset below is
 built from a :class:`~repro_torch.core.topology.TopologySpec`, and a
 ``HardwareSpec`` round-trips losslessly through ``to_dict``/``from_dict``
 (and ``to_json``/``from_json``), so machines are data users can dump,
-tweak, diff, and sweep (the reference's ``repro.api.HardwareSearchSpace``).
+tweak, diff, and sweep (:class:`repro_torch.api.HardwareSearchSpace`).
 
 Presets reproduce the hardware used in the paper's case studies plus the
 TPU v5e pod used for the roofline cross-check; ``HARDWARE_PRESETS`` maps
 names to builders (parameterized ``a100x<N>`` / ``tpu_v5e_<R>x<C>`` names
-are resolved by the reference's ``repro.api.resolve_hardware``).
+are resolved by :func:`repro_torch.api.resolve_hardware`).
 """
 
 from __future__ import annotations
@@ -354,7 +354,7 @@ def tpu_v5e_torus_pod(rows: int = 16, cols: int = 16) -> HardwareSpec:
 
 # name -> zero-arg builder; parameterized families (a100x<N>,
 # tpu_v5e_<R>x<C>, tpu_v5e_torus_<R>x<C>) are parsed by
-# repro.api.resolve_hardware on top of this registry.
+# repro_torch.api.resolve_hardware on top of this registry.
 HARDWARE_PRESETS = {
     "grayskull": grayskull,
     "wafer_scale": wafer_scale,

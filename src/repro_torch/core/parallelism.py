@@ -356,7 +356,7 @@ class ParallelPlan:
 def plan_sort_key(plan: ParallelPlan) -> str:
     """Canonical total-order key for a plan (JSON of its fields with
     sorted keys). Rankings everywhere — ``sweep_plans`` here and
-    :func:`repro.api.report.run_rank_key` in the Experiment layer —
+    :func:`repro_torch.api.report.run_rank_key` in the Experiment layer —
     tie-break equal-throughput runs on this one string so orderings
     never depend on job arrival order (which differs between serial,
     pooled and batched executors)."""

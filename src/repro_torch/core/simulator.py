@@ -6,9 +6,11 @@ absolute performance. ``sweep_plans`` is the planner loop the paper uses
 in §V-B: iterate parallelism strategies directly against simulation
 results — the capability the paper says existing simulators lack.
 
-These are the low-level functional entry points; the reference's
-``repro.api`` wraps them in its declarative ``Experiment`` /
-``SweepEngine`` surface, which the port does not have yet.
+These remain the low-level functional entry points;
+:mod:`repro_torch.api` wraps them in the declarative
+:class:`~repro_torch.api.Experiment` / :class:`~repro_torch.api.SweepEngine`
+surface (typed enums, process-pool sweeps, JSON reports) which is the
+canonical front door.
 """
 
 from __future__ import annotations

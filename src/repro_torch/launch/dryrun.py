@@ -37,8 +37,10 @@ What the reference has and this does not: its ``probes`` and
 so it extrapolates from unrolled probe compiles; the eager step here runs
 every layer and microbatch, so its counts are whole); XLA's "bytes
 accessed" (an eager step has no compiled program whose memory traffic
-could be read); ``palm_trace_record`` and ``--palm-trace`` (the PALM
-simulator, which the port neither imports nor ports).
+could be read); ``palm_trace_record`` and ``--palm-trace`` (a trace of
+the PALM simulator beside the step's; the port has the simulator,
+``repro_torch.core`` and ``repro_torch.api``, and this flag is queued in
+ROADMAP.md §1, "The rest of the simulator", item 3).
 
 Why meta tensors and not fake ``cuda`` ones: in a PyTorch built without
 CUDA, autograd's engine asks the CUDA device guard of a fake ``cuda``

@@ -51,8 +51,9 @@ __all__ = ["sim_metrics", "run_metrics", "aggregate_run_metrics",
 
 _RESOURCE_NAMES = {KIND_NOC: "noc", KIND_DRAM: "dram", KIND_FABRIC: "fabric"}
 
-# outcome tags of one plan evaluation, as the reference's sweep engine
-# (``repro.api.sweep``) writes them; the port has no sweep engine yet
+# outcome tags of one plan evaluation, as the sweep engine
+# (``repro_torch.api.sweep``) writes them; a copy, since that module
+# imports this package
 _OK, _PRUNED = "ok", "pruned"
 
 

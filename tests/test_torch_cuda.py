@@ -1090,3 +1090,22 @@ def test_run_fast_batch_card_equals_cpu(card):
                 assert (ra.total_time, ra.throughput, ra.noc_bytes, ra.dram_bytes,
                         ra.trace.to_bytes()) == (rb.total_time, rb.throughput, rb.noc_bytes,
                                                  rb.dram_bytes, rb.trace.to_bytes())
+
+
+@pytest.mark.cuda
+def test_experiment_sweep_on_the_card_equals_the_cpu(card):
+    """A small co-design sweep through ``Experiment.sweep``: the batched
+    tier on the card (``chain_replay`` launched) gives the CPU's report."""
+    from repro_torch import api, core
+    exp = api.Experiment(arch="yi-6b", hardware=core.tpu_v5e_pod(2, 2), seq_len=128,
+                         global_batch=8, engine="auto",
+                         search=api.SearchSpace(max_plans=4, microbatch_sizes=(1, 2)),
+                         hardware_search=api.HardwareSearchSpace(
+                             tile_flops=(100e12, 197e12), dram_bandwidth=(400e9, 819e9)))
+    kernels.reset_launch_counts()
+    on_card = exp.sweep(device=card, profile=True)
+    assert kernels.launch_counts()["chain_replay"] > 0
+    on_cpu = exp.sweep(device="cpu")
+    assert on_card.profile["batched_jobs"] == on_card.num_candidates
+    on_card.profile = None
+    assert on_card.to_json() == on_cpu.to_json()

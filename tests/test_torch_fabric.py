@@ -6,9 +6,10 @@ and their alpha-beta bounds, collective times on the event core in every
 NoC mode, ``simulate`` on ``tiled_cluster`` (every SimResult field and
 the raw trace, FABRIC lanes, the Chrome export), the degenerate one-chip
 fabric, and the fast tier's results and reasons on the fabric machine.
-The reference's tests of the fabric's search axes, its co-design and its
-pooled sweeps go through ``repro.api``/``repro.search``, which the port
-does not have yet."""
+Through ``repro_torch.api`` (since the port has it): the fabric's search
+axes, co-design over a fabric axis and pooled fabric sweeps, as the
+reference's ``tests/test_fabric.py`` holds them; its guided-search cases
+wait for the port of ``repro.search``."""
 
 import dataclasses
 import itertools
@@ -18,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import repro.api as RA  # noqa: E402
 import repro.core as R  # noqa: E402
 import repro.core.fastpath as R_fastpath  # noqa: E402
 import repro.fabric as RF  # noqa: E402
@@ -27,6 +29,7 @@ from repro.core.workload import arch_to_graph as R_arch_to_graph  # noqa: E402
 from repro.fabric.model import FabricModel as R_FabricModel  # noqa: E402
 from repro.obs.tracks import activity_counters as R_activity_counters  # noqa: E402
 
+import repro_torch.api as TA  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 import repro_torch.core.fastpath as T_fastpath  # noqa: E402
 import repro_torch.fabric as TF  # noqa: E402
@@ -401,3 +404,95 @@ def test_fabric_tiers_equal_reference(plan, mode):
         assert_same_result(out[0], out[1], (plan, mode, "fast"))
     if mode == "analytical":
         assert b.engine == "fast"
+
+
+# ---------------------------------------------------------------------------
+# the fabric through the Experiment API: pooled sweeps and co-design axes
+# ---------------------------------------------------------------------------
+
+def _api(side):
+    return RA if side is REF else TA
+
+
+def _fabric_experiment(side, engine):
+    api = _api(side)
+    return api.Experiment(arch="yi-6b", hardware=side[2](), seq_len=128, global_batch=8,
+                          collect_timeline=True, engine=engine,
+                          search=api.SearchSpace(degrees=((2, 8, 4), (4, 4, 4)),
+                                                 microbatch_sizes=(1,),
+                                                 layouts=(api.Layout.S_SHAPE,)))
+
+
+@pytest.mark.parametrize("engine", ["event", "auto"])
+def test_serial_and_pool_fabric_sweeps_ship_identical_traces(engine):
+    """A fabric-spanning sweep is bit-identical between the port's serial
+    executor, its spawned pool and the reference's serial sweep."""
+    ref = _fabric_experiment(REF, engine).sweep(workers=0, return_timelines=True)
+    exp = _fabric_experiment(PORT, engine)
+    serial = exp.sweep(workers=0, return_timelines=True, device="cpu")
+    pooled = exp.sweep(workers=2, return_timelines=True, device="cpu")
+    assert pooled.executor == "process[2]" and len(serial.runs) == len(pooled.runs) == 2
+    assert serial.to_json() == ref.to_json()
+    assert serial.to_json() == pooled.to_json().replace("process[2]", "serial")
+    for a, b, r in zip(serial.runs, pooled.runs, ref.runs):
+        assert a.plan == b.plan and a.total_time == b.total_time
+        assert a.trace == b.trace
+        assert a.trace.to_bytes() == r.trace.to_bytes()
+
+
+FABRIC_AXIS_ERRORS = {
+    "collective": lambda api, side: api.HardwareSearchSpace(fabric_collectives=("warp",)),
+    "fabric": lambda api, side: api.HardwareSearchSpace(
+        fabric_bw=(12.5 * GB, 25 * GB)).enumerate_specs(side[0].wafer_scale()),
+}
+
+
+@pytest.mark.parametrize("what", sorted(FABRIC_AXIS_ERRORS))
+def test_fabric_axes_validate_and_require_a_fabric(what):
+    msgs = []
+    for side in SIDES:
+        with pytest.raises(ValueError, match=what) as err:
+            FABRIC_AXIS_ERRORS[what](_api(side), side)
+        msgs.append(str(err.value))
+    assert msgs[1] == msgs[0]
+
+
+def test_fabric_axes_enumerate_derived_specs():
+    ref, port = _both(lambda side: _api(side).HardwareSearchSpace(
+        fabric_bw=(12.5 * GB, 25 * GB),
+        fabric_collectives=("hierarchical", "ring")).enumerate_specs(side[2]()))
+    assert [v.to_json() for v in port] == [v.to_json() for v in ref]
+    assert len(port) == 4 and len({v.name for v in port}) == 4
+    top = T_tiled_cluster().fabric.num_levels - 1
+    assert {v.fabric.levels[top].bandwidth for v in port} == {12.5 * GB, 25 * GB}
+    assert {v.fabric.collective for v in port} == {"hierarchical", "ring"}
+    for v in port:
+        assert TA.HardwareSpec.from_json(v.to_json()).fabric == v.fabric
+
+
+@pytest.mark.parametrize("strategy", ["exhaustive", "sh"])
+def test_plan_codesign_over_fabric_axis_round_trips(strategy):
+    """The exhaustive co-design over a fabric axis equals the reference's
+    and its winner's FabricSpec survives the JSON round trip; the guided
+    (successive-halving) case raises until ``search`` is ported."""
+    guided = {} if strategy == "exhaustive" else dict(
+        search_strategy="sh", search_budget=2, search_seed=0)
+
+    def codesign(side):
+        api = _api(side)
+        cfg = api.PlannerCfg(
+            global_batch=8, seq_len=128, max_plans=2, microbatch_sizes=(1,),
+            layouts=(api.Layout.S_SHAPE,),
+            hardware_search=api.HardwareSearchSpace(fabric_bw=(12.5 * GB, 25 * GB)), **guided)
+        get_config = R_get_config if side is REF else T_get_config
+        return api.plan_codesign(get_config("yi-6b"), side[2](), cfg)
+    if strategy == "sh":
+        with pytest.raises(NotImplementedError, match="next slice"):
+            codesign(PORT)
+        return
+    ref, port = _both(codesign)
+    assert port.to_json() == ref.to_json()
+    winner = port.hardware
+    top = winner.fabric.num_levels - 1
+    assert winner.fabric.levels[top].bandwidth in (12.5 * GB, 25 * GB)
+    assert TA.HardwareSpec.from_json(winner.to_json()).fabric == winner.fabric

@@ -4,10 +4,11 @@ recorded counts; ``sim_metrics``/``run_metrics`` on the same simulations
 (equal to the reference's, and equal between the port's fast and event
 tiers), ``payload_by_level`` on ``tiled_cluster``, the counter tracks on
 the Chrome export, ``aggregate_run_metrics`` on the same outcome lists,
-and the serving documents of one reference serving report. The
-reference's tests of its sweep engine's, search's and serving system's
-reports (``repro.api``, ``repro.search``, ``repro.serving.system``) wait
-for those slices; its numpy-less fallback has no counterpart here."""
+the serving documents of one reference serving report, and the metrics
+documents of the port's sweeps (serial and pooled) and serving reports
+against the reference's. Its tests of guided search's reports wait for
+the port of ``repro.search``; its numpy-less fallback has no counterpart
+here."""
 
 import dataclasses
 import json
@@ -17,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import repro.api as RA  # noqa: E402
 import repro.core as R  # noqa: E402
 import repro.obs as RO  # noqa: E402
 from repro.configs import get_config as R_get_config  # noqa: E402
@@ -25,12 +27,16 @@ from repro.core.workload import arch_to_graph as R_arch_to_graph  # noqa: E402
 from repro.serving.system import ServingSpec, simulate_serving  # noqa: E402
 from repro.serving.workload import WorkloadSpec  # noqa: E402
 
+import repro_torch.api as TA  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 import repro_torch.obs as TO  # noqa: E402
 from repro_torch.configs import get_config as T_get_config  # noqa: E402
 from repro_torch.core.fastpath import FastPathIneligible  # noqa: E402
 from repro_torch.core.hardware import tiled_cluster as T_tiled_cluster  # noqa: E402
 from repro_torch.core.workload import arch_to_graph as T_arch_to_graph  # noqa: E402
+from repro_torch.serving.system import ServingSpec as T_ServingSpec  # noqa: E402
+from repro_torch.serving.system import simulate_serving as T_simulate_serving  # noqa: E402
+from repro_torch.serving.workload import WorkloadSpec as T_WorkloadSpec  # noqa: E402
 
 # (core, obs, tiled_cluster, arch_to_graph, get_config)
 REF = (R, RO, R_tiled_cluster, R_arch_to_graph, R_get_config)
@@ -330,3 +336,66 @@ def test_serving_documents_equal_reference():
     empty = dataclasses.replace(rep, kv_occupancy_bytes=[], queue_depth=[])
     assert TO.serving_sim_metrics(empty) == RO.serving_sim_metrics(empty)
     assert TO.serving_counters(empty) == {}
+
+
+# ---------------------------------------------------------------------------
+# metrics through the Experiment API and the serving simulator
+# ---------------------------------------------------------------------------
+
+def _metrics_experiment(api, metrics=True, degrees=((2, 1, 2), (1, 2, 2), (2, 2, 1)),
+                        micro=(1, 2)):
+    return api.Experiment(arch="yi-6b", hardware=HW, seq_len=128, global_batch=8,
+                          metrics=metrics, engine="auto",
+                          search=api.SearchSpace(degrees=list(degrees), microbatch_sizes=micro))
+
+
+def test_sim_metrics_identical_serial_vs_pool():
+    exp = _metrics_experiment(TA)
+    plans = exp.search.enumerate_plans(TA.resolve_hardware(HW), 8)
+    reports = {}
+    for workers in (0, 2):
+        eng = TA.SweepEngine(workers=workers, device="cpu")
+        try:
+            reports[workers] = eng.sweep(exp, plans)
+        finally:
+            eng.close()
+    a, b = reports[0], reports[2]
+    ref_exp = _metrics_experiment(RA)
+    ref = RA.SweepEngine(workers=0).sweep(
+        ref_exp, ref_exp.search.enumerate_plans(RA.resolve_hardware(HW), 8))
+    assert _doc(a.metrics["sim"]) == _doc(b.metrics["sim"]) == _doc(ref.metrics["sim"])
+    assert [_doc(r.metrics["sim"]) for r in a.runs] == \
+        [_doc(r.metrics["sim"]) for r in b.runs] == [_doc(r.metrics["sim"]) for r in ref.runs]
+    assert a.metrics["host"]["counters"]["host.sweep.jobs"] == len(plans)
+    assert b.metrics["host"]["counters"]["host.pool.shards"] >= 1
+    assert TA.SweepReport.from_json(a.to_json()).metrics == a.metrics
+
+
+def test_sweep_metrics_disabled_adds_nothing():
+    reps = [_metrics_experiment(api, metrics=False, degrees=((2, 1, 2), (1, 2, 2)),
+                                micro=(1,)).sweep(**dev)
+            for api, dev in ((RA, {}), (TA, {"device": "cpu"}))]
+    for rep in reps:
+        assert rep.metrics is None and "metrics" not in rep.to_dict()
+        assert all(r.metrics is None for r in rep.runs)
+    assert reps[1].to_json() == reps[0].to_json()
+
+
+def test_serving_metrics_attach_and_roundtrip():
+    spec = T_ServingSpec(workload=T_WorkloadSpec(rate=2.0, num_requests=10, seed=3,
+                                                 prompt_mean=64, decode_mean=8,
+                                                 prompt_cv=0.5, decode_cv=0.5),
+                         max_batch=4, ctx_bucket=128)
+    rep = T_simulate_serving("hymba-1.5b", "grayskull", None, spec, metrics=True)
+    ref = simulate_serving("hymba-1.5b", "grayskull", None, TINY_SPEC, metrics=True)
+    m = rep.metrics
+    assert set(m) == {"sim", "host"} and m["sim"] == ref.metrics["sim"]
+    assert m["sim"]["kv_cache"]["peak_bytes"] == rep.kv_peak_bytes
+    assert m["sim"]["steps"]["decode"] == rep.steps["decode"]
+    assert m["host"]["counters"]["host.serving.run.calls"] == 1
+    assert json.loads(json.dumps(rep.to_dict()))["metrics"] == m
+    series = TO.serving_counters(rep)
+    assert series == RO.serving_counters(ref)
+    assert "kv_occupancy_bytes" in series and "queue_depth" in series
+    off = T_simulate_serving("hymba-1.5b", "grayskull", None, spec)
+    assert off.metrics is None and "metrics" not in off.to_dict()

@@ -79,7 +79,9 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving.serve, repro_torch.convert, repro_torch.core, "
             "repro_torch.core.fastbatch, repro_torch.fabric, repro_torch.fabric.model, "
-            "repro_torch.obs; "
+            "repro_torch.obs, repro_torch.api, repro_torch.api.cli, repro_torch.core.planner, "
+            "repro_torch.serving, repro_torch.serving.workload, repro_torch.serving.batcher, "
+            "repro_torch.serving.system, repro_torch.serving.planner, repro_torch.__main__; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
