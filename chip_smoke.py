@@ -119,7 +119,16 @@ Phases, each of which fails the run by raising:
      ``python -m repro_torch`` in a child process and through a spawned
      pool of 2, equal to the serial report; ``plan_codesign`` under the SLO
      objective, host code (event engine, no launch); ``serve-sim`` and
-     ``serve-plan`` at full width; under 60 s.
+     ``serve-plan`` at full width; under 60 s;
+ 13. guided search (``repro_torch.search``) on phase 12's 64 candidates
+     through the command line in process, no pool and no child:
+     successive halving at budget 8 (rungs of 32, 16 and 8 candidates, the
+     reduced ones at ``analytical-mb2`` and ``analytical-mb4``) on the card
+     and with ``--device cpu``, equal but for wall clock, ``chain_replay``
+     launched on every rung on the card; ``random`` and ``evolve`` the
+     same; every guided full-fidelity run equal to phase 12's exhaustive
+     run of its (hardware, plan); ``plan_codesign(strategy="sh")`` at full
+     width, card equal to CPU, launching on the card; under 30 s.
 The last line is one JSON object with ``"ok": true`` and the device. It
 needs a CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -3314,7 +3323,9 @@ def phase_front_door(total):
     event engine; ``serve-sim`` (64 Poisson requests) and ``serve-plan``
     on full-width yi-6b on the 4x4 slice run and print their summaries. ``chain_replay``'s main-path
     launches are those of the in-process card sweep. The child runs
-    beside the rest of the phase, whose seconds include waiting for it."""
+    beside the rest of the phase, whose seconds include waiting for it.
+    Returns the card sweep's report less its wall clock (phase 13 holds
+    its guided runs to it)."""
     t0 = time.perf_counter()
     # the child's start-up (an interpreter, torch, a CUDA context) runs
     # beside the in-process sweeps and the pool; its output goes to files,
@@ -3324,7 +3335,7 @@ def phase_front_door(total):
                              cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                              stdout=child_out, stderr=child_err, text=True)
     try:
-        _front_door_gates(total, t0, child, child_out, child_err)
+        return _front_door_gates(total, t0, child, child_out, child_err)
     finally:
         if child.poll() is None:
             child.kill()
@@ -3447,6 +3458,155 @@ def _front_door_gates(total, t0, child, child_out, child_err):
     if seconds > FRONT_PHASE_S:
         raise AssertionError(f"the front door phase took {seconds:.1f} s "
                              f"(limit {FRONT_PHASE_S} s)")
+    return card
+
+
+# phase 13: guided search on FRONT_SWEEP's space; successive halving's
+# rungs at budget 8 (the reference's ladder for an ANALYTICAL experiment)
+SEARCH_SEED = ["--search-budget", "8", "--seed", "0"]
+SEARCH_RUNGS = {"analytical-mb2": 32, "analytical-mb4": 16, "full": 8}
+SEARCH_PLAN_BUDGET = 4     # the guided plan_codesign's full-fidelity sims (event engine)
+SEARCH_PHASE_S = 30.0
+
+
+@contextlib.contextmanager
+def _launches_per_generation():
+    """``chain_replay`` launches of each ``SweepEngine.evaluate_jobs`` call
+    (a guided search's generation), in call order."""
+    from repro_torch import kernels
+    from repro_torch.api.sweep import SweepEngine
+    calls, inner = [], SweepEngine.evaluate_jobs
+
+    def counted(self, *args, **kwargs):
+        before = kernels.launch_counts()["chain_replay"]
+        try:
+            return inner(self, *args, **kwargs)
+        finally:
+            calls.append(kernels.launch_counts()["chain_replay"] - before)
+    SweepEngine.evaluate_jobs = counted
+    try:
+        yield calls
+    finally:
+        SweepEngine.evaluate_jobs = inner
+
+
+def _run_key(run):
+    return run["hardware"], json.dumps(run["plan"], sort_keys=True)
+
+
+def _guided_cli(strategy, device):
+    """One guided FRONT_SWEEP through ``cli.main`` on ``device``: (report
+    document, seconds, launches by kernel, chain_replay launches a
+    generation)."""
+    from repro_torch import kernels
+    argv = FRONT_SWEEP + ["--search", strategy, *SEARCH_SEED, "--json", "-"]
+    kernels.reset_launch_counts()
+    with _launches_per_generation() as gens:
+        rc, out, seconds = _cli(argv + (["--device", "cpu"] if device == "cpu" else []))
+    if rc != 0:
+        raise AssertionError(f"--search {strategy} on {device}: exit {rc}\n{out[-2000:]}")
+    return _json_of(out), seconds, kernels.launch_counts(), gens
+
+
+def phase_search(total, exhaustive):
+    """Section 13: guided multi-fidelity search (``repro_torch.search``) on
+    FRONT_SWEEP's 64 candidates through ``cli.main`` in this process, no
+    pool and no child. Gates: ``--search sh`` at budget 8 on the card (the
+    default device) and with ``--device cpu`` gives equal reports but for
+    wall clock; its rungs evaluate 32, 16 and 8 candidates
+    (SEARCH_RUNGS), at most 8 at full fidelity; on the card every rung
+    launches ``chain_replay`` and nothing else, on the CPU nothing
+    launches. Every guided full-fidelity run equals the exhaustive card
+    sweep's run of the same (hardware, plan) (``exhaustive``: phase 12's
+    report). ``--search random`` and ``evolve`` on the card equal the CPU
+    too. ``plan_codesign(strategy="sh")`` on full-width yi-6b over the same
+    hardware space (throughput objective, SEARCH_PLAN_BUDGET full sims on
+    the event engine) launches ``chain_replay`` on the card, nothing on
+    the CPU, and gives the same result. The card runs' launches join
+    ``chain_replay``'s main-path count."""
+    from repro_torch import api, kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.enums import NoCMode
+    t0 = time.perf_counter()
+    by_run = {_run_key(r): r for r in exhaustive["runs"]}
+    launches = 0
+    for strategy in ("sh", "random", "evolve"):
+        docs = {}
+        for device in ("cuda", "cpu"):
+            doc, seconds, counts, gens = _guided_cli(strategy, device)
+            search, prof = doc["search"], doc["profile"]
+            n = counts["chain_replay"]
+            if device == "cuda" and (counts != _launches(chain_replay=n) or n == 0):
+                raise AssertionError(f"--search {strategy} on the card launched {counts}")
+            if device == "cpu" and counts != _launches():
+                raise AssertionError(f"--search {strategy} on the CPU launched {counts}")
+            if search["full_fidelity_sims"] > 8 or len(gens) != len(prof["generations"]):
+                raise AssertionError(f"--search {strategy} on {device}: {search}, "
+                                     f"{len(gens)} engine calls")
+            if strategy == "sh":
+                if search["sims_per_fidelity"] != SEARCH_RUNGS:
+                    raise AssertionError(f"--search sh on {device}: rungs "
+                                         f"{search['sims_per_fidelity']}")
+                if device == "cuda" and not all(gens):
+                    raise AssertionError(f"--search sh: a rung launched nothing on the card "
+                                         f"({gens})")
+            if device == "cuda":
+                launches += n
+            docs[device] = _wall_clock_free(doc)
+            rungs = ", ".join(f"{g['jobs']} jobs {g.get('batched_jobs', 0)} batched "
+                              f"{launches_g} launches {g.get('eval_us', 0) / 1e6:.4f} s replay"
+                              for g, launches_g in zip(prof["generations"], gens))
+            log(f"[search] --search {strategy} on {device}: {seconds:.4f} s, host compile "
+                f"{prof.get('compile_us', 0) / 1e6:.4f} s, group replay "
+                f"{prof.get('eval_us', 0) / 1e6:.4f} s, interval validation "
+                f"{prof.get('validate_us', 0) / 1e6:.4f} s; rungs: {rungs}")
+        card, cpu = docs["cuda"], docs["cpu"]
+        if card != cpu:
+            diff = [k for k in card if card[k] != cpu.get(k)]
+            raise AssertionError(f"--search {strategy}: card and CPU reports differ in {diff}")
+        for run in card["runs"]:
+            if by_run.get(_run_key(run)) != run:
+                raise AssertionError(f"--search {strategy}: the full-fidelity run "
+                                     f"{_run_key(run)} differs from the exhaustive sweep's")
+        best = card["runs"][0]
+        log(f"[search] --search {strategy}: card and CPU reports equal but for wall clock; "
+            f"{card['search']['sims_per_fidelity']}; {len(card['runs'])} full-fidelity runs "
+            f"equal to the exhaustive sweep's; best {best['hardware']} pp{best['plan']['pp']} "
+            f"dp{best['plan']['dp']} tp{best['plan']['tp']} {best['throughput']!r} samples/s")
+
+    cfg = api.PlannerCfg(global_batch=256, seq_len=4096, max_plans=4, microbatch_sizes=(1,),
+                         noc_mode=NoCMode.ANALYTICAL,
+                         hardware_search=api.HardwareSearchSpace(
+                             tile_flops=(98e12, 197e12, 394e12, 788e12),
+                             dram_bandwidth=(409e9, 819e9, 1638e9, 3276e9)),
+                         search_strategy="sh", search_budget=SEARCH_PLAN_BUDGET, search_seed=0)
+    plans = {}
+    for device in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        res = api.plan_codesign(get_config("yi-6b"), api.resolve_hardware("tpu_v5e_16x16"), cfg,
+                                device=None if device == "cuda" else "cpu")
+        seconds = time.perf_counter() - t1
+        counts = kernels.launch_counts()
+        n = counts["chain_replay"]
+        if device == "cuda" and (counts != _launches(chain_replay=n) or n == 0):
+            raise AssertionError(f"the guided plan_codesign on the card launched {counts}")
+        if device == "cpu" and counts != _launches():
+            raise AssertionError(f"the guided plan_codesign on the CPU launched {counts}")
+        if device == "cuda":
+            launches += n
+        plans[device] = res
+        log(f"[search] plan_codesign(strategy='sh') on {device}: {res.summary()}; "
+            f"{res.report.search.summary()}; {n} chain_replay launches, {seconds:.4f} s")
+    card, cpu = (_wall_clock_free(json.loads(plans[d].to_json())) for d in ("cuda", "cpu"))
+    if card != cpu or _wall_clock_free(plans["cuda"].report.to_dict()) != \
+            _wall_clock_free(plans["cpu"].report.to_dict()):
+        raise AssertionError("the guided plan_codesign: card and CPU results differ")
+    total["chain_replay"] = total.get("chain_replay", 0) + launches
+    seconds = time.perf_counter() - t0
+    log(f"[search] the phase: {launches} chain_replay launches on the card, {seconds:.1f} s")
+    if seconds > SEARCH_PHASE_S:
+        raise AssertionError(f"the search phase took {seconds:.1f} s (limit {SEARCH_PHASE_S} s)")
 
 
 def kernel_line(rows, errs, total):
@@ -3738,8 +3898,10 @@ def main() -> int:
     phase_done("the PALM core on the card")
     phase_fabric(total)
     phase_done("the scale-out fabric on the card")
-    phase_front_door(total)
+    exhaustive = phase_front_door(total)
     phase_done("the simulator's front door")
+    phase_search(total, exhaustive)
+    phase_done("guided search")
     for name in [*SOURCES]:
         if not total.get(name):
             raise AssertionError(f"kernel {name} was never launched on the main path")

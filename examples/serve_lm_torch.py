@@ -20,10 +20,16 @@ process a rank under ``torchrun``, NCCL on the card, gloo on the CPU:
 
     PYTHONPATH=src torchrun --nproc-per-node 2 examples/serve_lm_torch.py --mesh 1,2
 
-The reference's ``--plan-mesh`` (the mesh picked by ``plan_serving``
-through the PALM simulator) has no counterpart yet: the port's
-``repro_torch.serving.plan_serving`` exists, and wiring it here is queued
-in ROADMAP.md §1, "The rest of the simulator", item 3.
+With ``--plan-mesh`` the example closes the paper's §V-B loop for
+serving: ``repro_torch.serving.plan_serving`` sweeps decode-step splits
+through the PALM simulator (host code) for ``--hardware``, and generation
+runs on the suggested ``(data, model)`` mesh, as ``--mesh`` would. The
+split covers every device of the simulated hardware, so torchrun must
+start that many processes (the reference forces that many host devices
+instead); another world size is an error, never a smaller split:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 examples/serve_lm_torch.py \
+        --plan-mesh --hardware tpu_v5e_2x2
 """
 
 import argparse
@@ -34,16 +40,35 @@ import time
 import torch
 
 
-def _mesh(spec: str, device: str):
-    """The (data, model) mesh of ``spec`` "D,M" over a process group from
+def _mesh(mesh_axes, device: str):
+    """The ``{"data": D, "model": M}`` mesh over a process group from
     torchrun's environment (one rank a process)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_serving_mesh
-    data, model = (int(n) for n in spec.split(","))
     if device == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
     dist.init_process_group("nccl" if device == "cuda" else "gloo")
-    return make_serving_mesh({"data": data, "model": model}, device)
+    return make_serving_mesh(mesh_axes, device)
+
+
+def _planned_mesh_axes(arch, args):
+    """``plan_serving``'s ``{"data": dp, "model": tp}`` for ``--hardware``,
+    which must have as many devices as torchrun started processes."""
+    from repro_torch.api import resolve_hardware
+    from repro_torch.serving import plan_serving
+    devices = resolve_hardware(args.hardware).num_devices
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world != devices:
+        raise SystemExit(f"--plan-mesh: {args.hardware} has {devices} devices but this run has "
+                         f"{world} processes; start it with torchrun --nproc-per-node "
+                         f"{devices}")
+    mesh_axes, report = plan_serving(arch, hardware=args.hardware, batch=args.batch,
+                                     context_len=args.prompt_len + args.new_tokens)
+    if int(os.environ.get("RANK", 0)) == 0:
+        print(f"plan_serving on {args.hardware}: mesh {mesh_axes} "
+              f"({report.best.throughput:.1f} simulated decode steps/s, "
+              f"{report.num_candidates} splits ranked)")
+    return mesh_axes
 
 
 def main(argv=None) -> int:
@@ -58,8 +83,15 @@ def main(argv=None) -> int:
                     help="serve the first N layers (default: all of the scale's)")
     ap.add_argument("--mesh", default=None, help="D,M: serve on a (data, model) mesh "
                                                  "(under torchrun with D*M processes)")
+    ap.add_argument("--plan-mesh", action="store_true",
+                    help="pick the (data, model) mesh with plan_serving and serve on it "
+                         "(under torchrun with --hardware's device count of processes)")
+    ap.add_argument("--hardware", default="tpu_v5e_2x2",
+                    help="hardware preset plan_serving simulates (--plan-mesh only)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.plan_mesh and args.mesh:
+        ap.error("--plan-mesh picks the mesh; it does not go with --mesh")
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
@@ -75,7 +107,12 @@ def main(argv=None) -> int:
         raise SystemExit(f"{arch.name} takes precomputed embeddings; use an LM arch for this "
                          f"example")
     device = resolve_device(args.device)
-    mesh = _mesh(args.mesh, device.type) if args.mesh else None
+    mesh_axes = None
+    if args.plan_mesh:
+        mesh_axes = _planned_mesh_axes(arch, args)
+    elif args.mesh:
+        mesh_axes = dict(zip(("data", "model"), (int(n) for n in args.mesh.split(","))))
+    mesh = _mesh(mesh_axes, device.type) if mesh_axes else None
     where = device if mesh is None else mesh_device(mesh)
     model = init_params(arch, torch.Generator(device=where).manual_seed(0),
                         RunCfg(remat=False, mesh=mesh), device)

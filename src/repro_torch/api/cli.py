@@ -10,6 +10,8 @@
     python -m repro_torch plan --arch dbrx-132b --hardware wafer_scale
     python -m repro_torch plan --arch yi-6b --hardware wafer_scale \
         --hw-flops 8e12 16e12 --hw-mesh 5x4 4x4 --codesign-json best_hw.json
+    python -m repro_torch plan --arch yi-6b --hardware wafer_scale \
+        --hw-flops 8e12 16e12 32e12 --search sh --search-budget 12 --seed 0
     python -m repro_torch hardware --hardware wafer_scale > wafer.json
     python -m repro_torch simulate --arch yi-6b --hardware-json wafer.json ...
     python -m repro_torch trace-diff base.npz variant.npz
@@ -27,8 +29,8 @@ tables otherwise.
 tier (``--engine auto`` / ``fast``) replays on the card by default and
 stops with an error without one; ``--device cpu`` asks for the host.
 Everything else is host code, ``serve-sim`` and ``serve-plan`` too (the
-latter sweeps on the event engine). Guided ``--search`` is not ported
-yet.
+latter sweeps on the event engine). A guided ``--search``'s reduced
+rungs always take the fast tier, so they replay on ``--device``.
 """
 
 from __future__ import annotations
@@ -50,7 +52,6 @@ from .experiment import (
     SearchSpace,
     resolve_hardware,
 )
-from .report import refuse_search
 
 __all__ = ["main"]
 
@@ -207,9 +208,11 @@ def _add_sweep_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--top", type=int, default=10)
     ap.add_argument("--search", default="exhaustive",
                     choices=["exhaustive", "random", "sh", "evolve"],
-                    help="search strategy: exhaustive evaluates every "
-                         "candidate; guided search (random/sh/evolve) is the "
-                         "port's next slice and exits with an error")
+                    help="guided search strategy (repro_torch.search): "
+                         "exhaustive evaluates every candidate; random/sh/"
+                         "evolve spend at most --search-budget full-fidelity "
+                         "simulations (sh climbs cheap fidelity rungs first, "
+                         "which replay on --device)")
     ap.add_argument("--search-budget", type=int, default=None, metavar="N",
                     help="max full-fidelity simulations for guided search "
                          "(default: a fifth of the space)")
@@ -393,12 +396,18 @@ def _sweep_call_kwargs(args) -> dict:
           "profile": getattr(args, "profile", False),
           "device": args.device}
     if args.search != "exhaustive":
-        refuse_search(f"--search {args.search}")
+        kw.update(strategy=args.search, search_budget=args.search_budget,
+                  seed=args.seed or 0)
     elif args.search_budget is not None or args.seed is not None:
         # never let a "capped" sweep silently run the whole product
         raise ValueError("--search-budget/--seed only apply to guided "
                          "search; add --search {random,sh,evolve}")
     return kw
+
+
+def _print_search_note(report) -> None:
+    if report.search is not None:
+        print(f"[search {report.search.summary()}]")
 
 
 # (phase label, microseconds key, jobs key) rows of the --profile table;
@@ -425,6 +434,14 @@ def _print_profile(report) -> None:
           f"{prof.get('batched_jobs', 0)} batched job(s); "
           f"{prof.get('scalar_jobs', 0)} scalar, "
           f"{prof.get('ineligible_jobs', 0)} ineligible")
+    gens = prof.get("generations")
+    if gens:                            # guided search: one row per rung
+        print(f"  {'rung':>10s} {'jobs':>6s} {'batched':>8s} "
+              f"{'eval (ms)':>10s}")
+        for i, g in enumerate(gens):
+            print(f"  {i:>10d} {g.get('jobs', 0):>6d} "
+                  f"{g.get('batched_jobs', 0):>8d} "
+                  f"{g.get('eval_us', 0) / 1e3:>10.2f}")
 
 
 def _cmd_sweep(args) -> int:
@@ -436,6 +453,7 @@ def _cmd_sweep(args) -> int:
           f"({report.executor}; {report.num_candidates} candidates{hw_note}, "
           f"{report.num_pruned_memory} memory-pruned, "
           f"{report.num_failed} failed) ==")
+    _print_search_note(report)
     print(report.table(top=args.top))
     _print_profile(report)
     _emit_metrics(report, args)
@@ -451,6 +469,7 @@ def _cmd_plan(args) -> int:
         return 1
     p = best.plan
     print(f"best plan for {report.arch} on {report.hardware}:")
+    _print_search_note(report)
     if report.num_hardware > 1:
         print(f"  hardware: {best.hardware}  (co-design over "
               f"{report.num_hardware} variants)")
@@ -837,6 +856,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
     try:
         return args.fn(args)
-    except (ValueError, KeyError, NotImplementedError) as e:   # not crashes
+    except (ValueError, KeyError) as e:   # spec errors, not crashes
         print(f"error: {e}", file=sys.stderr)
         return 2

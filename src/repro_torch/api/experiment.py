@@ -53,7 +53,7 @@ from ..core.hardware import (
 from ..core.parallelism import ParallelPlan
 from ..core.workload import arch_to_graph
 from ..serving.system import ServingSpec
-from .report import RunReport, SweepReport, refuse_search
+from .report import RunReport, SweepReport
 
 if TYPE_CHECKING:
     from .sweep import SweepEngine
@@ -563,10 +563,12 @@ class Experiment:
         ``RunReport.sim`` — in compressed struct-of-arrays form (reports
         stay scalar by default).
 
-        ``strategy`` ``None`` or ``"exhaustive"`` evaluates the whole
-        space. Guided search (``"random"`` / ``"sh"`` / ``"evolve"``, the
-        reference's ``repro.search``) is the port's next slice: any other
-        strategy raises ``NotImplementedError``.
+        ``strategy`` selects guided search (:mod:`repro_torch.search`):
+        ``"random"`` / ``"sh"`` / ``"evolve"`` evaluate only a budgeted
+        subset of the space at full fidelity (``search_budget``, default
+        a fifth of the space) and nest a :class:`SearchReport` into the
+        result; ``None`` or ``"exhaustive"`` is the legacy exhaustive
+        path, unchanged.
 
         ``engine`` lends an open (usually persistent, ``with``-entered)
         :class:`SweepEngine` whose warm process pool is reused instead of
@@ -583,14 +585,21 @@ class Experiment:
         launches on ``device``.
         ``profile=True`` attaches its per-phase accounting
         (compile/batch-eval/validate/fallback) to
-        ``SweepReport.profile``.
+        ``SweepReport.profile`` — for guided search the totals span every
+        generation and a ``generations`` sub-list carries the per-rung
+        deltas.
 
         ``device`` is where the batched tier replays its groups: ``None``
         means the card (a new engine raises without one), ``"cpu"`` the
-        plain versions on the host. A lent ``engine`` keeps its own."""
+        plain versions on the host. A lent ``engine`` keeps its own. A
+        guided search's reduced rungs always take the fast tier."""
         return_timelines = return_timelines or self.collect_timeline
         if strategy not in (None, "exhaustive"):
-            refuse_search(f"Experiment.sweep(strategy={strategy!r})")
+            from ..search import run_search     # search builds on api
+            return run_search(self, strategy=strategy, budget=search_budget,
+                              seed=seed or 0, workers=workers,
+                              return_timelines=return_timelines,
+                              engine=engine, profile=profile, device=device)
         if search_budget is not None or seed is not None:
             # never let a "capped" sweep silently run the whole product
             raise ValueError("search_budget/seed only apply to guided "

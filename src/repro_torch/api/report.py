@@ -36,16 +36,7 @@ from ..core.scheduler import SimResult
 from ..core.trace import Trace
 
 __all__ = ["RunReport", "SweepReport", "plan_to_dict", "plan_from_dict",
-           "run_rank_key", "refuse_search"]
-
-
-def refuse_search(what: str):
-    """Raise for a guided-search request: the reference's ``repro.search``
-    (random, successive halving, evolution, multi-fidelity rungs) is the
-    port's next slice. Exhaustive sweeps are whole here."""
-    raise NotImplementedError(
-        f"{what}: guided search is not ported yet (the next slice of the "
-        f"port, repro_torch.search); use the exhaustive sweep")
+           "run_rank_key"]
 
 # ParallelPlan fields that are not JSON-scalar and rarely swept; they are
 # serialized only when set so reports stay compact.
@@ -206,8 +197,8 @@ class SweepReport:
     # plans the raised error — so planners can say *why* nothing fit
     pruned_records: List[Dict[str, Any]] = field(default_factory=list)
     failed_records: List[Dict[str, Any]] = field(default_factory=list)
-    # guided-search accounting (the reference's repro.search; the port's
-    # next slice): always None here, the port sweeps exhaustively.
+    # guided-search accounting (repro_torch.search): per-rung history, sims
+    # per fidelity, best-so-far curve. None for exhaustive sweeps.
     search: Optional["SearchReport"] = None
     # per-phase timing/count accounting of the batched fast tier
     # (compile/batch-eval/validate/fallback microseconds plus job
@@ -253,8 +244,10 @@ class SweepReport:
     def from_dict(cls, d: Dict[str, Any]) -> "SweepReport":
         d = dict(d)
         d["runs"] = [RunReport.from_dict(r) for r in d.get("runs", [])]
-        if d.pop("search", None) is not None:
-            refuse_search("SweepReport.from_dict of a guided-search report")
+        search = d.pop("search", None)
+        if search is not None:
+            from ..search.report import SearchReport
+            d["search"] = SearchReport.from_dict(search)
         return cls(**d)
 
     @classmethod

@@ -104,8 +104,7 @@ _OK, _PRUNED, _FAILED = "ok", "pruned", "failed"
 
 # a job is (hardware-variant index, plan) — or (variant, plan, fidelity)
 # where fidelity is a reduced-cost evaluation knob (see
-# the reference's ``repro.search.Fidelity``, the port's next slice): anything
-# with ``apply(plan)`` and a
+# :class:`repro_torch.search.Fidelity`): anything with ``apply(plan)`` and a
 # ``noc_mode`` attribute. Plain plan sweeps use variant index 0.
 Job = Tuple[int, ParallelPlan]
 

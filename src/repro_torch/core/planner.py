@@ -57,9 +57,11 @@ class PlannerCfg:
     # merged ranking scores joint (hardware, plan) candidates through one
     # shared-pool sweep
     hardware_search: Optional["HardwareSearchSpace"] = None
-    # "exhaustive" evaluates the full product; guided search ("random" /
-    # "sh" / "evolve", the reference's repro.search) is the port's next
-    # slice and raises NotImplementedError
+    # guided search (repro_torch.search): "exhaustive" evaluates the full
+    # product (legacy path); "random" / "sh" / "evolve" spend at most
+    # `search_budget` full-fidelity simulations (default: a fifth of the
+    # space) steered by cheap reduced-fidelity rungs, seeded for
+    # bit-reproducible runs
     search_strategy: str = "exhaustive"
     search_budget: Optional[int] = None
     search_seed: Optional[int] = None      # guided strategies only; 0 default
@@ -175,13 +177,33 @@ def _sweep_kwargs(cfg: PlannerCfg, strategy: Optional[str]) -> Dict[str, Any]:
     strategy = strategy or cfg.search_strategy
     kw: Dict[str, Any] = {"workers": cfg.workers}
     if strategy not in (None, "exhaustive"):
-        from ..api.report import refuse_search  # api builds on core
-        refuse_search(f"search strategy {strategy!r}")
+        kw.update(strategy=strategy, search_budget=cfg.search_budget,
+                  seed=cfg.search_seed or 0)
     elif cfg.search_budget is not None or cfg.search_seed is not None:
         raise ValueError("PlannerCfg.search_budget/search_seed only apply "
                          "to guided search; set search_strategy to "
                          "'random'/'sh'/'evolve'")
     return kw
+
+
+def _planner_engine(cfg: PlannerCfg, kw: Dict[str, Any], device,
+                    engine: Optional["SweepEngine"]) -> "SweepEngine":
+    """The engine a planner sweeps on: a lent ``engine`` as it is, else
+    the shared one for ``cfg.workers``. An exhaustive planner's
+    experiments run the event engine, which never batches, so its engine
+    is a host one and ``device`` is refused; a guided search's reduced
+    rungs take the fast tier, so its engine replays on ``device``
+    (``None``: the card)."""
+    guided = "strategy" in kw
+    if device is not None and not guided:
+        raise ValueError("device only applies to guided search (the "
+                         "exhaustive planner runs the event engine on the "
+                         "host); set strategy to 'random'/'sh'/'evolve'")
+    if engine is not None:
+        return engine
+    from ..api.sweep import shared_engine   # api builds on core
+    return shared_engine(workers=cfg.workers,
+                         device=device if guided else "cpu")
 
 
 def plan_parallelism(
@@ -191,6 +213,7 @@ def plan_parallelism(
     strategy: Optional[str] = None,
     objective: str = "throughput",
     engine: Optional["SweepEngine"] = None,
+    device=None,
 ):
     """Sweep (pp, dp, tp, microbatch, layout, schedule) and rank by
     simulated throughput. Returns sorted RunReports (best first).
@@ -202,7 +225,7 @@ def plan_parallelism(
     winning variant back as a full :class:`HardwareSpec`.
 
     ``strategy`` (or ``cfg.search_strategy``) other than ``"exhaustive"``
-    raises: guided search is the port's next slice.
+    runs a guided budgeted search instead of the full product.
 
     ``objective="slo"`` ranks candidates by SLO goodput under the traffic
     spec in ``cfg.slo`` (the serving simulator) instead of training step
@@ -211,17 +234,23 @@ def plan_parallelism(
     :class:`SweepEngine` whose warm pool is reused (never closed here);
     by default the module-level :func:`repro_torch.api.sweep.shared_engine`
     pool is used, so back-to-back planner calls about the same
-    experiment re-initialize nothing. The planner's experiments run the
-    event engine, so no job reaches the batched tier or the card: the
-    planner is host code, as ``simulate_serving`` is, and its engine is a
-    host one (``device="cpu"``), which runs without a card.
+    experiment re-initialize nothing.
+
+    ``device`` applies to guided search only. The planner's experiments
+    run the event engine, so the exhaustive planner batches nothing: it is
+    host code, as ``simulate_serving`` is, its engine is a host one, and
+    passing ``device`` raises ``ValueError``. A guided search's reduced
+    rungs always take the fast tier, whose signature groups replay on
+    ``device`` (``None``: the card, which raises without one; ``"cpu"``:
+    the host); its full rung runs the event engine, and serving-scored
+    jobs never reach the fast tier. A lent ``engine`` keeps its own
+    device.
     """
     exp = _make_experiment(arch, hardware, cfg,
                            serving=_resolve_objective(cfg, objective))
-    if engine is None:
-        from ..api.sweep import shared_engine   # api builds on core
-        engine = shared_engine(workers=cfg.workers, device="cpu")
-    return exp.sweep(engine=engine, **_sweep_kwargs(cfg, strategy)).runs
+    kw = _sweep_kwargs(cfg, strategy)
+    engine = _planner_engine(cfg, kw, device, engine)
+    return exp.sweep(engine=engine, **kw).runs
 
 
 def plan_codesign(
@@ -231,6 +260,7 @@ def plan_codesign(
     strategy: Optional[str] = None,
     objective: str = "throughput",
     engine: Optional["SweepEngine"] = None,
+    device=None,
 ) -> CodesignResult:
     """Joint hardware/parallelism co-design (§VI): rank the flattened
     (hardware variant x plan) product and return the best pair as a
@@ -239,25 +269,27 @@ def plan_codesign(
     ``cfg.hardware_search`` must be set — with no hardware axes there is
     nothing to co-design and :func:`plan_parallelism` is the right call.
     ``strategy`` (or ``cfg.search_strategy``) other than ``"exhaustive"``
-    raises: guided search is the port's next slice.
+    runs the §VI loop as a guided budgeted search (see
+    :mod:`repro_torch.search`); the ranked report then carries a nested
+    :class:`~repro_torch.search.SearchReport`.
 
     ``objective="slo"`` co-designs for *serving*: every (hardware, plan)
     pair is scored by SLO goodput under ``cfg.slo`` traffic, so a machine
     that wins on training step time can lose to one with the bandwidth
     headroom decode traffic actually needs. ``engine`` lends an open
     persistent :class:`SweepEngine` (reused, never closed here); defaults
-    to the module-level :func:`repro_torch.api.sweep.shared_engine` pool,
-    a host one, as in :func:`plan_parallelism`.
+    to the module-level :func:`repro_torch.api.sweep.shared_engine` pool.
+    ``device`` follows :func:`plan_parallelism`'s rule: guided search
+    only.
     """
     if cfg.hardware_search is None:
         raise ValueError("plan_codesign needs cfg.hardware_search (use "
                          "plan_parallelism for a parallelism-only sweep)")
     exp = _make_experiment(arch, hardware, cfg,
                            serving=_resolve_objective(cfg, objective))
-    if engine is None:
-        from ..api.sweep import shared_engine   # api builds on core
-        engine = shared_engine(workers=cfg.workers, device="cpu")
-    report = exp.sweep(engine=engine, **_sweep_kwargs(cfg, strategy))
+    kw = _sweep_kwargs(cfg, strategy)
+    engine = _planner_engine(cfg, kw, device, engine)
+    report = exp.sweep(engine=engine, **kw)
     best = report.best
     if best is None:
         raise RuntimeError(

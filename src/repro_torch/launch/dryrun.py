@@ -5,6 +5,8 @@ once on tensors without storage, the counterpart of
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --mesh single
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all       # every cell, one subprocess each
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k \
+        --palm-trace --trace-only                                   # the PALM trace alone
 
 A cell runs as rank 0 of a "fake" process group of 256 ("single", the
 16x16 pod) or 512 ("multi", 2x16x16) ranks, on the production mesh
@@ -37,10 +39,13 @@ What the reference has and this does not: its ``probes`` and
 so it extrapolates from unrolled probe compiles; the eager step here runs
 every layer and microbatch, so its counts are whole); XLA's "bytes
 accessed" (an eager step has no compiled program whose memory traffic
-could be read); ``palm_trace_record`` and ``--palm-trace`` (a trace of
-the PALM simulator beside the step's; the port has the simulator,
-``repro_torch.core`` and ``repro_torch.api``, and this flag is queued in
-ROADMAP.md §1, "The rest of the simulator", item 3).
+could be read).
+
+``--palm-trace`` first writes ``<arch>__<shape>.palm_trace.json``
+(``palm_trace_record``): the cell's workload through the PALM event
+simulator (``repro_torch.api``, host code) on ``--palm-hardware``, in the
+Chrome/Perfetto schema of ``python -m repro_torch simulate --trace-out``;
+``--trace-only`` stops there, before the cell's step.
 
 Why meta tensors and not fake ``cuda`` ones: in a PyTorch built without
 CUDA, autograd's engine asks the CUDA device guard of a fake ``cuda``
@@ -85,7 +90,8 @@ from .presets import run_cfg_for, train_cfg_for
 
 __all__ = ["StepMeter", "measure", "tensor_bytes", "train_argument_bytes", "dry_train",
            "dry_prefill", "dry_decode", "run_cell",
-           "model_flops", "all_cells", "fake_world", "target", "main", "ALLOC_ROUND"]
+           "model_flops", "all_cells", "fake_world", "target", "main", "ALLOC_ROUND",
+           "palm_trace_record"]
 
 ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 ALLOC_ROUND = 512       # the CUDA caching allocator rounds every block up to this
@@ -281,6 +287,56 @@ def dry_decode(arch: ArchConfig, run: RunCfg, inputs: Callable[[LM], Any],
     return _record(m, args)
 
 
+def palm_trace_record(arch_name: str, shape_name: str,
+                      hardware: str = "tpu_v5e_4x4") -> Dict[str, Any]:
+    """Run the cell's workload through the PALM event simulator and return
+    ``{"trace": <chrome traceEvents dict>, "summary": ..., "plan": ...}``.
+
+    Training cells and serving cells (prefill/decode) emit the *same*
+    columnar :class:`~repro_torch.core.trace.Trace` schema, rendered through
+    the same :func:`~repro_torch.core.trace.chrome_trace` exporter the CLI's
+    ``simulate --trace-out`` uses — so dry-run timelines are directly
+    comparable with any other PALM timeline in one Perfetto view. The
+    simulation is the event engine on the host; no kernel runs.
+    """
+    import math
+
+    from ..api import Experiment, ParallelPlan, resolve_hardware
+    from ..api.report import plan_to_dict
+    from ..core.trace import chrome_trace
+
+    arch = get_config(arch_name)
+    shape = SHAPES[shape_name]
+    hw = resolve_hardware(hardware)
+    n = hw.num_devices
+    train = shape.kind == "train"
+    # simple feasible split: pipeline depth bounded by layer count, data
+    # parallelism by the batch, tensor parallelism takes the remainder
+    pp = min(4, arch.num_layers, n)
+    while pp > 1 and n % pp:
+        pp -= 1
+    rest = n // pp
+    dp = math.gcd(rest, shape.global_batch)
+    tp = min(rest // dp, max(1, arch.n_heads))
+    plan = ParallelPlan(pp=pp, dp=dp, tp=tp, microbatch=1,
+                        global_batch=shape.global_batch, training=train)
+    report = Experiment(
+        arch=arch, hardware=hw, plan=plan,
+        seq_len=shape.seq_len, global_batch=shape.global_batch,
+        training=train, decode=shape.kind == "decode",
+        collect_timeline=True,
+    ).run()
+    return {
+        "hardware": hw.name,
+        "plan": plan_to_dict(plan),
+        "summary": report.trace_summary(),
+        "throughput": report.throughput,
+        "total_time": report.total_time,
+        "trace": chrome_trace(report.trace,
+                              label=f"{arch_name} {shape_name} (palm)"),
+    }
+
+
 def model_flops(arch: ArchConfig, shape: ShapeConfig) -> float:
     N = arch.active_param_count()
     if shape.kind == "train":
@@ -338,9 +394,10 @@ def all_cells():
                 yield arch_name, shape_name, mesh_kind
 
 
-def _sweep(out_dir: Path, force: bool) -> int:
+def _sweep(out_dir: Path, force: bool, palm=()) -> int:
     """Every cell of ``all_cells`` in a subprocess of its own (a fresh
-    process group each; a failure stops nothing)."""
+    process group each; a failure stops nothing); ``palm`` are the
+    ``--palm-*`` flags each child gets."""
     src = str(Path(__file__).resolve().parents[2])
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (src, os.environ.get("PYTHONPATH")) if p)}
@@ -352,7 +409,7 @@ def _sweep(out_dir: Path, force: bool) -> int:
             continue
         print(f"[run] {a} x {s} x {m}", flush=True)
         r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
-                            "--shape", s, "--mesh", m, "--out", str(out_dir)], env=env)
+                            "--shape", s, "--mesh", m, "--out", str(out_dir), *palm], env=env)
         if r.returncode != 0:
             failures.append((a, s, m))
     print(f"done; {len(failures)} failures: {failures}")
@@ -368,14 +425,41 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true", help="with --all: rerun cached cells")
     ap.add_argument("--out", type=str, default=str(ARTIFACT_DIR))
+    ap.add_argument("--palm-trace", action="store_true",
+                    help="first write <arch>__<shape>.palm_trace.json: the cell's workload "
+                         "simulated by PALM, in the same Chrome/Perfetto trace schema as "
+                         "`python -m repro_torch simulate --trace-out` (host code; combine "
+                         "with --trace-only to skip the step)")
+    ap.add_argument("--trace-only", action="store_true",
+                    help="with --palm-trace: stop after writing the trace")
+    ap.add_argument("--palm-hardware", type=str, default="tpu_v5e_4x4",
+                    help="hardware preset the --palm-trace simulation runs on")
     args = ap.parse_args(argv)
+    if args.trace_only and not args.palm_trace:
+        ap.error("--trace-only stops after --palm-trace's trace; add --palm-trace")
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     if args.all:
-        return _sweep(out_dir, args.force)
+        palm = []
+        if args.palm_trace:
+            palm = ["--palm-trace", "--palm-hardware", args.palm_hardware]
+            if args.trace_only:
+                palm.append("--trace-only")
+        return _sweep(out_dir, args.force, palm)
     if not (args.arch and args.shape):
         ap.error("--arch and --shape are required (or --all)")
     path = out_dir / f"{args.arch}__{args.shape}__{args.mesh}.json"
+    if args.palm_trace:
+        # the event-simulated timeline of this cell (host code, no step):
+        # the same schema as training and serving traces everywhere else
+        tpath = out_dir / f"{args.arch}__{args.shape}.palm_trace.json"
+        rec = palm_trace_record(args.arch, args.shape, args.palm_hardware)
+        tpath.write_text(json.dumps(rec, indent=1))
+        s = rec["summary"]
+        print(f"[palm trace written to {tpath}: {s['events']} events, "
+              f"bubble {s['bubble_fraction']:.1%}]")
+        if args.trace_only:
+            return 0
     t0 = time.time()
     try:
         fake_world(512 if args.mesh == "multi" else 256)

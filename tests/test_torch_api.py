@@ -5,13 +5,14 @@ packages and asks for exact equality — reports as JSON, traces as bytes,
 errors by type and message — on the serial path with the event and the
 batched ("auto") tiers, and for the port alone serial against the spawned
 pool. The mirrored tests are ``tests/test_api.py`` and
-``tests/test_system.py``'s two planner tests. Then the port's own rules:
-guided search raises, only an error of the batch's host compile re-runs
-its jobs on the host (a refusal of ``chain_replay`` or an error of the
-device replay leaves the sweep), a sweep runs nowhere but on the card
-unless ``device="cpu"`` asks for it, and the planners, which never
-batch, are host code. The port's batched tier replays on the CPU
-here (``device="cpu"``)."""
+``tests/test_system.py``'s two planner tests (guided search has its own
+file, ``tests/test_torch_search.py``). Then the port's own rules: only an
+error of the batch's host compile re-runs its jobs on the host (a
+refusal of ``chain_replay`` or an error of the device replay leaves the
+sweep), a sweep runs nowhere but on the card unless ``device="cpu"``
+asks for it, and the exhaustive planners, which never batch, are host
+code. The port's batched tier replays on the CPU here
+(``device="cpu"``)."""
 
 import importlib
 import json
@@ -508,25 +509,6 @@ def test_plan_parallelism_equals_reference(case):
 # the port's rules
 # ---------------------------------------------------------------------------
 
-SEARCH_REFUSALS = {
-    "Experiment.sweep": lambda: _tiny(PORT, search=TA.SearchSpace(max_plans=2)).sweep(
-        strategy="sh", search_budget=2, device="cpu"),
-    "PlannerCfg.search_strategy": lambda: TA.plan_parallelism(
-        T_get_config("yi-6b"), TC.tpu_v5e_pod(2, 2),
-        TA.PlannerCfg(global_batch=8, seq_len=128, max_plans=2, search_strategy="random")),
-    "plan_codesign strategy": lambda: TA.plan_codesign(
-        T_get_config("yi-6b"), TC.tpu_v5e_pod(2, 2), _codesign_cfg(PORT), strategy="evolve"),
-    "guided report": lambda: TA.SweepReport.from_dict(
-        {"arch": "yi-6b", "hardware": "x", "runs": [], "search": {"strategy": "sh"}}),
-}
-
-
-@pytest.mark.parametrize("what", sorted(SEARCH_REFUSALS))
-def test_guided_search_names_the_next_slice(what):
-    with pytest.raises(NotImplementedError, match="next slice.*repro_torch.search"):
-        SEARCH_REFUSALS[what]()
-
-
 def _raise(exc):
     def raiser(*a, **k):
         raise exc
@@ -614,9 +596,9 @@ HOST_PLANNERS = {
 
 @pytest.mark.parametrize("what", sorted(HOST_PLANNERS))
 def test_planners_are_host_code(monkeypatch, what):
-    """The planners' experiments run the event engine, which never reaches
-    the batched tier: they run without a card, launch nothing and give the
-    reference's reports."""
+    """The exhaustive planners' experiments run the event engine, which
+    never reaches the batched tier: they run without a card, launch nothing
+    and give the reference's reports."""
     from repro_torch import kernels
     ref = HOST_PLANNERS[what](REF)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

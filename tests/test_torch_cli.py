@@ -1,10 +1,11 @@
 """The port's command line (``python -m repro_torch``, ``repro_torch.api.cli``)
 against the reference's (``python -m repro``), mirroring
-``tests/test_cli_smoke.py`` (less its slow quickstart run and its two
-guided-search cases, which wait for the port of ``repro.search``): each
-case runs the same arguments through both ``main`` functions in process
-and asks for the same exit code, the same standard output and error (the
-program name aside), and equal files. The port's sweeping subcommands
+``tests/test_cli_smoke.py`` (its quickstart run is
+``tests/test_torch_examples.py``'s): each case runs the same arguments
+through both ``main`` functions in process and asks for the same exit
+code, the same standard output and error (the program name aside), and
+equal files; guided search's standard output only without the
+``--profile`` table's wall-clock columns. The port's sweeping subcommands
 get ``--device cpu``; one case runs the port as ``python -m repro_torch``
 in a subprocess and holds its JSON to the in-process run."""
 
@@ -214,13 +215,54 @@ def test_cli_serve_sim_and_replay(tmp_path, capsys):
     assert replay == doc
 
 
-def test_cli_guided_search_names_the_next_slice(capsys):
-    rc, out, err = _main(T_cli, ["plan", *TINY, "--global-batch", "8", "--max-plans", "3",
-                                 "--hw-flops", "100e12", "197e12", "--search", "sh",
-                                 "--search-budget", "2", "--seed", "0", "--device", "cpu"],
-                         capsys)
-    assert rc == 2 and out == ""
-    assert "guided search is not ported yet" in err and "next slice" in err
+def test_cli_plan_guided_search(tmp_path, capsys):
+    """`plan --search sh` runs the guided co-design loop: budgeted
+    full-fidelity sims, a search accounting note, and a report carrying
+    the nested SearchReport, as the reference's does."""
+    out = tmp_path / "guided.json"
+    ref, port = _both(["plan", *TINY, "--global-batch", "8", "--max-plans", "3",
+                       "--microbatch-sizes", "1", "--layouts", "s_shape",
+                       "--hw-flops", "100e12", "197e12", "--search", "sh",
+                       "--search-budget", "2", "--seed", "0", "--json", str(out)],
+                      capsys, files=[out])
+    assert port == ref and port[0] == 0
+    assert "[search sh (seed 0): " in port[1]
+    doc = json.loads(port[3][0])
+    search = doc["search"]
+    assert search["strategy"] == "sh" and search["seed"] == 0
+    assert search["full_fidelity_sims"] <= 2
+    assert search["rungs"] and search["best_curve"]
+    # faster tiles still win under the budgeted search
+    assert "197T" in doc["runs"][0]["hardware"]
+
+
+def _without_times(out):
+    """A sweep's output with ``--profile``'s table less its wall-clock
+    columns (the milliseconds, the only words there with a point)."""
+    head, table = out.split("[batched fast tier profile]")
+    return head, [" ".join(w for w in line.split() if "." not in w)
+                  for line in table.splitlines()]
+
+
+def test_cli_sweep_guided_search_deterministic(capsys):
+    """A fixed-seed guided sweep prints the same report twice and the
+    reference's; with ``--profile`` one row a rung follows the phase
+    table."""
+    argv = ["sweep", *TINY, "--global-batch", "8", "--max-plans", "4", "--microbatch-sizes",
+            "1", "--search", "random", "--search-budget", "3", "--seed", "7", "--json", "-"]
+    ref, port = _both(argv, capsys)
+    assert port == ref and port[0] == 0
+    again = _main(T_cli, [*argv, "--device", "cpu"], capsys)
+    assert _json_tail(again[1]) == _json_tail(port[1])
+    assert "[search random (seed 7): " in port[1]
+    ref, port = _both(["sweep", *TINY, "--global-batch", "8", "--max-plans", "4",
+                       "--microbatch-sizes", "1", "--hw-flops", "100e12", "197e12",
+                       "--search", "sh", "--search-budget", "2", "--seed", "0", "--profile"],
+                      capsys)
+    assert port[0] == ref[0] == 0 and port[2] == ref[2]
+    assert _without_times(port[1]) == _without_times(ref[1])
+    rows = port[1][port[1].index("      rung   jobs  batched"):].splitlines()[1:]
+    assert len(rows) == 3 and [r.split()[0] for r in rows] == ["0", "1", "2"]
 
 
 def test_cli_sweep_without_a_device_means_the_card(monkeypatch, capsys):

@@ -8,8 +8,11 @@ counter on a hand-built c10d sequence (the reference's HLO parser test,
 ``tests/test_system.py``); each kernel op's fake implementation against
 its CPU implementation (shapes, dtypes, strides); the dry-run's flops
 against ``FlopCounterMode``'s; one full-scale cell end to end, and the
-nemotron-4-340b cell that reaches flash at head dim 192. Cells on a "fake" process group run in subprocesses, so
-no process group outlives its test."""
+nemotron-4-340b cell that reaches flash at head dim 192; ``--palm-trace
+--trace-only`` against the reference's trace files. Cells on a "fake"
+process group run in subprocesses, so no process group outlives its
+test, and so does the reference's dry-run (importing it sets
+``XLA_FLAGS``)."""
 
 import dataclasses
 import importlib
@@ -451,6 +454,51 @@ def test_nemotron_prefill_fails_on_head_dim_192(tmp_path):
     assert rec["ok"] and rec["fits"] and rec["chips"] == 256
     assert 0 < rec["memory"]["peak_bytes"] < rec["target"]["total_memory"]
     assert rec["flops"] > 0 and rec["collectives"]["calls"]["total"] > 0
+
+
+PALM_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+PALM_ARGS = ["--arch", "yi-6b", "--palm-trace", "--trace-only", "--palm-hardware", "tpu_v5e_2x2"]
+
+
+@pytest.fixture(scope="module")
+def reference_palm_traces(tmp_path_factory):
+    """The reference's ``--palm-trace --trace-only`` files for yi-6b at
+    PALM_SHAPES on ``tpu_v5e_2x2``, written by one subprocess."""
+    out = tmp_path_factory.mktemp("palm_ref")
+    calls = "; ".join(f"main({PALM_ARGS + ['--shape', s, '--out', str(out)]!r})"
+                      for s in PALM_SHAPES)
+    r = subprocess.run([sys.executable, "-W", "ignore", "-c",
+                        f"from repro.launch.dryrun import main; {calls}"],
+                       env=_env(), cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return out, r.stdout.splitlines()
+
+
+@pytest.mark.parametrize("shape", PALM_SHAPES)
+def test_palm_trace_equals_reference(shape, reference_palm_traces, tmp_path, capsys):
+    """``--palm-trace --trace-only`` writes the reference's
+    ``<arch>__<shape>.palm_trace.json``, key for key and byte for byte,
+    prints its line and stops before the cell's step (no record)."""
+    ref_dir, ref_lines = reference_palm_traces
+    assert dryrun.main([*PALM_ARGS, "--shape", shape, "--out", str(tmp_path)]) == 0
+    name = f"yi-6b__{shape}.palm_trace.json"
+    port, ref = (d / name for d in (tmp_path, ref_dir))
+    assert json.loads(port.read_text()) == json.loads(ref.read_text())
+    assert port.read_text() == ref.read_text()
+    line = capsys.readouterr().out.strip()
+    assert line == next(x for x in ref_lines if name in x).replace(str(ref_dir), str(tmp_path))
+    assert sorted(p.name for p in tmp_path.iterdir()) == [name]
+    rec = json.loads(port.read_text())
+    assert rec["hardware"] == "tpu_v5e_2x2" and rec["trace"]["traceEvents"]
+    assert rec["plan"]["training"] == (shape == "train_4k")
+
+
+def test_trace_only_needs_palm_trace(tmp_path, capsys):
+    with pytest.raises(SystemExit) as err:
+        dryrun.main(["--arch", "yi-6b", "--shape", "train_4k", "--trace-only",
+                     "--out", str(tmp_path)])
+    assert err.value.code == 2 and "add --palm-trace" in capsys.readouterr().err
+    assert not any(tmp_path.iterdir())
 
 
 # --------------------------------------------------- chip_smoke.py's bounds

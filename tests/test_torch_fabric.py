@@ -6,10 +6,10 @@ and their alpha-beta bounds, collective times on the event core in every
 NoC mode, ``simulate`` on ``tiled_cluster`` (every SimResult field and
 the raw trace, FABRIC lanes, the Chrome export), the degenerate one-chip
 fabric, and the fast tier's results and reasons on the fabric machine.
-Through ``repro_torch.api`` (since the port has it): the fabric's search
-axes, co-design over a fabric axis and pooled fabric sweeps, as the
-reference's ``tests/test_fabric.py`` holds them; its guided-search cases
-wait for the port of ``repro.search``."""
+Through ``repro_torch.api`` and ``repro_torch.search``: the fabric's
+search axes, co-design over a fabric axis (exhaustive and guided),
+pooled fabric sweeps and the serving rungs' request truncation, as the
+reference's ``tests/test_fabric.py`` holds them."""
 
 import dataclasses
 import itertools
@@ -472,9 +472,9 @@ def test_fabric_axes_enumerate_derived_specs():
 
 @pytest.mark.parametrize("strategy", ["exhaustive", "sh"])
 def test_plan_codesign_over_fabric_axis_round_trips(strategy):
-    """The exhaustive co-design over a fabric axis equals the reference's
-    and its winner's FabricSpec survives the JSON round trip; the guided
-    (successive-halving) case raises until ``search`` is ported."""
+    """The co-design over a fabric axis, exhaustive and guided (successive
+    halving, its rungs on the CPU), equals the reference's, and its
+    winner's FabricSpec survives the JSON round trip."""
     guided = {} if strategy == "exhaustive" else dict(
         search_strategy="sh", search_budget=2, search_seed=0)
 
@@ -485,14 +485,53 @@ def test_plan_codesign_over_fabric_axis_round_trips(strategy):
             layouts=(api.Layout.S_SHAPE,),
             hardware_search=api.HardwareSearchSpace(fabric_bw=(12.5 * GB, 25 * GB)), **guided)
         get_config = R_get_config if side is REF else T_get_config
-        return api.plan_codesign(get_config("yi-6b"), side[2](), cfg)
-    if strategy == "sh":
-        with pytest.raises(NotImplementedError, match="next slice"):
-            codesign(PORT)
-        return
+        device = {"device": "cpu"} if guided and side is PORT else {}
+        return api.plan_codesign(get_config("yi-6b"), side[2](), cfg, **device)
     ref, port = _both(codesign)
     assert port.to_json() == ref.to_json()
+    assert port.report.to_json() == ref.report.to_json()
+    assert (port.report.search is None) == (strategy == "exhaustive")
     winner = port.hardware
     top = winner.fabric.num_levels - 1
     assert winner.fabric.levels[top].bandwidth in (12.5 * GB, 25 * GB)
     assert TA.HardwareSpec.from_json(winner.to_json()).fabric == winner.fabric
+
+
+# ---------------------------------------------------------------------------
+# serving-rung fidelity truncation (slo objective x guided search)
+# ---------------------------------------------------------------------------
+
+def test_fidelity_truncates_serving_workloads():
+    """``Fidelity.apply_serving`` cuts a workload to ``max_requests`` as the
+    reference's does: the generated count, a replay's request list, and
+    nothing when already short or at full fidelity."""
+    from repro.search import FULL as R_FULL, Fidelity as R_Fidelity
+    from repro.serving.system import ServingSpec as R_ServingSpec
+    from repro.serving.workload import WorkloadSpec as R_WorkloadSpec
+    from repro_torch.search import FULL, Fidelity
+    from repro_torch.serving.system import ServingSpec
+    from repro_torch.serving.workload import WorkloadSpec
+    rows = [[0.1 * i, 8, 4] for i in range(6)]
+    cuts = []
+    for fid_cls, full, spec_cls, wl_cls in ((R_Fidelity, R_FULL, R_ServingSpec, R_WorkloadSpec),
+                                            (Fidelity, FULL, ServingSpec, WorkloadSpec)):
+        fid = fid_cls(name="rung", max_requests=4)
+        assert not fid.is_full
+        spec = spec_cls(workload=wl_cls(num_requests=64))
+        cut = fid.apply_serving(spec)
+        assert cut.workload.num_requests == 4
+        assert spec.workload.num_requests == 64       # original untouched
+        # replay workloads slice the explicit request list too
+        replay = spec_cls(workload=wl_cls(kind="replay", requests=rows, num_requests=6))
+        cut_replay = fid.apply_serving(replay)
+        assert cut_replay.workload.requests == rows[:4]
+        assert cut_replay.workload.num_requests == 4
+        # already small enough / full fidelity: pass through unchanged
+        small = spec_cls(workload=wl_cls(num_requests=3))
+        assert fid.apply_serving(small) is small
+        assert full.apply_serving(spec) is spec
+        assert fid.apply_serving(None) is None
+        with pytest.raises(ValueError, match="max_requests") as err:
+            fid_cls(name="bad", max_requests=0)
+        cuts.append((dataclasses.asdict(cut), dataclasses.asdict(cut_replay), str(err.value)))
+    assert cuts[1] == cuts[0]

@@ -5,10 +5,9 @@ recorded counts; ``sim_metrics``/``run_metrics`` on the same simulations
 tiers), ``payload_by_level`` on ``tiled_cluster``, the counter tracks on
 the Chrome export, ``aggregate_run_metrics`` on the same outcome lists,
 the serving documents of one reference serving report, and the metrics
-documents of the port's sweeps (serial and pooled) and serving reports
-against the reference's. Its tests of guided search's reports wait for
-the port of ``repro.search``; its numpy-less fallback has no counterpart
-here."""
+documents of the port's sweeps (serial and pooled), guided searches and
+serving reports against the reference's. Its numpy-less fallback has no
+counterpart here."""
 
 import dataclasses
 import json
@@ -399,3 +398,33 @@ def test_serving_metrics_attach_and_roundtrip():
     assert "kv_occupancy_bytes" in series and "queue_depth" in series
     off = T_simulate_serving("hymba-1.5b", "grayskull", None, spec)
     assert off.metrics is None and "metrics" not in off.to_dict()
+
+
+def test_search_profile_and_metrics_promoted():
+    """A guided search's profile has a row a generation and its metrics
+    document the ranked full-fidelity runs (sim, equal to the reference's)
+    and the search's own host counters."""
+    from repro.search.engine import run_search as R_run_search
+    from repro_torch.search.engine import run_search as T_run_search
+    reps = []
+    for api, run_search, dev in ((RA, R_run_search, {}), (TA, T_run_search, {"device": "cpu"})):
+        exp = api.Experiment(arch="yi-6b", hardware=HW, seq_len=128, global_batch=8,
+                             metrics=True, search=api.SearchSpace(
+                                 degrees=[(2, 1, 2), (1, 2, 2), (2, 2, 1), (4, 1, 1)],
+                                 microbatch_sizes=(1, 2)))
+        reps.append(run_search(exp, strategy="sh", budget=6, seed=0, profile=True, **dev))
+    ref, rep = reps
+    prof = rep.profile
+    assert prof is not None and prof["generations"]
+    assert all("jobs" in g for g in prof["generations"])
+    assert [g["jobs"] for g in prof["generations"]] == \
+        [g["jobs"] for g in ref.profile["generations"]]
+    m = rep.metrics
+    assert m is not None
+    assert m["sim"]["runs"] == len(rep.runs)
+    assert _doc(m["sim"]) == _doc(ref.metrics["sim"])
+    host = m["host"]["counters"]
+    assert host["host.search.evaluations"] >= len(rep.runs)
+    assert host["host.search.generation.calls"] == len(prof["generations"])
+    assert host["host.search.evaluations"] == ref.metrics["host"]["counters"][
+        "host.search.evaluations"]
