@@ -24,6 +24,15 @@ singleton whose metric handles and spans do nothing and allocate
 nothing, so instrumented call sites guard with ``if registry:`` (or
 just call through — the no-ops are attribute lookups plus a pass).
 
+The process's current registry: :func:`recording` installs one for the
+length of a ``with`` block (the previous one comes back on exit) and
+:func:`span` opens a span on whichever is installed, so code deep in a
+step can be timed without a registry threaded through its calls. With
+none installed (:data:`NULL_REGISTRY`) a span site reads one global and
+gets the shared no-op span. While ``torch.profiler`` records, a live
+span also opens ``torch.profiler.record_function(name)``, which puts it
+on the profiler's host clock beside the device kernels it launched.
+
 JSON round-trip: ``to_dict()`` emits a plain
 ``{"counters": {...}, "gauges": {...}, "histograms": {...}}`` document;
 ``MetricsRegistry.from_dict`` restores it; ``merge_dict`` folds another
@@ -34,12 +43,15 @@ shipped back from process-pool shards.
 
 from __future__ import annotations
 
+import sys
+from contextlib import contextmanager
 from time import perf_counter
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "NULL_REGISTRY", "make_registry", "summarize_metrics",
+    "current", "recording", "span",
 ]
 
 _DOMAINS = ("sim.", "host.")
@@ -109,25 +121,44 @@ class Histogram:
                 "min": self.min, "max": self.max}
 
 
+def _profiler_range(name: str):
+    """An open ``torch.profiler.record_function(name)`` while the
+    profiler records, else None. torch is read from ``sys.modules``: a
+    process that never imported it has no profiler running."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd.profiler._is_profiler_enabled:
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class _Span:
     """Wall-clock span: ``with registry.span("host.sweep.evaluate"):``
     adds elapsed microseconds to ``<name>.us`` and bumps
-    ``<name>.calls``."""
+    ``<name>.calls`` (and marks the profiler's timeline while it
+    records)."""
 
-    __slots__ = ("_us", "_calls", "_t0")
+    __slots__ = ("_name", "_us", "_calls", "_t0", "_range")
 
-    def __init__(self, us: Counter, calls: Counter):
+    def __init__(self, name: str, us: Counter, calls: Counter):
+        self._name = name
         self._us = us
         self._calls = calls
         self._t0 = 0.0
+        self._range = None
 
     def __enter__(self) -> "_Span":
+        self._range = _profiler_range(self._name)
         self._t0 = perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
         self._us.inc((perf_counter() - self._t0) * 1e6)
         self._calls.inc()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
 
 
 class MetricsRegistry:
@@ -173,7 +204,7 @@ class MetricsRegistry:
         return h
 
     def span(self, name: str) -> _Span:
-        return _Span(self.counter(name + ".us"),
+        return _Span(name, self.counter(name + ".us"),
                      self.counter(name + ".calls"))
 
     # -- serialization ------------------------------------------------------
@@ -332,6 +363,35 @@ def make_registry(enabled: bool):
     """The one constructor call sites use: a live registry when enabled,
     the shared no-op singleton otherwise."""
     return MetricsRegistry() if enabled else NULL_REGISTRY
+
+
+_current = NULL_REGISTRY
+
+
+def current():
+    """The registry :func:`span` records into: the innermost
+    :func:`recording`'s, else :data:`NULL_REGISTRY`."""
+    return _current
+
+
+@contextmanager
+def recording(registry) -> Iterator:
+    """Install ``registry`` as the process's current registry for the
+    ``with`` block; the previous one comes back on exit, also on an
+    exception."""
+    global _current
+    previous, _current = _current, registry
+    try:
+        yield registry
+    finally:
+        _current = previous
+
+
+def span(name: str):
+    """A span on the current registry: the shared no-op span when none is
+    installed, so an instrumented hot path costs a global read and a
+    call."""
+    return _current.span(name)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..models.lm import LM
+from ..obs.registry import span
 from ..parallel.comm import gather_dim
 from ..parallel.sharding import FSDP, local_rows
 
@@ -59,15 +60,16 @@ def make_prefill_step(model: LM):
 
     @torch.inference_mode()
     def prefill(batch):
-        whole = torch.as_tensor(batch[key], device=model.device)
-        mesh = model.cfg.mesh
-        x = whole if mesh is None else local_rows(whole, mesh, model.comm.batch_axes)
-        logits = model(logits_positions=positions, **{key: x})
-        if x.shape[0] == whole.shape[0]:          # one device, or a replicated batch
+        with span("host.serve.prefill"):      # to the logits' enqueue, no sync
+            whole = torch.as_tensor(batch[key], device=model.device)
+            mesh = model.cfg.mesh
+            x = whole if mesh is None else local_rows(whole, mesh, model.comm.batch_axes)
+            logits = model(logits_positions=positions, **{key: x})
+            if x.shape[0] == whole.shape[0]:          # one device, or a replicated batch
+                return logits
+            for d in reversed(model.comm.batch_dims):  # minor axis first
+                logits = gather_dim(logits, 0, mesh.get_group(d))
             return logits
-        for d in reversed(model.comm.batch_dims):  # minor axis first
-            logits = gather_dim(logits, 0, mesh.get_group(d))
-        return logits
 
     return prefill
 

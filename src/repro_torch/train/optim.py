@@ -20,6 +20,7 @@ from typing import Dict, Mapping
 
 import torch
 
+from ..obs.registry import span
 from ..parallel.comm import all_reduce_over, is_dtensor, local
 
 __all__ = ["OptimizerCfg", "lr_at", "init_opt_state", "global_norm", "apply_optimizer",
@@ -103,6 +104,12 @@ def apply_optimizer(cfg: OptimizerCfg, params: Dict[str, torch.Tensor],
     at most three leaf-sized fp32 temporaries. DTensor leaves (parameters,
     gradients and moments at the same placements) update each rank's
     local shards; only the global norm communicates."""
+    with span("host.train.apply_optimizer"):
+        return _update(cfg, params, grads, state)
+
+
+def _update(cfg: OptimizerCfg, params: Dict[str, torch.Tensor],
+            grads: Mapping[str, torch.Tensor], state: Dict) -> Dict[str, torch.Tensor]:
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     gnorm = global_norm(grads)

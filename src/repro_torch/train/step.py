@@ -29,6 +29,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..models.lm import LM, RunCfg, init_params, loss_fn
+from ..obs.registry import span
 from ..parallel.comm import is_dtensor, local
 from ..parallel.sharding import MeshPlacements, local_rows
 from .optim import OptimizerCfg, apply_optimizer, init_opt_state
@@ -66,8 +67,9 @@ def _with_mesh_cfg(cfg: TrainCfg, mesh) -> TrainCfg:
 def sync_model(state: TrainState) -> None:
     """Copy the masters into the model's weights (rounded to their types);
     on a mesh, each rank its local shards."""
-    for name, w in state.model.named_parameters():
-        local(w).copy_(local(state.params[name]))
+    with span("host.train.sync_model"):
+        for name, w in state.model.named_parameters():
+            local(w).copy_(local(state.params[name]))
 
 
 def init_train_state(arch: ArchConfig, cfg: TrainCfg, generator: torch.Generator,
@@ -142,8 +144,10 @@ def accumulate_grads(model: LM, batch: Mapping, cfg: TrainCfg
     loss_acc, per_mb = torch.zeros((), device=model.device), []
     try:
         for i in range(G):
-            loss, metrics = loss_fn(model, {k: v[i] for k, v in batch.items()})
-            loss.backward()
+            with span("host.train.forward"):
+                loss, metrics = loss_fn(model, {k: v[i] for k, v in batch.items()})
+            with span("host.train.backward"):     # waits for autograd's device thread
+                loss.backward()
             loss_acc = loss_acc + metrics["loss"].detach() / G
             per_mb.append({k: m.detach() for k, m in metrics.items()})
             del loss, metrics

@@ -146,6 +146,120 @@ def test_null_registry_is_falsy_noop():
     assert TO.NULL_REGISTRY.rows() == []
 
 
+# ---------------------------------------------------------------------------
+# the process's current registry: recording, current, span
+# ---------------------------------------------------------------------------
+
+def test_span_off_path_is_the_shared_null_span_and_allocates_nothing():
+    import tracemalloc
+    from repro_torch.obs import registry
+
+    assert registry.current() is TO.NULL_REGISTRY
+    assert registry.span("host.train.forward") is registry._NULL_SPAN
+
+    def spans(n):
+        for _ in range(n):
+            with registry.span("host.train.forward"):
+                pass
+
+    def held(n):                      # the same loop around the shared span itself
+        null = registry._NULL_SPAN
+        for _ in range(n):
+            with null:
+                pass
+
+    def peak_rise(loop):
+        """The traced peak's rise over a loop of 10,000: a transient
+        allocation a call shows as its size."""
+        loop(10)
+        tracemalloc.start()
+        try:
+            loop(10)
+            tracemalloc.reset_peak()
+            start = tracemalloc.get_traced_memory()[0]
+            loop(10_000)
+            return tracemalloc.get_traced_memory()[1] - start
+        finally:
+            tracemalloc.stop()
+    assert peak_rise(spans) == peak_rise(held)
+
+
+def test_spans_nest_and_fold_us_and_calls():
+    from repro_torch.obs import registry
+
+    reg = TO.MetricsRegistry()
+    with registry.recording(reg) as installed:
+        assert installed is reg and registry.current() is reg
+        for _ in range(3):
+            with registry.span("host.train.backward"):
+                with registry.span("host.train.forward"):
+                    pass
+        with registry.span("host.train.forward"):
+            pass
+    counters = reg.to_dict()["counters"]
+    assert counters["host.train.backward.calls"] == 3
+    assert counters["host.train.forward.calls"] == 4
+    assert counters["host.train.backward.us"] > 0 and counters["host.train.forward.us"] > 0
+    assert registry.current() is TO.NULL_REGISTRY
+
+
+def test_module_span_names_keep_the_domain_prefix():
+    from repro_torch.obs import registry
+
+    with registry.recording(TO.MetricsRegistry()):
+        for bad in ("train.forward", "forward", "hostile.forward"):
+            with pytest.raises(ValueError):
+                registry.span(bad)
+    registry.span("forward")            # the null registry records nothing and checks nothing
+
+
+def test_span_marks_the_profiler_only_while_it_records():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import registry
+
+    reg = TO.MetricsRegistry()
+    with registry.recording(reg):
+        with registry.span("host.serve.prefill"):          # no profiler: no record
+            torch.ones(4).add_(1)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with registry.span("host.train.backward"):
+                with registry.span("host.train.forward"):
+                    torch.ones(4).add_(1)
+        with registry.span("host.train.apply_optimizer"):   # after the profiler
+            torch.ones(4).add_(1)
+    with profile(activities=[ProfilerActivity.CPU]) as off:
+        with registry.span("host.train.sync_model"):         # no registry: no record
+            torch.ones(4).add_(1)
+    names = [e.name for e in prof.events() if e.name.startswith("host.")]
+    assert sorted(names) == ["host.train.backward", "host.train.forward"]
+    outer = next(e for e in prof.events() if e.name == "host.train.backward")
+    inner = next(e for e in prof.events() if e.name == "host.train.forward")
+    assert outer.time_range.start <= inner.time_range.start <= inner.time_range.end \
+        <= outer.time_range.end
+    assert not [e.name for e in off.events() if e.name.startswith("host.")]
+    assert reg.to_dict()["counters"]["host.serve.prefill.calls"] == 1
+    assert reg.to_dict()["counters"]["host.train.apply_optimizer.calls"] == 1
+
+
+def test_recording_restores_the_previous_registry():
+    from repro_torch.obs import registry
+
+    outer, inner = TO.MetricsRegistry(), TO.MetricsRegistry()
+    with registry.recording(outer):
+        with pytest.raises(RuntimeError):
+            with registry.recording(inner):
+                assert registry.current() is inner
+                with registry.span("host.train.forward"):
+                    raise RuntimeError("inside the span")
+        assert registry.current() is outer
+        with registry.span("host.train.forward"):
+            pass
+    assert registry.current() is TO.NULL_REGISTRY
+    assert inner.to_dict()["counters"]["host.train.forward.calls"] == 1
+    assert outer.to_dict()["counters"]["host.train.forward.calls"] == 1
+
+
 def test_summarize_metrics_text():
     a, b = _both_runs()
     text = TO.summarize_metrics(b.metrics, title="t")
