@@ -192,6 +192,11 @@ FLASH_HD192_CASES = [(1, 1, 4, 2, 192), (2, 127, 4, 2, 192), (1, 200, 12, 1, 192
 # at hd 80, and hd 128 (B, S, nh, nkv, hd)
 FLASH_NONCAUSAL_CASES = [(2, 130, 4, 4, 80), (2, 200, 8, 2, 128)]
 HYMBA_WINDOW = 1024
+ROPE_MAIN = (1, 3500, 32, 4, 128)        # yi-6b prefill (the benchmark's): B, S, nh, nkv, hd
+# decode's S 1; hymba's, hubert's and nemotron's head dims (64, 80, 192); a
+# head dim whose halves (6) take single elements
+ROPE_CASES = [(4, 1, 32, 4, 128), (2, 2000, 25, 5, 64), (2, 300, 16, 16, 80),
+              (1, 300, 96, 8, 192), (2, 70, 6, 3, 12)]
 RMS_CASES = [(64, 256), (100, 512), (256, 1024)]
 # prefill B*S, teacher-forced S, decode B, prefill's final norm (B), teacher-forced decode
 RMS_MAIN = [(4000, 4096), (64, 4096), (4, 4096), (2, 4096), (1, 4096)]
@@ -628,6 +633,70 @@ def flash_bwd_hd192_parity(gen, dtype):
         q, k, v, window, do)
 
 
+def _rope_table(positions, half, theta=10_000.0):
+    """``layers.rope_qk``'s table: cos, sin [B,S,half] fp32."""
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=positions.device)
+                             / half))
+    angles = positions[..., :, None].float() * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _rope_inputs(gen, B, S, nh, nkv, hd, dtype, first=0):
+    """q, k, their gradients (a tenth of the entries +0 or -0: the sign of a
+    zero sum is autograd's to match), cos, sin at positions first + s."""
+    q, k = _randn(gen, B, S, nh, hd, dtype=dtype), _randn(gen, B, S, nkv, hd, dtype=dtype)
+    grads = []
+    for shape in ((B, S, nh, hd), (B, S, nkv, hd)):
+        g = _randn(gen, *shape, dtype=dtype)
+        u = torch.rand(shape, generator=gen, device="cuda")
+        grads.append(torch.where(u < 0.05, -0.0, torch.where(u < 0.1, 0.0, g)).to(dtype))
+    positions = first + torch.arange(S, device="cuda").expand(B, S)
+    return q, k, *grads, *_rope_table(positions, hd // 2)
+
+
+def _bits_differ(a, b):
+    """Elements of a and b (one type) whose bits differ."""
+    wide = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    return int((a.view(wide) != b.view(wide)).sum())
+
+
+def rope_parity(gen):
+    """The rope kernel against its plain version, forward and backward, bit
+    for bit, at yi-6b's prefill shape and ``ROPE_CASES`` in bf16 and fp32;
+    at the prefill shape the backward against autograd of the plain
+    version on the card too. One launch a call, counted on ``rope`` /
+    ``rope_bwd``."""
+    from repro_torch.kernels import rope, rope_bwd
+    from repro_torch.kernels.ref import rope_bwd_ref, rope_ref
+    from repro_torch.kernels.rope import vector_path
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        for case in [ROPE_MAIN, *ROPE_CASES]:
+            q, k, gq, gk, cos, sin = _rope_inputs(gen, *case, dtype, first=7 * case[1] % 2048)
+            before = (rope.launches, rope_bwd.launches)
+            got = (*rope(q, k, cos, sin), *rope_bwd(gq, gk, cos, sin))
+            torch.cuda.synchronize()
+            if (rope.launches, rope_bwd.launches) != (before[0] + 1, before[1] + 1):
+                raise AssertionError(f"rope {tag} {case}: launches {before} -> "
+                                     f"{(rope.launches, rope_bwd.launches)}")
+            want = (*rope_ref(q, k, cos, sin), *rope_bwd_ref(gq, gk, cos, sin))
+            if case == ROPE_MAIN:
+                qa, ka = q.clone().requires_grad_(), k.clone().requires_grad_()
+                torch.autograd.backward(rope_ref(qa, ka, cos, sin), (gq, gk))
+                want_ag = (qa.grad, ka.grad)
+                bad = [_bits_differ(a, b) for a, b in zip(got[2:], want_ag)]
+                if any(bad):
+                    raise AssertionError(f"rope {tag} {case} backward: {bad} elements differ "
+                                         f"from autograd's")
+            bad = [_bits_differ(a, b) for a, b in zip(got, want)]
+            if any(bad):
+                raise AssertionError(f"rope {tag} {case}: {bad} elements (q, k, dq, dk) differ "
+                                     f"from the plain version's")
+            path = "16-byte vectors" if vector_path(q, k, cos, sin) else "single elements"
+            log(f"[parity] rope {tag} B,S,nh,nkv,hd={case} ({path}): forward and backward "
+                f"bit-equal")
+
+
 def phase_parity():
     from repro_torch.kernels import rmsnorm
     from repro_torch.kernels.ref import rmsnorm_ref
@@ -748,6 +817,7 @@ def phase_parity():
                   f"{'initial_state and ' if state is not None else ''}return_state", chunk,
                   *_ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, True, True),
                   initial_state=state, return_state=True)
+    rope_parity(gen)
     return errs
 
 
@@ -787,10 +857,10 @@ class Launches(dict):
 def plain_versions():
     """Route the model's kernel calls to their plain PyTorch versions
     (``repro_torch.models.layers`` looks the wrappers up on
-    ``repro_torch.kernels`` at each call; ``KERNELS`` keeps the wrappers,
-    whose counts must stay 0)."""
+    ``repro_torch.kernels`` at each call; ``KERNELS`` and ``POINTWISE`` keep
+    the wrappers, whose counts must stay 0)."""
     from repro_torch import kernels
-    saved = {name: getattr(kernels, name) for name in kernels.KERNELS}
+    saved = {name: getattr(kernels, name) for name in (*kernels.KERNELS, *kernels.POINTWISE)}
     for name in saved:
         setattr(kernels, name, getattr(kernels.ref, f"{name}_ref"))
     try:
@@ -1053,6 +1123,16 @@ def _teacher_forced_gate(name, arch, tf_len, tf_layers, tf_tokens, model, tf_cfg
         raise AssertionError(f"teacher-forced argmax agreement {agree:.3f} < 0.95")
 
 
+def _check_rope_launches(what, want):
+    """The rope kernel's launches since the last reset: one a layer with
+    attention, forward and backward apart."""
+    from repro_torch import kernels
+    got = (kernels.rope.launches, kernels.rope_bwd.launches)
+    if got != (want, 0):
+        raise AssertionError(f"{what}: rope launched {got} (forward, backward), expected "
+                             f"({want}, 0)")
+
+
 def phase_slice(name, tf_len, tf_layers, total, tf_cfg=None):
     """Serve full-width ``name`` through the port's entry points; adds the
     main path's launches to ``total``. The teacher-forced check runs
@@ -1082,6 +1162,7 @@ def phase_slice(name, tf_len, tf_layers, total, tf_cfg=None):
     want = _forward_launches(arch)
     if counts != want:
         raise AssertionError(f"prefill launched {counts}, expected {want}")
+    _check_rope_launches(f"{name} prefill", arch.num_layers if arch.has_attention else 0)
     log(f"[slice] (a,b) {name} prefill B=2 S=2000: logits {tuple(logits.shape)} finite; "
         f"launches {counts}")
     total.add(counts, arch)
@@ -1120,6 +1201,7 @@ def phase_slice(name, tf_len, tf_layers, total, tf_cfg=None):
         raise AssertionError("serve_step output malformed")
     if counts != _launches(rmsnorm=4 * _norms(arch)):
         raise AssertionError(f"4 serve steps launched {counts}")
+    _check_rope_launches(f"{name} 4 serve steps", 4 * arch.num_layers if arch.has_attention else 0)
     log(f"[slice] (e) {name} 4 serve steps B=4: logits {tuple(lg.shape)} finite; "
         f"launches {counts}")
     return model, prefill, serve
@@ -1232,12 +1314,39 @@ def _rms_row(gen, T, H):
     return row
 
 
+def _rope_rows(gen, case=ROPE_MAIN):
+    """The rope kernel, forward and backward, at ``case`` (yi-6b's prefill
+    shape by default), bf16: q and k read and written once, the table read
+    once; the plain version beside it (``ref.rope_ref``, the eager lines
+    past the table), and the table's own eager lines."""
+    from repro_torch.kernels import rope, rope_bwd
+    from repro_torch.kernels.ref import rope_bwd_ref, rope_ref
+    q, k, gq, gk, cos, sin = _rope_inputs(gen, *case, torch.bfloat16)
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size() + 2 * cos.numel() * 4
+    bound, by = _bound(nbytes, 6 * (q.numel() + k.numel()), torch.float32)
+    shape = f"q{list(q.shape)} k{list(k.shape)} bf16"
+    positions = torch.arange(case[1], device="cuda").expand(case[0], case[1])
+    table_ms = time_device(lambda: _rope_table(positions, case[4] // 2))
+    rows = [dict(name="rope", ms=time_device(lambda: rope(q, k, cos, sin)),
+                 plain_ms=time_device(lambda: rope_ref(q, k, cos, sin)), library_ms=None,
+                 bound_ms=bound, bound_by=by, shape=shape),
+            dict(name="rope_bwd", ms=time_device(lambda: rope_bwd(gq, gk, cos, sin)),
+                 plain_ms=time_device(lambda: rope_bwd_ref(gq, gk, cos, sin)), library_ms=None,
+                 bound_ms=bound, bound_by=by, shape=shape)]
+    for r in rows:
+        log(f"[time] {r['name']} {shape}: {100 * bound / r['ms']:.1f}% of the bound; the table's "
+            f"eager lines {table_ms:.4f} ms")
+    return rows
+
+
 def times_attn_kernels(gen):
     """yi-6b's kernels at its prefill shapes, bf16. The kernel line keeps
     the contiguous flash row and RMSNorm at [4000, 4096]; the strided flash
-    row is logged."""
+    row and the rope kernel's rows are logged."""
     rows = [_flash_row(gen, views=False)]
     _log_row(_flash_row(gen, views=True))
+    for r in _rope_rows(gen):
+        _log_row(r)
     rows.append(_rms_row(gen, *RMS_MAIN[0]))
     return rows
 
@@ -3754,6 +3863,7 @@ def phase_capped_slice(name, total, time_kernels, decode_spans, gate_layers=4, t
     want = _forward_launches(arch)
     if counts != want:
         raise AssertionError(f"prefill launched {counts}, expected {want}")
+    _check_rope_launches(f"{name} prefill", arch.num_layers if arch.has_attention else 0)
     log(f"[slice] (a,b) {name} prefill B=2 S=2000 from {key}: logits {tuple(logits.shape)} "
         f"finite; launches {counts}")
     total.add(counts, arch)

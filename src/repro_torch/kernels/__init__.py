@@ -10,6 +10,10 @@ raises.
 ``flash_attention``, ``rmsnorm`` and ``ssd_scan`` are autograd Functions
 whose backward is the wrapper ``flash_attention_bwd`` / ``rmsnorm_bwd`` /
 ``ssd_scan_bwd`` (a kernel of its own, counted under its own name).
+``rope`` rotates a layer's q and k in one launch, with ``rope_bwd`` as its
+backward; the two are counted apart from the others (``POINTWISE``, not
+``KERNELS`` or ``launch_counts``) and their op is
+``torch.ops.repro_torch_pointwise.rope``.
 ``chain_replay`` is the simulator's batched chain replay
 (``repro_torch.core.fastbatch``), fp64 and not differentiable.
 Each forward and backward is one ``torch.library`` op,
@@ -25,14 +29,18 @@ from . import ref
 from .chain_replay import chain_replay
 from .flash_attention import flash_attention, flash_attention_bwd
 from .rmsnorm import rmsnorm, rmsnorm_bwd
+from .rope import rope, rope_bwd
 from .ssd_scan import ssd_scan, ssd_scan_bwd
 
-__all__ = ["flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd", "ssd_scan",
-           "ssd_scan_bwd", "chain_replay", "ref", "KERNELS", "launch_counts", "reset_launch_counts"]
+__all__ = ["flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd", "rope", "rope_bwd",
+           "ssd_scan", "ssd_scan_bwd", "chain_replay", "ref", "KERNELS", "POINTWISE",
+           "launch_counts", "reset_launch_counts"]
 
 KERNELS = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
            "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd, "ssd_scan": ssd_scan,
            "ssd_scan_bwd": ssd_scan_bwd, "chain_replay": chain_replay}
+# kernels kept out of KERNELS and launch_counts (rope.py says why)
+POINTWISE = {"rope": rope, "rope_bwd": rope_bwd}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -41,5 +49,5 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in (*KERNELS.values(), *POINTWISE.values()):
         fn.launches = 0

@@ -9,7 +9,8 @@ library is loaded with ``ctypes``. Nothing here is built or loaded at
 import time.
 
 Each wrapper's forward and backward is one ``torch.library`` operator in
-the ``repro_torch`` namespace (``define_op``): a CUDA implementation (the
+the ``repro_torch`` namespace (``define_op``; the rotary embedding's in
+``repro_torch_pointwise``, see ``rope.py``): a CUDA implementation (the
 launch), a CPU implementation (the plain version from ``ref.py``) and a
 fake implementation for tensors without storage (the meta device, or a
 ``FakeTensorMode``). The fake implementation runs the CUDA path's checks
@@ -36,7 +37,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
@@ -85,6 +86,7 @@ SIGNATURES = {
     "ssd_scan_bwd_info": (_I, [_I, _I, ctypes.POINTER(ctypes.c_int)]),
     "ssd_scan_bwd_wgmma_launch": (_I, [_P] * 20 + [_LL] + [_I] * 6 + [_P]),
     "ssd_scan_bwd_wgmma_info": (_I, [_I, ctypes.POINTER(ctypes.c_int)]),
+    "rope_launch": (_I, [_P] * 6 + [_I] * 7 + [_P]),
     "chain_replay_launch": (_I, [_P, _I, _P, _I] + [_P] * 6 + [_I, _P]),
     "chain_replay_info": (_I, [_I, ctypes.POINTER(ctypes.c_int)]),
     "cuda_error_string": (ctypes.c_char_p, [_I]),
@@ -203,30 +205,32 @@ def sms_of(t: torch.Tensor) -> int:
     return TARGET_SMS if _no_storage(t) else sm_count(t.device.index or 0)
 
 
-LIB = torch.library.Library("repro_torch", "DEF")
-_FAKE: Dict[str, Callable] = {}
+_LIBS: Dict[str, torch.library.Library] = {}
+_FAKE: Dict[Tuple[str, str], Callable] = {}
 
 
-def define_op(name: str, schema: str, *, cuda: Callable, cpu: Callable, fake: Callable):
-    """Define ``torch.ops.repro_torch.<name>`` with ``schema`` (the argument
+def define_op(name: str, schema: str, *, cuda: Callable, cpu: Callable, fake: Callable,
+              namespace: str = "repro_torch"):
+    """Define ``torch.ops.<namespace>.<name>`` with ``schema`` (the argument
     list and returns, e.g. ``"(Tensor x, float eps) -> Tensor"``): ``cuda``
     for CUDA tensors (the launch), ``cpu`` for CPU tensors (the plain
     version), ``fake`` for tensors without storage (the CUDA path's checks
     and allocations; no launch). Returns the op."""
-    LIB.define(name + schema)
-    LIB.impl(name, cuda, "CUDA")
-    LIB.impl(name, cpu, "CPU")
-    torch.library.register_fake(f"repro_torch::{name}", fake, lib=LIB)
-    _FAKE[name] = fake
-    return getattr(torch.ops.repro_torch, name)
+    if namespace not in _LIBS:
+        _LIBS[namespace] = torch.library.Library(namespace, "DEF")
+    lib = _LIBS[namespace]
+    lib.define(name + schema)
+    lib.impl(name, cuda, "CUDA")
+    lib.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"{namespace}::{name}", fake, lib=lib)
+    _FAKE[(namespace, name)] = fake
+    return getattr(getattr(torch.ops, namespace), name)
 
 
 def fake_impl(op) -> Optional[Callable]:
-    """The fake implementation of a ``repro_torch`` op (an ``OpOverload``
-    or its packet), or None for any other op."""
-    if op.namespace != "repro_torch":
-        return None
-    return _FAKE[op.__name__.split(".")[0]]
+    """The fake implementation of an op ``define_op`` defined (an
+    ``OpOverload``), or None for any other op."""
+    return _FAKE.get((op.namespace, op.__name__.split(".")[0]))
 
 
 def refuse_dtensor(op: str, *tensors) -> None:

@@ -8,6 +8,11 @@ head-major SSD scan.
 replay (``csrc/chain_replay.cu``): the same int32 program walked with torch
 ops on (G,) fp64 vectors, each segment's fold an explicit add a row.
 
+``rope_ref`` is the eager rotary embedding of ``repro.models.layers.rope``
+past its table, for q and k [B,S,n,hd]; ``rope_bwd_ref`` its gradient in
+autograd's order of roundings (held bit for bit against autograd in
+``tests/test_torch_rope.py``).
+
 The three backwards (``flash_attention_bwd_ref``, ``rmsnorm_bwd_ref``,
 ``ssd_scan_bwd_ref``) are written out, not taken from autograd: they are
 the math of the CUDA backward kernels, and ``tests/test_torch_grad.py``
@@ -24,8 +29,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["flash_attention_ref", "flash_attention_fwd_ref", "flash_attention_bwd_ref",
-           "rmsnorm_ref", "rmsnorm_bwd_ref", "ssd_scan_ref", "ssd_scan_bwd_ref", "LOG2E",
-           "chain_replay_ref", "CHAIN_OPS", "np_maximum", "np_minimum"]
+           "rmsnorm_ref", "rmsnorm_bwd_ref", "rope_ref", "rope_bwd_ref", "ssd_scan_ref",
+           "ssd_scan_bwd_ref", "LOG2E", "chain_replay_ref", "CHAIN_OPS", "np_maximum", "np_minimum"]
 
 LOG2E = 1.4426950408889634       # log2(e): the LSE's units
 
@@ -377,6 +382,44 @@ def rmsnorm_bwd_ref(x, w, dy, eps=1e-5):
     dx = r * (wf * dyf) - xf * (r * r * r) * c
     dw = (dyf * xf * r).sum(dim=0)
     return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def _rotate(x, cos, sin):
+    """``repro.models.layers.rope`` past its table: x [B,S,n,hd], cos and
+    sin [B,S,hd/2] fp32."""
+    half = x.shape[-1] // 2
+    cos, sin = cos[..., :, None, :], sin[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope_ref(q, k, cos, sin):
+    """Rotary embedding of q [B,S,nh,hd] and k [B,S,nkv,hd] by the table
+    cos, sin [B,S,hd/2] (fp32): each half's products with the table in
+    fp32 (fp64 for fp64), their difference and sum, one cast to x's type.
+    Returns (q, k) rotated."""
+    return _rotate(q, cos, sin), _rotate(k, cos, sin)
+
+
+def _unrotate(g, cos, sin):
+    """The gradient of ``_rotate`` in autograd's order: g widened to the
+    forward's product type, each product cast to g's type, the two of a
+    half summed in g's type; adding 0 turns a -0 into +0, as autograd's
+    sum of the two halves' zero-padded slice gradients does."""
+    half = g.shape[-1] // 2
+    cos, sin = cos[..., :, None, :], sin[..., :, None, :]
+    acc, dt = _acc(g.dtype), g.dtype
+    g1, g2 = g[..., :half].to(acc), g[..., half:].to(acc)
+    d1 = (g1 * cos).to(dt) + (g2 * sin).to(dt)
+    d2 = (g2 * cos).to(dt) - (g1 * sin).to(dt)
+    return torch.cat([d1, d2], dim=-1) + 0
+
+
+def rope_bwd_ref(gq, gk, cos, sin):
+    """The backward of ``rope_ref``: (dq, dk) from the outputs' gradients,
+    dx1 = g1 c + g2 s and dx2 = g2 c - g1 s, bit for bit autograd's."""
+    return _unrotate(gq, cos, sin), _unrotate(gk, cos, sin)
 
 
 # opcodes of a chain program (csrc/chain_replay.cu reads the same numbers)

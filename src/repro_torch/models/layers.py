@@ -1,6 +1,6 @@
 """Model primitives of the port: ``repro.models.layers``.
 
-``rmsnorm``, ``attention`` and ``ssd_scan`` go through the port's kernels
+``rmsnorm``, ``rope_qk``, ``attention`` and ``ssd_scan`` go through the port's kernels
 (``repro_torch.kernels``): the CUDA kernel for CUDA tensors, the plain
 PyTorch version for CPU tensors. The rest is plain PyTorch, as it is
 plain JAX in the reference. Layouts are the reference's: activations
@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from .. import kernels
 from ..parallel.comm import psum
 
-__all__ = ["rmsnorm", "rmsnorm_sharded", "rope", "attention", "decode_attention", "mlp", "moe",
+__all__ = ["rmsnorm", "rmsnorm_sharded", "rope_qk", "attention", "decode_attention", "mlp", "moe",
            "moe_ep", "ssd_scan", "ssm_decode_step", "silu", "softplus", "squared_relu", "gelu"]
 
 
@@ -72,17 +72,16 @@ def rmsnorm_sharded(x: torch.Tensor, w: torch.Tensor, width: int, group,
     return (xf * torch.rsqrt(ss / width + eps)).to(x.dtype) * w.to(x.dtype)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> torch.Tensor:
-    """Rotary embedding. x: [..., S, n, hd]; positions: [..., S]."""
-    hd = x.shape[-1]
-    half = hd // 2
-    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=x.device) / half))
-    angles = positions[..., :, None].float() * freqs        # [..., S, half]
-    cos = torch.cos(angles)[..., :, None, :]
-    sin = torch.sin(angles)[..., :, None, :]
-    x1, x2 = x[..., :half], x[..., half:]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+def rope_qk(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+            theta: float = 10_000.0):
+    """Rotary embedding of q [B,S,nh,hd] and k [B,S,nkv,hd] at ``positions``
+    [B,S]: the reference's table (its lines, one table for both), then one
+    launch of the rope kernel for the two (``kernels.rope``), whose
+    arithmetic is ``repro.models.layers.rope``'s. Returns (q, k)."""
+    half = q.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=q.device) / half))
+    angles = positions[..., :, None].float() * freqs        # [B, S, half]
+    return kernels.rope(q, k, torch.cos(angles), torch.sin(angles))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -45,7 +45,7 @@ from ..configs.base import ArchConfig
 from ..parallel.comm import MeshComm, gather_dim, local
 from ..parallel.sharding import MeshPlacements, ShardingPlanner, mesh_device
 from .layers import (attention, decode_attention, mlp, moe, moe_ep, rmsnorm, rmsnorm_sharded,
-                     rope, softplus, ssd_scan, ssm_decode_step)
+                     rope_qk, softplus, ssd_scan, ssm_decode_step)
 
 __all__ = ["RunCfg", "LM", "Block", "init_params", "loss_fn", "param_count"]
 
@@ -216,7 +216,7 @@ class Block(nn.Module):
         q = (h @ wq).reshape(B, S, nh, hd)
         k = (h @ wk).reshape(B, S, nkv, hd)
         v = (h @ wv).reshape(B, S, nkv, hd)
-        return rope(q, positions), rope(k, positions), v
+        return (*rope_qk(q, k, positions), v)
 
     def _enter(self, h: torch.Tensor, tp: bool, seq: bool) -> torch.Tensor:
         """A sublayer's whole input rows (``MeshComm.tp_in`` / ``rep_in``)."""

@@ -518,6 +518,62 @@ def test_tiny_prefill_on_the_card_matches_the_cpu(card):
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
 
 
+# B, S, nh, nkv, hd: yi-6b's prefill and decode, hymba's hd 64, hubert's hd
+# 80, nemotron's hd 192, and hd 12, whose halves take single elements
+ROPE_GRID = [(1, 3500, 32, 4, 128), (4, 1, 32, 4, 128), (2, 300, 25, 5, 64), (2, 130, 16, 16, 80),
+             (1, 70, 96, 8, 192), (2, 33, 6, 3, 12)]
+
+
+def _bits(t):
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[t.dtype]).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,nh,nkv,hd", ROPE_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_kernel_equals_plain_bit_for_bit(card, B, S, nh, nkv, hd, dtype):
+    """Forward and backward, one launch each, bit-equal to ``ref.rope_ref``
+    and to autograd's gradient of it; gradients with +0 and -0 entries."""
+    from repro_torch.kernels.rope import vector_path
+    rng = np.random.default_rng(hd + S)
+    q, k = _randn(rng, (B, S, nh, hd), dtype, card), _randn(rng, (B, S, nkv, hd), dtype, card)
+    gq, gk = _randn(rng, (B, S, nh, hd), dtype, card), _randn(rng, (B, S, nkv, hd), dtype, card)
+    gq[..., ::7], gk[..., 1::5] = 0.0, -0.0
+    positions = 1985 * (S == 1) + torch.arange(S, device=card).expand(B, S)
+    freqs = 1.0 / (10_000.0 ** (torch.arange(hd // 2, dtype=torch.float32, device=card)
+                                / (hd // 2)))
+    angles = positions[..., :, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    assert vector_path(q, k, cos, sin) == (hd != 12)
+    before = (kernels.rope.launches, kernels.rope_bwd.launches)
+    qk = kernels.rope(q, k, cos, sin)
+    dqk = kernels.rope_bwd(gq, gk, cos, sin)
+    torch.cuda.synchronize()
+    assert (kernels.rope.launches, kernels.rope_bwd.launches) == (before[0] + 1, before[1] + 1)
+    qa, ka = q.clone().requires_grad_(), k.clone().requires_grad_()
+    want = ref.rope_ref(qa, ka, cos, sin)
+    torch.autograd.backward(want, (gq, gk))
+    for got, ref_t in zip((*qk, *dqk), (*want, qa.grad, ka.grad)):
+        assert torch.equal(_bits(got), _bits(ref_t.detach()))
+
+
+@pytest.mark.cuda
+def test_yi6b_forward_launches_rope_once_a_layer(card):
+    """Full-width yi-6b, one bf16 prefill: one rope launch a layer and none
+    of the backward, beside the parent's counts (65 RMSNorm, 32 flash)."""
+    arch = scale_arch(get_config("yi-6b"), "full")
+    model = init_params(arch, torch.Generator(device=card).manual_seed(0),
+                        RunCfg(compute_dtype=torch.bfloat16), device=card)
+    tokens = torch.randint(0, arch.vocab, (1, 300), device=card)
+    kernels.reset_launch_counts()
+    make_prefill_step(model)({"tokens": tokens})
+    torch.cuda.synchronize()
+    assert (kernels.rope.launches, kernels.rope_bwd.launches) == (arch.num_layers, 0) == (32, 0)
+    assert kernels.launch_counts() == {"flash_attention": 32, "flash_attention_bwd": 0,
+                                       "rmsnorm": 65, "rmsnorm_bwd": 0, "ssd_scan": 0,
+                                       "ssd_scan_bwd": 0, "chain_replay": 0}
+
+
 @pytest.mark.cuda
 def test_tiny_mamba2_prefill_on_the_card_matches_the_cpu(card):
     """The same for tiny mamba2, over 300 tokens (past a 256-token chunk):
@@ -945,7 +1001,9 @@ def test_train_step_kernels_match_plain(card, name, scale, layers):
     ssm = 2 * L if arch.block in ("ssm", "hymba") else 0
     norms = 2 * ((3 if arch.block == "hymba" else 2) * L + 1)
     assert counts == {"flash_attention": attn, "flash_attention_bwd": attn, "rmsnorm": norms,
-                      "rmsnorm_bwd": norms, "ssd_scan": ssm, "ssd_scan_bwd": ssm}
+                      "rmsnorm_bwd": norms, "ssd_scan": ssm, "ssd_scan_bwd": ssm,
+                      "chain_replay": 0}
+    assert (kernels.rope.launches, kernels.rope_bwd.launches) == (attn, attn)
     with _plain_versions():
         gp, lp, _ = accumulate_grads(state.model, batch, cfg)
     assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
@@ -956,12 +1014,13 @@ def test_train_step_kernels_match_plain(card, name, scale, layers):
 
 @contextlib.contextmanager
 def _plain_versions():
-    """The model's flash, RMSNorm and SSD calls through their plain
+    """The model's flash, RMSNorm, rope and SSD calls through their plain
     versions."""
-    saved = {n: getattr(kernels, n) for n in ("flash_attention", "rmsnorm", "ssd_scan")}
+    saved = {n: getattr(kernels, n) for n in ("flash_attention", "rmsnorm", "rope", "ssd_scan")}
     try:
         kernels.flash_attention = ref.flash_attention_ref
         kernels.rmsnorm = ref.rmsnorm_ref
+        kernels.rope = ref.rope_ref
         kernels.ssd_scan = ref.ssd_scan_ref
         yield
     finally:

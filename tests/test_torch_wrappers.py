@@ -22,6 +22,7 @@ from repro_torch.kernels.rmsnorm import bwd_grid as rmsnorm_bwd_grid  # noqa: E4
 from repro_torch.kernels.rmsnorm import bwd_kernel_path as rmsnorm_bwd_path  # noqa: E402
 from repro_torch.kernels.rmsnorm import check_args as rmsnorm_check  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel_path as rmsnorm_path  # noqa: E402
+from repro_torch.kernels.rope import check_args as rope_check  # noqa: E402
 from repro_torch.kernels.ssd_scan import (BWD_WGMMA_STATE_DIMS, HEAD_DIMS,  # noqa: E402
                                           SCAN_COST, STATE_DIMS, WGMMA_STATE_DIMS,
                                           segment_chunks)
@@ -457,6 +458,7 @@ def _dtensor_calls():
     x, w = torch.zeros(4, 64), torch.ones(64)
     sx, sdt, sA = torch.zeros(1, 2, 16, 16), torch.zeros(1, 2, 16), -torch.ones(2)
     sB = torch.zeros(1, 16, 16)
+    rq, rk, rt = torch.zeros(1, 16, 2, 32), torch.zeros(1, 16, 1, 32), torch.zeros(1, 16, 16)
     return [
         ("flash_attention", lambda d: kernels.flash_attention(d(q), k, v)),
         ("flash_attention_bwd", lambda d: kernels.flash_attention_bwd(d(q), k, v, q, q, lse)),
@@ -468,10 +470,13 @@ def _dtensor_calls():
         ("ssd_scan", lambda d: kernels.ssd_scan(d(sx), sdt, sA, sB, sB)),
         ("ssd_scan_bwd", lambda d: kernels.ssd_scan_bwd(d(sx), sdt, sA, sB, sB, sx)),
         ("ssd _check_rows", lambda d: _check_rows("x", d(sx))),
+        ("rope", lambda d: kernels.rope(d(rq), rk, rt, rt)),
+        ("rope_bwd", lambda d: kernels.rope_bwd(d(rq), rk, rt, rt)),
+        ("rope check_args", lambda d: rope_check(d(rq), rk, rt, rt)),
     ]
 
 
-@pytest.mark.parametrize("case", range(10), ids=[n for n, _ in _dtensor_calls()])
+@pytest.mark.parametrize("case", range(13), ids=[n for n, _ in _dtensor_calls()])
 def test_wrappers_refuse_dtensors(one_rank_mesh, case):
     """A DTensor would launch a kernel on its local shard under its global
     shape: every wrapper and named check raises on one, before it looks at
