@@ -13,7 +13,9 @@ Phases, each of which fails the run by raising:
      FLASH_NEMOTRON in the model's views and FLASH_HD192_CASES around the
      64-row kv tiles, S 1, 127, 200 and 300, each causal, with a window and
      non-causal; RMSNorm at every main-path shape of each served model,
-     nemotron's H 18432 included);
+     nemotron's H 18432 included; granite-4.0-h-small's prefill at its
+     cell's longest prompt, S 27,469: flash at the softmax scale 1/128,
+     fp32 and bf16, and the bf16 SSD forward at 128 heads);
   3. serve full-width yi-6b, mamba2-2.7b, hymba-1.5b and
      granite-moe-3b-a800m in turn (random bf16 weights from a seed),
      through the port's entry points: prefill B=2 S=2000 with its kernel
@@ -40,7 +42,8 @@ Phases, each of which fails the run by raising:
      forward and backward beside SDPA), and time prefill and decode;
   5. hold the backward kernels (flash attention, at head dims 32 to 192:
      FLASH_BWD_CASES at each, nemotron's layer at FLASH_BWD_NEMOTRON, the
-     hd-192 cases non-causal; RMSNorm on both its
+     hd-192 cases non-causal, granite-4.0-h-small's at the softmax scale
+     1/128 (FLASH_BWD_GRANITE_H); RMSNorm on both its
      versions, the SSD scan on both its paths: wgmma for bf16 at hp 64 /
      N 16, 64, 128, and the FMA kernel, which also runs each of those
      cases) against their plain backwards (``kernels/ref.py``), each call
@@ -192,6 +195,14 @@ FLASH_HD192_CASES = [(1, 1, 4, 2, 192), (2, 127, 4, 2, 192), (1, 200, 12, 1, 192
 # at hd 80, and hd 128 (B, S, nh, nkv, hd)
 FLASH_NONCAUSAL_CASES = [(2, 130, 4, 4, 80), (2, 200, 8, 2, 128)]
 HYMBA_WINDOW = 1024
+# granite-4.0-h-small's prefill at its cell's longest prompt (B, S, nh, nkv,
+# hd): NoPE GQA, group 4, at its softmax scale attention_multiplier 1/128;
+# its backward at the cycle's shortest prompt (B, S, nh, nkv, window, hd);
+# its SSD forward, 128 heads of hp 64, N 128 (B, nh, S, hp, N, chunk)
+FLASH_GRANITE_H = (1, 27469, 32, 8, 128)
+FLASH_BWD_GRANITE_H = (1, 3500, 32, 8, 0, 128)
+GRANITE_H_SCALE = 1 / 128
+SSD_GRANITE_H = (1, 128, 27469, 64, 128, 256)
 ROPE_MAIN = (1, 3500, 32, 4, 128)        # yi-6b prefill (the benchmark's): B, S, nh, nkv, hd
 # decode's S 1; hymba's, hubert's and nemotron's head dims (64, 80, 192); a
 # head dim whose halves (6) take single elements
@@ -522,12 +533,24 @@ def _compare_rms_bf16(name, out, ref):
     return err.max().item()
 
 
-def _flash_case(name, q, k, v, window=0, causal=True):
+def _flash_case(name, q, k, v, window=0, causal=True, scale=0.0, ref_heads=0):
+    """The flash forward against its plain version on the same inputs, at
+    the softmax ``scale`` (0: hd^-0.5); with ``ref_heads`` the plain
+    version runs that many query heads at a time (its [S,S] scores of a
+    long prompt do not fit for every head at once)."""
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    out = flash_attention(q, k, v, causal=causal, window=window, scale=scale)
     torch.cuda.synchronize()
-    ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+    plain = lambda q, k, v: flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                                window=window, scale=scale)
+    if ref_heads:
+        group = q.shape[1] // k.shape[1]
+        ref = torch.cat([plain(q[:, h:h + ref_heads], k[:, h // group:h // group + 1],
+                               v[:, h // group:h // group + 1])
+                         for h in range(0, q.shape[1], ref_heads)], dim=1)
+    else:
+        ref = plain(q, k, v)
     if q.dtype == torch.float32:
         return _compare_f32(name, out, ref)
     return _compare_bf16(name, out, ref)
@@ -818,7 +841,45 @@ def phase_parity():
                   *_ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, True, True),
                   initial_state=state, return_state=True)
     rope_parity(gen)
+    granite_h_parity(gen)
     return errs
+
+
+def granite_h_parity(gen):
+    """granite-4.0-h-small's prefill kernels at its cell's longest prompt,
+    in the model's layouts: the flash forward at the softmax scale 1/128,
+    fp32 (the mma kernel) and bf16 (the wgmma kernel), its plain version
+    two query heads at a time; the SSD forward in bf16 (the wgmma path)
+    from zeros, both draws."""
+    B, S, nh, nkv, hd = FLASH_GRANITE_H
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in _flash_inputs(gen, *FLASH_GRANITE_H, dtype))
+        _flash_case(f"flash {tag} granite-4.0-h {FLASH_GRANITE_H} scale=1/128 [B,S,nh,hd] views",
+                    q, k, v, scale=GRANITE_H_SCALE, ref_heads=2)
+        del q, k, v
+        torch.cuda.empty_cache()
+    B, nh, S, hp, N, chunk = SSD_GRANITE_H
+    for long_memory in (False, True):
+        _ssd_case(f"ssd bf16 granite-4.0-h B,nh,S,hp,N=({B},{nh},{S},{hp},{N}) [B,S,.] views"
+                  f"{' long-memory' if long_memory else ''}", chunk,
+                  *_ssd_inputs(gen, B, nh, S, hp, N, torch.bfloat16, long_memory, True))
+        torch.cuda.empty_cache()
+
+
+def granite_h_bwd_parity(gen, dtype):
+    """The flash backward at granite-4.0-h-small's shape and softmax scale
+    1/128 (``FLASH_BWD_GRANITE_H``), in the model's layout; returns its max
+    abs error."""
+    B, S, nh, nkv, window, hd = FLASH_BWD_GRANITE_H
+    tag = str(dtype).replace("torch.", "")
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _flash_inputs(gen, B, S, nh, nkv, hd, dtype))
+    do = _randn(gen, B, S, nh, hd, dtype=dtype).transpose(1, 2)
+    return _flash_bwd_case(f"flash_bwd {tag} granite-4.0-h {FLASH_BWD_GRANITE_H[:4]} hd={hd} "
+                           f"scale=1/128 [B,S,nh,hd] views", q, k, v, window, do,
+                           scale=GRANITE_H_SCALE)
 
 
 # --------------------------------------------------------------------------
@@ -1570,25 +1631,26 @@ def _lse_gate(name, lse, ref):
     log(f"[bwd] {name} lse max |err|/(1+|ref|)={got:.3e} (limit {limit:g}) ok")
 
 
-def _flash_bwd_case(name, q, k, v, window, do=None, causal=True):
+def _flash_bwd_case(name, q, k, v, window, do=None, causal=True, scale=0.0):
     """The forward kernel's LSE and the backward kernels against the plain
     forward and backward on the same inputs (the plain backward given the
-    plain forward's LSE), and a second backward call equal bit for bit."""
+    plain forward's LSE), and a second backward call equal bit for bit; at
+    the softmax ``scale`` (0: hd^-0.5)."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_fwd_ref
-    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale)
     gen = torch.Generator(device="cuda").manual_seed(q.shape[2])
     if do is None:
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
-    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window, scale=scale)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window, scale=scale)
     _, lse_ref = flash_attention_fwd_ref(q.float(), k.float(), v.float(), causal=causal,
-                                         window=window)
+                                         window=window, scale=scale)
     _lse_gate(name, lse, lse_ref)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{name}: two backward calls differ")
     want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), do.float(),
-                                   lse_ref, causal=causal, window=window)
+                                   lse_ref, causal=causal, window=window, scale=scale)
     errs = []
     for i, (part, g, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
         zero = want[2].abs().max().item() if q.shape[2] == 1 and i < 2 else None
@@ -1758,6 +1820,7 @@ def phase_bwd_parity():
         errs[("flash_attention_bwd", dtype)] = _flash_bwd_case(
             f"flash_bwd {tag} main {FLASH_BWD_MAIN[:4]} hd={hd} [B,S,nh,hd] views", q, k, v,
             window, do)
+        granite_h_bwd_parity(gen, dtype)
         for T, H in RMS_BWD_CASES + [RMS_BWD_MAIN] + RMS_BWD_NEW:
             x, w, dy = _randn(gen, T, H, dtype=dtype), _randn(gen, H, dtype=dtype), \
                 _randn(gen, T, H, dtype=dtype)

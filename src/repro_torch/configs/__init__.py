@@ -3,7 +3,7 @@
 ``get_config(name)`` resolves by id."""
 
 from .base import ArchConfig, ShapeConfig, SHAPES, shape_applicable
-from .registry import ARCHS, PAPER_MODELS, get_config, list_archs
+from .registry import ARCHS, PAPER_MODELS, PORT_ARCHS, get_config, list_archs
 
 __all__ = [
     "ArchConfig",
@@ -11,6 +11,7 @@ __all__ = [
     "SHAPES",
     "ARCHS",
     "PAPER_MODELS",
+    "PORT_ARCHS",
     "get_config",
     "list_archs",
     "shape_applicable",

@@ -1,7 +1,10 @@
-"""Config schema of the PyTorch port: a copy of ``repro.configs.base``.
+"""Config schema of the PyTorch port: a copy of ``repro.configs.base``,
+with port-only fields at its end.
 
 The port imports nothing of ``repro``; ``tests/test_torch_package.py``
-holds every field of this copy equal to the original."""
+holds every field of this copy equal to the original and every port-only
+field of the reference's archs at its default, which leaves the arch as
+the reference defines it."""
 
 from __future__ import annotations
 
@@ -9,7 +12,10 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
-__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "shape_applicable"]
+__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "shape_applicable", "LAYER_BLOCKS"]
+
+# a ``layer_types`` entry -> the block that layer runs
+LAYER_BLOCKS = {"attention": "attn", "mamba": "ssm"}
 
 
 @dataclass(frozen=True)
@@ -18,6 +24,18 @@ class ArchConfig:
 
     ``block`` selects the layer mixer: "attn" (transformer), "ssm"
     (Mamba2 SSD), "hymba" (parallel attn + ssm heads sharing one block).
+
+    Port-only fields (each default leaves an arch unchanged):
+    ``layer_types`` gives each layer its mixer ("mamba" or "attention",
+    ``LAYER_BLOCKS``; empty: every layer is ``block``), and then every
+    layer, Mamba or attention, is followed by the MLP or MoE sublayer;
+    ``d_ff_shared`` a gated shared expert beside the routed ones;
+    ``attn_scale`` the softmax scale (0: head_dim^-0.5); ``rope`` False
+    drops the rotary embedding (NoPE); ``embed_scale`` multiplies the
+    embedding's rows, ``residual_scale`` every sublayer's output before it
+    is added, and the fp32 logits are divided by ``logit_scale``;
+    ``dropless`` runs every routed assignment (no capacity).
+    ``tie_embeddings`` uses the embedding as the head.
     """
 
     name: str
@@ -47,11 +65,27 @@ class ArchConfig:
     # modality frontend stub: inputs are precomputed embeddings, not tokens
     embeds_input: bool = False
     source: str = ""                      # provenance tag from the assignment
+    # port-only (see the class docstring)
+    layer_types: Tuple[str, ...] = ()
+    d_ff_shared: int = 0
+    attn_scale: float = 0.0
+    rope: bool = True
+    embed_scale: float = 1.0
+    residual_scale: float = 1.0
+    logit_scale: float = 1.0
+    dropless: bool = False
 
     def __post_init__(self):
+        if self.layer_types:
+            object.__setattr__(self, "layer_types", tuple(self.layer_types))
+            unknown = set(self.layer_types) - set(LAYER_BLOCKS)
+            if unknown or len(self.layer_types) != self.num_layers:
+                raise ValueError(f"{self.name}: layer_types needs {self.num_layers} entries of "
+                                 f"{sorted(LAYER_BLOCKS)}, got {len(self.layer_types)} "
+                                 f"(unknown {sorted(unknown)})")
         if self.head_dim == 0 and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
-        if self.block in ("ssm", "hymba") and self.d_inner == 0:
+        if self.has_ssm and self.d_inner == 0:
             object.__setattr__(self, "d_inner", 2 * self.d_model)
 
     # -- derived -------------------------------------------------------------
@@ -60,33 +94,60 @@ class ArchConfig:
         return not self.causal
 
     @property
+    def layer_blocks(self) -> Tuple[str, ...]:
+        """Each layer's block: "attn", "ssm" or "hymba"."""
+        if self.layer_types:
+            return tuple(LAYER_BLOCKS[t] for t in self.layer_types)
+        return (self.block,) * self.num_layers
+
+    @property
     def has_attention(self) -> bool:
-        return self.block in ("attn", "hymba")
+        """Some layer attends."""
+        return any(b in ("attn", "hymba") for b in self.layer_blocks)
+
+    @property
+    def has_ssm(self) -> bool:
+        """Some layer runs the Mamba2 mixer."""
+        return any(b in ("ssm", "hymba") for b in self.layer_blocks)
+
+    def has_ffn(self, block: str) -> bool:
+        """A layer of ``block`` is followed by the MLP or MoE sublayer: every
+        layer of a ``layer_types`` arch, else the attention and hybrid
+        layers of an arch with an MLP or experts."""
+        return (bool(self.layer_types) or block in ("attn", "hymba")) and bool(
+            self.d_ff or self.n_experts)
 
     @property
     def subquadratic(self) -> bool:
         """Can this arch run 500k-token decode? (SSM state or windowed KV)."""
-        return self.block == "ssm" or (self.block == "hymba" and self.window > 0)
+        return all(b == "ssm" or (b == "hymba" and self.window > 0) for b in self.layer_blocks)
 
     def param_count(self) -> float:
         """Approximate parameter count (embedding + blocks + head)."""
-        H, L = self.d_model, self.num_layers
+        H = self.d_model
         # embeds-input archs (stub frontend) have no token-embedding table
         p = self.vocab * H * (1 if (self.tie_embeddings or self.embeds_input) else 2)
+        return float(p + sum(self._layer_params(b) for b in self.layer_blocks))
+
+    def _layer_params(self, block: str) -> int:
+        H = self.d_model
         per_layer = 2 * H  # norms
-        if self.has_attention:
+        if block in ("attn", "hymba"):
             q = self.n_heads * self.head_dim
             kv = 2 * self.n_kv * self.head_dim
             per_layer += H * (q + kv) + q * H
-        if self.block in ("ssm", "hymba"):
+        if block in ("ssm", "hymba"):
             d_in_proj = 2 * self.d_inner + 2 * self.ssm_state + self.ssm_n_heads
             per_layer += H * d_in_proj + self.d_inner * H + self.d_inner * self.conv_width
+        if not self.has_ffn(block) and self.layer_types:
+            return per_layer
         if self.n_experts:
             per_layer += self.n_experts * 3 * H * self.d_ff_expert + H * self.n_experts
+            per_layer += 3 * H * self.d_ff_shared
         elif self.d_ff:
             mults = 3 if self.mlp == "gated_silu" else 2  # gate only when gated
             per_layer += mults * H * self.d_ff
-        return float(p + L * per_layer)
+        return per_layer
 
     @property
     def ssm_n_heads(self) -> int:

@@ -68,11 +68,12 @@ SIGNATURES = {
     "rmsnorm_launch": (_I, [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P]),
     "rmsnorm_bwd_launch": (_I, [_P] * 6 + [_I, _I, ctypes.c_float, _I, _I, _I, _I, _P]),
     "rmsnorm_bwd_rows_info": (_I, [_I, ctypes.POINTER(ctypes.c_int)]),
-    "flash_attention_wgmma_launch": (_I, [_P] * 5 + [_LL] + [_I] * 8 + [_P]),
-    "flash_attention_mma_launch": (_I, [_P] * 5 + [_LL] + [_I] * 9 + [_P]),
+    "flash_attention_wgmma_launch": (_I, [_P] * 5 + [_LL] + [_I] * 8 + [ctypes.c_float, _P]),
+    "flash_attention_mma_launch": (_I, [_P] * 5 + [_LL] + [_I] * 8 + [ctypes.c_float, _I, _P]),
     "flash_attention_bwd_delta_launch": (_I, [_P] * 3 + [_LL] + [_I] * 6 + [_P]),
-    "flash_attention_bwd_launch": (_I, [_P] * 9 + [_LL] + [_I] * 9 + [_P]),
-    "flash_attention_bwd_wgmma_launch": (_I, [_P] * 10 + [_LL] + [_I] * 9 + [_P]),
+    "flash_attention_bwd_launch": (_I, [_P] * 9 + [_LL] + [_I] * 8 + [ctypes.c_float, _I, _P]),
+    "flash_attention_bwd_wgmma_launch": (_I, [_P] * 10 + [_LL] + [_I] * 8
+                                         + [ctypes.c_float, _I, _P]),
     "flash_attention_bwd_wgmma_info": (_I, [_I, ctypes.POINTER(ctypes.c_int)]),
     "flash_attention_wgmma_info": (_I, [_I, ctypes.POINTER(ctypes.c_int)]),
     "flash_attention_mma_info": (_I, [_I, _I, ctypes.POINTER(ctypes.c_int)]),

@@ -120,7 +120,7 @@ struct Params {
   float* lse;          // [B, nh, lse_ld] fp32, or null
   long long o_sb, o_sh, o_ss;
   int B, nh, nkv, S, causal, window, n_qtiles, n_items, lse_ld;
-  float scale_log2;   // hd^-0.5 * log2(e): scores go through exp2
+  float scale_log2;   // the softmax scale (hd^-0.5 unless given) * log2(e): scores go through exp2
 };
 
 // Online softmax over one [64 x BK] score tile of a warpgroup, in fp32:
@@ -422,12 +422,13 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
 // as element strides (batch, head, seq) in `strides` (q, k, v, o in turn,
 // 12 values, each a multiple of 8); hd contiguous; q, k, v 16-byte aligned.
 // lse: fp32 [B, nh, lse_ld] (lse_ld >= S) for each row's log-sum-exp, or
-// null. Returns the cudaError_t of the launch (0 on success), or 100000
-// plus the CUresult of a tensor map the driver refused.
+// null. `scale` is the softmax scale; 0 takes hd^-0.5. Returns the
+// cudaError_t of the launch (0 on success), or 100000 plus the CUresult of
+// a tensor map the driver refused.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                                             void* lse, const long long* strides, int B, int nh,
                                             int nkv, int S, int hd, int causal, int window,
-                                            int lse_ld, void* stream) {
+                                            int lse_ld, float scale, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || (lse != nullptr && lse_ld < S))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -451,7 +452,7 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
   p.B = B;
   p.n_qtiles = (S + kBQ - 1) / kBQ;
   p.n_items = p.n_qtiles * nh * B;
-  p.scale_log2 = kLog2e / sqrtf(static_cast<float>(hd));
+  p.scale_log2 = scale > 0.f ? kLog2e * scale : kLog2e / sqrtf(static_cast<float>(hd));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: return launch<64>(tq, tk, tv, p, s);

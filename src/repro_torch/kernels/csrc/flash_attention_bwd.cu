@@ -492,13 +492,14 @@ template <typename T, int HD> int info(int* out) {
 // q, dO, dq: [B, nh, S, hd]; k, v, dk, dv: [B, nkv, S, hd], as element
 // strides (batch, head, seq) in `strides` (q, k, v, dO, dq, dk, dv in turn,
 // 21 values); hd contiguous. lse (log2 units, the forward's) and delta:
-// fp32 [B, nh, ld]. Returns the cudaError_t of the launches (0 on success).
+// fp32 [B, nh, ld]. `scale` is the forward's softmax scale; 0 takes
+// hd^-0.5. Returns the cudaError_t of the launches (0 on success).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* dO, void* dq, void* dk, void* dv,
                                           const void* lse, const void* delta,
                                           const long long* strides, int B, int nh, int nkv, int S,
-                                          int hd, int causal, int window, int ld, int dtype,
-                                          void* stream) {
+                                          int hd, int causal, int window, int ld, float scale,
+                                          int dtype, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || window < 0 || ld < S)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -519,7 +520,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   p.causal = causal;
   p.window = window;
   p.ld = ld;
-  p.scale = 1.f / sqrtf(static_cast<float>(hd));
+  p.scale = scale > 0.f ? scale : 1.f / sqrtf(static_cast<float>(hd));
   p.scale_log2 = kLog2e * p.scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return launch_f32(p, B, hd, s);

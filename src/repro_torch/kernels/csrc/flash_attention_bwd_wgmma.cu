@@ -718,15 +718,16 @@ template <int HD> int info(int* out) {
 // v, dO, dq, dk, dv in turn, 21 values, each a multiple of 8); hd
 // contiguous; every base 16-byte aligned. lse (log2 units) and delta: fp32
 // [B, nh, ld] with ld a multiple of 128. `slices` divides nh / nkv; with
-// more than one, parts is fp32 scratch [2, slices, B, nkv, S, hd]. Returns
-// the cudaError_t of the launches (0 on success), or 100000 plus the
-// CUresult of a tensor map the driver refused.
+// more than one, parts is fp32 scratch [2, slices, B, nkv, S, hd]. `scale`
+// is the forward's softmax scale; 0 takes hd^-0.5. Returns the cudaError_t
+// of the launches (0 on success), or 100000 plus the CUresult of a tensor
+// map the driver refused.
 extern "C" int flash_attention_bwd_wgmma_launch(const void* q, const void* k, const void* v,
                                                 const void* dO, void* dq, void* dk, void* dv,
                                                 const void* lse, const void* delta, void* parts,
                                                 const long long* strides, int B, int nh, int nkv,
                                                 int S, int hd, int causal, int window, int ld,
-                                                int slices, void* stream) {
+                                                float scale, int slices, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || window < 0 ||
       ld % 128 != 0 || ld < S || slices <= 0 || (nh / nkv) % slices != 0 ||
@@ -769,7 +770,7 @@ extern "C" int flash_attention_bwd_wgmma_launch(const void* q, const void* k, co
   p.n_q_tiles = (S + kQRows - 1) / kQRows;
   p.n_dq_tiles = (S + kDqRows - 1) / kDqRows;
   p.n_dq_items = p.n_dq_tiles * nh * B;
-  p.scale = 1.f / sqrtf(static_cast<float>(hd));
+  p.scale = scale > 0.f ? scale : 1.f / sqrtf(static_cast<float>(hd));
   p.scale_log2 = kLog2e * p.scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {

@@ -59,7 +59,7 @@ struct FlashParams {
   float* lse;   // [B, nh, lse_ld] fp32, or null
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   int nh, nkv, S, causal, window, lse_ld;
-  float scale_log2;  // hd^-0.5 * log2(e): scores go through exp2
+  float scale_log2;  // the softmax scale (hd^-0.5 unless given) * log2(e): scores go through exp2
 };
 
 // row stride of a staged tile, padded by 16 bytes
@@ -380,12 +380,12 @@ template <typename T, int HD> int info(int* out) {
 // q, o: [B, nh, S, hd] and k, v: [B, nkv, S, hd] as element strides
 // (batch, head, seq) in `strides` (q, k, v, o in turn, 12 values); hd is
 // contiguous. lse: fp32 [B, nh, lse_ld] (lse_ld >= S) for each row's
-// log-sum-exp, or null. Returns the cudaError_t of the launch (0 on
-// success).
+// log-sum-exp, or null. `scale` is the softmax scale; 0 takes hd^-0.5.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_mma_launch(const void* q, const void* k, const void* v, void* o,
                                           void* lse, const long long* strides, int B, int nh,
                                           int nkv, int S, int hd, int causal, int window,
-                                          int lse_ld, int dtype, void* stream) {
+                                          int lse_ld, float scale, int dtype, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || S <= 0 || nkv <= 0 || nh % nkv != 0 || (lse != nullptr && lse_ld < S))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -405,7 +405,7 @@ extern "C" int flash_attention_mma_launch(const void* q, const void* k, const vo
   p.S = S;
   p.causal = causal;
   p.window = window;
-  p.scale_log2 = kLog2e / sqrtf(static_cast<float>(hd));
+  p.scale_log2 = scale > 0.f ? kLog2e * scale : kLog2e / sqrtf(static_cast<float>(hd));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return launch_f32(p, B, hd, s);
   if (dtype == kBFloat16 && hd == 32) return launch<__nv_bfloat16, 32>(p, B, s);

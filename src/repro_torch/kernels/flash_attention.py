@@ -14,6 +14,10 @@ There is no fallback between them: a launch that fails raises. Both take
 ``causal=False`` (hubert-xlarge): every kv tile is live, and the only
 mask is the tail past S.
 
+Every path takes the softmax scale (``scale``; 0, the default, is
+hd^-0.5, which the kernels then work out as they always have, so a
+default call's output is the same bit for bit).
+
 Both take strides, so q, k and v may be [B,nh,S,hd] tensors or
 [B,nh,S,hd] views of the model's [B,S,nh,hd] layout (``t.transpose(1, 2)``):
 no copy either way. The output is allocated in q's own layout.
@@ -188,7 +192,7 @@ def _lse_buffer(B, nh, S, device, dtype=torch.float32) -> torch.Tensor:
     return torch.empty(B, nh, lse_stride(S), dtype=dtype, device=device)[..., :S]
 
 
-def _fwd(q, k, v, causal, window, lse, launch):
+def _fwd(q, k, v, causal, window, lse, scale, launch):
     """The CUDA forward on checked arguments: o and, with ``lse``, the LSE
     buffer (else an empty tensor); with ``launch`` the kernel (one launch
     counted)."""
@@ -201,7 +205,7 @@ def _fwd(q, k, v, causal, window, lse, launch):
     lib = build.library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             row_lse.data_ptr() if lse else None, _strides(q, k, v, out),
-            B, nh, k.shape[1], S, hd, int(causal), int(window), lse_stride(S))
+            B, nh, k.shape[1], S, hd, int(causal), int(window), lse_stride(S), scale)
     with torch.cuda.device(q.device):
         if path == "wgmma":
             err = lib.flash_attention_wgmma_launch(*args, build.stream_of(q))
@@ -212,14 +216,14 @@ def _fwd(q, k, v, causal, window, lse, launch):
     return out, row_lse
 
 
-def _fwd_plain(q, k, v, causal, window, lse):
+def _fwd_plain(q, k, v, causal, window, lse, scale):
     """The plain forward, its outputs in the CUDA path's layouts (o in q's,
     the LSE in the kernels' padded rows)."""
     o = torch.empty_like(q)
     if not lse:
-        o.copy_(flash_attention_ref(q, k, v, causal=causal, window=window))
+        o.copy_(flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale))
         return o, q.new_empty(0, dtype=torch.float32)
-    ref_o, ref_lse = flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
+    ref_o, ref_lse = flash_attention_fwd_ref(q, k, v, causal=causal, window=window, scale=scale)
     row_lse = _lse_buffer(*q.shape[:3], q.device, ref_lse.dtype)    # fp64 for fp64 inputs
     o.copy_(ref_o)
     row_lse.copy_(ref_lse)
@@ -228,25 +232,28 @@ def _fwd_plain(q, k, v, causal, window, lse):
 
 _fwd_op = build.define_op(
     "flash_attention_fwd",
-    "(Tensor q, Tensor k, Tensor v, bool causal, int window, bool lse) -> (Tensor, Tensor)",
+    "(Tensor q, Tensor k, Tensor v, bool causal, int window, bool lse, float scale) "
+    "-> (Tensor, Tensor)",
     cuda=lambda *a: _fwd(*a, launch=True), cpu=_fwd_plain,
     fake=lambda *a: _fwd(*a, launch=False))
 
 
 @register_flop_formula(_fwd_op)
-def _fwd_op_flops(q, k, v, causal, window, lse, *, out_shape=None, **kwargs) -> int:
+def _fwd_op_flops(q, k, v, causal, window, lse, scale, *, out_shape=None, **kwargs) -> int:
     B, nh, S, hd = q
     return flops(B, nh, S, hd, causal, window)
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0, lse: bool = True):
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0, lse: bool = True,
+                        scale: float = 0.0):
     """(o, lse or None): the forward, and with ``lse`` each row's
     log-sum-exp (``ref.flash_attention_fwd_ref``'s definition: fp32
     [B,nh,S], log2 units of the scaled scores), which the backward reads.
-    The op ``repro_torch::flash_attention_fwd``. On CUDA tensors the LSE is
-    a [B,nh,S] view of a buffer whose rows are ``lse_stride(S)`` apart."""
+    ``scale``: the softmax scale, 0 for hd^-0.5. The op
+    ``repro_torch::flash_attention_fwd``. On CUDA tensors the LSE is a
+    [B,nh,S] view of a buffer whose rows are ``lse_stride(S)`` apart."""
     build.refuse_dtensor("flash_attention", q, k, v)
-    o, row_lse = _fwd_op(q, k, v, bool(causal), int(window), bool(lse))
+    o, row_lse = _fwd_op(q, k, v, bool(causal), int(window), bool(lse), float(scale))
     return o, (row_lse if lse else None)
 
 
@@ -262,7 +269,7 @@ def _kernel_lse(lse, B, nh, S):
     return lse
 
 
-def _bwd(q, k, v, o, do, lse, causal, window, slices, launch):
+def _bwd(q, k, v, o, do, lse, causal, window, slices, scale, launch):
     """The CUDA backward on checked arguments: dq, dk, dv, the D buffer and
     the wgmma path's fp32 partials; with ``launch`` the kernels (one launch
     counted)."""
@@ -298,38 +305,40 @@ def _bwd(q, k, v, o, do, lse, causal, window, slices, launch):
         if path == "wgmma":
             err = lib.flash_attention_bwd_wgmma_launch(
                 *ptrs, parts.data_ptr() if parts is not None else None, strides, B, nh, nkv,
-                S, hd, int(causal), int(window), ld, gs, stream)
+                S, hd, int(causal), int(window), ld, scale, gs, stream)
         else:
             err = lib.flash_attention_bwd_launch(*ptrs, strides, B, nh, nkv, S, hd, int(causal),
-                                                 int(window), ld, build.dtype_code(q), stream)
+                                                 int(window), ld, scale, build.dtype_code(q),
+                                                 stream)
     build.check(err, f"flash_attention_bwd ({path})")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
-def _bwd_plain(q, k, v, o, do, lse, causal, window, slices):
+def _bwd_plain(q, k, v, o, do, lse, causal, window, slices, scale):
     """The plain backward, dq, dk, dv in their inputs' layouts."""
-    grads = flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
+    grads = flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window,
+                                    scale=scale)
     return tuple(torch.empty_like(t).copy_(g) for t, g in zip((q, k, v), grads))
 
 
 _bwd_op = build.define_op(
     "flash_attention_bwd",
     "(Tensor q, Tensor k, Tensor v, Tensor o, Tensor do, Tensor lse, bool causal, int window, "
-    "int slices) -> (Tensor, Tensor, Tensor)",
+    "int slices, float scale) -> (Tensor, Tensor, Tensor)",
     cuda=lambda *a: _bwd(*a, launch=True), cpu=_bwd_plain,
     fake=lambda *a: _bwd(*a, launch=False))
 
 
 @register_flop_formula(_bwd_op)
-def _bwd_op_flops(q, k, v, o, do, lse, causal, window, slices, *, out_shape=None,
+def _bwd_op_flops(q, k, v, o, do, lse, causal, window, slices, scale, *, out_shape=None,
                   **kwargs) -> int:
     B, nh, S, hd = q
     return bwd_flops(B, nh, S, hd, causal, window)
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int = 0,
-                        slices: int = 0):
+                        slices: int = 0, scale: float = 0.0):
     """(q, k, v, o and lse = flash_attention_fwd(q, k, v), do = dL/do) ->
     (dq, dk, dv), each in its input's type and layout; the op
     ``repro_torch::flash_attention_bwd``. CUDA tensors: one launch counted,
@@ -337,9 +346,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int
     ``bwd_kernel_path`` kernels (wgmma: dK/dV into per-slice fp32 partials,
     dQ, the fixed-order sum of the partials; mma: dK/dV looping over the
     group, dQ). ``slices`` overrides ``bwd_slices`` (a divisor of the GQA
-    group; wgmma path only). CPU tensors: ``ref.flash_attention_bwd_ref``."""
+    group; wgmma path only). ``scale``: the forward's softmax scale, 0 for
+    hd^-0.5. CPU tensors: ``ref.flash_attention_bwd_ref``."""
     build.refuse_dtensor("flash_attention_bwd", q, k, v, o, do, lse)
-    return _bwd_op(q, k, v, o, do, lse, bool(causal), int(window), int(slices))
+    return _bwd_op(q, k, v, o, do, lse, bool(causal), int(window), int(slices), float(scale))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -348,11 +358,12 @@ class FlashAttention(torch.autograd.Function):
     (``need_lse``: grad mode on and an input that requires grad)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, need_lse):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, lse=need_lse)
+    def forward(ctx, q, k, v, causal, window, need_lse, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, lse=need_lse,
+                                     scale=scale)
         if need_lse:
             ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return o
 
     @staticmethod
@@ -362,17 +373,18 @@ class FlashAttention(torch.autograd.Function):
         if do.device.type != "cpu" and not (strides_ok(do) and build.address(do) % 16 == 0):
             do = do.contiguous()        # e.g. a broadcast gradient (stride 0)
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None, None
+                                         window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, scale: float = 0.0) -> torch.Tensor:
     """q: [B,nh,S,hd]; k,v: [B,nkv,S,hd] -> [B,nh,S,hd] (kv head of q head h
-    is h // (nh // nkv)); fp32 online softmax, fully-masked rows give 0.
-    Differentiable in q, k and v (``FlashAttention``)."""
+    is h // (nh // nkv)); fp32 online softmax of the scores times ``scale``
+    (0: hd^-0.5), fully-masked rows give 0. Differentiable in q, k and v
+    (``FlashAttention``)."""
     need_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    return FlashAttention.apply(q, k, v, causal, window, need_lse)
+    return FlashAttention.apply(q, k, v, causal, window, need_lse, float(scale))
 
 
 flash_attention.launches = 0

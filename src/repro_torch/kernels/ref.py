@@ -20,7 +20,8 @@ holds them against autograd of the forwards here and ``jax.vjp`` of
 ``repro.kernels.ref``.
 The flash backward takes the row log-sum-exp that the forward
 (``flash_attention_fwd_ref``, and the forward kernels) returns beside o:
-log2 units of the scaled scores, so P = exp2(log2(e) hd^-0.5 q.k - LSE).
+log2 units of the scaled scores, so P = exp2(log2(e) scale q.k - LSE).
+Every flash function takes the softmax scale ``scale``; 0 means hd^-0.5.
 Everything computes in fp32, or in fp64 for fp64 inputs (gradcheck)."""
 
 from __future__ import annotations
@@ -52,36 +53,42 @@ def attention_mask(S: int, causal: bool, window: int, device) -> torch.Tensor:
     return mask
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0):
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=0.0):
     """q: [B,nh,S,hd]; k,v: [B,nkv,S,hd] -> [B,nh,S,hd]. Naive softmax in fp32."""
-    return flash_attention_fwd_ref(q, k, v, causal=causal, window=window)[0]
+    return flash_attention_fwd_ref(q, k, v, causal=causal, window=window, scale=scale)[0]
 
 
-def flash_attention_fwd_ref(q, k, v, *, causal=True, window=0):
+def flash_attention_fwd_ref(q, k, v, *, causal=True, window=0, scale=0.0):
     """(o, lse): ``flash_attention_ref``'s output and each row's log-sum-exp
     of the scaled, masked scores in log2 units, lse[b,h,i] = log2 sum_j
-    exp2(log2(e) hd^-0.5 q_i.k_j) over the live keys j: [B,nh,S] in fp32
+    exp2(log2(e) scale q_i.k_j) over the live keys j: [B,nh,S] in fp32
     (fp64 for fp64 inputs), -inf for a row with no live key. The forward
     kernels write the same for the backward."""
-    return flash_fwd_masked(q, k, v, attention_mask(q.shape[2], causal, window, q.device))
+    return flash_fwd_masked(q, k, v, attention_mask(q.shape[2], causal, window, q.device),
+                            scale=scale)
 
 
-def _masked_scores(q, k, mask):
+def softmax_scale(hd: int, scale: float = 0.0) -> float:
+    """The softmax scale of head dim ``hd``: ``scale``, or hd^-0.5 for 0."""
+    return scale if scale else hd ** -0.5
+
+
+def _masked_scores(q, k, mask, scale=0.0):
     """The grouped q [B,nkv,g,S,hd] and its scaled scores against k with
     masked entries at -inf, [B,nkv,g,S,S], in the compute type."""
     B, nh, S, hd = q.shape
     nkv = k.shape[1]
     acc = _acc(q.dtype)
     qg = q.reshape(B, nkv, nh // nkv, S, hd).to(acc)
-    scores = torch.einsum("bkgqh,bksh->bkgqs", qg, k.to(acc)) * hd ** -0.5
+    scores = torch.einsum("bkgqh,bksh->bkgqs", qg, k.to(acc)) * softmax_scale(hd, scale)
     return qg, scores.masked_fill(~mask, float("-inf"))
 
 
-def flash_fwd_masked(q, k, v, mask):
+def flash_fwd_masked(q, k, v, mask, scale=0.0):
     """``flash_attention_fwd_ref`` under any [S,S] boolean ``mask`` (True =
     attend): rows with no live key give o = 0 and lse = -inf."""
     B, nh, S, hd = q.shape
-    _, scores = _masked_scores(q, k, mask)
+    _, scores = _masked_scores(q, k, mask, scale)
     probs = torch.softmax(scores, dim=-1)
     probs = torch.nan_to_num(probs, nan=0.0)          # fully-masked rows -> 0
     out = torch.einsum("bkgqs,bksh->bkgqh", probs, v.to(scores.dtype))
@@ -89,7 +96,7 @@ def flash_fwd_masked(q, k, v, mask):
     return out.reshape(B, nh, S, hd).to(q.dtype), lse.reshape(B, nh, S)
 
 
-def flash_attention_bwd_ref(q, k, v, o, do, lse=None, *, causal=True, window=0):
+def flash_attention_bwd_ref(q, k, v, o, do, lse=None, *, causal=True, window=0, scale=0.0):
     """The backward of ``flash_attention_ref``: (q, k, v, its output o, the
     gradient do of o, the forward's row log-sum-exp ``lse`` [B,nh,S] in
     log2 units) -> (dq, dk, dv) in the types of q, k, v. FA2's math: P
@@ -98,17 +105,17 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse=None, *, causal=True, window=0):
     summed over the nh / nkv query heads of each kv head. Without ``lse``
     (a caller that has no forward's) it is computed here from q and k."""
     return flash_bwd_masked(q, k, v, o, do, attention_mask(q.shape[2], causal, window, q.device),
-                            lse)
+                            lse, scale)
 
 
-def flash_bwd_masked(q, k, v, o, do, mask, lse=None):
+def flash_bwd_masked(q, k, v, o, do, mask, lse=None, scale=0.0):
     """``flash_attention_bwd_ref`` under any [S,S] boolean ``mask`` (True =
     attend). Rows with no live key give zero gradients: their log-sum-exp
     is -inf, and every entry is masked before the exp."""
     B, nh, S, hd = q.shape
     nkv = k.shape[1]
-    scale = hd ** -0.5
-    qg, s = _masked_scores(q, k, mask)
+    qg, s = _masked_scores(q, k, mask, scale)
+    scale = softmax_scale(hd, scale)
     acc = s.dtype
     grp = lambda t: t.reshape(B, nkv, nh // nkv, S, hd).to(acc)
     og, dog = grp(o), grp(do)

@@ -17,10 +17,12 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import kernels
+from ..obs.registry import current
 from ..parallel.comm import psum
 
 __all__ = ["rmsnorm", "rmsnorm_sharded", "rope_qk", "attention", "decode_attention", "mlp", "moe",
-           "moe_ep", "ssd_scan", "ssm_decode_step", "silu", "softplus", "squared_relu", "gelu"]
+           "moe_dropless", "moe_ep", "ssd_scan", "ssm_decode_step", "silu", "softplus",
+           "squared_relu", "gelu"]
 
 
 def silu(x):
@@ -85,10 +87,11 @@ def rope_qk(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0) -> torch.Tensor:
+              causal: bool = True, window: int = 0, scale: float = 0.0) -> torch.Tensor:
     """Training/prefill attention through the flash kernel.
 
-    q: [B,S,nh,hd]; k,v: [B,S,nkv,hd]. Returns [B,S,nh,hd]. The kernel
+    q: [B,S,nh,hd]; k,v: [B,S,nkv,hd]. Returns [B,S,nh,hd]. ``scale`` is
+    the softmax scale (0: hd^-0.5, the reference's only one). The kernel
     takes strides, so the [B,nh,S,hd] views below cost no copy, and its
     output comes back in q's [B,S,nh,hd] layout. The reference's
     ``q_chunk`` (an O(S*chunk)-memory scan) has no counterpart: the kernel
@@ -104,14 +107,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       normalised probabilities to v's type before p v.
     Both vanish in fp32 (tests/test_torch_models.py holds 1e-4 there)."""
     o = kernels.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                causal=causal, window=window)
+                                causal=causal, window=window, scale=scale)
     return o.transpose(1, 2)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     cache_len: int, group=None) -> torch.Tensor:
+                     cache_len: int, group=None, scale: float = 0.0) -> torch.Tensor:
     """q: [B,1,nh,hd]; caches [B,S_max,nkv,hd]; ``cache_len`` valid slots
-    (new token included). Plain PyTorch, as the reference's ``_attend``:
+    (new token included); ``scale`` the softmax scale (0: hd^-0.5). Plain
+    PyTorch, as the reference's ``_attend``:
     scores in the input type, the softmax in fp32 (row max, exp, row sum,
     divide), probabilities cast to v's type before p v. The slots past
     ``cache_len``, which the reference masks, are sliced off instead; they
@@ -127,7 +131,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     nkv = k_cache.shape[2]
     qg = q.reshape(B, Sq, nkv, nh // nkv, hd)
     k, v = k_cache[:, :cache_len], v_cache[:, :cache_len]
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k) * hd ** -0.5
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k) * (scale or hd ** -0.5)
     s32 = scores.float()
     if cache_len:
         m = s32.amax(dim=-1, keepdim=True)
@@ -234,6 +238,54 @@ def moe(x: torch.Tensor, params: Mapping[str, torch.Tensor], top_k: int,
            "drop_fraction": (1.0 - keep.sum(dtype=torch.float64) * recip).to(probs.dtype),
            "router_entropy": -(probs * torch.log(probs + 1e-9)).sum(-1).mean()}
     return out, aux
+
+
+def moe_dropless(x: torch.Tensor, params: Mapping[str, torch.Tensor], top_k: int,
+                 shared: Optional[Mapping[str, torch.Tensor]] = None):
+    """The gated-SiLU MoE layer without a capacity: every assignment runs.
+    x [T,H]; params router [H,E], wg/wi [E,H,F], wo [E,F,H]; ``shared``: a
+    gated-SiLU MLP's wg/wi [H,Fs], wo [Fs,H] run on every token and added
+    (a shared expert). Returns (out [T,H], aux {"load" [E] int64,
+    "drop_fraction" 0}).
+
+    The router is ``_route`` (fp32 softmax over the experts, top-k, gates
+    renormalised: the softmax over the top-k logits). The T k assignments
+    are sorted by expert (a stable sort, so each expert's rows keep the
+    (token, k) order); each expert's rows end at its offset, found on the
+    device by a search of the sorted experts; the tokens are gathered in
+    that order and the experts run as three grouped products
+    (``torch._grouped_mm``, expert e on the rows up to its offset, an
+    expert with no rows costing nothing; bf16 on the card, fp32 and bf16
+    with gradients on the CPU); the rows go back to the (token,
+    k) order (one writer a row) and are summed weighted by their gates, as
+    ``moe`` combines. Nothing reads a count on the host, so nothing waits
+    for the device, except the counters below.
+
+    While a registry is installed (``obs.registry.recording``) the layer
+    adds T k to ``host.moe.assignments`` and the experts that got rows to
+    ``host.moe.experts_hit`` (one host sync a call)."""
+    T, H = x.shape
+    E = params["router"].shape[1]
+    _, gate_vals, expert_idx = _route(x, params["router"], top_k)
+    flat = expert_idx.reshape(-1)                                            # [T*k]
+    order = torch.argsort(flat, stable=True)
+    ends = torch.searchsorted(flat[order], torch.arange(E, device=x.device), right=True)
+    offs = ends.to(torch.int32)
+    xs = x[order // top_k]                                                   # [T*k,H], by expert
+    inner = (F.silu(torch._grouped_mm(xs, params["wg"], offs=offs))
+             * torch._grouped_mm(xs, params["wi"], offs=offs))
+    ys = torch.empty_like(xs).index_copy_(0, order, torch._grouped_mm(inner, params["wo"],
+                                                                      offs=offs))
+    out = (ys.view(T, top_k, H) * gate_vals.to(x.dtype)[..., None]).sum(dim=1)
+    if shared is not None:
+        out = out + mlp(x, shared, "gated_silu")
+    load = torch.diff(ends, prepend=ends.new_zeros(1))
+    reg = current()
+    if reg:
+        reg.counter("host.moe.assignments").inc(T * top_k)
+        reg.counter("host.moe.experts_hit").inc(int((load > 0).sum()))
+    return out, {"load": load, "drop_fraction": torch.zeros((), dtype=gate_vals.dtype,
+                                                            device=x.device)}
 
 
 def moe_ep(x: torch.Tensor, params: Mapping[str, torch.Tensor], top_k: int, comm,

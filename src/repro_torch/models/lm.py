@@ -4,6 +4,12 @@ token inputs or, for the stub-frontend archs (``embeds_input``: the
 encoder hubert-xlarge, the VLM backbone llava-next-34b), precomputed
 embeddings [B,S,H], with no ``embed`` table.
 
+Past the reference (port-only ``ArchConfig`` fields, granite-4.0-h-small):
+layers of mixed kinds by ``layer_types``, each followed by its MoE; the
+dropless MoE with a shared expert (``layers.moe_dropless``); attention
+without rope and at a given softmax scale; the embedding, residual and
+logit multipliers; the head tied to the embedding. One device only.
+
 The reference keeps layer-stacked leaves ([L, ...]) scanned by
 ``lax.scan``; here each layer is a ``Block`` in an ``nn.ModuleList`` and
 the scan is a loop. ``repro_torch.convert`` maps between the two.
@@ -42,10 +48,11 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
+from ..obs.registry import span
 from ..parallel.comm import MeshComm, gather_dim, local
 from ..parallel.sharding import MeshPlacements, ShardingPlanner, mesh_device
-from .layers import (attention, decode_attention, mlp, moe, moe_ep, rmsnorm, rmsnorm_sharded,
-                     rope_qk, softplus, ssd_scan, ssm_decode_step)
+from .layers import (attention, decode_attention, mlp, moe, moe_dropless, moe_ep, rmsnorm,
+                     rmsnorm_sharded, rope_qk, softplus, ssd_scan, ssm_decode_step)
 
 __all__ = ["RunCfg", "LM", "Block", "init_params", "loss_fn", "param_count"]
 
@@ -80,9 +87,22 @@ class RunCfg:
     seq_shard: bool = False
 
 
-def _check_supported(arch: ArchConfig) -> None:
+def _check_supported(arch: ArchConfig, mesh=None) -> None:
     if arch.block not in ("attn", "ssm", "hymba"):
         raise NotImplementedError(f"{arch.name}: block={arch.block!r} is unknown")
+    if arch.dropless and arch.mlp != "gated_silu":
+        raise NotImplementedError(f"{arch.name}: the dropless MoE's experts are gated-SiLU")
+    if arch.tie_embeddings and arch.embeds_input:
+        raise NotImplementedError(f"{arch.name}: an embeds-input arch has no embedding to tie")
+    if mesh is not None and (arch.layer_types or arch.dropless or arch.tie_embeddings
+                             or arch.d_ff_shared):
+        raise NotImplementedError(
+            f"{arch.name}: layers of mixed kinds, the dropless MoE, a shared expert and a tied "
+            f"head run on one device only (no mesh)")
+
+
+# the MoE layer's span (``obs.registry.span``)
+MOE_SPAN = "host.layer.moe"
 
 
 @dataclass(frozen=True)
@@ -114,7 +134,11 @@ class Block(nn.Module):
     """One pre-norm layer: attention (``block="attn"``), the Mamba2 mixer
     (``block="ssm"``) or both in parallel on one normed input, their mean
     added (``block="hymba"``, ``lm._block``); then the MLP or, for MoE
-    archs, the MoE layer (``lm._run_ffn``), where the arch has one.
+    archs, the MoE layer (``lm._run_ffn``), where the arch has one
+    (``ArchConfig.has_ffn``). ``block`` is this layer's, from
+    ``ArchConfig.layer_blocks``. Each sublayer's output is multiplied by
+    ``residual_scale`` before it is added, where that is not 1. The MoE
+    layer runs in ``MOE_SPAN``.
 
     On a mesh (``plan_mesh``) the weights are DTensors, each gathered for
     the layer by ``MeshComm.weight``, and the residual [B_local, S or
@@ -138,19 +162,20 @@ class Block(nn.Module):
     mixer's weights are gathered whole and every model rank computes it
     whole, as every other sublayer does."""
 
-    def __init__(self, arch: ArchConfig, cfg: "RunCfg", device):
+    def __init__(self, arch: ArchConfig, cfg: "RunCfg", device, block: Optional[str] = None):
         super().__init__()
         self.arch, self.capacity_factor = arch, cfg.capacity_factor
+        self.block = block or arch.block
         self.comm: Optional[MeshComm] = None
         self.attn_tp = self.kv_tp = self.mlp_tp = self.ssm_tp = False
         dtype = cfg.compute_dtype
         H, nh, nkv, hd, F = arch.d_model, arch.n_heads, arch.n_kv, arch.head_dim, arch.d_ff
         e = lambda *shape: _empty(device, dtype, *shape)
         self.norm1 = e(H)
-        if arch.has_attention:
+        if self.block in ("attn", "hymba"):
             self.attn = nn.ParameterDict({"wq": e(H, nh * hd), "wk": e(H, nkv * hd),
                                           "wv": e(H, nkv * hd), "wo": e(nh * hd, H)})
-        if arch.block in ("ssm", "hymba"):
+        if self.block in ("ssm", "hymba"):
             di, N, K = arch.d_inner, arch.ssm_state, arch.conv_width
             f32 = lambda *shape: _empty(device, torch.float32, *shape)
             self.ssm = nn.ParameterDict({
@@ -158,12 +183,16 @@ class Block(nn.Module):
                 "conv_w": e(K, di + 2 * N), "conv_b": f32(di + 2 * N),
                 "A_log": f32(arch.ssm_n_heads), "D": f32(arch.ssm_n_heads),
                 "dt_bias": f32(arch.ssm_n_heads), "ssm_norm": e(di), "out_proj": e(di, H)})
-        if arch.has_attention and (F or arch.n_experts):
+        if arch.has_ffn(self.block):
             self.norm2 = e(H)
             if arch.n_experts:
                 E, Fe = arch.n_experts, arch.d_ff_expert
                 self.moe = nn.ParameterDict({"router": e(H, E), "wg": e(E, H, Fe),
                                              "wi": e(E, H, Fe), "wo": e(E, Fe, H)})
+                if arch.d_ff_shared:
+                    Fs = arch.d_ff_shared
+                    self.shared = nn.ParameterDict({"wg": e(H, Fs), "wi": e(H, Fs),
+                                                    "wo": e(Fs, H)})
             else:
                 mlp_p = {"wi": e(H, F), "wo": e(F, H)}
                 if arch.mlp == "gated_silu":
@@ -175,7 +204,7 @@ class Block(nn.Module):
         weights' placements (the weights are DTensors already)."""
         a, M = self.arch, comm.size
         self.comm = comm
-        if a.has_attention:
+        if hasattr(self, "attn"):
             p = self.attn
             per_rank, group = a.n_heads // M, a.n_heads // a.n_kv
             tp = a.n_heads % M == 0 and comm.tp_shard(p["wq"], 1) and comm.tp_shard(p["wo"], 0)
@@ -216,7 +245,15 @@ class Block(nn.Module):
         q = (h @ wq).reshape(B, S, nh, hd)
         k = (h @ wk).reshape(B, S, nkv, hd)
         v = (h @ wv).reshape(B, S, nkv, hd)
+        if not self.arch.rope:              # NoPE
+            return q, k, v
         return (*rope_qk(q, k, positions), v)
+
+    def _add(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """x plus a sublayer's output y, times ``residual_scale`` where that
+        is not 1."""
+        r = self.arch.residual_scale
+        return x + y if r == 1.0 else x + y * r
 
     def _enter(self, h: torch.Tensor, tp: bool, seq: bool) -> torch.Tensor:
         """A sublayer's whole input rows (``MeshComm.tp_in`` / ``rep_in``)."""
@@ -248,14 +285,18 @@ class Block(nn.Module):
             y = mlp(self._enter(h, self.mlp_tp, seq), w, a.mlp)
             return x + self._leave(y, self.mlp_tp, seq), {}
         gated = a.mlp == "gated_silu"
-        if c is None:
-            out, aux = moe(h.reshape(-1, h.shape[-1]), self.moe, a.top_k, self.capacity_factor,
-                           gated=gated)
-        else:
-            out, aux = moe_ep(h if seq else h.reshape(-1, h.shape[-1]), self.moe, a.top_k, c,
-                              self.capacity_factor, gated=gated, seq=seq)
-        return x + out.reshape(x.shape), {"moe_drop": aux["drop_fraction"],
-                                          "moe_load_max": aux["load"].max().to(torch.float32)}
+        with span(MOE_SPAN):
+            if a.dropless:
+                out, aux = moe_dropless(h.reshape(-1, h.shape[-1]), self.moe, a.top_k,
+                                        getattr(self, "shared", None))
+            elif c is None:
+                out, aux = moe(h.reshape(-1, h.shape[-1]), self.moe, a.top_k,
+                               self.capacity_factor, gated=gated)
+            else:
+                out, aux = moe_ep(h if seq else h.reshape(-1, h.shape[-1]), self.moe, a.top_k, c,
+                                  self.capacity_factor, gated=gated, seq=seq)
+        return self._add(x, out.reshape(x.shape)), {
+            "moe_drop": aux["drop_fraction"], "moe_load_max": aux["load"].max().to(torch.float32)}
 
     def _attn(self, h: torch.Tensor, positions: torch.Tensor, seq: bool = False) -> torch.Tensor:
         """``lm._run_attn``: h [B,S,H] -> [B,S,H] through the flash kernel."""
@@ -268,7 +309,8 @@ class Block(nn.Module):
         wq, wk, wv, wo, nh, nkv = self._attn_weights(seq)
         B, S, _ = h.shape
         q, k, v = self._qkv(h, positions, wq, wk, wv, nh, nkv)
-        o = attention(q, k, v, causal=self.arch.causal, window=self.arch.window)
+        o = attention(q, k, v, causal=self.arch.causal, window=self.arch.window,
+                      scale=self.arch.attn_scale)
         return o.reshape(B, S, -1) @ wo
 
     def _attn_decode(self, h: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
@@ -297,7 +339,7 @@ class Block(nn.Module):
             k_cache, v_cache = k_cache[part.rows], v_cache[part.rows]
         valid = max(0, min(min(pos + 1, span) - part.start, held))
         group = None if part.dim is None else self.comm.group
-        o = decode_attention(q, k_cache, v_cache, valid, group)
+        o = decode_attention(q, k_cache, v_cache, valid, group, scale=a.attn_scale)
         return o.reshape(B, 1, -1) @ wo
 
     def _rows_whole(self, t: torch.Tensor, part: _Part) -> torch.Tensor:
@@ -451,11 +493,11 @@ class Block(nn.Module):
         [B,S] either way."""
         seq = x.shape[1] != positions.shape[1]
         h = rmsnorm(x, self._w(self.norm1, seq))
-        block = self.arch.block
+        block = self.block
         if block == "attn":
-            x = x + self._attn(h, positions, seq)
+            y = self._attn(h, positions, seq)
         elif block == "ssm":
-            x = x + self._ssm(h, seq)
+            y = self._ssm(h, seq)
         elif self.comm is not None and (self.attn_tp or self.ssm_tp):
             # hymba with parallel heads: one way in and out for both mixers;
             # a mixer computed whole adds its share 1/model a rank (exact for
@@ -465,10 +507,10 @@ class Block(nn.Module):
             h = c.tp_in(h, seq)
             ya, ys = self._attn_rows(h, positions, True), self._ssm_rows(h, True)
             y = (ya if self.attn_tp else ya / c.size) + (ys if self.ssm_tp else ys / c.size)
-            x = x + c.tp_out(0.5 * y, seq)
+            y = c.tp_out(0.5 * y, seq)
         else:                               # hymba: parallel attn + mamba heads, mean
-            x = x + 0.5 * (self._attn(h, positions, seq) + self._ssm(h, seq))
-        return self._ffn(x, seq)
+            y = 0.5 * (self._attn(h, positions, seq) + self._ssm(h, seq))
+        return self._ffn(self._add(x, y), seq)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
                parts: Optional[Dict[str, _Part]] = None) -> torch.Tensor:
@@ -478,13 +520,13 @@ class Block(nn.Module):
         get the new conv window and SSM state. On a mesh, x holds this
         rank's rows, ``cache`` its blocks and ``parts`` where they sit."""
         h = rmsnorm(x, self._w(self.norm1))
-        block = self.arch.block
+        block = self.block
         if block != "ssm":
             a = self._attn_decode(h, cache, pos, _WHOLE if parts is None else parts["k"])
         if block != "attn":
             s = self._ssm_decode(h, cache["conv"], cache["ssm"], parts)
-        x = x + (a if block == "attn" else s if block == "ssm" else 0.5 * (a + s))
-        return self._ffn(x)[0]
+        y = a if block == "attn" else s if block == "ssm" else 0.5 * (a + s)
+        return self._ffn(self._add(x, y))[0]
 
 
 class LM(nn.Module):
@@ -498,20 +540,26 @@ class LM(nn.Module):
     the same on every rank of the "model" axis; so does ``decode_step``,
     over a cache that ``init_cache`` places as ``ShardingPlanner.cache``
     says (context-parallel KV over "model", the SSM state's heads over
-    it)."""
+    it).
+
+    A ``layer_types`` arch builds each block by its layer's kind; its
+    decode cache holds k and v for the attention layers only and the conv
+    window and SSM state for the Mamba layers only (``cache_layers``). With
+    ``tie_embeddings`` there is no ``lm_head``: the head is ``embed.T``."""
 
     def __init__(self, arch: ArchConfig, cfg: RunCfg = RunCfg(), device=None):
         super().__init__()
-        _check_supported(arch)
+        _check_supported(arch, cfg.mesh)
         device = resolve_device(device) if cfg.mesh is None else mesh_device(cfg.mesh)
         self.arch, self.cfg, self._device = arch, cfg, device
         build = device if cfg.mesh is None else torch.device("meta")
         dt, H, V = cfg.compute_dtype, arch.d_model, arch.vocab
         if not arch.embeds_input:       # the reference makes no embed leaf for the others
             self.embed = _empty(build, dt, V, H)
-        self.blocks = nn.ModuleList(Block(arch, cfg, build) for _ in range(arch.num_layers))
+        self.blocks = nn.ModuleList(Block(arch, cfg, build, b) for b in arch.layer_blocks)
         self.final_norm = _empty(build, dt, H)
-        self.lm_head = _empty(build, dt, H, V)
+        if not arch.tie_embeddings:
+            self.lm_head = _empty(build, dt, H, V)
         self.comm: Optional[MeshComm] = None
         if cfg.mesh is not None:
             self._distribute(cfg.mesh)
@@ -550,7 +598,8 @@ class LM(nn.Module):
         if tokens is None:
             raise ValueError(f"{self.arch.name} takes tokens")
         embed = self.embed if self.comm is None else self.comm.weight(self.embed, None, seq)
-        return embed[tokens]
+        x = embed[tokens]
+        return x if self.arch.embed_scale == 1.0 else x * self.arch.embed_scale
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and head of whole rows -> logits in the compute dtype.
@@ -559,7 +608,8 @@ class LM(nn.Module):
         the logits are gathered over "model" before the loss."""
         c = self.comm
         if c is None:
-            return rmsnorm(x, self.final_norm) @ self.lm_head
+            head = self.embed.t() if self.arch.tie_embeddings else self.lm_head
+            return rmsnorm(x, self.final_norm) @ head
         h = rmsnorm(x, c.weight(self.final_norm))
         if c.tp_shard(self.lm_head, 1):
             return c.vocab_full(c.tp_in(h, False) @ c.weight(self.lm_head, 1))
@@ -594,28 +644,46 @@ class LM(nn.Module):
         if logits_positions == "last":
             x = x[:, -1:]
         logits = self._logits(x)
-        logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+        logits = self._scaled(logits.to(torch.promote_types(logits.dtype, torch.float32)))
         if not with_aux:
             return logits
         return logits, {k: torch.stack([a[k] for a in per_layer]).mean() for k in per_layer[0]}
+
+    def _scaled(self, logits: torch.Tensor) -> torch.Tensor:
+        """The fp32 logits divided by ``logit_scale`` where that is not 1."""
+        s = self.arch.logit_scale
+        return logits if s == 1.0 else logits / s
+
+    def cache_layers(self) -> Dict[str, list]:
+        """The layers that hold each leaf of the decode cache: k and v for
+        the layers that attend, conv and ssm for the layers with the Mamba2
+        mixer (every layer for an arch of one kind)."""
+        blocks = self.arch.layer_blocks
+        attn = [i for i, b in enumerate(blocks) if b in ("attn", "hymba")]
+        ssm = [i for i, b in enumerate(blocks) if b in ("ssm", "hymba")]
+        return {"k": attn, "v": attn, "conv": ssm, "ssm": ssm}
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         """Attention archs: KV cache k, v [L,B,span,nkv,hd] in the compute
         dtype; window archs keep a ring buffer of ``window`` positions. SSM
         and hybrid archs: the conv window [L,B,K-1,conv_dim] in the compute
         dtype and the state [L,B,nh,hp,N] in fp32, whatever ``max_len``
-        (hybrid archs keep both sets). Zeros. On a mesh each leaf is a
-        DTensor at ``ShardingPlanner.cache``'s placements (B over "data",
-        the span, the conv channels and the SSM heads, or else hp, over
-        "model", each where it divides), each rank allocating its block."""
-        a, L, dt = self.arch, self.arch.num_layers, self.cfg.compute_dtype
+        (hybrid archs keep both sets). For a ``layer_types`` arch L is the
+        count of the layers that hold the leaf (``cache_layers``). Zeros.
+        On a mesh each leaf is a DTensor at ``ShardingPlanner.cache``'s
+        placements (B over "data", the span, the conv channels and the SSM
+        heads, or else hp, over "model", each where it divides), each rank
+        allocating its block."""
+        a, dt = self.arch, self.cfg.compute_dtype
+        held = {n: len(layers) for n, layers in self.cache_layers().items()}
         shapes = {}
-        if a.has_attention:
+        if held["k"]:
             span = min(a.window, max_len) if a.window else max_len
-            shapes["k"] = shapes["v"] = ((L, batch, span, a.n_kv, a.head_dim), dt)
-        if a.block in ("ssm", "hymba"):
-            shapes["conv"] = ((L, batch, a.conv_width - 1, a.d_inner + 2 * a.ssm_state), dt)
-            shapes["ssm"] = ((L, batch, a.ssm_n_heads, a.ssm_headdim, a.ssm_state),
+            shapes["k"] = shapes["v"] = ((held["k"], batch, span, a.n_kv, a.head_dim), dt)
+        if held["ssm"]:
+            shapes["conv"] = ((held["ssm"], batch, a.conv_width - 1,
+                               a.d_inner + 2 * a.ssm_state), dt)
+            shapes["ssm"] = ((held["ssm"], batch, a.ssm_n_heads, a.ssm_headdim, a.ssm_state),
                              torch.float32)
         if self.comm is None:
             return {n: torch.zeros(shape, dtype=d, device=self.device)
@@ -661,9 +729,13 @@ class LM(nn.Module):
         x = self._input(tokens, embeds)[:, None]
         parts = None if self.comm is None else self._cache_parts(cache, x.shape[0])
         blocks = {n: local(c) for n, c in cache.items()}
+        slot = [{} for _ in self.blocks]                # layer -> leaf -> its index
+        for n, layers in self.cache_layers().items():
+            for j, i in enumerate(layers):
+                slot[i][n] = j
         for i, blk in enumerate(self.blocks):
-            x = blk.decode(x, {n: c[i] for n, c in blocks.items()}, pos, parts)
-        return self._logits(x)[:, 0].float()
+            x = blk.decode(x, {n: blocks[n][j] for n, j in slot[i].items()}, pos, parts)
+        return self._scaled(self._logits(x)[:, 0].float())
 
 
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
@@ -734,7 +806,10 @@ def init_params(arch: ArchConfig, generator: torch.Generator, cfg: RunCfg = RunC
     The SSM leaves follow ``lm._ssm_layer_params``: conv_w std 0.3, conv_b
     0, A_log = log U(1, 16), D = 1, dt_bias the inverse softplus of
     U(1e-3, 1e-1); the MoE leaves ``lm._moe_layer_params``: router std
-    0.02, wo (1/F)^0.5 / (2L)^0.5 with F = d_ff_expert.
+    0.02, wo (1/F)^0.5 / (2L)^0.5 with F = d_ff_expert. Past the
+    reference: a shared expert draws as the MLP does (wg, wi (1/L)^0.5, wo
+    (1/Fs)^0.5 / (2L)^0.5 with Fs = d_ff_shared), after its layer's experts;
+    a tied head is the embedding, so no head is drawn.
 
     With ``cfg.mesh`` every rank draws the whole model (on the mesh's
     device) and keeps its shards: the weights of the single-device model.
@@ -753,6 +828,7 @@ def init_params(arch: ArchConfig, generator: torch.Generator, cfg: RunCfg = RunC
         raise ValueError(f"generator is on {generator.device}, the model on {dev}")
     L = arch.num_layers
     stacked = (1.0 / L) ** 0.5
+    out_shared = (1.0 / arch.d_ff_shared) ** 0.5 / (2 * L) ** 0.5 if arch.d_ff_shared else 0.0
     out_attn = ((1.0 / (arch.n_heads * arch.head_dim)) ** 0.5 / (2 * L) ** 0.5
                 if arch.n_heads else 0.0)
     out_mlp = (1.0 / arch.d_ff) ** 0.5 / (2 * L) ** 0.5 if arch.d_ff else 0.0
@@ -760,11 +836,11 @@ def init_params(arch: ArchConfig, generator: torch.Generator, cfg: RunCfg = RunC
     out_ssm = (1.0 / arch.d_inner) ** 0.5 / (2 * L) ** 0.5 if arch.d_inner else 0.0
     for blk in model.blocks:
         blk.norm1.fill_(1.0)
-        if arch.has_attention:
+        if hasattr(blk, "attn"):
             for name in ("wq", "wk", "wv"):
                 _dense(blk.attn[name], generator, stacked)
             _dense(blk.attn["wo"], generator, out_attn)
-        if arch.block in ("ssm", "hymba"):
+        if hasattr(blk, "ssm"):
             p = blk.ssm
             _dense(p["in_proj"], generator, stacked)
             _dense(p["conv_w"], generator, 0.3)
@@ -781,12 +857,15 @@ def init_params(arch: ArchConfig, generator: torch.Generator, cfg: RunCfg = RunC
                 scales = {"router": 0.02, "wg": stacked, "wi": stacked, "wo": out_moe}
                 for name, p in blk.moe.items():
                     _dense(p, generator, scales[name])
+                for name, p in getattr(blk, "shared", {}).items():
+                    _dense(p, generator, out_shared if name == "wo" else stacked)
             else:
                 for name, p in blk.mlp.items():
                     scale = out_mlp if name == "wo" else stacked
                     _dense(p, generator, scale)
     model.final_norm.fill_(1.0)
-    _dense(model.lm_head, generator, 0.02)
+    if not arch.tie_embeddings:
+        _dense(model.lm_head, generator, 0.02)
     if not arch.embeds_input:
         _dense(model.embed, generator, 0.02)
     return model

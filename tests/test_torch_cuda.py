@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan  # noqa: E402
+from repro_torch.kernels.flash_attention import bwd_kernel_path as flash_bwd_path  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_path as flash_path  # noqa: E402
 from repro_torch.kernels.rmsnorm import bwd_kernel_path as rmsnorm_bwd_path  # noqa: E402
@@ -193,6 +194,46 @@ def test_flash_noncausal_forward_and_backward(card, B, S, nh, nkv, hd, dtype, vi
             _bwd_gate(g, w, dtype)
 
 
+# (dtype, hd) -> the forward and backward kernel path: fp32 on the mma
+# kernels, bf16 at hd 128 on the wgmma kernels, bf16 at hd 32 on the mma
+# kernels
+SCALE_PATHS = [("float32", 128, "mma"), ("bfloat16", 128, "wgmma"), ("bfloat16", 32, "mma")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,path", SCALE_PATHS)
+@pytest.mark.parametrize("scale", [1 / 128, 0.3])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_softmax_scale_forward_and_backward(card, dtype, hd, path, scale, causal):
+    """A softmax scale other than hd^-0.5 (granite-4.0-h-small's 1/128, and
+    one above it) through the forward and backward C entry points of each
+    kernel path, in the model's layout at GQA group 4, against the plain
+    versions at the same scale: the forward and its LSE by ``_tol`` (fp32)
+    or ``_bf16_gate``, the backward by ``_bwd_gate``."""
+    assert flash_path(DTYPES[dtype], hd) == path
+    assert flash_bwd_path(DTYPES[dtype], hd) == path
+    B, S, nh, nkv = 1, 300, 8, 2
+    rng = np.random.default_rng(hd + int(1e3 * scale))
+    q, do = (_randn(rng, (B, S, nh, hd), dtype, card).transpose(1, 2) for _ in range(2))
+    k, v = (_randn(rng, (B, S, nkv, hd), dtype, card).transpose(1, 2) for _ in range(2))
+    kernels.reset_launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    got = kernels.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, scale=scale)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == 1
+    o_ref, lse_ref = ref.flash_attention_fwd_ref(q.float(), k.float(), v.float(), causal=causal,
+                                                 scale=scale)
+    if dtype == "float32":
+        _close(o, o_ref, dtype)
+    else:
+        _bf16_gate(o, o_ref)
+    assert ((lse - lse_ref).abs() / (1 + lse_ref.abs())).max().item() <= LSE_LIMITS[dtype]
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), do.float(),
+                                       lse_ref, causal=causal, scale=scale)
+    for g, w in zip(got, want):
+        _bwd_gate(g, w, dtype)
+
+
 @pytest.mark.cuda
 def test_flash_c_entry_points_refuse_head_dims_they_do_not_take(card):
     """Each flash entry point of the library, called past the wrapper's
@@ -211,17 +252,18 @@ def test_flash_c_entry_points_refuse_head_dims_they_do_not_take(card):
                                       for _ in range(8))
         lse, delta = (torch.zeros(B, nh, lse_stride(S), device=card) for _ in range(2))
         fwd = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-               _strides(q, k, v, o), B, nh, nh, S, hd, 0, 0, lse_stride(S))
+               _strides(q, k, v, o), B, nh, nh, S, hd, 0, 0, lse_stride(S), 0.0)
         bwd = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
                dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr())
         strides = _strides(q, k, v, do, dq, dk, dv)
         calls = [lambda: lib.flash_attention_mma_launch(*fwd, code, stream),
                  lambda: lib.flash_attention_bwd_launch(*bwd, strides, B, nh, nh, S, hd, 0, 0,
-                                                        lse_stride(S), code, stream)]
+                                                        lse_stride(S), 0.0, code, stream)]
         if dtype == torch.bfloat16:
             calls += [lambda: lib.flash_attention_wgmma_launch(*fwd, stream),
                       lambda: lib.flash_attention_bwd_wgmma_launch(
-                          *bwd, None, strides, B, nh, nh, S, hd, 0, 0, lse_stride(S), 1, stream),
+                          *bwd, None, strides, B, nh, nh, S, hd, 0, 0, lse_stride(S), 0.0, 1,
+                          stream),
                       lambda: lib.flash_attention_bwd_wgmma_info(hd, (ctypes.c_int * 12)())]
         for call in calls:
             with pytest.raises(RuntimeError, match="launch failed"):

@@ -322,10 +322,11 @@ def test_flash_ops_fake_match_cpu(dtype, hd, views, causal, window):
         q = _rand(B, nh, S, hd, dtype=dtype)
         k, v = (_rand(B, nkv, S, hd, dtype=dtype, seed=s) for s in (1, 2))
     for lse in (True, False):
-        _same(torch.ops.repro_torch.flash_attention_fwd, q, k, v, causal, window, lse)
+        _same(torch.ops.repro_torch.flash_attention_fwd, q, k, v, causal, window, lse, 0.0)
     o, lse = kflash.flash_attention_fwd(q, k, v, causal=causal, window=window)
     do = torch.empty_like(q).copy_(_rand(*q.shape, dtype=dtype, seed=3))
-    _same(torch.ops.repro_torch.flash_attention_bwd, q, k, v, o, do, lse, causal, window, 0)
+    _same(torch.ops.repro_torch.flash_attention_bwd, q, k, v, o, do, lse, causal, window, 0,
+          0.0)
 
 
 @pytest.mark.parametrize("dtype,hp,N,views,state", [

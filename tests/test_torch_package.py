@@ -28,7 +28,12 @@ PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "ch
 
 
 def _same(a, b):
-    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    """Every field the reference has equal, and every port-only field at its
+    default (which leaves the arch as the reference defines it)."""
+    mine, ref = dataclasses.asdict(a), dataclasses.asdict(b)
+    assert {k: mine[k] for k in ref} == ref
+    port_only = {f.name: f.default for f in dataclasses.fields(a) if f.name not in ref}
+    assert port_only and {k: mine[k] for k in port_only} == port_only
     assert a.param_count() == b.param_count()
     assert a.active_param_count() == b.active_param_count()
     assert (a.ssm_n_heads, a.has_attention, a.subquadratic, a.is_encoder_only) == \
